@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py            # every phase, one card
 
-Drives the port's eval/predict path — the JAX package's eval command,
-ref main.py:32-37 -> evaluate.py:121 `evaluate` — at the flagship width and checks every hand-written kernel of that path against
-its plain PyTorch version on the card:
+Drives the port's eval/predict path (the JAX package's eval command,
+ref main.py:32-37 -> evaluate.py:121 `evaluate`) at the flagship width
+and checks every hand-written kernel of that path against its plain
+PyTorch version on the card:
 
 1. card identity (torch + nvidia-smi);
 2. build the kernels from csrc/ (one nvcc per source, in parallel) and
@@ -18,12 +19,17 @@ its plain PyTorch version on the card:
    the time of a one-call PyTorch equivalent where one exists;
 5. the main path, batch 16, 512^2, 1 stack, 128 channels, seeded
    weights, f32 and bf16: launch counts per forward (20 epilogue, 17
-   residual tail, 1 peak), logits and Detections against the same path
-   with every kernel swapped for its plain version, images/s and peak
-   memory, and a small model on the card against the CPU path;
-6. a torch.profiler trace of the main path: device time by kernel
-   group and the device's idle share;
-7. the eval CLI end to end on a synthetic VOC fixture (32 images at
+   residual tail, 1 peak), logits of the whole batch and Detections
+   against the same path with every kernel swapped for its plain
+   version, peak memory, images/s as the median of 5 windows of about
+   2 s each (kernel and plain windows alternate), and a small model on
+   the card against the CPU path;
+6. the same kernel-vs-plain rule under two BN states with larger
+   logits, where scores round to 1 and ties decide the order;
+7. a torch.profiler trace (CUDA activity) of the main path: device time
+   by kernel group, and the device's idle share against phase 5's
+   untraced wall time;
+8. the eval CLI end to end on a synthetic VOC fixture (32 images at
    512^2, batch 16, --amp) to a printed mAP, txt files and pickle.
 
 Any failure exits non-zero. The last three lines are the card's name and
@@ -42,11 +48,12 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PHASES = ("identity", "build", "kernels", "timing", "main", "profile",
-          "cli")
+PHASES = ("identity", "build", "kernels", "timing", "main", "states",
+          "profile", "cli")
 
 
 class SmokeFailure(RuntimeError):
@@ -403,8 +410,9 @@ def phase_timing(state):
                 else "none", r["bound_ms"], r["shape"]))
 
 
-def perturb_bn(model, seed):
-    """Non-trivial BN state from a seeded generator, so the fold matters."""
+def perturb_bn(model, seed, scale=(0.2, 0.6)):
+    """Non-trivial BN state from a seeded generator, so the fold matters;
+    BN scales uniform in `scale`."""
     import torch
     from real_time_helmet_detection_tpu_torch.models.hourglass import \
         BatchNorm
@@ -415,11 +423,55 @@ def perturb_bn(model, seed):
                 c = m.weight.numel()
                 # scales below 1 keep the random net's logits O(1), as a
                 # trained net's are, so scores do not all saturate at 1
-                m.weight.copy_(torch.rand(c, generator=gen) * 0.4 + 0.2)
+                lo, hi = scale
+                m.weight.copy_(torch.rand(c, generator=gen) * (hi - lo) + lo)
                 m.bias.copy_(torch.randn(c, generator=gen) * 0.1)
                 m.running_mean.copy_(torch.randn(c, generator=gen) * 0.1)
                 m.running_var.copy_(torch.rand(c, generator=gen) + 0.5)
     return model
+
+
+def throughput(predict, images, windows=5, window_s=2.0):
+    """Predict images/s of the kernel path and of the plain-version path,
+    in `windows` alternating windows of about `window_s` seconds each (so
+    host noise falls on both alike). Returns, per path, the list of
+    per-window images/s and the median ms per predict."""
+    import statistics
+    import torch
+
+    def one_window(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            predict(images)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    n = max(10, int(window_s / (one_window(3) / 3)))
+    rates = {"kernels": [], "plain": []}
+    for _ in range(windows):
+        rates["kernels"].append(len(images) * n / one_window(n))
+        with plain_kernels():
+            rates["plain"].append(len(images) * n / one_window(n))
+    return {path: dict(ips=r, median_ips=statistics.median(r),
+                       ms_per_predict=1e3 * len(images)
+                       / statistics.median(r), predicts_per_window=n)
+            for path, r in rates.items()}
+
+
+def full_batch_logits(model, images):
+    """The model's logits on the whole normalized batch, kernels and plain
+    versions: what predict's decode reads."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.utils import normalizer_stats
+    mean, std = (torch.as_tensor(s, device="cuda")
+                 for s in normalizer_stats("imagenet"))
+    x = (torch.as_tensor(images).cuda().float() / 255.0 - mean) / std
+    with torch.inference_mode():
+        lk = model(x)
+        with plain_kernels():
+            lp = model(x)
+    return lk, lp
 
 
 def phase_main(state):
@@ -449,55 +501,44 @@ def phase_main(state):
                 and bool(torch.isfinite(dets.boxes).all())
                 and bool(torch.isfinite(dets.scores).all()),
                 "%s detections malformed" % tag)
-        with plain_kernels():
-            dets_plain = predict(images)
-        checked = detections_match(dets, dets_plain) \
-            + detections_match(dets_plain, dets)
-        # logits: the same normalized input through kernel and plain paths
-        x = torch.as_tensor(images[:4]).cuda().float()
-        mean = torch.tensor([0.485, 0.456, 0.406], device="cuda")
-        std = torch.tensor([0.229, 0.224, 0.225], device="cuda")
-        x = (x / 255.0 - mean) / std
-        with torch.inference_mode():
-            lk = model(x)
-            with plain_kernels():
-                lp = model(x)
+        # logits of the whole batch through kernel and plain paths
+        lk, lp = full_batch_logits(model, images)
         tol = 1e-4 if not amp else 2e-2
         lerr = float((lk - lp).abs().max())
-        require(bool(torch.isfinite(lk).all()) and lk.shape == (4, 1, 128,
+        require(bool(torch.isfinite(lk).all()) and lk.shape == (16, 1, 128,
                                                                  128, 6),
                 "%s logits malformed" % tag)
         require(bool(torch.allclose(lk, lp, rtol=tol, atol=tol)),
                 "%s logits kernel vs plain: max abs err %g > tol %g"
                 % (tag, lerr, tol))
-        # throughput and memory
-        torch.cuda.reset_peak_memory_stats()
-        iters = 10
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            predict(images)
-        torch.cuda.synchronize()
-        ips = 16 * iters / (time.perf_counter() - t0)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         with plain_kernels():
-            predict(images)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                predict(images)
-            torch.cuda.synchronize()
-            ips_plain = 16 * iters / (time.perf_counter() - t0)
+            dets_plain = predict(images)
+        checked = detections_match(dets, dets_plain) \
+            + detections_match(dets_plain, dets)
+        # peak memory of one kernel-path predict, then throughput
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        predict(images)
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        rates = throughput(predict, images)
         state.setdefault("main", {})[tag] = dict(
-            ips=ips, ips_plain=ips_plain, peak_gb=peak_gb, logit_err=lerr,
+            rates=rates, peak_gb=peak_gb, logit_err=lerr,
             valid=int(dets.valid.sum()), checked=checked)
-        log("main %s: launches %s per forward; logits kernel vs plain max "
-            "abs err %g (tol %g); %d detections >= 0.1 matched both ways; "
-            "%d valid after NMS; predict b16 512^2 %.1f img/s (plain "
-            "versions %.1f img/s); peak memory %.2f GB"
-            % (tag, counts, lerr, tol, checked, int(dets.valid.sum()), ips,
-               ips_plain, peak_gb))
-        del model, predict
+        log("main %s: launches %s per forward; logits (16 images) kernel vs "
+            "plain max abs err %g (tol %g, bit-equal %s); %d detections >= "
+            "0.1 matched both ways; %d valid after NMS; peak memory %.2f GB"
+            % (tag, counts, lerr, tol, torch.equal(lk, lp), checked,
+               int(dets.valid.sum()), peak_gb))
+        for path, r in rates.items():
+            log("main %s: predict b16 512^2 with %s: median %.1f img/s "
+                "(%.2f ms per predict), min %.1f, max %.1f over %d windows "
+                "of %d predicts: %s" % (
+                    tag, path, r["median_ips"], r["ms_per_predict"],
+                    min(r["ips"]), max(r["ips"]), len(r["ips"]),
+                    r["predicts_per_window"],
+                    ", ".join("%.1f" % v for v in r["ips"])))
+        del model, predict, lk, lp
         torch.cuda.empty_cache()
     # a small model on the card (kernels) against the CPU path (plain)
     cfg = Config(batch_size=2, imsize=64, hourglass_inch=32, num_stack=2)
@@ -512,10 +553,65 @@ def phase_main(state):
         "ways" % checked)
 
 
+def phase_states(state):
+    """Phase main's kernel-vs-plain comparison under two more BN states
+    with larger logits: flax's init (scale 1, mean 0, var 1) and scales
+    in [0.5, 1.5]. More heat scores round to 1 there, so ties decide the
+    top-k and NMS order, and more raw size regressions come out negative
+    (inverted boxes). Holds the rule of phase main and reports whether
+    the two paths' logits and Detections are identical."""
+    import numpy as np
+    import torch
+    from real_time_helmet_detection_tpu_torch.config import Config
+    from real_time_helmet_detection_tpu_torch.evaluate import load_eval_state
+    from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
+    images = np.random.default_rng(0).integers(
+        0, 256, (16, 512, 512, 3), dtype=np.uint8)
+    for label, scale in (("flax init", None), ("scale 0.5-1.5", (0.5, 1.5))):
+        for amp in (False, True):
+            tag = "bf16" if amp else "f32"
+            cfg = Config(batch_size=16, imsize=512, amp=amp)
+            model = load_eval_state(cfg)
+            if scale is not None:
+                perturb_bn(model, seed=3, scale=scale)
+            predict = make_predict_fn(model, cfg, normalize="imagenet")
+            lk, lp = full_batch_logits(model, images)
+            tol = 1e-4 if not amp else 2e-2
+            lerr = float((lk - lp).abs().max())
+            require(bool(torch.allclose(lk, lp, rtol=tol, atol=tol)),
+                    "%s %s logits kernel vs plain: max abs err %g > tol %g"
+                    % (label, tag, lerr, tol))
+            dets = predict(images)
+            with plain_kernels():
+                dets_plain = predict(images)
+            checked = detections_match(dets, dets_plain) \
+                + detections_match(dets_plain, dets)
+            shown = dets.valid & (dets.scores >= 0.1)
+            b = dets.boxes
+            inverted = shown & ((b[..., 2] < b[..., 0])
+                                | (b[..., 3] < b[..., 1]))
+            log("states %s %s: |logit| max %.2f; heat scores >= 0.99995: "
+                "%.4f%%; logits (16 images) kernel vs plain bit-equal %s, "
+                "max abs err %g; Detections identical %s; %d detections >= "
+                "0.1 matched both ways; %d of the kernel path's %d are "
+                "inverted boxes" % (
+                    label, tag, float(lk.abs().max()),
+                    100 * float((torch.sigmoid(lk[..., :2]) >= 0.99995)
+                                .float().mean()),
+                    torch.equal(lk, lp), lerr,
+                    all(torch.equal(x, y) for x, y in zip(dets, dets_plain)),
+                    checked, int(inverted.sum()), int(shown.sum())))
+            del model, predict, lk, lp
+            torch.cuda.empty_cache()
+
+
 def phase_profile(state):
     """Where the device time of one flagship predict goes, from a
-    torch.profiler trace of 3 predicts: our kernels, convolutions, the
-    rest; and the device's idle share of the wall time."""
+    torch.profiler trace (CUDA activity only) of 3 predicts: our kernels,
+    convolutions, the rest. The device's idle share is 1 - busy / wall,
+    with wall the median ms per predict of phase main, taken without the
+    profiler: the profiler's own host overhead stretches the traced
+    predicts' wall, which it reports beside."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -523,10 +619,13 @@ def phase_profile(state):
     from real_time_helmet_detection_tpu_torch.config import Config
     from real_time_helmet_detection_tpu_torch.evaluate import load_eval_state
     from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
+    require("main" in state, "phase profile reads phase main's predict "
+            "times: run both")
     images = np.random.default_rng(0).integers(
         0, 256, (16, 512, 512, 3), dtype=np.uint8)
     for amp in (False, True):
         tag = "bf16" if amp else "f32"
+        wall_ms = state["main"][tag]["rates"]["kernels"]["ms_per_predict"]
         cfg = Config(batch_size=16, imsize=512, amp=amp)
         predict = make_predict_fn(perturb_bn(load_eval_state(cfg), seed=3),
                                   cfg, normalize="imagenet")
@@ -535,14 +634,13 @@ def phase_profile(state):
             predict(images)
         torch.cuda.synchronize()
         reps = 3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
+        with profile(activities=[ProfilerActivity.CUDA],
                      acc_events=True) as prof:
             t0 = time.perf_counter()
             for _ in range(reps):
                 predict(images)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+            traced_ms = (time.perf_counter() - t0) * 1e3 / reps
         by_name = {}
         for ev in prof.key_averages():
             if ev.device_type == DeviceType.CUDA:
@@ -551,7 +649,8 @@ def phase_profile(state):
         busy = sum(by_name.values())
         if busy == 0.0:
             log("profile %s: the profiler saw no device time; breakdown "
-                "not measured (wall %.2f ms per predict)" % (tag, wall_ms))
+                "not measured (traced wall %.2f ms per predict)"
+                % (tag, traced_ms))
             continue
         groups = {"bn_act kernel": 0.0, "bn_add_act kernel": 0.0,
                   "peak kernel": 0.0, "convolution": 0.0, "copies": 0.0,
@@ -575,10 +674,13 @@ def phase_profile(state):
             else:
                 groups["other"] += ms
         state.setdefault("profile", {})[tag] = dict(
-            wall_ms=wall_ms, busy_ms=busy, groups=groups)
-        log("profile %s (ms per predict of 16 x 512^2): wall %.2f, device "
-            "busy %.2f, idle share %.1f%%; %s" % (
-                tag, wall_ms, busy, 100.0 * max(0.0, 1 - busy / wall_ms),
+            wall_ms=wall_ms, traced_ms=traced_ms, busy_ms=busy,
+            groups=groups)
+        log("profile %s (ms per predict of 16 x 512^2): wall %.2f (phase "
+            "main, untraced; %.2f under the profiler), device busy %.2f, "
+            "idle share %.1f%%; %s" % (
+                tag, wall_ms, traced_ms, busy,
+                100.0 * max(0.0, 1 - busy / wall_ms),
                 ", ".join("%s %.2f (%.1f%%)" % (k, v, 100 * v / busy)
                           for k, v in groups.items())))
         log("    bound over the forward's sites (bytes / 3.35 TB/s): "
@@ -684,6 +786,10 @@ def main(argv=None) -> int:
             globals()["phase_" + name](state)
         except SmokeFailure as e:
             log("FAIL [%s]: %s" % (name, e))
+            return 1
+        except Exception as e:  # a fault of the phase itself: say where
+            traceback.print_exc()
+            log("FAIL [%s]: %s: %s" % (name, type(e).__name__, e))
             return 1
         log("phase %s: %.1f s" % (name, time.time() - t0))
     log("all phases: %.1f s" % (time.time() - t_all))

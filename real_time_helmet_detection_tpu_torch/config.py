@@ -6,12 +6,13 @@ config.py:139-169), with the same names and defaults, plus `--device`.
 Field name -> CLI flag: underscores become dashes.
 
 Values the port has not built yet raise `NotImplementedError` instead of
-running something else: NMS other than hard "nms", `--infer-dtype int8`,
-and the XLA BatchNorm composition (`--epilogue xla`, `--block-fuse xla`:
-the port's one BN path is the fused kernels) here; activations other
-than ReLU/Mish/Linear, pools other than Max/None, a neck pool other than
-None, variants other than "residual" and `--num-stack` < 1 where the
-model is built (models/hourglass.py).
+running something else: NMS other than hard "nms" here; activations
+other than ReLU/Mish/Linear, pools other than Max/None, a neck pool
+other than None, variants other than "residual" and `--num-stack` < 1
+where the model is built (models/hourglass.py). The JAX flags that only
+choose between a kernel and its XLA composition (`--use-pallas`,
+`--epilogue`, `--block-fuse`) and `--infer-dtype` have no field: the
+port has one path, its kernels, and the parser refuses those flags.
 """
 
 from __future__ import annotations
@@ -47,7 +48,6 @@ class Config:
     model_load: Optional[str] = None  # npz of the flax variable tree
     nms: str = "nms"
     fontsize: int = 10
-    infer_dtype: str = "bf16"
 
     # network
     variant: str = "residual"
@@ -64,12 +64,6 @@ class Config:
     neck_activation: str = "ReLU"
     neck_pool: str = "None"
 
-    # kernels
-    use_pallas: bool = True       # the fused peak kernel (False: the plain
-    # max-pool peak path, ops.decode.decode_heatmap)
-    epilogue: str = "auto"        # auto | fused
-    block_fuse: str = "auto"      # auto | fused
-
     def __post_init__(self):
         def only(flag, value, allowed):
             if value not in allowed:
@@ -78,9 +72,6 @@ class Config:
                     % (flag, value, ", ".join(allowed)))
 
         only("nms", self.nms, ("nms",))
-        only("infer-dtype", self.infer_dtype, ("bf16",))
-        only("epilogue", self.epilogue, ("auto", "fused"))
-        only("block-fuse", self.block_fuse, ("auto", "fused"))
         if self.scale_factor != 4:
             raise ValueError("--scale-factor must be 4: the stem's 4x "
                              "downsample is structural")

@@ -8,8 +8,7 @@ filter when they write files.
 
 On CUDA the peak test is the hand-written kernel (`ops.peak`) and every
 BN of the network runs through the epilogue and residual-tail kernels;
-on the CPU the same calls run their plain versions. `--no-use-pallas`
-takes the plain max-pool peak path (`ops.decode.decode_heatmap`).
+on the CPU the same calls run their plain versions.
 """
 
 from __future__ import annotations
@@ -60,7 +59,6 @@ def make_predict_fn(model: torch.nn.Module, cfg,
     if cfg.nms != "nms":
         raise NotImplementedError("nms %r is not ported yet" % cfg.nms)
     normalized = bool(cfg.normalized_coord)
-    use_kernel = bool(cfg.use_pallas)
     if normalize is not None:
         mean, std = (torch.as_tensor(s, device=dev)
                      for s in normalizer_stats(normalize))
@@ -81,15 +79,10 @@ def make_predict_fn(model: torch.nn.Module, cfg,
         wh = out[..., num_cls + 2:num_cls + 4]
         if normalized:
             offset, wh = torch.sigmoid(offset), torch.sigmoid(wh)
-        kw = dict(scale_factor=scale_factor, topk=topk, conf_th=conf_th,
-                  normalized=normalized)
-        if use_kernel:
-            peaks = peak.peak_scores(out, num_cls, pool_size)
-            dets = decode.decode_peak_scores(peaks, offset, wh, **kw)
-        else:
-            heat = torch.sigmoid(out[..., :num_cls]).permute(0, 1, 4, 2, 3)
-            dets = decode.decode_heatmap(heat, offset, wh,
-                                         pool_size=pool_size, **kw)
+        dets = decode.decode_peak_scores(
+            peak.peak_scores(out, num_cls, pool_size), offset, wh,
+            scale_factor=scale_factor, topk=topk, conf_th=conf_th,
+            normalized=normalized)
         boxes = dets.boxes.reshape(b, s * topk, 4)
         classes = dets.classes.reshape(b, s * topk)
         scores = dets.scores.reshape(b, s * topk)

@@ -23,7 +23,7 @@ import torch
 from real_time_helmet_detection_tpu.config import Config as JaxConfig
 from real_time_helmet_detection_tpu.models import build_model as jax_build
 from real_time_helmet_detection_tpu_torch import convert
-from real_time_helmet_detection_tpu_torch.config import Config
+from real_time_helmet_detection_tpu_torch.config import Config, parse_args
 from real_time_helmet_detection_tpu_torch.models.hourglass import \
     build_model
 
@@ -130,8 +130,18 @@ def test_model_rejects_unported_architecture(field, value):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("nms", "soft-nms"), ("infer_dtype", "int8"), ("epilogue", "xla"),
-    ("block_fuse", "xla")])
+    ("nms", "soft-nms"), ("nms", "maxpool")])
 def test_config_rejects_unported_paths(field, value):
     with pytest.raises(NotImplementedError):
         Config(**{field: value})
+
+
+@pytest.mark.parametrize("flag", [
+    "--no-use-pallas", "--infer-dtype=int8", "--epilogue=xla",
+    "--block-fuse=xla"])
+def test_cli_refuses_jax_only_path_flags(flag, capsys):
+    """The port has one path per op, its kernel: the JAX CLI's switches to
+    an XLA composition or int8 are not flags of the port's CLI."""
+    with pytest.raises(SystemExit):
+        parse_args(["--data", "x", "--device", "cpu", flag])
+    assert "unrecognized arguments" in capsys.readouterr().err
