@@ -1,36 +1,56 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py --phases build,train_kernels   # a short check
 
-Drives the port's eval/predict path (the JAX package's eval command,
-ref main.py:32-37 -> evaluate.py:121 `evaluate`) at the flagship width
-and checks every hand-written kernel of that path against its plain
+Drives the port's two paths at the flagship width — eval/predict (the
+JAX package's eval command, ref main.py:32-37 -> evaluate.py:121
+`evaluate`) and training (ref main.py:25-27 -> train.py:1698 `train`,
+the flagship `--train-flag --batch-size 16 --amp --num-stack 1`) — and
+checks every hand-written kernel of those paths against its plain
 PyTorch version on the card:
 
 1. card identity (torch + nvidia-smi);
 2. build the kernels from csrc/ (one nvcc per source, in parallel) and
    print nvcc's `-Xptxas -v` register / shared-memory / spill report;
-3. each kernel against its plain version at the main path's shapes, f32
-   and bf16, every activation, pool sizes 3 and 5 — bit-equal for the
-   peak test and the ReLU/Linear epilogue and residual tail; Mish within
-   rtol 1e-6 (f32) or one bf16 ulp (bf16);
-4. kernel time (CUDA graph replay, CUDA events) beside the least time
-   the card could take (bytes / 3.35 TB/s), the plain version's time and
-   the time of a one-call PyTorch equivalent where one exists;
-5. the main path, batch 16, 512^2, 1 stack, 128 channels, seeded
+3. each eval kernel against its plain version at the main path's shapes,
+   f32 and bf16, every activation, pool sizes 3 and 5 — bit-equal for
+   the peak test and the ReLU/Linear epilogue and residual tail; Mish
+   within rtol 1e-6 (f32) or one bf16 ulp (bf16);
+4. eval kernel time (CUDA graph replay, CUDA events) beside the least
+   time the card could take (bytes / 3.35 TB/s), the plain version's
+   time and the time of a one-call PyTorch equivalent where one exists;
+5. the predict path, batch 16, 512^2, 1 stack, 128 channels, seeded
    weights, f32 and bf16: launch counts per forward (20 epilogue, 17
-   residual tail, 1 peak), logits of the whole batch and Detections
-   against the same path with every kernel swapped for its plain
-   version, peak memory, images/s as the median of 5 windows of about
-   2 s each (kernel and plain windows alternate), and a small model on
-   the card against the CPU path;
+   residual tail, 1 peak, no train kernel), logits of the whole batch
+   and Detections against the same path with every kernel swapped for
+   its plain version, peak memory, images/s as the median of 5 windows
+   of about 2 s each (kernel and plain windows alternate), and a small
+   model on the card against the CPU path;
 6. the same kernel-vs-plain rule under two BN states with larger
    logits, where scores round to 1 and ties decide the order;
-7. a torch.profiler trace (CUDA activity) of the main path: device time
-   by kernel group, and the device's idle share against phase 5's
-   untraced wall time;
-8. the eval CLI end to end on a synthetic VOC fixture (32 images at
-   512^2, batch 16, --amp) to a printed mAP, txt files and pickle.
+7. train_kernels: the train kernels (batch moments, backward sums, dx,
+   with and without the skip) against their plain versions at every BN
+   site shape of the train step, f32 and bf16, every activation — dx
+   bit-equal for ReLU/Linear (Mish as in 3), the reductions within 1e-5
+   of the sum of |terms| per channel;
+8. train_timing: train kernel time at the largest site beside its bound,
+   the plain version and `torch.var_mean` / ATen's BN backward;
+9. train_main: the flagship --amp train step at b16 512^2 on the port's
+   synthetic_target_batch: launch counts per step (37 moments, 20 + 17
+   backward sums and dx, 20 epilogue, 17 tail), one step's loss,
+   gradients and running statistics against the plain-version step
+   (cudnn.deterministic) and, in f32, both against the step with float64
+   BN sums, the loss over 20 steps on one batch, images/s
+   over alternating ~2 s windows, peak memory; then one f32 step;
+10. a torch.profiler trace (CUDA activity) of a predict and of a train
+   step: device time by kernel group and the idle share against the
+   untraced walls of phases 5 and 9, and the train step's phases by
+   CUDA events;
+11. the eval CLI end to end on a synthetic VOC fixture (32 images at
+   512^2, batch 16, --amp) to a printed mAP, txt files and pickle;
+12. train_cli: `--train-flag` for one epoch on a 32-image 512^2 fixture,
+   then the eval CLI on the weights it wrote.
 
 Any failure exits non-zero. The last three lines are the card's name and
 power limit, one JSON object of per-kernel numbers, and
@@ -43,6 +63,7 @@ import argparse
 import contextlib
 import glob
 import json
+import math
 import os
 import subprocess
 import sys
@@ -53,7 +74,8 @@ import traceback
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PHASES = ("identity", "build", "kernels", "timing", "main", "states",
-          "profile", "cli")
+          "train_kernels", "train_timing", "train_main", "profile", "cli",
+          "train_cli")
 
 
 class SmokeFailure(RuntimeError):
@@ -157,55 +179,91 @@ def eager_ms(fn, iters=20):
 
 
 @contextlib.contextmanager
+def swapped(swaps, value=None):
+    """Set each (module, name) to its stand-in while the block runs (the
+    model, the train passes and predict call the wrappers through their
+    modules); yields `value`."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield value
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def plain_kernels():
-    """Swap every kernel wrapper of the path for its plain version (the
-    model and predict call them through their modules)."""
+    """Every kernel wrapper of the paths swapped for its plain version."""
     from real_time_helmet_detection_tpu_torch.ops import (epilogue, peak,
                                                           residual)
-    saved = (epilogue.bn_act, residual.bn_add_act, peak.peak_scores)
-    epilogue.bn_act = epilogue.bn_act_reference
-    residual.bn_add_act = residual.bn_add_act_reference
-    peak.peak_scores = peak.peak_scores_reference
-    try:
-        yield
-    finally:
-        epilogue.bn_act, residual.bn_add_act, peak.peak_scores = saved
+    return swapped([
+        (epilogue, "bn_act", epilogue.bn_act_reference),
+        (residual, "bn_add_act", residual.bn_add_act_reference),
+        (peak, "peak_scores", peak.peak_scores_reference),
+        (epilogue, "bn_stats", epilogue.bn_stats_reference),
+        (epilogue, "bn_bwd_sums", epilogue.bn_bwd_sums_reference),
+        (epilogue, "bn_bwd_dx",
+         lambda *a: epilogue.bn_bwd_dx_reference(*a)[0]),
+        (residual, "bn_add_bwd_sums", residual.bn_add_bwd_sums_reference),
+        (residual, "bn_add_bwd_dx", residual.bn_add_bwd_dx_reference),
+    ])
 
 
-@contextlib.contextmanager
 def site_bytes(totals):
     """Add up, per wrapper, the bytes each call must move (inputs read
-    once, output written once) while the block runs."""
+    once, outputs written once; the (C,) vectors and partials are
+    negligible) while the block runs."""
     from real_time_helmet_detection_tpu_torch.ops import epilogue, residual
-    saved = (epilogue.bn_act, residual.bn_add_act)
+    # wrapper -> activation-sized tensors moved per call
+    moved = {(epilogue, "bn_act"): 2, (residual, "bn_add_act"): 3,
+             (epilogue, "bn_stats"): 1, (epilogue, "bn_bwd_sums"): 2,
+             (residual, "bn_add_bwd_sums"): 3, (epilogue, "bn_bwd_dx"): 3,
+             (residual, "bn_add_bwd_dx"): 5}
 
-    def bn_act(x, *args):
-        totals["bn_act"] = totals.get("bn_act", 0) \
-            + 2 * x.numel() * x.element_size()
-        return saved[0](x, *args)
+    def counting(mod, name, n):
+        real = getattr(mod, name)
 
-    def bn_add_act(y, *args):
-        totals["bn_add_act"] = totals.get("bn_add_act", 0) \
-            + 3 * y.numel() * y.element_size()
-        return saved[1](y, *args)
-    epilogue.bn_act, residual.bn_add_act = bn_act, bn_add_act
-    try:
-        yield totals
-    finally:
-        epilogue.bn_act, residual.bn_add_act = saved
+        def wrapper(x, *args):
+            totals[name] = totals.get(name, 0) + n * x.numel() \
+                * x.element_size()
+            return real(x, *args)
+        return wrapper
+    return swapped([(mod, name, counting(mod, name, n))
+                    for (mod, name), n in moved.items()], totals)
+
+
+# every launch counter: name in the kernels line -> (module, attribute)
+COUNTERS = {
+    "peak_scores": ("peak", "launches"),
+    "bn_act": ("epilogue", "launches"),
+    "bn_add_act": ("residual", "launches"),
+    "bn_stats": ("epilogue", "stats_launches"),
+    "bn_bwd_sums": ("epilogue", "bwd_sums_launches"),
+    "bn_add_bwd_sums": ("residual", "bwd_sums_launches"),
+    "bn_bwd_dx": ("epilogue", "bwd_dx_launches"),
+    "bn_add_bwd_dx": ("residual", "bwd_dx_launches"),
+}
+
+
+def _ops():
+    from real_time_helmet_detection_tpu_torch import ops
+    from real_time_helmet_detection_tpu_torch.ops import (  # noqa: F401
+        epilogue, peak, residual)
+    return ops
 
 
 def reset_counts():
-    from real_time_helmet_detection_tpu_torch.ops import (epilogue, peak,
-                                                          residual)
-    epilogue.launches = residual.launches = peak.launches = 0
+    ops = _ops()
+    for mod, attr in COUNTERS.values():
+        setattr(getattr(ops, mod), attr, 0)
+    ops.epilogue.grad_conversions = 0
 
 
 def read_counts():
-    from real_time_helmet_detection_tpu_torch.ops import (epilogue, peak,
-                                                          residual)
-    return {"bn_act": epilogue.launches, "bn_add_act": residual.launches,
-            "peak_scores": peak.launches}
+    ops = _ops()
+    return {name: getattr(getattr(ops, mod), attr)
+            for name, (mod, attr) in COUNTERS.items()}
 
 
 def box_iou(box, boxes):
@@ -482,7 +540,8 @@ def phase_main(state):
     from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
     images = np.random.default_rng(0).integers(
         0, 256, (16, 512, 512, 3), dtype=np.uint8)
-    want = {"bn_act": 20, "bn_add_act": 17, "peak_scores": 1}
+    want = dict.fromkeys(COUNTERS, 0)  # predict runs no train kernel
+    want.update(bn_act=20, bn_add_act=17, peak_scores=1)
     for amp in (False, True):
         tag = "bf16" if amp else "f32"
         cfg = Config(batch_size=16, imsize=512, amp=amp)
@@ -605,6 +664,668 @@ def phase_states(state):
             torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------- train phases
+
+
+ACTS = ("ReLU", "Linear", "Mish")
+TRAIN_SUM_RTOL = 1e-5  # per channel, relative to the sum of |terms|
+F32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
+BIG = (16, 128, 256, 256)  # the largest BN site of the train step
+
+
+def rows2d(t):
+    """(N, C, H, W) channels-last -> (N*H*W, C) float32."""
+    return t.float().permute(0, 2, 3, 1).reshape(-1, t.shape[1])
+
+
+def sums_err(got_parts, want_parts, terms):
+    """(max relative, max abs) error between the column sums of two
+    partial tensors, relative to the per-channel sum of |terms| — the
+    error bound of a float32 sum taken in another order."""
+    import torch
+    torch.cuda.synchronize()
+    d = (got_parts.sum(0) - want_parts.sum(0)).abs()
+    scale = terms.abs().sum(0).clamp_min(1e-30)
+    return float((d / scale).max()), float(d.max())
+
+
+def train_operands(shape, dtype, gen, skip):
+    x = channels_last(rand(shape, dtype, gen, 2.0))
+    g = channels_last(rand(shape, dtype, gen, 1.0))
+    s = channels_last(rand(shape, dtype, gen, 1.0)) if skip else None
+    import torch
+    c = shape[1]
+    a = rand((c,), torch.float32, gen, 0.5) + 1.0
+    b = rand((c,), torch.float32, gen, 0.5)
+    k1 = rand((c,), torch.float32, gen, 0.01)
+    k2 = rand((c,), torch.float32, gen, 0.01)
+    return x, g, s, a, b, k1, k2
+
+
+def phase_train_kernels(state):
+    """The train kernels against their plain versions at every distinct BN
+    site shape of the flagship train step (b16, 512^2), f32 and bf16,
+    every activation, with and without the skip: the dx pass bit-equal
+    for ReLU/Linear (Mish within rtol 1e-6 f32 / one bf16 ulp), the
+    reductions within TRAIN_SUM_RTOL of the sum of |terms|."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.ops import epilogue, residual
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    errs = state.setdefault("train_errs", {})
+    mish_equal, n = True, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for skip, shapes in ((False, EPI_SHAPES), (True, RES_SHAPES)):
+            for shape in shapes:
+                x, g, s, a, b, k1, k2 = train_operands(shape, dtype, gen,
+                                                       skip)
+                xr = rows2d(x)
+                if not skip:  # moments take no skip: each shape once
+                    got, want = epilogue.bn_stats(x), \
+                        epilogue.bn_stats_reference(x)
+                    e1 = sums_err(got[0], want[0], xr)
+                    e2 = sums_err(got[1], want[1], xr * xr)
+                    errs[("bn_stats", tag, shape)] = max(e1, e2)
+                    n += 1
+                for act in ACTS:
+                    dz = rows2d(epilogue._dz_reference(x, a, b, g, act, s))
+                    if skip:
+                        s1, s2 = residual.bn_add_bwd_sums(x, a, b, s, g, act)
+                        dx, ds = residual.bn_add_bwd_dx(x, a, b, s, g, k1,
+                                                        k2, act)
+                    else:
+                        s1, s2 = epilogue.bn_bwd_sums(x, a, b, g, act)
+                        dx = epilogue.bn_bwd_dx(x, a, b, g, k1, k2, act)
+                        ds = None
+                    w1, w2 = epilogue.bn_bwd_sums_reference(x, a, b, g, act,
+                                                            skip=s)
+                    wdx, wds = epilogue.bn_bwd_dx_reference(x, a, b, g, k1,
+                                                            k2, act, skip=s)
+                    prefix = "bn_add_bwd" if skip else "bn_bwd"
+                    errs[(prefix + "_sums", tag, act, shape)] = max(
+                        sums_err(s1, w1, dz), sums_err(s2, w2, dz * xr))
+                    mode = ("equal" if act != "Mish" else
+                            "rtol1e-6" if tag == "f32" else "bf16ulp")
+                    label = "%s_dx %s %s %s" % (prefix, tag, act, shape)
+                    e = compare(label, dx, wdx, mode)
+                    if skip:
+                        e = max(e, compare(label + " ds", ds, wds, mode))
+                    if act == "Mish":
+                        mish_equal &= torch.equal(dx, wdx) and (
+                            ds is None or torch.equal(ds, wds))
+                    errs[(prefix + "_dx", tag, act, shape)] = (e, e)
+                    n += 2
+                    del dz, s1, s2, dx, ds, w1, w2, wdx, wds
+                del x, g, s, xr
+                torch.cuda.empty_cache()
+    reductions = {k: v for k, v in errs.items() if not k[0].endswith("_dx")}
+    worst = max(reductions, key=lambda k: reductions[k][0])
+    log("train_kernels: %d comparisons against the plain versions passed; "
+        "dx/ds bit-equal for ReLU and Linear, Mish bit-equal %s; the "
+        "reductions' largest error %.3g of the sum of |terms| (tolerance "
+        "%g) at %s, max abs %.3g" % (n, mish_equal, reductions[worst][0],
+                                      TRAIN_SUM_RTOL, worst,
+                                      reductions[worst][1]))
+    require(reductions[worst][0] <= TRAIN_SUM_RTOL,
+            "train reductions beyond tolerance at %s: %s"
+            % (worst, reductions[worst]))
+    require(all(v[0] == 0.0 for k, v in errs.items()
+                if k[0].endswith("_dx") and k[2] != "Mish"),
+            "a bit-equal dx comparison reported a non-zero error")
+
+
+def phase_train_timing(state):
+    """Train kernel time at the largest site (16, 128, 256^2), ReLU, by
+    CUDA graph replay, beside its bound, the plain version and a library
+    call where one computes the same function: `torch.var_mean` for the
+    moments, and ATen's BN backward for the Linear no-skip sums + dx
+    pair."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.ops import epilogue, residual
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = state.setdefault("train_timing", {})
+    log("train_timing (ms per call at %s; kernel and plain by CUDA graph "
+        "replay, eager = issued from Python):" % (BIG,))
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        x, g, s, a, b, k1, k2 = train_operands(BIG, dtype, gen, True)
+        nbytes, elems = x.numel() * x.element_size(), x.numel()
+        act = "ReLU"
+        # name: (kernel, plain, activation-sized tensors moved, flops per
+        # element, library call)
+        specs = {
+            "bn_stats": (lambda: epilogue.bn_stats(x),
+                         lambda: epilogue.bn_stats_reference(x), 1, 3,
+                         lambda: torch.var_mean(x, dim=(0, 2, 3),
+                                                correction=0)),
+            "bn_bwd_sums": (
+                lambda: epilogue.bn_bwd_sums(x, a, b, g, act),
+                lambda: epilogue.bn_bwd_sums_reference(x, a, b, g, act),
+                2, 6, None),
+            "bn_add_bwd_sums": (
+                lambda: residual.bn_add_bwd_sums(x, a, b, s, g, act),
+                lambda: residual.bn_add_bwd_sums_reference(x, a, b, s, g,
+                                                           act), 3, 7, None),
+            "bn_bwd_dx": (
+                lambda: epilogue.bn_bwd_dx(x, a, b, g, k1, k2, act),
+                lambda: epilogue.bn_bwd_dx_reference(x, a, b, g, k1, k2,
+                                                     act), 3, 7, None),
+            "bn_add_bwd_dx": (
+                lambda: residual.bn_add_bwd_dx(x, a, b, s, g, k1, k2, act),
+                lambda: residual.bn_add_bwd_dx_reference(x, a, b, s, g, k1,
+                                                         k2, act), 5, 8,
+                None),
+        }
+        for name, (kern, plain, ntens, flops, lib) in specs.items():
+            t_bytes = ntens * nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops * elems / F32_FLOPS * 1e3
+            rows[(name, tag)] = dict(
+                ms=graph_ms(kern), eager_ms=eager_ms(kern),
+                plain_ms=graph_ms(plain),
+                library_ms=None if lib is None else graph_ms(lib),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                shape=BIG)
+        mean = torch.zeros(BIG[1], device="cuda")
+        invstd = torch.ones(BIG[1], device="cuda")
+        rows[("bwd_pair_linear", tag)] = dict(
+            ms=graph_ms(lambda: (
+                epilogue.bn_bwd_sums(x, a, b, g, "Linear"),
+                epilogue.bn_bwd_dx(x, a, b, g, k1, k2, "Linear"))),
+            library_ms=graph_ms(
+                lambda: torch.ops.aten.native_batch_norm_backward(
+                    g, x, a, None, None, mean, invstd, True, 1e-5,
+                    [True, True, True])),
+            bound_ms=4 * nbytes / HBM_BYTES_PER_S * 1e3)
+        del x, g, s
+        torch.cuda.empty_cache()
+    for key, r in rows.items():
+        if key[0] == "bwd_pair_linear":
+            log("  %-24s kernels %.4f  native_batch_norm_backward %.4f  "
+                "bound %.4f" % ("%s %s" % key, r["ms"], r["library_ms"],
+                                r["bound_ms"]))
+            continue
+        log("  %-24s kernel %.4f (eager %.4f)  plain %.4f  library %s  "
+            "bound %.4f (%s)" % (
+                "%s %s" % key, r["ms"], r["eager_ms"], r["plain_ms"],
+                "%.4f" % r["library_ms"] if r["library_ms"] is not None
+                else "none", r["bound_ms"], r["bound_by"]))
+    log("  bounds of the kernels not ported yet (bytes / 3.35 TB/s): %s"
+        % ", ".join("%s %.4f" % kv for kv in unported_bounds().items()))
+
+
+def unported_bounds(batch=16, imsize=512, ch=128, num_cls=2):
+    """Byte bounds (ms at 3.35 TB/s) of the TPU kernels the port has not
+    built yet, at the flagship's shapes: the eval-mode BN backward at the
+    largest site (bf16; reads x and g (and s), writes dx (and ds)), and
+    the loss kernels over the (B, S=1, h, w, C+4) f32 output and its
+    targets (heatmap, offset, wh, mask)."""
+    site = batch * ch * (imsize // 2) ** 2 * 2  # one bf16 activation
+    hw = batch * (imsize // 4) ** 2 * 4          # one f32 map channel
+    out, targets = hw * (num_cls + 4), hw * (num_cls + 2 + 2 + 1)
+    moved = {"epilogue.py:144 _bwd_kernel": 3 * site,
+             "residual.py:97 _bwd_add_kernel": 5 * site,
+             "loss.py:86 _fwd_kernel": out + targets,
+             "loss.py:126 _bwd_kernel": 2 * out + targets}
+    return {k: v / HBM_BYTES_PER_S * 1e3 for k, v in moved.items()}
+
+
+def make_trainer(cfg, seed=0):
+    """The flagship model with seeded weights on the card in train mode,
+    its optimizer and the port's train step."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.evaluate import init_weights
+    from real_time_helmet_detection_tpu_torch.models.hourglass import \
+        build_model
+    from real_time_helmet_detection_tpu_torch.optim import (
+        build_optimizer, make_lr_schedule)
+    from real_time_helmet_detection_tpu_torch.train import make_train_step
+    dtype = torch.bfloat16 if cfg.amp else None
+    model = init_weights(build_model(cfg, dtype=dtype), seed)
+    model = model.cuda().train()
+    opt = build_optimizer(cfg, model.parameters())
+    return model, opt, make_train_step(model, opt,
+                                       make_lr_schedule(cfg, 1000), cfg)
+
+
+def train_batch(batch=16, imsize=512):
+    import torch
+    from real_time_helmet_detection_tpu_torch.data.synthetic import \
+        synthetic_target_batch
+    return [torch.from_numpy(a).cuda()
+            for a in synthetic_target_batch(batch, imsize, seed=0)]
+
+
+def one_backward(model, arrs, cfg):
+    """(loss, grads, buffers) of one loss + backward, no update."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.train import loss_fn
+    model.zero_grad(set_to_none=True)
+    total, _ = loss_fn(model, *arrs, cfg)
+    total.backward()
+    torch.cuda.synchronize()
+    return (total.item(),
+            {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+            {n: t.detach().clone() for n, t in model.named_buffers()})
+
+
+def exact_sums():
+    """Inside plain_kernels(): every BN channel sum of the train step
+    (moments, S1, S2) taken in float64 and rounded once to float32 — the
+    step whose only difference from the kernel and plain paths is that
+    neither's f32 summation order touches it."""
+    from real_time_helmet_detection_tpu_torch.ops import epilogue, residual
+
+    def stats(x):
+        x2 = rows2d(x).double()
+        return (x2.sum(0, keepdim=True).float(),
+                (x2 * x2).sum(0, keepdim=True).float())
+
+    def sums(x, a, b, g, act, skip=None):
+        dz = rows2d(epilogue._dz_reference(x, a, b, g, act, skip)).double()
+        return (dz.sum(0, keepdim=True).float(),
+                (dz * rows2d(x).double()).sum(0, keepdim=True).float())
+
+    return swapped([
+        (epilogue, "bn_stats", stats), (epilogue, "bn_bwd_sums", sums),
+        (residual, "bn_add_bwd_sums",
+         lambda y, a, b, skip, g, act: sums(y, a, b, g, act, skip))])
+
+
+def kernels_and_plain(model, arrs, cfg, exact=False):
+    """One loss + backward through the kernels and one through the plain
+    versions (and, with `exact`, one through the plain versions with
+    float64 sums), from the same weights and running statistics, under
+    cudnn.deterministic; the model's buffers are restored after."""
+    import torch
+    buffers = {n: t.detach().clone() for n, t in model.named_buffers()}
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        runs.append(one_backward(model, arrs, cfg))
+        model.load_state_dict(buffers, strict=False)
+        with plain_kernels():
+            runs.append(one_backward(model, arrs, cfg))
+            if exact:
+                model.load_state_dict(buffers, strict=False)
+                with exact_sums():
+                    runs.append(one_backward(model, arrs, cfg))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        model.load_state_dict(buffers, strict=False)
+        model.zero_grad(set_to_none=True)
+    return runs
+
+
+def rel_l2(a, b):
+    """||a - b|| / ||b|| over every tensor of two name -> tensor dicts
+    taken as one vector (a per-tensor measure would be dominated by
+    tensors whose gradient is zero by construction, the biases of the
+    convs that feed a BN)."""
+    num = sum(float((a[n].double() - b[n].double()).square().sum())
+              for n in b)
+    den = sum(float(b[n].double().square().sum()) for n in b)
+    return math.sqrt(num / max(den, 1e-300))
+
+
+# kernel-vs-plain train step. f32 (TF32 off): the kernels and the plain
+# versions differ only in the order of the BN sums; the loss and the
+# running statistics agree closely (relative error, relative L2), and
+# the gradient within the JAX package's own bound for two BN
+# formulations, rtol 5e-3 (tests/test_epilogue.py:151-154): each BN
+# backward passes the last-bit differences of its sums on, and the stem
+# gradients carry those of all 37. The yardstick for that is the step
+# with float64 BN sums (`exact_sums`): the kernel path's f32 gradient and
+# statistics are no further from it than 1.5x the plain path's. bf16:
+# every BN output rounds to bf16, and a last-bit change in a batch
+# moment flips the rounding of some elements; the yardstick is the f32
+# plain step: the kernel path's bf16 gradient and statistics are no
+# further from it than 1.5x the plain path's bf16 ones.
+STEP_TOL = dict(f32_loss=1e-5, f32_grad=5e-3, f32_stats=1e-5,
+                f32_ratio=1.5, bf16_loss=1e-3, bf16_ratio=1.5)
+
+
+def check_train_step(model, model32, arrs, cfg, cfg32):
+    """The bf16 (--amp) and f32 train steps, kernels against plain
+    versions, held to STEP_TOL; returns the measured errors."""
+    (lk, gk, bk), (lp, gp, bp) = kernels_and_plain(model, arrs, cfg)
+    (lk32, gk32, bk32), (lp32, gp32, bp32), (_, gx32, bx32) = \
+        kernels_and_plain(model32, arrs, cfg32, exact=True)
+    e = dict(
+        f32_loss=abs(lk32 - lp32) / abs(lp32), f32_grad=rel_l2(gk32, gp32),
+        f32_stats=rel_l2(bk32, bp32),
+        f32_grad_vs_exact=(rel_l2(gk32, gx32), rel_l2(gp32, gx32)),
+        f32_stats_vs_exact=(rel_l2(bk32, bx32), rel_l2(bp32, bx32)),
+        bf16_loss=abs(lk - lp) / abs(lp),
+        bf16_grad=rel_l2(gk, gp), bf16_stats=rel_l2(bk, bp),
+        bf16_grad_vs_f32=(rel_l2(gk, gp32), rel_l2(gp, gp32)),
+        bf16_stats_vs_f32=(rel_l2(bk, bp32), rel_l2(bp, bp32)))
+    log("train step kernels vs plain (cudnn.deterministic): f32 loss "
+        "%.7f vs %.7f, rel err %.3g (tol %g), gradient rel L2 %.3g (tol "
+        "%g), running statistics rel L2 %.3g (tol %g); against the step "
+        "with float64 BN sums: gradient kernels %.3g, plain %.3g, running "
+        "statistics kernels %.3g, plain %.3g (kernels at most %gx plain)"
+        % (lk32, lp32, e["f32_loss"], STEP_TOL["f32_loss"], e["f32_grad"],
+           STEP_TOL["f32_grad"], e["f32_stats"], STEP_TOL["f32_stats"],
+           *e["f32_grad_vs_exact"], *e["f32_stats_vs_exact"],
+           STEP_TOL["f32_ratio"]))
+    log("train step kernels vs plain: bf16 loss %.6f vs %.6f, rel err %.3g "
+        "(tol %g); gradient rel L2 kernels vs plain %.3g; against the f32 "
+        "plain step: gradient kernels %.3g, plain %.3g, running statistics "
+        "kernels %.3g, plain %.3g (kernels at most %gx plain)" % (
+            lk, lp, e["bf16_loss"], STEP_TOL["bf16_loss"], e["bf16_grad"],
+            *e["bf16_grad_vs_f32"], *e["bf16_stats_vs_f32"],
+            STEP_TOL["bf16_ratio"]))
+    for tag, (g_a, g_b) in (("f32", (gk32, gp32)), ("bf16", (gk, gp))):
+        den = sum(float(t.double().square().sum()) for t in g_b.values())
+        share = sorted(((float((g_a[n].double() - g_b[n].double()).square()
+                               .sum()) / den, n) for n in g_b), reverse=True)
+        log("    %s gradient difference, largest shares of the squared "
+            "relative L2 error %.3g: %s" % (
+                tag, sum(v for v, _ in share), ", ".join(
+                    "%s %.3g (|g| max %.3g)" % (n, v, float(
+                        g_b[n].abs().max())) for v, n in share[:5])))
+    require(e["f32_loss"] <= STEP_TOL["f32_loss"]
+            and e["f32_grad"] <= STEP_TOL["f32_grad"]
+            and e["f32_stats"] <= STEP_TOL["f32_stats"],
+            "f32 train step kernels vs plain beyond tolerance")
+    ratio = STEP_TOL["f32_ratio"]
+    require(e["f32_grad_vs_exact"][0] <= ratio * e["f32_grad_vs_exact"][1]
+            and e["f32_stats_vs_exact"][0]
+            <= ratio * e["f32_stats_vs_exact"][1],
+            "f32 train step kernels further from the float64-sum step "
+            "than the plain versions")
+    ratio = STEP_TOL["bf16_ratio"]
+    require(e["bf16_loss"] <= STEP_TOL["bf16_loss"]
+            and e["bf16_grad_vs_f32"][0] <= ratio * e["bf16_grad_vs_f32"][1]
+            and e["bf16_stats_vs_f32"][0]
+            <= ratio * e["bf16_stats_vs_f32"][1],
+            "bf16 train step kernels further from the f32 step than the "
+            "plain versions")
+    return e
+
+
+def train_throughput(step, arrs, windows=5, window_s=2.0):
+    """Train images/s of the kernel path and the plain-version path in
+    `windows` alternating windows of about `window_s` s each."""
+    import statistics
+    import torch
+    count = [0]
+
+    def one_window(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(count[0], *arrs)
+            count[0] += 1
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    n = max(5, int(window_s / (one_window(3) / 3)))
+    rates = {"kernels": [], "plain": []}
+    batch = arrs[0].shape[0]
+    for _ in range(windows):
+        rates["kernels"].append(batch * n / one_window(n))
+        with plain_kernels():
+            rates["plain"].append(batch * n / one_window(n))
+    return {path: dict(ips=r, median_ips=statistics.median(r),
+                       ms_per_step=1e3 * batch / statistics.median(r),
+                       steps_per_window=n)
+            for path, r in rates.items()}
+
+
+def phase_train_main(state):
+    """The flagship `--amp` train step at b16 512^2 (1 stack, 128
+    channels, seeded weights, the port's synthetic_target_batch): launch
+    counts of one step, the step against its plain-version twin, the loss
+    over 20 steps on one batch, images/s, peak memory; then one f32 step
+    (TF32 off)."""
+    import statistics
+    import torch
+    from real_time_helmet_detection_tpu_torch.config import Config
+    cfg = Config(batch_size=16, amp=True)
+    model, opt, step = make_trainer(cfg)
+    arrs = train_batch()
+    # warm-up on a throwaway copy of the weights: cuDNN plans, allocator
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    saved_opt = opt.state_dict()
+    step(0, *arrs)
+    torch.cuda.synchronize()
+    model.load_state_dict(saved)
+    opt.load_state_dict(saved_opt)
+    cfg32 = Config(batch_size=16)
+    model32, opt32, step32 = make_trainer(cfg32)
+    model32.load_state_dict(model.state_dict())
+    errs = check_train_step(model, model32, arrs, cfg, cfg32)
+    reset_counts()
+    step(0, *arrs)  # THE train-path run the counts read
+    torch.cuda.synchronize()
+    counts = read_counts()
+    from real_time_helmet_detection_tpu_torch.ops import epilogue
+    conversions = epilogue.grad_conversions
+    want = dict(bn_act=20, bn_add_act=17, peak_scores=0, bn_stats=37,
+                bn_bwd_sums=20, bn_add_bwd_sums=17, bn_bwd_dx=20,
+                bn_add_bwd_dx=17)
+    require(counts == want, "launches per train step %s, want %s"
+            % (counts, want))
+    state.setdefault("launches", {})["train"] = counts
+    losses = [float(step(i + 1, *arrs)["total"]) for i in range(20)]
+    require(all(map(math.isfinite, losses))
+            and statistics.mean(losses[-5:]) < statistics.mean(losses[:5])
+            and losses[-1] < losses[0],
+            "loss does not fall over 20 steps on one batch: %s" % losses)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(21, *arrs)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rates = train_throughput(step, arrs)
+    state["train_main"] = dict(rates=rates, peak_gb=peak_gb, errs=errs,
+                               losses=losses, conversions=conversions)
+    log("train_main bf16: launches %s per step; %d gradients converted "
+        "to channels-last; loss over 20 steps on one batch %.4f -> %.4f "
+        "(%s); peak memory %.2f GB" % (
+            counts, conversions, losses[0], losses[-1],
+            " ".join("%.3f" % v for v in losses), peak_gb))
+    for path, r in rates.items():
+        log("train_main bf16: train step b16 512^2 with %s: median %.1f "
+            "img/s (%.2f ms per step), min %.1f, max %.1f over %d windows "
+            "of %d steps: %s" % (
+                path, r["median_ips"], r["ms_per_step"], min(r["ips"]),
+                max(r["ips"]), len(r["ips"]), r["steps_per_window"],
+                ", ".join("%.1f" % v for v in r["ips"])))
+    del model, opt, step
+    torch.cuda.empty_cache()
+    # one f32 step (TF32 off, set process-wide by main())
+    model, opt, step = model32, opt32, step32
+    times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(i, *arrs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    step(3, *arrs)
+    torch.cuda.synchronize()
+    state["train_main"]["f32"] = dict(
+        ms_per_step=1e3 * statistics.median(times),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log("train_main f32: %.2f ms per step (median of 3, the first "
+        "included), %.1f img/s, peak memory %.2f GB" % (
+            1e3 * statistics.median(times), 16 / statistics.median(times),
+            state["train_main"]["f32"]["peak_gb"]))
+    del model, opt, step, arrs
+    torch.cuda.empty_cache()
+
+
+# cuDNN's convolution kernels: implicit GEMMs (fprop, dgrad, wgrad), FFT
+# and Winograd algorithms and their layout transforms
+CONV_KEYS = ("conv", "xmma", "cudnn", "gemm", "cutlass", "fft", "winograd",
+             "wgrad", "dgrad", "pointwise_mult_and_sum_complex")
+
+
+def trace_device_ms(run, reps=3):
+    """Call `run(i)` for i < reps under torch.profiler (CUDA activity
+    only): (device ms per call by kernel name, traced wall ms per call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for i in range(reps):
+            run(i)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / reps
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) \
+                + ev.self_device_time_total / 1e3 / reps
+    return by_name, traced_ms
+
+
+def group_device_ms(by_name, kernels):
+    """Device ms by group: each of our `kernels` (a substring of the
+    kernel's name), convolution, the optimizer's foreach kernels, copies,
+    the rest."""
+    groups = dict.fromkeys(kernels, 0.0)
+    groups.update({"convolution": 0.0, "optimizer (foreach)": 0.0,
+                   "copies": 0.0, "other": 0.0})
+    for name, ms in by_name.items():
+        low = name.lower()
+        hit = next((k for k in kernels if k in name), None)
+        if hit:
+            groups[hit] += ms
+        elif any(k in low for k in CONV_KEYS):
+            groups["convolution"] += ms
+        elif "multi_tensor_apply" in low or "foreach" in low:
+            groups["optimizer (foreach)"] += ms
+        elif low.startswith("memcpy") or low.startswith("memset"):
+            groups["copies"] += ms
+        else:
+            groups["other"] += ms
+    return groups
+
+
+def log_profile(what, wall_ms, traced_ms, by_name, groups, top):
+    busy = sum(by_name.values())
+    log("profile %s: wall %.2f (untraced; %.2f under the profiler), device "
+        "busy %.2f, idle share %.1f%%; %s" % (
+            what, wall_ms, traced_ms, busy,
+            100.0 * max(0.0, 1 - busy / wall_ms),
+            ", ".join("%s %.2f (%.1f%%)" % (k, v, 100 * v / busy)
+                      for k, v in groups.items() if v)))
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log("    %8.3f ms  %s" % (ms, name[:110]))
+
+
+def profile_train(state):
+    """Where the device time of one flagship bf16 train step goes: kernel
+    groups from a torch.profiler trace (CUDA activity) of 3 steps, the
+    step's phases (forward, loss, backward, optimizer) from CUDA events
+    around one untraced step, and the idle share against phase
+    train_main's untraced wall."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.config import Config
+    from real_time_helmet_detection_tpu_torch.ops.loss import \
+        stacked_detection_loss
+    from real_time_helmet_detection_tpu_torch.optim import set_lr
+    cfg = Config(batch_size=16, amp=True)
+    model, opt, step = make_trainer(cfg)
+    arrs = train_batch()
+    for i in range(2):
+        step(i, *arrs)
+    with site_bytes({}) as nbytes:
+        step(2, *arrs)
+    # phases of one untraced step, CUDA events
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    set_lr(opt, cfg.lr)
+    opt.zero_grad(set_to_none=True)
+    ev[0].record()
+    out = model(arrs[0])
+    ev[1].record()
+    total = stacked_detection_loss(
+        out, *arrs[1:], num_cls=cfg.num_cls, size_weight=cfg.size_weight,
+        hm_weight=cfg.hm_weight, offset_weight=cfg.offset_weight,
+        focal_alpha=cfg.focal_alpha, focal_beta=cfg.focal_beta)["total"]
+    ev[2].record()
+    total.backward()
+    ev[3].record()
+    opt.step()
+    ev[4].record()
+    ev[4].synchronize()
+    phases = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in
+              enumerate(("forward", "loss", "backward", "optimizer"))}
+    by_name, traced_ms = trace_device_ms(lambda i: step(3 + i, *arrs))
+    busy = sum(by_name.values())
+    wall_ms = state["train_main"]["rates"]["kernels"]["ms_per_step"]
+    if busy == 0.0:
+        log("profile train: the profiler saw no device time; breakdown "
+            "not measured (traced wall %.2f ms per step)" % traced_ms)
+        return
+    groups = group_device_ms(by_name, (
+        "bn_add_act_kernel", "bn_act_kernel", "bn_stats_kernel",
+        "bn_bwd_sums_kernel", "bn_bwd_dx_kernel"))
+    state["profile_train"] = dict(wall_ms=wall_ms, traced_ms=traced_ms,
+                                  busy_ms=busy, groups=groups, phases=phases)
+    log("    step phases by CUDA events (one untraced step): %s"
+        % ", ".join("%s %.2f ms" % kv for kv in phases.items()))
+    log("    bound over the step's BN sites (bytes / 3.35 TB/s): %s"
+        % ", ".join("%s %.3f ms" % (k, v / HBM_BYTES_PER_S * 1e3)
+                    for k, v in sorted(nbytes.items())))
+    log_profile("train bf16 (ms per step of 16 x 512^2, wall from phase "
+                "train_main)", wall_ms, traced_ms, by_name, groups, top=10)
+    del model, opt, step, arrs
+    torch.cuda.empty_cache()
+
+
+def phase_train_cli(state):
+    """`--train-flag` for one epoch on a 32-image 512^2 synthetic fixture
+    (--amp, batch 16), then the eval CLI on the weights it wrote."""
+    from real_time_helmet_detection_tpu_torch.data.synthetic import \
+        make_synthetic_voc
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        root = make_synthetic_voc(os.path.join(tmp, "voc"), num_train=32,
+                                  num_test=16, imsize=(512, 512), seed=0)
+        out = os.path.join(tmp, "w")
+        train_cmd = [sys.executable, "-m",
+                     "real_time_helmet_detection_tpu_torch", "--train-flag",
+                     "--data", root, "--batch-size", "16", "--amp",
+                     "--num-stack", "1", "--end-epoch", "1",
+                     "--print-interval", "1", "--save-path", out]
+        weights = os.path.join(out, "check_point_1", "weights.npz")
+        eval_cmd = [sys.executable, "-m",
+                    "real_time_helmet_detection_tpu_torch", "--data", root,
+                    "--imsize", "512", "--batch-size", "16", "--amp",
+                    "--model-load", weights, "--save-path",
+                    os.path.join(out, "eval")]
+        for what, cmd in (("train", train_cmd), ("eval", eval_cmd)):
+            t0 = time.time()
+            proc = subprocess.run(cmd, cwd=REPO, capture_output=True,
+                                  text=True, timeout=600)
+            secs = time.time() - t0
+            tail = "\n".join((proc.stdout + proc.stderr).splitlines()[-12:])
+            require(proc.returncode == 0, "%s CLI exit %d:\n%s"
+                    % (what, proc.returncode, tail))
+            if what == "train":
+                iters = [l for l in proc.stdout.splitlines() if " iter " in l]
+                require(len(iters) == 2 and os.path.exists(weights)
+                        and os.path.exists(os.path.join(
+                            out, "check_point_1", "checkpoint.pt")),
+                        "train CLI: %d iteration lines, checkpoint %s:\n%s"
+                        % (len(iters), os.path.exists(weights), tail))
+                shown = iters[-1].split(", ", 1)[1]
+            else:
+                maps = [l for l in proc.stdout.splitlines() if ": mAP " in l]
+                require(len(maps) == 1, "eval CLI printed no mAP:\n%s" % tail)
+                shown = maps[0].split(": ", 1)[1]
+            log("train_cli %s: python %s (%.1f s) -> %s" % (
+                what, " ".join(cmd[1:]).replace(tmp, "<tmp>"), secs, shown))
+
+
 def phase_profile(state):
     """Where the device time of one flagship predict goes, from a
     torch.profiler trace (CUDA activity only) of 3 predicts: our kernels,
@@ -614,13 +1335,12 @@ def phase_profile(state):
     predicts' wall, which it reports beside."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from real_time_helmet_detection_tpu_torch.config import Config
     from real_time_helmet_detection_tpu_torch.evaluate import load_eval_state
     from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
-    require("main" in state, "phase profile reads phase main's predict "
-            "times: run both")
+    require("main" in state and "train_main" in state,
+            "phase profile reads the predict and train-step times of "
+            "phases main and train_main: run all three")
     images = np.random.default_rng(0).integers(
         0, 256, (16, 512, 512, 3), dtype=np.uint8)
     for amp in (False, True):
@@ -632,66 +1352,29 @@ def phase_profile(state):
         predict(images)
         with site_bytes({}) as nbytes:
             predict(images)
-        torch.cuda.synchronize()
-        reps = 3
-        with profile(activities=[ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                predict(images)
-            torch.cuda.synchronize()
-            traced_ms = (time.perf_counter() - t0) * 1e3 / reps
-        by_name = {}
-        for ev in prof.key_averages():
-            if ev.device_type == DeviceType.CUDA:
-                by_name[ev.key] = by_name.get(ev.key, 0.0) \
-                    + ev.self_device_time_total / 1e3 / reps
+        by_name, traced_ms = trace_device_ms(lambda i: predict(images))
         busy = sum(by_name.values())
         if busy == 0.0:
             log("profile %s: the profiler saw no device time; breakdown "
                 "not measured (traced wall %.2f ms per predict)"
                 % (tag, traced_ms))
             continue
-        groups = {"bn_act kernel": 0.0, "bn_add_act kernel": 0.0,
-                  "peak kernel": 0.0, "convolution": 0.0, "copies": 0.0,
-                  "other": 0.0}
-        # cuDNN's convolution kernels: implicit GEMMs, FFT and Winograd
-        # algorithms and their layout transforms
-        conv_keys = ("conv", "xmma", "cudnn", "gemm", "cutlass", "fft",
-                     "winograd", "pointwise_mult_and_sum_complex")
-        for name, ms in by_name.items():
-            low = name.lower()
-            if "bn_add_act_kernel" in name:
-                groups["bn_add_act kernel"] += ms
-            elif "bn_act_kernel" in name:
-                groups["bn_act kernel"] += ms
-            elif "peak_kernel" in name:
-                groups["peak kernel"] += ms
-            elif any(k in low for k in conv_keys):
-                groups["convolution"] += ms
-            elif low.startswith("memcpy") or low.startswith("memset"):
-                groups["copies"] += ms
-            else:
-                groups["other"] += ms
+        groups = group_device_ms(by_name, ("bn_add_act_kernel",
+                                           "bn_act_kernel", "peak_kernel"))
         state.setdefault("profile", {})[tag] = dict(
             wall_ms=wall_ms, traced_ms=traced_ms, busy_ms=busy,
             groups=groups)
-        log("profile %s (ms per predict of 16 x 512^2): wall %.2f (phase "
-            "main, untraced; %.2f under the profiler), device busy %.2f, "
-            "idle share %.1f%%; %s" % (
-                tag, wall_ms, traced_ms, busy,
-                100.0 * max(0.0, 1 - busy / wall_ms),
-                ", ".join("%s %.2f (%.1f%%)" % (k, v, 100 * v / busy)
-                          for k, v in groups.items())))
         log("    bound over the forward's sites (bytes / 3.35 TB/s): "
             "bn_act %.3f ms, bn_add_act %.3f ms"
             % tuple(nbytes[k] / HBM_BYTES_PER_S * 1e3
                     for k in ("bn_act", "bn_add_act")))
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        for name, ms in top:
-            log("    %8.3f ms  %s" % (ms, name[:110]))
+        log_profile("%s (ms per predict of 16 x 512^2, wall from phase "
+                    "main)" % tag, wall_ms, traced_ms, by_name, groups,
+                    top=8)
         del predict
         torch.cuda.empty_cache()
+
+    profile_train(state)
 
 
 def phase_cli(state):
@@ -727,28 +1410,47 @@ def phase_cli(state):
 
 
 def kernel_rows(state):
+    """One row per kernel: time, bound, plain and library time at the
+    largest site (bf16, ReLU), the comparison's max abs error there, and
+    the launches of the kernel's main path — predict for the eval
+    kernels, one train step for the train kernels; the forward kernels
+    also carry their train-step count."""
     errs, timing = state["errs"], state["timing"]
-    launches = state["launches"]["bf16"]
+    terrs, ttiming = state["train_errs"], state["train_timing"]
+    predict, train = state["launches"]["bf16"], state["launches"]["train"]
     src = "real_time_helmet_detection_tpu_torch/csrc/%s.cu"
+    pallas = "real_time_helmet_detection_tpu/ops/pallas/"
     spec = [
-        ("peak_scores", "peak", "real_time_helmet_detection_tpu/ops/pallas/"
-         "peak.py:68", ("peak_scores", "f32", 3),
-         ("peak_scores", 3, "normal")),
-        ("bn_act", "epilogue", "real_time_helmet_detection_tpu/ops/pallas/"
-         "epilogue.py:138", ("bn_act", "bf16", "ReLU"),
-         ("bn_act", "bf16", "ReLU", (16, 128, 256, 256))),
-        ("bn_add_act", "residual", "real_time_helmet_detection_tpu/ops/"
-         "pallas/residual.py:91", ("bn_add_act", "bf16", "ReLU"),
-         ("bn_add_act", "bf16", "ReLU", (16, 128, 256, 256))),
+        ("peak_scores", "peak", "peak.py:68", timing[("peak_scores", "f32",
+                                                      3)],
+         errs[("peak_scores", 3, "normal")], predict),
+        ("bn_act", "epilogue", "epilogue.py:138",
+         timing[("bn_act", "bf16", "ReLU")],
+         errs[("bn_act", "bf16", "ReLU", BIG)], predict),
+        ("bn_add_act", "residual", "residual.py:91",
+         timing[("bn_add_act", "bf16", "ReLU")],
+         errs[("bn_add_act", "bf16", "ReLU", BIG)], predict),
+        ("bn_stats", "bn_train", "epilogue.py:424",
+         ttiming[("bn_stats", "bf16")], terrs[("bn_stats", "bf16", BIG)][1],
+         train),
     ]
+    for name, line in (("bn_bwd_sums", "epilogue.py:430"),
+                       ("bn_add_bwd_sums", "residual.py:112"),
+                       ("bn_bwd_dx", "epilogue.py:439"),
+                       ("bn_add_bwd_dx", "residual.py:121")):
+        spec.append((name, "bn_train", line, ttiming[(name, "bf16")],
+                     terrs[(name, "bf16", "ReLU", BIG)][1], train))
     rows = []
-    for name, cu, replaces, tkey, ekey in spec:
-        t = timing[tkey]
-        rows.append({"name": name, "route": "cuda", "source": src % cu,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": errs[ekey], "ms": t["ms"],
-                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": "bytes", "library_ms": t["library_ms"]})
+    for name, cu, replaces, t, err, launches in spec:
+        row = {"name": name, "route": "cuda", "source": src % cu,
+               "replaces": pallas + replaces, "launches": launches[name],
+               "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+               "bound_ms": t["bound_ms"],
+               "bound_by": t.get("bound_by", "bytes"),
+               "library_ms": t["library_ms"]}
+        if name in ("bn_act", "bn_add_act"):
+            row["launches_train_step"] = train[name]
+        rows.append(row)
     return rows
 
 

@@ -1,7 +1,10 @@
-"""CLI entry of the PyTorch port: eval over a VOC split, or a one-image
-demo when `--data` is an image file (ref main.py:32-37; reference
-main.py:9-17 and evaluate.py:245).
+"""CLI entry of the PyTorch port: training with `--train-flag`, else eval
+over a VOC split, or a one-image demo when `--data` is an image file
+(ref main.py:25-37; reference main.py:9-17, train.py:23 and
+evaluate.py:245).
 
+    python -m real_time_helmet_detection_tpu_torch --train-flag --data DIR \\
+        [--batch-size 16] [--amp] [--num-stack 1] [--device cpu]
     python -m real_time_helmet_detection_tpu_torch --data DIR|IMG \\
         --imsize 512 [--model-load w.npz] [--amp] [--device cpu]
 
@@ -22,7 +25,10 @@ def main(argv=None) -> None:
     if cfg.data is None:
         raise SystemExit("--data is required (a VOC root or an image file)")
     tic = time.time()
-    if os.path.isfile(cfg.data):
+    if cfg.train_flag:
+        from .train import train
+        train(cfg)
+    elif os.path.isfile(cfg.data):
         from .evaluate import demo
         demo(cfg)
     else:

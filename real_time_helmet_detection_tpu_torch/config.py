@@ -1,26 +1,30 @@
-"""Configuration of the PyTorch port's eval/predict path.
+"""Configuration of the PyTorch port's train and eval/predict paths.
 
-A dataclass copy of the JAX package's flags that this path reads
+A dataclass copy of the JAX package's flags that these paths read
 (ref real_time_helmet_detection_tpu/config.py:88 `Config`; reference
 config.py:139-169), with the same names and defaults, plus `--device`.
-Field name -> CLI flag: underscores become dashes.
+Field name -> CLI flag: underscores become dashes; list fields take
+several values (`--multiscale 320 512 64`).
 
 Values the port has not built yet raise `NotImplementedError` instead of
-running something else: NMS other than hard "nms" here; activations
-other than ReLU/Mish/Linear, pools other than Max/None, a neck pool
-other than None, variants other than "residual" and `--num-stack` < 1
-where the model is built (models/hourglass.py). The JAX flags that only
-choose between a kernel and its XLA composition (`--use-pallas`,
-`--epilogue`, `--block-fuse`) and `--infer-dtype` have no field: the
-port has one path, its kernels, and the parser refuses those flags.
+running something else: NMS other than hard "nms"; activations other
+than ReLU/Mish/Linear, pools other than Max/None, a neck pool other than
+None, variants other than "residual" and `--num-stack` < 1 where the
+model is built (models/hourglass.py); and the train options below whose
+value differs from the plain step (`--sub-divisions`, `--grad-accum`,
+`--remat`, `--param-policy`, `--ema-decay`, `--sentinel`, `--distill`,
+`--device-augment`, `--fwd-dtype`). The JAX flags that only choose
+between a kernel and its XLA composition (`--use-pallas`, `--epilogue`,
+`--block-fuse`, `--loss-kernel`) and `--infer-dtype` have no field: the
+port has one path, and the parser refuses those flags.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import List, Optional
 
 
 @dataclass
@@ -30,14 +34,53 @@ class Config:
     # plain versions (tests). cuda without a card raises.
     random_seed: int = 777
 
-    # data
+    # train
+    train_flag: bool = False
     data: Optional[str] = None
     batch_size: int = 16
+    start_epoch: int = 0
+    end_epoch: int = 100
+    num_workers: int = 8          # host data-pipeline worker threads
     save_path: str = "./WEIGHTS/"
     print_interval: int = 100
 
-    # precision: bf16 weights and activations, float32 BN fold + output
+    # precision: bf16 activations (conv weights cast at each call),
+    # float32 parameters, BN statistics and output
     amp: bool = False
+
+    # augmentation
+    crop_percent: List[float] = field(default_factory=lambda: [0.0, 0.1])
+    color_multiply: List[float] = field(default_factory=lambda: [1.2, 1.5])
+    translate_percent: float = 0.1
+    affine_scale: List[float] = field(default_factory=lambda: [0.5, 1.5])
+    multiscale_flag: bool = False
+    multiscale: List[int] = field(default_factory=lambda: [320, 512, 64])
+
+    # loss
+    hm_weight: float = 1.0
+    offset_weight: float = 1.0
+    size_weight: float = 0.1
+    focal_alpha: float = 2.0
+    focal_beta: float = 4.0
+
+    # optimization
+    lr: float = 5e-4
+    optim: str = "Adam"
+    lr_milestone: List[int] = field(default_factory=lambda: [50, 90])
+    lr_gamma: float = 0.1
+    max_boxes: int = 128          # per-image GT padding for encode
+
+    # train options of the JAX package that the port has not built: any
+    # value but the default raises (see __post_init__)
+    sub_divisions: int = 1
+    grad_accum: int = 1
+    remat: str = "none"
+    param_policy: str = "fp32"
+    ema_decay: float = 0.0
+    sentinel: bool = False
+    distill: Optional[str] = None
+    device_augment: bool = False
+    fwd_dtype: str = "bf16"
 
     # evaluation, demo
     imsize: Optional[int] = None
@@ -45,7 +88,8 @@ class Config:
     conf_th: float = 0.0
     nms_th: float = 0.5
     pool_size: int = 3
-    model_load: Optional[str] = None  # npz of the flax variable tree
+    model_load: Optional[str] = None  # npz of the flax variable tree, or
+    # (train) a port checkpoint to resume
     nms: str = "nms"
     fontsize: int = 10
 
@@ -69,9 +113,19 @@ class Config:
             if value not in allowed:
                 raise NotImplementedError(
                     "--%s %r is not ported yet (have %s)"
-                    % (flag, value, ", ".join(allowed)))
+                    % (flag, value, ", ".join(map(str, allowed))))
 
         only("nms", self.nms, ("nms",))
+        only("sub-divisions", self.sub_divisions, (1,))
+        only("grad-accum", self.grad_accum, (1,))
+        only("remat", self.remat, ("none",))
+        only("param-policy", self.param_policy, ("fp32",))
+        only("ema-decay", self.ema_decay, (0.0,))
+        only("sentinel", self.sentinel, (False,))
+        only("distill", self.distill, (None,))
+        only("device-augment", self.device_augment, (False,))
+        only("fwd-dtype", self.fwd_dtype, ("bf16",))
+        only("optim", self.optim.lower(), ("adam", "adamw", "sgd"))
         if self.scale_factor != 4:
             raise ValueError("--scale-factor must be 4: the stem's 4x "
                              "downsample is structural")
@@ -81,23 +135,32 @@ class Config:
         if self.pool_size % 2 != 1 or self.pool_size < 1:
             raise ValueError("--pool-size must be odd and >= 1, got %d"
                              % self.pool_size)
+        if len(self.multiscale) != 3 or self.multiscale[2] <= 0:
+            raise ValueError("--multiscale takes MIN MAX STEP with STEP > 0, "
+                             "got %r" % (self.multiscale,))
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m real_time_helmet_detection_tpu_torch",
-        description="Helmet detection eval/demo, PyTorch port")
+        description="Helmet detection train/eval/demo, PyTorch port")
     for f in dataclasses.fields(Config):
         flag = "--" + f.name.replace("_", "-")
+        default = (f.default_factory()
+                   if f.default_factory is not dataclasses.MISSING
+                   else f.default)
         if f.type in ("bool", bool):
             parser.add_argument(flag, action=argparse.BooleanOptionalAction,
-                                default=f.default)
+                                default=default)
+        elif f.type.startswith("List["):
+            elem = {"List[int]": int, "List[float]": float}[f.type]
+            parser.add_argument(flag, type=elem, nargs="+", default=default)
         elif f.type == "Optional[int]":
-            parser.add_argument(flag, type=int, default=f.default)
+            parser.add_argument(flag, type=int, default=default)
         elif f.type == "Optional[str]":
-            parser.add_argument(flag, type=str, default=f.default)
+            parser.add_argument(flag, type=str, default=default)
         else:
-            parser.add_argument(flag, type=type(f.default), default=f.default)
+            parser.add_argument(flag, type=type(default), default=default)
     return parser
 
 

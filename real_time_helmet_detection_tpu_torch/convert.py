@@ -12,6 +12,8 @@ flax module path maps one to one onto a torch state-dict key:
         -> .../BatchNorm_0.{running_mean, running_var}
 
 Flax keeps the biased batch variance; eval uses it as is.
+`state_dict_to_flax` is the inverse, so a port checkpoint also writes
+the flax-shaped npz that `--model-load` reads.
 
 The port's `--model-load` format is an `.npz` of the flattened tree
 (`save_npz`/`load_npz`, keys like `params/PreLayer_0/.../kernel`): an
@@ -84,6 +86,31 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
                 raise KeyError("two flax leaves map to %s" % key)
             state[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return state
+
+
+def state_dict_to_flax(state: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse bridge: a state dict of the port's `StackedHourglass`
+    -> {"params": ..., "batch_stats": ...} nested float32 numpy dicts
+    under the flax module paths (OIHW -> HWIO), the tree `save_npz`
+    writes and `flax_to_state_dict` reads back."""
+    inverse = {name: key for key, name in _LEAF.items()}
+    flat: Dict[str, np.ndarray] = {}
+    for key, value in state.items():
+        *modules, name = key.split(".")
+        arr = value.detach().float().cpu().numpy()
+        if name == "weight":
+            leaf = ("params", "kernel") if arr.ndim == 4 else \
+                ("params", "scale")
+        elif name in ("bias", "running_mean", "running_var"):
+            leaf = inverse[name]
+        else:
+            raise KeyError("no flax counterpart for state-dict entry %s"
+                           % key)
+        if leaf[1] == "kernel":
+            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        flat["/".join([leaf[0]] + modules + [leaf[1]])] = \
+            np.ascontiguousarray(arr)
+    return unflatten_tree(flat)
 
 
 def save_npz(path: str, variables: Mapping) -> None:

@@ -1,6 +1,6 @@
-// Helpers shared by the pointwise BN epilogue kernels (epilogue.cu,
-// residual.cu): element load/store in f32 math for f32 or bf16 storage,
-// and the three activations the port supports.
+// Helpers shared by the BN kernels (epilogue.cu, residual.cu,
+// bn_train.cu): element load/store in f32 math for f32 or bf16 storage,
+// the three activations the port supports and their derivatives.
 //
 // Rounding rule: every product and sum goes through the __f*_rn
 // intrinsics, so nvcc cannot contract `x * a + b` into one FMA. The plain
@@ -35,6 +35,22 @@ __device__ __forceinline__ float activate(float z) {
   if (ACT == kReLU) return z < 0.f ? 0.f : z;  // NaN propagates
   if (ACT == kMish) return __fmul_rn(z, tanhf(log1pf(expf(z))));
   return z;
+}
+
+// d act(z) / dz, recomputed from z (ref ops/pallas/epilogue.py:109
+// `_act_grad`): ReLU is 0 at the tie z == 0; Mish is
+// t + z * (1 - t^2) * sigmoid(z) with t = tanh(softplus(z)) and sigmoid
+// as ATen computes it, 1 / (1 + exp(-z)).
+template <int ACT>
+__device__ __forceinline__ float activate_grad(float z) {
+  if (ACT == kReLU) return z > 0.f ? 1.f : 0.f;
+  if (ACT == kMish) {
+    const float t = tanhf(log1pf(expf(z)));
+    const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-z)));
+    return __fadd_rn(
+        t, __fmul_rn(__fmul_rn(z, __fsub_rn(1.f, __fmul_rn(t, t))), sig));
+  }
+  return 1.f;
 }
 
 // Blocks for a grid-stride loop over n elements: enough to fill 132 SMs

@@ -7,6 +7,9 @@ dataset (JPEGImages / Annotations / ImageSets/Main) whose objects are
 opaque non-overlapping rectangles on dark noise, drawn from the same
 numpy generator calls, so one seed gives the same files as the JAX
 package's generator. Every file is written atomically.
+
+`synthetic_target_batch` makes a random batch that is already encoded,
+for train-step tests and the chip smoke run.
 """
 
 from __future__ import annotations
@@ -96,3 +99,20 @@ def make_synthetic_voc(root: str, num_train: int = 8, num_test: int = 4,
         atomic_write_bytes(os.path.join(set_dir, split + ".txt"),
                            ("\n".join(names) + "\n").encode())
     return root
+
+
+def synthetic_target_batch(batch: int, imsize: int, num_cls: int = 2,
+                           scale_factor: int = 4, seed: int = 0,
+                           pos_rate: float = 0.05):
+    """Random (image, heatmap, offset, wh, mask) batch with the train
+    step's input contract (channels-last, encoded-map shapes at
+    imsize/scale), from the same generator calls as ref
+    data/synthetic.py:278 `synthetic_target_batch`."""
+    m = imsize // scale_factor
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((batch, imsize, imsize, 3)).astype(np.float32),
+            rng.uniform(0, 1, (batch, m, m, num_cls)).astype(np.float32),
+            rng.uniform(0, 1, (batch, m, m, 2)).astype(np.float32),
+            rng.uniform(1, 8, (batch, m, m, 2)).astype(np.float32),
+            (rng.uniform(0, 1, (batch, m, m, 1)) < pos_rate
+             ).astype(np.float32))

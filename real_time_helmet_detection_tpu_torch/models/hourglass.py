@@ -1,4 +1,4 @@
-"""Stacked-hourglass CenterNet detector in PyTorch, eval forward.
+"""Stacked-hourglass CenterNet detector in PyTorch, train and eval.
 
 Port of ref models/hourglass.py:877 `StackedHourglass` (reference
 hourglass.py:198-237) and its blocks: `Convolution` (hourglass.py:443),
@@ -9,25 +9,32 @@ hourglass.py:198-237) and its blocks: `Convolution` (hourglass.py:443),
   `Conv_0`, `BatchNorm_0`, ...), so a state dict's keys mirror the flax
   module paths and `convert.py` fills every leaf under
   `load_state_dict(strict=True)`.
-* Every BatchNorm runs in eval form: the running statistics fold into a
+* Every BatchNorm runs through the hand-written BN kernels — the TPU
+  program's `--epilogue fused --block-fuse fused`; the port has no other
+  BN path. In eval (`model.eval()`) the running statistics fold into a
   per-channel f32 affine (`eff_scale = gamma * rsqrt(var + eps)`,
-  `eff_bias = beta - mean * eff_scale`, hourglass.py:387-390), which
-  feeds the hand-written epilogue (`ops.epilogue.bn_act`) after every BN'd
-  conv, and the residual tail (`ops.residual.bn_add_act`) at the end of
-  every Residual block — the TPU program's `--epilogue fused
-  --block-fuse fused`. The port has no other BN path.
+  `eff_bias = beta - mean * eff_scale`, hourglass.py:387-390) feeding
+  the epilogue (`ops.epilogue.bn_act`) after every BN'd conv and the
+  residual tail (`ops.residual.bn_add_act`) at the end of every Residual
+  block. In train (`model.train()`) the same sites run
+  `bn_act_train`/`bn_add_act_train` with batch moments and update the
+  running buffers as flax does (hourglass.py:367-384, :426-436): momentum
+  0.9, the biased variance, no gradient.
 * Activations are NCHW tensors in `torch.channels_last` memory format
   (physically NHWC, what the kernels read and cuDNN prefers). The public
   contract is the JAX one: images (B, H, W, 3) in, logits
   (B, S, H/4, W/4, C+4) float32 out.
+* Precision follows the JAX fp32 param policy: parameters stay float32
+  and every conv casts its weight and bias to its input's dtype at each
+  call (bf16 under --amp), so gradients and optimizer state stay
+  float32. Eval may cast the conv weights once (`cast_convs`); the
+  per-call cast is then a no-op.
 * Padding is the reference's symmetric (k-1)//2; the 2x upsample is
   exact nearest.
 * Quirks kept from the JAX model: the PreLayer and Neck Residual blocks
   always use ReLU (their `Residual` is built without the activation
   argument, hourglass.py:829-832, :861), and the Neck conv has a bias
   before its BN (hourglass.py:859).
-
-Train-mode BN (batch statistics) is not ported yet.
 """
 
 from __future__ import annotations
@@ -48,11 +55,13 @@ VARIANTS = ("residual",)
 class BatchNorm(nn.Module):
     """flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5)` state in torch
     names: weight (scale), bias, running_mean, running_var (the biased
-    variance flax keeps, used as is)."""
+    variance flax keeps, used as is), fused with the activation that
+    follows it and, given a skip, the residual add before it."""
 
-    def __init__(self, ch: int, eps: float = 1e-5):
+    def __init__(self, ch: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
@@ -63,10 +72,33 @@ class BatchNorm(nn.Module):
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         return scale, self.bias - self.running_mean * scale
 
+    def forward(self, y: torch.Tensor, activation: str,
+                skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """act(BN(y) (+ skip)): batch moments in train mode (the running
+        buffers take flax's momentum update), running statistics in eval
+        (ref hourglass.py:367-390, :426-440)."""
+        if not self.training:
+            a, b = self.folded()
+            if skip is None:
+                return epilogue.bn_act(y, a, b, activation)
+            return residual.bn_add_act(y, a, b, skip, activation)
+        if skip is None:
+            out, mean, var = epilogue.bn_act_train(
+                y, self.weight, self.bias, activation, self.eps)
+        else:
+            out, mean, var = residual.bn_add_act_train(
+                y, self.weight, self.bias, skip, activation, self.eps)
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        return out
+
 
 class Convolution(nn.Module):
     """Conv -> optional BN + activation (ref hourglass.py:443-561). With
-    `skip`, the BN feeds the residual tail: act(BN(conv(x)) + skip)."""
+    `skip`, the BN feeds the residual tail: act(BN(conv(x)) + skip). The
+    conv's weight and bias are cast to the input's dtype at each call."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, use_bias: bool = True, bn: bool = False,
@@ -88,13 +120,13 @@ class Convolution(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 skip: Optional[torch.Tensor] = None) -> torch.Tensor:
-        y = self.Conv_0(x)
+        conv = self.Conv_0
+        bias = None if conv.bias is None else conv.bias.to(x.dtype)
+        y = F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride,
+                     conv.padding)
         if not self.bn:
             return y
-        a, b = self.BatchNorm_0.folded()
-        if skip is None:
-            return epilogue.bn_act(y, a, b, self.activation)
-        return residual.bn_add_act(y, a, b, skip, self.activation)
+        return self.BatchNorm_0(y, self.activation, skip)
 
 
 class Residual(nn.Module):
@@ -226,8 +258,8 @@ class StackedHourglass(nn.Module):
     merge(prediction)` between stacks. images (B, H, W, 3) ->
     (B, S, H/4, W/4, out_ch) float32 raw logits.
 
-    `dtype` is the compute dtype (None = the weights' float32; bfloat16
-    under --amp, with the conv weights cast once by `cast_convs`)."""
+    `dtype` is the compute dtype (None = float32; bfloat16 under --amp,
+    with float32 parameters cast at each conv call)."""
 
     def __init__(self, num_stack: int = 1, in_ch: int = 128, out_ch: int = 6,
                  increase_ch: int = 0, activation: str = "ReLU",
@@ -280,9 +312,9 @@ class StackedHourglass(nn.Module):
 
 
 def cast_convs(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast every conv's weight and bias to the compute dtype, once; the
-    BatchNorm state stays float32 (the JAX policy: params f32, compute
-    bf16, the BN fold in f32)."""
+    """Cast every conv's weight and bias to the compute dtype, once, for
+    eval; the BatchNorm state stays float32 (the BN fold is f32). Never
+    for training: the optimizer must update float32 weights."""
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             m.to(dtype)

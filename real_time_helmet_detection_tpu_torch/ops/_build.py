@@ -46,6 +46,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "epilogue": {"helmet_bn_act": (_P, _P, _P, _P, _L, _I, _I, _I, _P)},
     "residual": {"helmet_bn_add_act": (_P, _P, _P, _P, _P, _L, _I, _I, _I,
                                        _P)},
+    "bn_train": {
+        "helmet_bn_stats": (_P, _P, _P, _L, _I, _I, _I, _P),
+        "helmet_bn_bwd_sums": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                               _I, _P),
+        "helmet_bn_bwd_dx": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
+                             _I, _P),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

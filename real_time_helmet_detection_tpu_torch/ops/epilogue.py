@@ -1,25 +1,41 @@
-"""Eval BatchNorm + activation epilogue: `act(x * eff_scale + eff_bias)`.
+"""BatchNorm + activation epilogue, eval and train.
 
-Port of the eval forward of ref ops/pallas/epilogue.py:481
-`fused_bn_act` (its Pallas `_fwd_kernel`, epilogue.py:138). Every BN'd
-conv of the detector ends here with the running statistics folded into
-a per-channel affine (`eff_scale = gamma * rsqrt(var + eps)`,
-`eff_bias = beta - mean * eff_scale`, ref models/hourglass.py:387-390).
+Eval: `act(x * eff_scale + eff_bias)`, the port of the eval forward of
+ref ops/pallas/epilogue.py:481 `fused_bn_act` (its Pallas `_fwd_kernel`,
+epilogue.py:138). Every BN'd conv of the detector ends here with the
+running statistics folded into a per-channel affine (`eff_scale = gamma
+* rsqrt(var + eps)`, `eff_bias = beta - mean * eff_scale`, ref
+models/hourglass.py:387-390).
 
-* `bn_act` is the wrapper: for a CUDA tensor it launches the hand-written
-  kernel `csrc/epilogue.cu` or raises; for a CPU tensor it runs the plain
-  version. There is no fallback from one to the other.
-* `bn_act_reference` is the plain PyTorch version: the same f32
-  arithmetic as the kernel, one eager op per step.
-* `launches` counts kernel launches (never plain-version calls).
+Train: `bn_act_train`, the port of ref ops/pallas/epilogue.py:235
+`_make_fused_train` — batch moments, the same pointwise pass with the
+batch-moment affine, and the analytic BN backward (S1/S2 channel sums,
+then one `dx = a*dz - k2*x - k1` pass), as a `torch.autograd.Function`.
+Its three passes are the kernels of `csrc/bn_train.cu` (ref
+epilogue.py:424 `_stats_kernel`, :430 `_bwd_sums_kernel`, :439
+`_bwd_dx_kernel`); `ops/residual.py` runs the same kernels with a skip
+operand.
+
+* Every wrapper (`bn_act`, `bn_stats`, `bn_bwd_sums`, `bn_bwd_dx`)
+  launches its hand-written kernel for a CUDA tensor or raises, and runs
+  its plain version for a CPU tensor. There is no fallback from one to
+  the other.
+* `*_reference` are the plain PyTorch versions: the same f32 arithmetic
+  as the kernels, one eager op per step.
+* The module counters (`launches`, `stats_launches`, ...) count kernel
+  launches, never plain-version calls; `grad_conversions` counts the
+  backward gradients that arrived in another layout than channels-last
+  and were copied into it.
 
 Layout: x is an NCHW tensor in `torch.channels_last` memory format, whose
-storage is the (N*H*W, C) row-major block the TPU kernel tiled
-(ref ops/pallas/epilogue.py:506-510) — the kernel reads it as is, with
+storage is the (N*H*W, C) row-major block the TPU kernels tiled
+(ref ops/pallas/epilogue.py:506-510) — the kernels read it as is, with
 no copy. Anything else raises.
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -28,8 +44,13 @@ from . import _build
 ACTIVATIONS = ("ReLU", "Mish", "Linear")
 _ACT_CODE = {"ReLU": 0, "Mish": 1, "Linear": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_SMS = 132  # streaming multiprocessors of the H100
 
 launches = 0
+stats_launches = 0
+bwd_sums_launches = 0
+bwd_dx_launches = 0
+grad_conversions = 0
 
 
 def activate(z: torch.Tensor, activation: str) -> torch.Tensor:
@@ -40,6 +61,21 @@ def activate(z: torch.Tensor, activation: str) -> torch.Tensor:
         return z * torch.tanh(torch.log1p(torch.exp(z)))
     if activation == "Linear":
         return z
+    raise NotImplementedError("activation %r is not ported (have %s)"
+                              % (activation, ACTIVATIONS))
+
+
+def activate_grad(z: torch.Tensor, activation: str) -> torch.Tensor:
+    """d act(z)/dz recomputed from z (ref ops/pallas/epilogue.py:109):
+    ReLU 0 at the tie; Mish with sigmoid written as 1 / (1 + exp(-z)),
+    as the kernel computes it."""
+    if activation == "ReLU":
+        return (z > 0.0).to(z.dtype)
+    if activation == "Mish":
+        t = torch.tanh(torch.log1p(torch.exp(z)))
+        return t + z * (1.0 - t * t) * (1.0 / (1.0 + torch.exp(-z)))
+    if activation == "Linear":
+        return torch.ones_like(z)
     raise NotImplementedError("activation %r is not ported (have %s)"
                               % (activation, ACTIVATIONS))
 
@@ -63,10 +99,11 @@ def check_layout(name: str, x: torch.Tensor, like: torch.Tensor = None) -> None:
                             tuple(x.shape), x.dtype, x.device))
 
 
-def check_affine(x: torch.Tensor, eff_scale: torch.Tensor,
-                 eff_bias: torch.Tensor) -> None:
+def check_vectors(x: torch.Tensor, **vectors: torch.Tensor) -> None:
+    """Raise unless every named vector is a contiguous (C,) float32
+    tensor on x's device."""
     c = x.shape[1]
-    for name, v in (("eff_scale", eff_scale), ("eff_bias", eff_bias)):
+    for name, v in vectors.items():
         if v.shape != (c,) or v.dtype != torch.float32 \
                 or v.device != x.device or not v.is_contiguous():
             raise ValueError("%s must be a contiguous (%d,) float32 tensor "
@@ -81,29 +118,47 @@ def check_activation(activation: str) -> None:
                                   % (activation, ACTIVATIONS))
 
 
+def check_cuda(what: str, x: torch.Tensor) -> None:
+    """Raise unless x lies on a CUDA card: the wrappers run their plain
+    versions for CPU tensors only."""
+    if x.device.type != "cuda":
+        raise ValueError("%s runs on cuda or cpu, got %s" % (what, x.device))
+
+
+def _channel_vec(v: torch.Tensor) -> torch.Tensor:
+    return v.view(1, -1, 1, 1)
+
+
+def _rows2d(t: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) channels-last -> its (N*H*W, C) block, no copy."""
+    return t.permute(0, 2, 3, 1).reshape(-1, t.shape[1])
+
+
+def _channels_last(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous(memory_format=torch.channels_last)
+
+
 def bn_act_reference(x: torch.Tensor, eff_scale: torch.Tensor,
                      eff_bias: torch.Tensor, activation: str) -> torch.Tensor:
     """Plain PyTorch version: f32 math, result in x's dtype and layout."""
-    c = x.shape[1]
-    z = x.float() * eff_scale.view(1, c, 1, 1) + eff_bias.view(1, c, 1, 1)
-    return activate(z, activation).to(x.dtype).contiguous(
-        memory_format=torch.channels_last)
+    z = x.float() * _channel_vec(eff_scale) + _channel_vec(eff_bias)
+    return _channels_last(activate(z, activation).to(x.dtype))
 
 
 def bn_act(x: torch.Tensor, eff_scale: torch.Tensor, eff_bias: torch.Tensor,
            activation: str) -> torch.Tensor:
-    """`act(x * eff_scale + eff_bias)` per channel, eval forward only.
+    """`act(x * eff_scale + eff_bias)` per channel, the forward pass of
+    eval and train.
 
     x: (N, C, H, W) channels-last, float32 or bfloat16; eff_scale and
     eff_bias: (C,) float32. Returns a new tensor like x."""
     global launches
     check_activation(activation)
     check_layout("x", x)
-    check_affine(x, eff_scale, eff_bias)
+    check_vectors(x, eff_scale=eff_scale, eff_bias=eff_bias)
     if x.device.type == "cpu":
         return bn_act_reference(x, eff_scale, eff_bias, activation)
-    if x.device.type != "cuda":
-        raise ValueError("bn_act runs on cuda or cpu, got %s" % x.device)
+    check_cuda("bn_act", x)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
@@ -116,3 +171,240 @@ def bn_act(x: torch.Tensor, eff_scale: torch.Tensor, eff_bias: torch.Tensor,
     _build.check(err, "bn_act")
     launches += 1
     return out
+
+
+# ------------------------------------------------------------- train passes
+
+
+def reduction_blocks(rows: int) -> int:
+    """Blocks of the two-stage reductions of csrc/bn_train.cu: 64 rows a
+    block or more, at most 8 blocks per SM."""
+    return max(1, min(-(-rows // 64), 8 * _SMS))
+
+
+def _check_pairs(what: str, *tensors: torch.Tensor) -> None:
+    """The train kernels read channel pairs (one bf16x2 / float2 load)."""
+    for t in tensors:
+        if t.shape[1] % 2 or t.data_ptr() % (2 * t.element_size()):
+            raise ValueError("%s reads channel pairs: C must be even and the "
+                             "data aligned to two elements, got C=%d at %#x"
+                             % (what, t.shape[1], t.data_ptr()))
+
+
+def _check_bwd(x, a, b, g, activation, skip=None, **more) -> None:
+    check_activation(activation)
+    check_layout("x", x)
+    check_layout("g", g, like=x)
+    if skip is not None:
+        check_layout("skip", skip, like=x)
+    check_vectors(x, a=a, b=b, **more)
+
+
+def bn_stats_reference(x: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of `bn_stats`: one (1, C) partial each."""
+    x2 = _rows2d(x.float())
+    return x2.sum(0, keepdim=True), (x2 * x2).sum(0, keepdim=True)
+
+
+def bn_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel partial sums of x and x^2: two (nblocks, C) float32
+    tensors whose column sums are the totals (ref epilogue.py:424).
+
+    x: (N, C, H, W) channels-last, float32 or bfloat16."""
+    global stats_launches
+    check_layout("x", x)
+    if x.device.type == "cpu":
+        return bn_stats_reference(x)
+    check_cuda("bn_stats", x)
+    rows, c = x.numel() // x.shape[1], x.shape[1]
+    nb = reduction_blocks(rows)
+    part = torch.zeros((2, nb, c), device=x.device, dtype=torch.float32)
+    if rows == 0:
+        return part[0], part[1]
+    _check_pairs("bn_stats", x)
+    lib = _build.load("bn_train")
+    err = lib.helmet_bn_stats(x.data_ptr(), part[0].data_ptr(),
+                              part[1].data_ptr(), rows, c, nb,
+                              _DTYPE_CODE[x.dtype],
+                              _build.stream_handle(x.device))
+    _build.check(err, "bn_stats")
+    stats_launches += 1
+    return part[0], part[1]
+
+
+def _dz_reference(x, a, b, g, activation, skip):
+    z = x.float() * _channel_vec(a) + _channel_vec(b)
+    if skip is not None:
+        z = z + skip.float()
+    return g.float() * activate_grad(z, activation)
+
+
+def bn_bwd_sums_reference(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                          g: torch.Tensor, activation: str,
+                          skip: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the sums pass (with or without the skip):
+    one (1, C) partial each of S1 = sum(dz) and S2 = sum(dz * x)."""
+    dz2 = _rows2d(_dz_reference(x, a, b, g, activation, skip))
+    x2 = _rows2d(x.float())
+    return dz2.sum(0, keepdim=True), (dz2 * x2).sum(0, keepdim=True)
+
+
+def bn_bwd_dx_reference(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                        g: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
+                        activation: str, skip: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch version of the dx pass: (dx = a*dz - k2*x - k1 in
+    x's dtype, ds = dz in the skip's dtype or None)."""
+    dz = _dz_reference(x, a, b, g, activation, skip)
+    dx = _channel_vec(a) * dz - _channel_vec(k2) * x.float() \
+        - _channel_vec(k1)
+    ds = None if skip is None else _channels_last(dz.to(skip.dtype))
+    return _channels_last(dx.to(x.dtype)), ds
+
+
+def launch_bwd_sums(x, a, b, g, activation, skip=None):
+    """Launch csrc/bn_train.cu's sums kernel (the skip variant when `skip`
+    is given) on CUDA tensors; returns (s1 partials, s2 partials,
+    launched). The callers count the launch."""
+    check_cuda("bn_bwd_sums", x)
+    rows, c = x.numel() // x.shape[1], x.shape[1]
+    nb = reduction_blocks(rows)
+    part = torch.zeros((2, nb, c), device=x.device, dtype=torch.float32)
+    if rows == 0:
+        return part[0], part[1], False
+    operands = (x, g) if skip is None else (x, g, skip)
+    _check_pairs("bn_bwd_sums", *operands)
+    lib = _build.load("bn_train")
+    err = lib.helmet_bn_bwd_sums(
+        x.data_ptr(), None if skip is None else skip.data_ptr(),
+        g.data_ptr(), a.data_ptr(), b.data_ptr(), part[0].data_ptr(),
+        part[1].data_ptr(), rows, c, nb, _DTYPE_CODE[x.dtype],
+        _ACT_CODE[activation], _build.stream_handle(x.device))
+    _build.check(err, "bn_bwd_sums")
+    return part[0], part[1], True
+
+
+def launch_bwd_dx(x, a, b, g, k1, k2, activation, skip=None):
+    """Launch csrc/bn_train.cu's dx kernel on CUDA tensors; returns
+    (dx, ds or None, launched)."""
+    check_cuda("bn_bwd_dx", x)
+    dx = torch.empty_like(x)
+    ds = None if skip is None else torch.empty_like(skip)
+    if x.numel() == 0:
+        return dx, ds, False
+    operands = (x, g, dx) if skip is None else (x, g, dx, skip, ds)
+    _check_pairs("bn_bwd_dx", *operands)
+    lib = _build.load("bn_train")
+    err = lib.helmet_bn_bwd_dx(
+        x.data_ptr(), None if skip is None else skip.data_ptr(),
+        g.data_ptr(), a.data_ptr(), b.data_ptr(), k1.data_ptr(),
+        k2.data_ptr(), dx.data_ptr(), None if ds is None else ds.data_ptr(),
+        x.numel() // x.shape[1], x.shape[1], _DTYPE_CODE[x.dtype],
+        _ACT_CODE[activation], _build.stream_handle(x.device))
+    _build.check(err, "bn_bwd_dx")
+    return dx, ds, True
+
+
+def bn_bwd_sums(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                g: torch.Tensor, activation: str
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Partials of S1 = sum(dz) and S2 = sum(dz * x) per channel, with
+    dz = g * act'(x * a + b) recomputed (ref epilogue.py:430)."""
+    global bwd_sums_launches
+    _check_bwd(x, a, b, g, activation)
+    if x.device.type == "cpu":
+        return bn_bwd_sums_reference(x, a, b, g, activation)
+    s1, s2, launched = launch_bwd_sums(x, a, b, g, activation)
+    bwd_sums_launches += launched
+    return s1, s2
+
+
+def bn_bwd_dx(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+              g: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
+              activation: str) -> torch.Tensor:
+    """dx = a*dz - k2*x - k1 in x's dtype (ref epilogue.py:439)."""
+    global bwd_dx_launches
+    _check_bwd(x, a, b, g, activation, k1=k1, k2=k2)
+    if x.device.type == "cpu":
+        return bn_bwd_dx_reference(x, a, b, g, k1, k2, activation)[0]
+    dx, _, launched = launch_bwd_dx(x, a, b, g, k1, k2, activation)
+    bwd_dx_launches += launched
+    return dx
+
+
+class Passes(NamedTuple):
+    """The pointwise forward and the two backward passes of one train
+    BN family, with the activation bound; each takes the skip operand
+    (None for the epilogue)."""
+    forward: Callable  # (x, a, b, skip) -> out
+    sums: Callable     # (x, a, b, g, skip) -> (s1 partials, s2 partials)
+    dx: Callable       # (x, a, b, g, k1, k2, skip) -> (dx, ds or None)
+
+
+class BNTrain(torch.autograd.Function):
+    """Train-mode BN + activation (+ skip), ref ops/pallas/epilogue.py:235
+    `_make_fused_train` and residual.py:219 `_make_fused_add_train`.
+
+    Forward: batch moments of x alone (the skip never enters them),
+    mean and the biased variance max(E[x^2] - mean^2, 0), then the
+    pointwise pass with a = gamma * rsqrt(var + eps), b = beta - mean*a.
+
+    Backward, the JAX formulas exactly (epilogue.py:353-388): r2 =
+    1/(var+eps), a = gamma*sqrt(r2); the sums pass gives S1, S2; dgamma =
+    sqrt(r2)*(S2 - mean*S1), dbeta = S1, k2 = a*(S2 - mean*S1)*r2/N,
+    k1 = a*S1/N - k2*mean; the dx pass writes a*dz - k2*x - k1 (and
+    ds = dz). (mean, var) feed only the running statistics and are not
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, skip, eps, passes):
+        s_part, ss_part = bn_stats(x)
+        count = x.numel() // x.shape[1]
+        mean = s_part.sum(0) / count
+        var = torch.clamp_min(ss_part.sum(0) / count - mean * mean, 0.0)
+        a = gamma * torch.rsqrt(var + eps)
+        out = passes.forward(x, a, beta - mean * a, skip)
+        ctx.save_for_backward(x, gamma, beta, skip, mean, var)
+        ctx.eps, ctx.passes = eps, passes
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, g, _g_mean, _g_var):
+        global grad_conversions
+        x, gamma, beta, skip, mean, var = ctx.saved_tensors
+        if not g.is_contiguous(memory_format=torch.channels_last):
+            g = _channels_last(g)
+            grad_conversions += 1
+        count = x.numel() // x.shape[1]
+        r2 = 1.0 / (var + ctx.eps)
+        sr2 = torch.sqrt(r2)
+        a = gamma * sr2
+        b = beta - mean * a
+        s1_part, s2_part = ctx.passes.sums(x, a, b, g, skip)
+        s1, s2 = s1_part.sum(0), s2_part.sum(0)
+        ctr = s2 - mean * s1
+        k2 = a * ctr * r2 / count
+        k1 = a * s1 / count - k2 * mean
+        dx, ds = ctx.passes.dx(x, a, b, g, k1, k2, skip)
+        return dx, sr2 * ctr, s1, ds, None, None
+
+
+def bn_act_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                 activation: str, eps: float = 1e-5):
+    """Train-mode BatchNorm + activation with the analytic backward.
+    Returns `(out, mean, var)`: out like x; mean and the biased var, (C,)
+    float32 batch moments for the running statistics, not differentiable.
+
+    x: (N, C, H, W) channels-last, float32 or bfloat16; gamma, beta: (C,)
+    float32. Differentiable w.r.t. x, gamma and beta."""
+    check_activation(activation)
+    check_layout("x", x)
+    check_vectors(x, gamma=gamma, beta=beta)
+    return BNTrain.apply(x, gamma, beta, None, eps, Passes(
+        lambda x, a, b, skip: bn_act(x, a, b, activation),
+        lambda x, a, b, g, skip: bn_bwd_sums(x, a, b, g, activation),
+        lambda x, a, b, g, k1, k2, skip: (
+            bn_bwd_dx(x, a, b, g, k1, k2, activation), None)))

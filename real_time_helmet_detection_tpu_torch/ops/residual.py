@@ -1,30 +1,47 @@
-"""Eval residual-block tail: `act(y * eff_scale + eff_bias + skip)`.
+"""Residual-block tail: `act(y * eff_scale + eff_bias + skip)`, eval and
+train.
 
-Port of the eval forward of ref ops/pallas/residual.py:420
+Eval: the port of the eval forward of ref ops/pallas/residual.py:420
 `fused_bn_add_act` (its Pallas `_fwd_add_kernel`, residual.py:91): the
 last conv's BatchNorm (running statistics folded into a per-channel
 affine, ref models/hourglass.py:437-440), the skip-add and the block's
 closing activation in one pass.
 
-* `bn_add_act` launches `csrc/residual.cu` for CUDA tensors or raises,
-  and runs the plain version for CPU tensors — no fallback between them.
-* `bn_add_act_reference` is the plain PyTorch version, summed in the TPU
-  kernel's order: ((y * a) + b) + skip.
-* `launches` counts kernel launches.
+Train: `bn_add_act_train`, the port of ref ops/pallas/residual.py:219
+`_make_fused_add_train` — the epilogue's train family
+(`ops.epilogue.BNTrain`) with the skip: moments of y alone, the tail
+forward above with the batch-moment affine, and the analytic backward
+through the add, whose skip gradient is ds = dz. Its backward passes are
+the skip variants of the `csrc/bn_train.cu` kernels (ref residual.py:112
+`_bwd_add_sums_kernel`, :121 `_bwd_add_dx_kernel`).
 
-Layout is the epilogue's: channels-last NCHW tensors, read by the kernel
+* `bn_add_act`, `bn_add_bwd_sums` and `bn_add_bwd_dx` launch their CUDA
+  kernels for CUDA tensors or raise, and run the plain versions for CPU
+  tensors — no fallback between them.
+* `bn_add_act_reference` is the plain PyTorch version of the tail,
+  summed in the TPU kernel's order: ((y * a) + b) + skip.
+* `launches`, `bwd_sums_launches`, `bwd_dx_launches` count kernel
+  launches.
+
+Layout is the epilogue's: channels-last NCHW tensors, read by the kernels
 as (N*H*W, C) row-major blocks with no copy.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from . import _build
-from .epilogue import (_ACT_CODE, _DTYPE_CODE, activate, check_activation,
-                       check_affine, check_layout)
+from .epilogue import (_ACT_CODE, _DTYPE_CODE, BNTrain, Passes, _check_bwd,
+                       activate, bn_bwd_dx_reference, bn_bwd_sums_reference,
+                       check_activation, check_cuda, check_layout,
+                       check_vectors, launch_bwd_dx, launch_bwd_sums)
 
 launches = 0
+bwd_sums_launches = 0
+bwd_dx_launches = 0
 
 
 def bn_add_act_reference(y: torch.Tensor, eff_scale: torch.Tensor,
@@ -41,7 +58,7 @@ def bn_add_act_reference(y: torch.Tensor, eff_scale: torch.Tensor,
 def bn_add_act(y: torch.Tensor, eff_scale: torch.Tensor,
                eff_bias: torch.Tensor, skip: torch.Tensor,
                activation: str) -> torch.Tensor:
-    """Residual tail, eval forward only.
+    """Residual tail, the forward pass of eval and train.
 
     y, skip: (N, C, H, W) channels-last, same shape, dtype (float32 or
     bfloat16) and device; eff_scale, eff_bias: (C,) float32."""
@@ -49,11 +66,10 @@ def bn_add_act(y: torch.Tensor, eff_scale: torch.Tensor,
     check_activation(activation)
     check_layout("y", y)
     check_layout("skip", skip, like=y)
-    check_affine(y, eff_scale, eff_bias)
+    check_vectors(y, eff_scale=eff_scale, eff_bias=eff_bias)
     if y.device.type == "cpu":
         return bn_add_act_reference(y, eff_scale, eff_bias, skip, activation)
-    if y.device.type != "cuda":
-        raise ValueError("bn_add_act runs on cuda or cpu, got %s" % y.device)
+    check_cuda("bn_add_act", y)
     out = torch.empty_like(y)
     if y.numel() == 0:
         return out
@@ -66,3 +82,63 @@ def bn_add_act(y: torch.Tensor, eff_scale: torch.Tensor,
     _build.check(err, "bn_add_act")
     launches += 1
     return out
+
+
+def bn_add_bwd_sums_reference(y, a, b, skip, g, activation):
+    """Plain PyTorch version of `bn_add_bwd_sums`."""
+    return bn_bwd_sums_reference(y, a, b, g, activation, skip=skip)
+
+
+def bn_add_bwd_dx_reference(y, a, b, skip, g, k1, k2, activation):
+    """Plain PyTorch version of `bn_add_bwd_dx`."""
+    return bn_bwd_dx_reference(y, a, b, g, k1, k2, activation, skip=skip)
+
+
+def bn_add_bwd_sums(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                    skip: torch.Tensor, g: torch.Tensor, activation: str
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Partials of S1 = sum(dz) and S2 = sum(dz * y) per channel, with
+    dz = g * act'(y * a + b + skip) (ref residual.py:112)."""
+    global bwd_sums_launches
+    _check_bwd(y, a, b, g, activation, skip=skip)
+    if y.device.type == "cpu":
+        return bn_add_bwd_sums_reference(y, a, b, skip, g, activation)
+    s1, s2, launched = launch_bwd_sums(y, a, b, g, activation, skip=skip)
+    bwd_sums_launches += launched
+    return s1, s2
+
+
+def bn_add_bwd_dx(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                  skip: torch.Tensor, g: torch.Tensor, k1: torch.Tensor,
+                  k2: torch.Tensor, activation: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dy = a*dz - k2*y - k1 in y's dtype, ds = dz in the skip's dtype)
+    (ref residual.py:121)."""
+    global bwd_dx_launches
+    _check_bwd(y, a, b, g, activation, skip=skip, k1=k1, k2=k2)
+    if y.device.type == "cpu":
+        return bn_add_bwd_dx_reference(y, a, b, skip, g, k1, k2, activation)
+    dy, ds, launched = launch_bwd_dx(y, a, b, g, k1, k2, activation,
+                                     skip=skip)
+    bwd_dx_launches += launched
+    return dy, ds
+
+
+def bn_add_act_train(y: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor, skip: torch.Tensor,
+                     activation: str, eps: float = 1e-5):
+    """Train-mode residual tail: BatchNorm of y with batch moments, + skip,
+    activation, with the analytic backward through the add. Returns
+    `(out, mean, var)` as `ops.epilogue.bn_act_train` does.
+
+    Differentiable w.r.t. y, gamma, beta and skip."""
+    check_activation(activation)
+    check_layout("y", y)
+    check_layout("skip", skip, like=y)
+    check_vectors(y, gamma=gamma, beta=beta)
+    return BNTrain.apply(y, gamma, beta, skip, eps, Passes(
+        lambda y, a, b, skip: bn_add_act(y, a, b, skip, activation),
+        lambda y, a, b, g, skip: bn_add_bwd_sums(y, a, b, skip, g,
+                                                 activation),
+        lambda y, a, b, g, k1, k2, skip: bn_add_bwd_dx(
+            y, a, b, skip, g, k1, k2, activation)))

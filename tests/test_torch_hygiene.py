@@ -65,8 +65,32 @@ def test_port_files_exist():
     names = {os.path.relpath(p, REPO) for p in port_files()}
     for must in ("chip_smoke.py", PKG + "/predict.py", PKG + "/convert.py",
                  PKG + "/ops/peak.py", PKG + "/ops/epilogue.py",
-                 PKG + "/ops/residual.py", PKG + "/models/hourglass.py"):
+                 PKG + "/ops/residual.py", PKG + "/models/hourglass.py",
+                 PKG + "/train.py", PKG + "/optim.py", PKG + "/ops/loss.py",
+                 PKG + "/ops/encode.py", PKG + "/data/augment.py",
+                 PKG + "/data/pipeline.py"):
         assert must in names
+
+
+def test_every_cuda_source_has_its_c_signatures():
+    """Each csrc/*.cu is a library `_build` knows, and every `extern "C"`
+    entry in it is declared there with as many arguments as the source
+    takes (ctypes would otherwise pass a pointer as a 32-bit int)."""
+    import re
+
+    from real_time_helmet_detection_tpu_torch.ops import _build
+    sources = sorted(f[:-3] for f in os.listdir(_build.CSRC)
+                     if f.endswith(".cu"))
+    assert sources == sorted(_build.SIGNATURES)
+    assert "bn_train" in sources
+    for name in sources:
+        with open(os.path.join(_build.CSRC, name + ".cu")) as f:
+            text = f.read()
+        entries = {m.group(1): len(m.group(2).split(","))
+                   for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)',
+                                        text)}
+        assert entries == {fn: len(args) for fn, args
+                           in _build.SIGNATURES[name].items()}, name
 
 
 @pytest.mark.parametrize("path", port_files(),

@@ -6,8 +6,11 @@ tests. Run on a machine with an H100:
 
     python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu
 
-Rules: bit-equal for the peak test and the ReLU/Linear epilogue and
-residual tail; Mish within rtol 1e-6 in f32 and one bf16 ulp in bf16
+Rules: bit-equal for the peak test, the ReLU/Linear epilogue and
+residual tail and the ReLU/Linear train dx pass; Mish within rtol 1e-6
+in f32 and one bf16 ulp in bf16; the train reductions (batch moments,
+S1/S2) per channel within 1e-5 of the sum of the absolute values of
+their terms, the error bound of a float32 sum taken in another order
 (the same as chip_smoke.py).
 """
 
@@ -83,6 +86,105 @@ def test_peak_kernel_matches_plain(cuda, pool_size):
     got = peak.peak_scores(logits, 2, pool_size)
     assert peak.launches == before + 1
     _close(got, peak.peak_scores_reference(logits, 2, pool_size), "equal")
+
+
+def _rows(t):
+    return t.float().permute(0, 2, 3, 1).reshape(-1, t.shape[1])
+
+
+def _sums_close(parts, want_parts, terms):
+    """Column sums of two partial tensors agree within 1e-5 of the sum of
+    |terms| per channel."""
+    torch.cuda.synchronize()
+    got, want = parts.sum(0), want_parts.sum(0)
+    bound = 1e-5 * terms.abs().sum(0) + 1e-30
+    assert bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_stats_kernel_matches_plain(cuda, dtype):
+    x = _x((4, 128, 32, 32), dtype, cuda)
+    before = epilogue.stats_launches
+    s, ss = epilogue.bn_stats(x)
+    assert epilogue.stats_launches == before + 1
+    ws, wss = epilogue.bn_stats_reference(x)
+    xr = _rows(x)
+    _sums_close(s, ws, xr)
+    _sums_close(ss, wss, xr * xr)
+
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["ReLU", "Mish", "Linear"])
+def test_bn_backward_kernels_match_plain(cuda, dtype, act, skip):
+    shape = (4, 128, 32, 32)
+    x, g = _x(shape, dtype, cuda), _x(shape, dtype, cuda)
+    s = _x(shape, dtype, cuda) if skip else None
+    a = torch.rand(128, generator=cuda, device="cuda") + 0.5
+    b, k1, k2 = (torch.randn(128, generator=cuda, device="cuda") * 0.1
+                 for _ in range(3))
+    counters = (residual, "bwd_sums_launches", "bwd_dx_launches") if skip \
+        else (epilogue, "bwd_sums_launches", "bwd_dx_launches")
+    before = [getattr(counters[0], n) for n in counters[1:]]
+    if skip:
+        s1, s2 = residual.bn_add_bwd_sums(x, a, b, s, g, act)
+        dx, ds = residual.bn_add_bwd_dx(x, a, b, s, g, k1, k2, act)
+    else:
+        s1, s2 = epilogue.bn_bwd_sums(x, a, b, g, act)
+        dx, ds = epilogue.bn_bwd_dx(x, a, b, g, k1, k2, act), None
+    assert [getattr(counters[0], n) for n in counters[1:]] == [
+        n + 1 for n in before]
+    w1, w2 = epilogue.bn_bwd_sums_reference(x, a, b, g, act, skip=s)
+    wdx, wds = epilogue.bn_bwd_dx_reference(x, a, b, g, k1, k2, act, skip=s)
+    dz = _rows(epilogue._dz_reference(x, a, b, g, act, s))
+    _sums_close(s1, w1, dz)
+    _sums_close(s2, w2, dz * _rows(x))
+    _close(dx, wdx, act)
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    if skip:
+        _close(ds, wds, act)
+
+
+def test_small_train_step_card_matches_cpu(cuda, monkeypatch):
+    """One f32 train step (TF32 off) of a small model through the kernels
+    on the card against the CPU path: loss rtol 1e-5, every gradient
+    rtol 5e-3, atol 1e-4, the running statistics rtol 1e-3, atol 1e-5
+    (cuDNN and oneDNN sum convolutions in other orders).
+
+    The weights are seeded and cuDNN's algorithms deterministic: the f32
+    gradient of a narrow random network at batch 2 is sensitive to
+    summation order (a last-bit difference can flip a ReLU or max-pool
+    decision, and the BatchNorms behind spread that over their
+    channels), so for some weights even the card's plain path and the
+    CPU path, no kernel involved, differ beyond this pin."""
+    from real_time_helmet_detection_tpu_torch.config import Config
+    from real_time_helmet_detection_tpu_torch.data.synthetic import \
+        synthetic_target_batch
+    from real_time_helmet_detection_tpu_torch.evaluate import init_weights
+    from real_time_helmet_detection_tpu_torch.models.hourglass import \
+        build_model
+    from real_time_helmet_detection_tpu_torch.train import loss_fn
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = Config(device="cpu", hourglass_inch=16, batch_size=2)
+    arrs = [torch.from_numpy(a) for a in synthetic_target_batch(2, 128)]
+    model = init_weights(build_model(cfg), seed=1).train()
+    card = build_model(cfg)
+    card.load_state_dict(model.state_dict())
+    card = card.to("cuda").train()
+    results = []
+    for m, dev in ((model, "cpu"), (card, "cuda")):
+        total, _ = loss_fn(m, *(a.to(dev) for a in arrs), cfg)
+        total.backward()
+        results.append((total.item(), {n: p.grad.cpu() for n, p in
+                                       m.named_parameters()},
+                        {n: b.cpu() for n, b in m.named_buffers()}))
+    (lc, gc, bc), (lg, gg, bg) = results
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for n in gc:
+        torch.testing.assert_close(gg[n], gc[n], rtol=5e-3, atol=1e-4)
+    for n in bc:
+        torch.testing.assert_close(bg[n], bc[n], rtol=1e-3, atol=1e-5)
 
 
 def test_small_model_card_matches_cpu(cuda):
