@@ -3,12 +3,14 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phases build,train_kernels   # a short check
 
-Drives the port's two paths at the flagship width — eval/predict (the
+Drives the port's paths at the flagship width — eval/predict (the
 JAX package's eval command, ref main.py:32-37 -> evaluate.py:121
-`evaluate`) and training (ref main.py:25-27 -> train.py:1698 `train`,
-the flagship `--train-flag --batch-size 16 --amp --num-stack 1`) — and
-checks every hand-written kernel of those paths against its plain
-PyTorch version on the card:
+`evaluate`), training (ref main.py:25-27 -> train.py:1698 `train`,
+the flagship `--train-flag --batch-size 16 --amp --num-stack 1`, with
+the fused loss of ref train.py:274-278) and a gradient through the
+eval-mode model (`jax.grad` of `model.apply(train=False)`) — and checks
+every hand-written kernel of those paths against its plain PyTorch
+version on the card:
 
 1. card identity (torch + nvidia-smi);
 2. build the kernels from csrc/ (one nvcc per source, in parallel) and
@@ -36,24 +38,45 @@ PyTorch version on the card:
    of the sum of |terms| per channel;
 8. train_timing: train kernel time at the largest site beside its bound,
    the plain version and `torch.var_mean` / ATen's BN backward;
-9. train_main: the flagship --amp train step at b16 512^2 on the port's
+9. loss_kernels: the fused loss's two kernels against their plain
+   versions at the flagship's (16, 1, 128, 128, 6) output on
+   synthetic_target_batch, f32 and bf16 logits, `normalized` both ways,
+   alpha/beta 3/3, no positives, logits x20 (saturated sigmoids): each
+   (stack, sample) sum within 1e-5 of the plain version's sum of
+   |terms|, d(out) elementwise within rtol 1e-5 + 1e-6 * max|d(out)|;
+10. loss_timing: the two loss kernels beside their bounds, the plain
+   versions and the eager composition's forward + backward;
+11. train_main: the flagship --amp train step at b16 512^2 on the port's
    synthetic_target_batch: launch counts per step (37 moments, 20 + 17
-   backward sums and dx, 20 epilogue, 17 tail), one step's loss,
-   gradients and running statistics against the plain-version step
-   (cudnn.deterministic) and, in f32, both against the step with float64
-   BN sums, the loss over 20 steps on one batch, images/s
-   over alternating ~2 s windows, peak memory; then one f32 step;
-10. a torch.profiler trace (CUDA activity) of a predict and of a train
+   backward sums and dx, 20 epilogue, 17 tail, the loss kernels once
+   each), one step's loss, gradients and running statistics against the
+   plain-version step (cudnn.deterministic) and, in f32, both against
+   the step with float64 BN sums, the loss over 20 steps on one batch,
+   images/s over alternating ~2 s windows, peak memory; then one f32
+   step;
+12. eval_grad: the eval-mode BN backward kernels against their plain
+   versions at every BN site shape, f32 and bf16, every activation (dx
+   and ds bit-equal for ReLU/Linear, Mish as in 3, partials within 1e-5
+   of the sum of |terms|); then the flagship model in eval mode at b16
+   512^2, the fused loss and backward(), f32 and bf16, through the
+   kernels and through the plain versions: launch counts (20 + 17 eval
+   backward, the loss kernels once each), a non-zero gradient for every
+   parameter, f32 gradient rel L2 <= 1e-5, bf16 no further from the f32
+   plain gradient than 1.5x the bf16 plain path;
+13. eval_timing: the eval backward kernels at the largest site beside
+   their bounds, the plain versions and ATen's BN backward (Linear);
+14. a torch.profiler trace (CUDA activity) of a predict and of a train
    step: device time by kernel group and the idle share against the
-   untraced walls of phases 5 and 9, and the train step's phases by
+   untraced walls of phases 5 and 11, and the train step's phases by
    CUDA events;
-11. the eval CLI end to end on a synthetic VOC fixture (32 images at
+15. the eval CLI end to end on a synthetic VOC fixture (32 images at
    512^2, batch 16, --amp) to a printed mAP, txt files and pickle;
-12. train_cli: `--train-flag` for one epoch on a 32-image 512^2 fixture,
+16. train_cli: `--train-flag` for one epoch on a 32-image 512^2 fixture,
    then the eval CLI on the weights it wrote.
 
-Any failure exits non-zero. The last three lines are the card's name and
-power limit, one JSON object of per-kernel numbers, and
+Any failure exits non-zero. Each phase prints its wall time. The last
+three lines are the card's name and power limit, one JSON object of
+per-kernel numbers (all 13 TPU kernels), and
 {"ok": true, "device": {...}}.
 """
 
@@ -74,7 +97,8 @@ import traceback
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PHASES = ("identity", "build", "kernels", "timing", "main", "states",
-          "train_kernels", "train_timing", "train_main", "profile", "cli",
+          "train_kernels", "train_timing", "loss_kernels", "loss_timing",
+          "train_main", "eval_grad", "eval_timing", "profile", "cli",
           "train_cli")
 
 
@@ -195,9 +219,13 @@ def swapped(swaps, value=None):
 
 def plain_kernels():
     """Every kernel wrapper of the paths swapped for its plain version."""
-    from real_time_helmet_detection_tpu_torch.ops import (epilogue, peak,
-                                                          residual)
+    from real_time_helmet_detection_tpu_torch.ops import (epilogue, loss,
+                                                          peak, residual)
     return swapped([
+        (loss, "loss_sums", loss.loss_sums_reference),
+        (loss, "loss_sums_bwd", loss.loss_sums_bwd_reference),
+        (epilogue, "bn_eval_bwd", epilogue.bn_eval_bwd_reference),
+        (residual, "bn_add_eval_bwd", residual.bn_add_eval_bwd_reference),
         (epilogue, "bn_act", epilogue.bn_act_reference),
         (residual, "bn_add_act", residual.bn_add_act_reference),
         (peak, "peak_scores", peak.peak_scores_reference),
@@ -243,13 +271,17 @@ COUNTERS = {
     "bn_add_bwd_sums": ("residual", "bwd_sums_launches"),
     "bn_bwd_dx": ("epilogue", "bwd_dx_launches"),
     "bn_add_bwd_dx": ("residual", "bwd_dx_launches"),
+    "bn_eval_bwd": ("epilogue", "eval_bwd_launches"),
+    "bn_add_eval_bwd": ("residual", "eval_bwd_launches"),
+    "loss_fwd": ("loss", "fwd_launches"),
+    "loss_bwd": ("loss", "bwd_launches"),
 }
 
 
 def _ops():
     from real_time_helmet_detection_tpu_torch import ops
     from real_time_helmet_detection_tpu_torch.ops import (  # noqa: F401
-        epilogue, peak, residual)
+        epilogue, loss, peak, residual)
     return ops
 
 
@@ -850,24 +882,333 @@ def phase_train_timing(state):
                 "%s %s" % key, r["ms"], r["eager_ms"], r["plain_ms"],
                 "%.4f" % r["library_ms"] if r["library_ms"] is not None
                 else "none", r["bound_ms"], r["bound_by"]))
-    log("  bounds of the kernels not ported yet (bytes / 3.35 TB/s): %s"
-        % ", ".join("%s %.4f" % kv for kv in unported_bounds().items()))
 
 
-def unported_bounds(batch=16, imsize=512, ch=128, num_cls=2):
-    """Byte bounds (ms at 3.35 TB/s) of the TPU kernels the port has not
-    built yet, at the flagship's shapes: the eval-mode BN backward at the
-    largest site (bf16; reads x and g (and s), writes dx (and ds)), and
-    the loss kernels over the (B, S=1, h, w, C+4) f32 output and its
-    targets (heatmap, offset, wh, mask)."""
-    site = batch * ch * (imsize // 2) ** 2 * 2  # one bf16 activation
-    hw = batch * (imsize // 4) ** 2 * 4          # one f32 map channel
-    out, targets = hw * (num_cls + 4), hw * (num_cls + 2 + 2 + 1)
-    moved = {"epilogue.py:144 _bwd_kernel": 3 * site,
-             "residual.py:97 _bwd_add_kernel": 5 * site,
-             "loss.py:86 _fwd_kernel": out + targets,
-             "loss.py:126 _bwd_kernel": 2 * out + targets}
-    return {k: v / HBM_BYTES_PER_S * 1e3 for k, v in moved.items()}
+# ------------------------------------------------------------ loss phases
+
+
+LOSS_SHAPE = (16, 1, 128, 128, 6)  # the flagship's raw output at b16 512^2
+LOSS_SUM_RTOL = 1e-5  # per (stack, sample), relative to the sum of |terms|
+# (label, options, logit scale): the defaults, the coordinate sigmoid,
+# non-default focal exponents, a batch with no positives, and logits x20
+# whose sigmoids round to 1
+LOSS_CASES = (
+    ("default", dict(alpha=2.0, beta=4.0, normalized=False), 2.0),
+    ("normalized", dict(alpha=2.0, beta=4.0, normalized=True), 2.0),
+    ("alpha3beta3", dict(alpha=3.0, beta=3.0, normalized=False), 2.0),
+    ("no positives", dict(alpha=2.0, beta=4.0, normalized=False), 2.0),
+    ("saturated", dict(alpha=2.0, beta=4.0, normalized=False), 40.0))
+# operations per element of the kernels' arithmetic (a transcendental
+# counts as one): forward 20 per heat channel, 5 per regression channel;
+# backward 31 and 6
+LOSS_OPS = {"loss_fwd": (20, 5), "loss_bwd": (31, 6)}
+
+
+def loss_sum_errs(got, want, terms):
+    """(max relative, max abs) error between two sets of the four (S, B)
+    sums, relative to each (stack, sample)'s sum of |terms|."""
+    import torch
+    torch.cuda.synchronize()
+    rel = ab = 0.0
+    for g, w, t in zip(got, want, terms):
+        scale = t.abs().sum(dim=(2, 3, 4)).t().clamp_min(1e-30)
+        d = (g - w).abs()
+        rel, ab = max(rel, float((d / scale).max())), max(ab, float(d.max()))
+    return rel, ab
+
+
+def phase_loss_kernels(state):
+    """The loss kernels against their plain versions at the flagship's
+    output shape on synthetic_target_batch's targets, every LOSS_CASES
+    case, f32 and bf16 logits: the sums within LOSS_SUM_RTOL of the sum
+    of |terms| per (stack, sample), d(out) elementwise within rtol 1e-5
+    + atol 1e-6 * max|d(out)|."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.ops import loss
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    heat, off, wh, mask = train_batch()[1:]
+    errs = state.setdefault("loss_errs", {})
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for label, kw, scale in LOSS_CASES:
+            m = torch.zeros_like(mask) if label == "no positives" else mask
+            ops = (rand(LOSS_SHAPE, dtype, gen, scale), heat, off, wh, m)
+            got = loss.loss_sums(*ops, **kw)
+            want = loss.loss_sums_reference(*ops, **kw)
+            rel, ab = loss_sum_errs(got, want, loss.loss_terms_reference(
+                *ops, **kw))
+            cots = [rand(LOSS_SHAPE[1::-1], torch.float32, gen)
+                    for _ in range(4)]
+            dg = loss.loss_sums_bwd(*ops, *cots, **kw)
+            dw = loss.loss_sums_bwd_reference(*ops, *cots, **kw)
+            torch.cuda.synchronize()
+            name = "loss %s %s" % (tag, label)
+            require(dg.shape == dw.shape and dg.dtype == dw.dtype == dtype,
+                    "%s: d(out) %s %s vs %s %s" % (name, tuple(dg.shape),
+                                                   dg.dtype, tuple(dw.shape),
+                                                   dw.dtype))
+            require(all(bool(torch.isfinite(t).all()) for t in (*got, dg)),
+                    "%s: non-finite kernel output" % name)
+            g32, w32 = dg.float(), dw.float()
+            derr = (g32 - w32).abs()
+            bound = 1e-5 * w32.abs() + 1e-6 * float(w32.abs().max())
+            errs[(label, tag)] = dict(
+                sum_rel=rel, sum_abs=ab, dout_abs=float(derr.max()),
+                dout_equal=torch.equal(dg, dw),
+                sums_equal=all(torch.equal(a, b) for a, b in zip(got, want)))
+            require(rel <= LOSS_SUM_RTOL, "%s: sums off by %g of the sum of "
+                    "|terms| (tolerance %g)" % (name, rel, LOSS_SUM_RTOL))
+            require(bool((derr <= bound).all()), "%s: d(out) beyond rtol "
+                    "1e-5 + 1e-6 * max (max abs err %g)"
+                    % (name, float(derr.max())))
+    worst = max(errs, key=lambda k: errs[k]["sum_rel"])
+    log("loss_kernels: %d cases against the plain versions passed; sums' "
+        "largest error %.3g of the sum of |terms| (tolerance %g) at %s, "
+        "bit-equal in %d of %d cases; d(out) max abs err %.3g, bit-equal "
+        "in %d of %d cases" % (
+            len(errs), errs[worst]["sum_rel"], LOSS_SUM_RTOL, worst,
+            sum(e["sums_equal"] for e in errs.values()), len(errs),
+            max(e["dout_abs"] for e in errs.values()),
+            sum(e["dout_equal"] for e in errs.values()), len(errs)))
+
+
+def phase_loss_timing(state):
+    """The loss kernels at the flagship's f32 output (the train step's
+    dtype) by CUDA graph replay, beside their bounds and plain versions;
+    no single PyTorch call computes the loss, so the library column is
+    empty and the eager composition's forward + backward
+    (`stacked_detection_loss`) and the fused loss's stand beside."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.ops import loss
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    heat, off, wh, mask = train_batch()[1:]
+    out = rand(LOSS_SHAPE, torch.float32, gen, 2.0)
+    ops = (out, heat, off, wh, mask)
+    kw = dict(alpha=2.0, beta=4.0, normalized=False)
+    cots = [rand(LOSS_SHAPE[1::-1], torch.float32, gen) for _ in range(4)]
+
+    def path(fn):
+        def run():
+            o = out.detach().requires_grad_(True)
+            fn(o, *ops[1:])["total"].backward()
+        return run
+
+    composition = eager_ms(path(lambda *a: loss.stacked_detection_loss(
+        *a, num_cls=LOSS_SHAPE[-1] - 4)))
+    fused = eager_ms(path(loss.fused_detection_loss))
+    targets = sum(t.numel() * t.element_size() for t in ops[1:])
+    nout = out.numel() * out.element_size()
+    heat_elems = heat.numel() * LOSS_SHAPE[1]
+    reg_elems = out.numel() - heat_elems
+    rows = state.setdefault("loss_timing", {})
+    for name, kern, plain, nbytes in (
+            ("loss_fwd", lambda: loss.loss_sums(*ops, **kw),
+             lambda: loss.loss_sums_reference(*ops, **kw), nout + targets),
+            ("loss_bwd", lambda: loss.loss_sums_bwd(*ops, *cots, **kw),
+             lambda: loss.loss_sums_bwd_reference(*ops, *cots, **kw),
+             2 * nout + targets)):
+        per_heat, per_reg = LOSS_OPS[name]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = (per_heat * heat_elems + per_reg * reg_elems) \
+            / F32_FLOPS * 1e3
+        rows[name] = dict(
+            ms=graph_ms(kern), eager_ms=eager_ms(kern),
+            plain_ms=graph_ms(plain), library_ms=None,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            composition_ms=composition, fused_ms=fused, shape=LOSS_SHAPE)
+    log("loss_timing (ms per call at %s f32; kernel and plain by CUDA "
+        "graph replay, eager = issued from Python):" % (LOSS_SHAPE,))
+    for name, r in rows.items():
+        log("  %-9s kernel %.4f (eager %.4f)  plain %.4f  library none  "
+            "bound %.4f (%s)" % (name, r["ms"], r["eager_ms"], r["plain_ms"],
+                                 r["bound_ms"], r["bound_by"]))
+    log("  forward + backward issued from Python: the fused loss %.4f, the "
+        "composition stacked_detection_loss %.4f" % (fused, composition))
+
+
+# ------------------------------------------------------- eval-grad phases
+
+
+def phase_eval_grad(state):
+    """The eval-mode BN backward kernels against their plain versions at
+    every BN site shape, f32 and bf16, every activation (dx/ds as the
+    train dx pass, partials within TRAIN_SUM_RTOL of the sum of |terms|);
+    then the flagship model in eval mode at b16 512^2 (seeded weights,
+    a random BN state), the fused loss on synthetic_target_batch and
+    backward(), f32 and bf16, through the kernels and through the plain
+    versions under cudnn.deterministic."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.config import Config
+    from real_time_helmet_detection_tpu_torch.evaluate import init_weights
+    from real_time_helmet_detection_tpu_torch.models.hourglass import \
+        build_model
+    from real_time_helmet_detection_tpu_torch.ops import epilogue, residual
+    from real_time_helmet_detection_tpu_torch.ops.loss import \
+        fused_detection_loss
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    errs = state.setdefault("eval_errs", {})
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for skip, shapes in ((False, EPI_SHAPES), (True, RES_SHAPES)):
+            name = "bn_add_eval_bwd" if skip else "bn_eval_bwd"
+            for shape in shapes:
+                x, g, s, a, b, _, _ = train_operands(shape, dtype, gen, skip)
+                xr = rows2d(x)
+                for act in ACTS:
+                    dz = rows2d(epilogue._dz_reference(x, a, b, g, act, s))
+                    if skip:
+                        dx, ds, da, db = residual.bn_add_eval_bwd(
+                            x, a, b, s, g, act)
+                        wdx, wds, wda, wdb = \
+                            residual.bn_add_eval_bwd_reference(x, a, b, s,
+                                                               g, act)
+                    else:
+                        dx, da, db = epilogue.bn_eval_bwd(x, a, b, g, act)
+                        wdx, wda, wdb = epilogue.bn_eval_bwd_reference(
+                            x, a, b, g, act)
+                        ds = wds = None
+                    mode = ("equal" if act != "Mish" else
+                            "rtol1e-6" if tag == "f32" else "bf16ulp")
+                    label = "%s %s %s %s" % (name, tag, act, shape)
+                    e = compare(label, dx, wdx, mode)
+                    if skip:
+                        e = max(e, compare(label + " ds", ds, wds, mode))
+                    errs[(name, tag, act, shape)] = dict(
+                        sums=max(sums_err(da, wda, dz * xr),
+                                 sums_err(db, wdb, dz)), dx=e)
+                    n += 1
+                    del dz, dx, ds, da, db, wdx, wds, wda, wdb
+                del x, g, s, xr
+                torch.cuda.empty_cache()
+    worst = max(errs, key=lambda k: errs[k]["sums"][0])
+    log("eval_grad kernels: %d comparisons against the plain versions "
+        "passed; dx/ds bit-equal for ReLU and Linear (Mish max abs err "
+        "%.3g); the partials' largest error %.3g of the sum of |terms| "
+        "(tolerance %g) at %s, max abs %.3g" % (
+            n, max(v["dx"] for v in errs.values()),
+            errs[worst]["sums"][0], TRAIN_SUM_RTOL, worst,
+            errs[worst]["sums"][1]))
+    require(errs[worst]["sums"][0] <= TRAIN_SUM_RTOL,
+            "eval backward partials beyond tolerance at %s" % (worst,))
+    require(all(v["dx"] == 0.0 for k, v in errs.items() if k[2] != "Mish"),
+            "a bit-equal eval dx comparison reported a non-zero error")
+
+    arrs = train_batch()
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(bn_act=20, bn_add_act=17, bn_eval_bwd=20, bn_add_eval_bwd=17,
+                loss_fwd=1, loss_bwd=1)
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for amp in (False, True):
+            tag = "bf16" if amp else "f32"
+            cfg = Config(batch_size=16, amp=amp)
+            model = build_model(cfg, dtype=torch.bfloat16 if amp else None)
+            model = perturb_bn(init_weights(model, 0), seed=5).cuda().eval()
+
+            def backward():
+                model.zero_grad(set_to_none=True)
+                total = fused_detection_loss(model(arrs[0]),
+                                             *arrs[1:])["total"]
+                total.backward()
+                torch.cuda.synchronize()
+                return total.item(), {n: p.grad.detach().clone()
+                                      for n, p in model.named_parameters()}
+
+            backward()  # warm-up: cuDNN plans, allocator
+            reset_counts()
+            lk, gk = backward()  # THE eval-grad run the counts read
+            counts = read_counts()
+            with plain_kernels():
+                lp, gp = backward()
+            require(counts == want, "%s launches per eval backward %s, want "
+                    "%s" % (tag, counts, want))
+            state.setdefault("launches", {})["eval_grad_" + tag] = counts
+            zero = [n for n, g in gk.items() if float(g.abs().max()) == 0.0]
+            require(not zero and len(gk) == len(list(model.parameters())),
+                    "%s eval backward left parameters without a gradient: "
+                    "%s" % (tag, zero))
+            runs[tag] = (lk, gk, lp, gp)
+            del model
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    lk32, gk32, lp32, gp32 = runs["f32"]
+    lk16, gk16, lp16, gp16 = runs["bf16"]
+    e = dict(f32_loss=abs(lk32 - lp32) / abs(lp32),
+             f32_grad=rel_l2(gk32, gp32),
+             bf16_loss=abs(lk16 - lp16) / abs(lp16),
+             bf16_grad_vs_f32=(rel_l2(gk16, gp32), rel_l2(gp16, gp32)))
+    state["eval_grad"] = dict(errs=e, params=len(gk32))
+    log("eval_grad model (b16 512^2, eval mode, fused loss, backward): "
+        "launches %s; all %d parameters have a non-zero gradient; f32 loss "
+        "%.7f vs %.7f plain, gradient rel L2 kernels vs plain %.3g (tol "
+        "1e-5); bf16 loss %.6f vs %.6f, gradient rel L2 to the f32 plain "
+        "path: kernels %.3g, plain %.3g (kernels at most 1.5x plain)" % (
+            state["launches"]["eval_grad_bf16"], len(gk32), lk32, lp32,
+            e["f32_grad"], lk16, lp16, *e["bf16_grad_vs_f32"]))
+    require(e["f32_grad"] <= 1e-5 and e["f32_loss"] <= 1e-5,
+            "f32 eval gradient kernels vs plain beyond tolerance: %s" % e)
+    require(e["bf16_grad_vs_f32"][0] <= 1.5 * e["bf16_grad_vs_f32"][1],
+            "bf16 eval gradient further from the f32 plain path than 1.5x "
+            "the bf16 plain path: %s" % (e["bf16_grad_vs_f32"],))
+
+
+def phase_eval_timing(state):
+    """The eval backward kernels at the largest site (16, 128, 256^2),
+    ReLU, bf16 and f32, by CUDA graph replay, beside their bounds and
+    plain versions; ATen's BN backward in eval mode (weight a, running
+    mean 0, var 1, eps 0; its CUDA version asserts the saved statistics
+    are given, though eval mode reads the running ones) computes the
+    Linear no-skip pass in one call."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.ops import epilogue, residual
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = state.setdefault("eval_timing", {})
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        x, g, s, a, b, _, _ = train_operands(BIG, dtype, gen, True)
+        nbytes, elems = x.numel() * x.element_size(), x.numel()
+        zeros, ones = torch.zeros_like(a), torch.ones_like(a)
+        for name, kern, plain, ntens, flops in (
+                ("bn_eval_bwd",
+                 lambda: epilogue.bn_eval_bwd(x, a, b, g, "ReLU"),
+                 lambda: epilogue.bn_eval_bwd_reference(x, a, b, g, "ReLU"),
+                 3, 8),
+                ("bn_add_eval_bwd",
+                 lambda: residual.bn_add_eval_bwd(x, a, b, s, g, "ReLU"),
+                 lambda: residual.bn_add_eval_bwd_reference(x, a, b, s, g,
+                                                            "ReLU"), 5, 9)):
+            t_bytes = ntens * nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops * elems / F32_FLOPS * 1e3
+            rows[(name, tag)] = dict(
+                ms=graph_ms(kern), eager_ms=eager_ms(kern),
+                plain_ms=graph_ms(plain), library_ms=None,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                shape=BIG)
+        rows[("bn_eval_bwd_linear", tag)] = dict(
+            ms=graph_ms(lambda: epilogue.bn_eval_bwd(x, a, b, g, "Linear")),
+            library_ms=graph_ms(
+                lambda: torch.ops.aten.native_batch_norm_backward(
+                    g, x, a, zeros, ones, zeros, ones, False, 0.0,
+                    [True, True, True])),
+            bound_ms=3 * nbytes / HBM_BYTES_PER_S * 1e3)
+        del x, g, s
+        torch.cuda.empty_cache()
+    log("eval_timing (ms per call at %s; kernel and plain by CUDA graph "
+        "replay, eager = issued from Python):" % (BIG,))
+    for key, r in rows.items():
+        if key[0] == "bn_eval_bwd_linear":
+            log("  %-24s kernel %.4f  native_batch_norm_backward (eval) "
+                "%.4f  bound %.4f" % ("%s %s" % key, r["ms"], r["library_ms"],
+                                      r["bound_ms"]))
+            continue
+        log("  %-24s kernel %.4f (eager %.4f)  plain %.4f  library none  "
+            "bound %.4f (%s)" % ("%s %s" % key, r["ms"], r["eager_ms"],
+                                 r["plain_ms"], r["bound_ms"], r["bound_by"]))
 
 
 def make_trainer(cfg, seed=0):
@@ -1103,9 +1444,10 @@ def phase_train_main(state):
     counts = read_counts()
     from real_time_helmet_detection_tpu_torch.ops import epilogue
     conversions = epilogue.grad_conversions
-    want = dict(bn_act=20, bn_add_act=17, peak_scores=0, bn_stats=37,
-                bn_bwd_sums=20, bn_add_bwd_sums=17, bn_bwd_dx=20,
-                bn_add_bwd_dx=17)
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(bn_act=20, bn_add_act=17, bn_stats=37, bn_bwd_sums=20,
+                bn_add_bwd_sums=17, bn_bwd_dx=20, bn_add_bwd_dx=17,
+                loss_fwd=1, loss_bwd=1)
     require(counts == want, "launches per train step %s, want %s"
             % (counts, want))
     state.setdefault("launches", {})["train"] = counts
@@ -1231,7 +1573,7 @@ def profile_train(state):
     import torch
     from real_time_helmet_detection_tpu_torch.config import Config
     from real_time_helmet_detection_tpu_torch.ops.loss import \
-        stacked_detection_loss
+        fused_detection_loss
     from real_time_helmet_detection_tpu_torch.optim import set_lr
     cfg = Config(batch_size=16, amp=True)
     model, opt, step = make_trainer(cfg)
@@ -1247,8 +1589,8 @@ def profile_train(state):
     ev[0].record()
     out = model(arrs[0])
     ev[1].record()
-    total = stacked_detection_loss(
-        out, *arrs[1:], num_cls=cfg.num_cls, size_weight=cfg.size_weight,
+    total = fused_detection_loss(
+        out, *arrs[1:], size_weight=cfg.size_weight,
         hm_weight=cfg.hm_weight, offset_weight=cfg.offset_weight,
         focal_alpha=cfg.focal_alpha, focal_beta=cfg.focal_beta)["total"]
     ev[2].record()
@@ -1268,7 +1610,8 @@ def profile_train(state):
         return
     groups = group_device_ms(by_name, (
         "bn_add_act_kernel", "bn_act_kernel", "bn_stats_kernel",
-        "bn_bwd_sums_kernel", "bn_bwd_dx_kernel"))
+        "bn_bwd_sums_kernel", "bn_bwd_dx_kernel", "loss_fwd_kernel",
+        "loss_bwd_kernel"))
     state["profile_train"] = dict(wall_ms=wall_ms, traced_ms=traced_ms,
                                   busy_ms=busy, groups=groups, phases=phases)
     log("    step phases by CUDA events (one untraced step): %s"
@@ -1410,47 +1753,73 @@ def phase_cli(state):
 
 
 def kernel_rows(state):
-    """One row per kernel: time, bound, plain and library time at the
-    largest site (bf16, ReLU), the comparison's max abs error there, and
-    the launches of the kernel's main path — predict for the eval
-    kernels, one train step for the train kernels; the forward kernels
-    also carry their train-step count."""
+    """One row per TPU kernel (each function of the JAX package that
+    reaches `pl.pallas_call`, #5 being #2's train call): time, bound,
+    plain and library time at the largest site (bf16, ReLU; the loss at
+    the flagship's f32 output), the comparison's max abs error there,
+    and the launches of the kernel's main path — predict for the eval
+    forward kernels, one train step for the train kernels and the loss,
+    one eval-mode backward for the eval backward kernels."""
     errs, timing = state["errs"], state["timing"]
     terrs, ttiming = state["train_errs"], state["train_timing"]
-    predict, train = state["launches"]["bf16"], state["launches"]["train"]
+    eerrs, etiming = state["eval_errs"], state["eval_timing"]
+    lerrs, ltiming = state["loss_errs"], state["loss_timing"]
+    launches = state["launches"]
+    predict, train = launches["bf16"], launches["train"]
+    eval_grad = launches["eval_grad_bf16"]
     src = "real_time_helmet_detection_tpu_torch/csrc/%s.cu"
     pallas = "real_time_helmet_detection_tpu/ops/pallas/"
-    spec = [
-        ("peak_scores", "peak", "peak.py:68", timing[("peak_scores", "f32",
-                                                      3)],
-         errs[("peak_scores", 3, "normal")], predict),
-        ("bn_act", "epilogue", "epilogue.py:138",
-         timing[("bn_act", "bf16", "ReLU")],
-         errs[("bn_act", "bf16", "ReLU", BIG)], predict),
-        ("bn_add_act", "residual", "residual.py:91",
-         timing[("bn_add_act", "bf16", "ReLU")],
-         errs[("bn_add_act", "bf16", "ReLU", BIG)], predict),
-        ("bn_stats", "bn_train", "epilogue.py:424",
+    fwd = (timing[("bn_act", "bf16", "ReLU")],
+           errs[("bn_act", "bf16", "ReLU", BIG)])
+    spec = [  # (row, name, source, replaces, times, max abs err, launches)
+        (1, "peak_scores", "peak", "peak.py:68 _peak_kernel",
+         timing[("peak_scores", "f32", 3)], errs[("peak_scores", 3,
+                                                  "normal")], predict),
+        (2, "bn_act", "epilogue", "epilogue.py:138 _fwd_kernel", *fwd,
+         predict),
+        (3, "bn_eval_bwd", "bn_train", "epilogue.py:144 _bwd_kernel",
+         etiming[("bn_eval_bwd", "bf16")],
+         eerrs[("bn_eval_bwd", "bf16", "ReLU", BIG)]["sums"][1], eval_grad),
+        (4, "bn_stats", "bn_train", "epilogue.py:424 _stats_kernel",
          ttiming[("bn_stats", "bf16")], terrs[("bn_stats", "bf16", BIG)][1],
          train),
+        (5, "bn_act", "epilogue",
+         "epilogue.py:138 _fwd_kernel (train call, epilogue.py:343)", *fwd,
+         train),
+        (8, "bn_add_act", "residual", "residual.py:91 _fwd_add_kernel",
+         timing[("bn_add_act", "bf16", "ReLU")],
+         errs[("bn_add_act", "bf16", "ReLU", BIG)], predict),
+        (9, "bn_add_eval_bwd", "bn_train", "residual.py:97 _bwd_add_kernel",
+         etiming[("bn_add_eval_bwd", "bf16")],
+         eerrs[("bn_add_eval_bwd", "bf16", "ReLU", BIG)]["sums"][1],
+         eval_grad),
+        (12, "loss_fwd", "loss", "loss.py:86 _fwd_kernel",
+         ltiming["loss_fwd"], lerrs[("default", "f32")]["sum_abs"], train),
+        (13, "loss_bwd", "loss", "loss.py:126 _bwd_kernel",
+         ltiming["loss_bwd"], lerrs[("default", "f32")]["dout_abs"], train),
     ]
-    for name, line in (("bn_bwd_sums", "epilogue.py:430"),
-                       ("bn_add_bwd_sums", "residual.py:112"),
-                       ("bn_bwd_dx", "epilogue.py:439"),
-                       ("bn_add_bwd_dx", "residual.py:121")):
-        spec.append((name, "bn_train", line, ttiming[(name, "bf16")],
+    for row, name, line in ((6, "bn_bwd_sums", "epilogue.py:430 "
+                             "_bwd_sums_kernel"),
+                            (7, "bn_bwd_dx", "epilogue.py:439 "
+                             "_bwd_dx_kernel"),
+                            (10, "bn_add_bwd_sums", "residual.py:112 "
+                             "_bwd_add_sums_kernel"),
+                            (11, "bn_add_bwd_dx", "residual.py:121 "
+                             "_bwd_add_dx_kernel")):
+        spec.append((row, name, "bn_train", line, ttiming[(name, "bf16")],
                      terrs[(name, "bf16", "ReLU", BIG)][1], train))
     rows = []
-    for name, cu, replaces, t, err, launches in spec:
-        row = {"name": name, "route": "cuda", "source": src % cu,
-               "replaces": pallas + replaces, "launches": launches[name],
-               "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-               "bound_ms": t["bound_ms"],
-               "bound_by": t.get("bound_by", "bytes"),
-               "library_ms": t["library_ms"]}
-        if name in ("bn_act", "bn_add_act"):
-            row["launches_train_step"] = train[name]
-        rows.append(row)
+    for row, name, cu, replaces, t, err, counts in sorted(spec):
+        rows.append({
+            "name": name if row != 5 else name + "[train]", "route": "cuda",
+            "source": src % cu, "replaces": pallas + replaces,
+            "launches": counts[name], "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t.get("bound_by", "bytes"),
+            "library_ms": t["library_ms"], "table_row": row})
+        if "composition_ms" in t:
+            rows[-1]["composition_ms"] = t["composition_ms"]
+            rows[-1]["launches_eval_grad"] = eval_grad[name]
     return rows
 
 

@@ -16,7 +16,9 @@ value differs from the plain step (`--sub-divisions`, `--grad-accum`,
 `--device-augment`, `--fwd-dtype`). The JAX flags that only choose
 between a kernel and its XLA composition (`--use-pallas`, `--epilogue`,
 `--block-fuse`, `--loss-kernel`) and `--infer-dtype` have no field: the
-port has one path, and the parser refuses those flags.
+port has one path — the kernels, the fused loss among them (the JAX
+package's TPU default, `--loss-kernel fused`) — and the parser refuses
+those flags.
 """
 
 from __future__ import annotations

@@ -1,23 +1,33 @@
-// Train-mode BatchNorm passes: batch moments and the analytic backward of
-// BN + activation, with or without the residual skip-add.
+// BatchNorm backward passes on the card: the train-mode batch moments and
+// analytic backward of BN + activation, with or without the residual
+// skip-add, and the one-pass backward of the eval-mode (running-statistics)
+// epilogue and tail.
 //
 // Replaces: real_time_helmet_detection_tpu/ops/pallas/epilogue.py,
 // `_stats_kernel`, `_bwd_sums_kernel`, `_bwd_dx_kernel` (reached through
-// `fused_bn_act_train`), and ops/pallas/residual.py, `_bwd_add_sums_kernel`
-// and `_bwd_add_dx_kernel` (reached through `fused_bn_add_act_train`). The
-// two backward kernels are templated on HAS_SKIP: the skip shifts z and
-// receives ds = dz, nothing else changes.
+// `fused_bn_act_train`) and `_bwd_kernel` (the eval backward of
+// `fused_bn_act`), and ops/pallas/residual.py, `_bwd_add_sums_kernel` and
+// `_bwd_add_dx_kernel` (reached through `fused_bn_add_act_train`) and
+// `_bwd_add_kernel` (the eval backward of `fused_bn_add_act`). The backward
+// kernels are templated on HAS_SKIP: the skip shifts z and receives
+// ds = dz, nothing else changes.
 //
 //   bn_stats      partials of sum(x), sum(x^2) per channel
 //   bn_bwd_sums   z = x*a + b (+ s), dz = g * act'(z); partials of
 //                 S1 = sum(dz), S2 = sum(dz * x)
 //   bn_bwd_dx     dx = a*dz - k2*x - k1 (and ds = dz)
+//   eval          the sums pass that also writes dx = dz*a (and ds = dz):
+//                 with the running statistics folded into (a, b) nothing
+//                 depends on the sums, so one pass gives dx and the
+//                 partials of d(eff_bias) = S1, d(eff_scale) = S2, as the
+//                 TPU kernels do
 //
 // Bound on the H100: bytes. Each pass reads its activation-sized operands
-// once (stats: x; sums: x, g (, s); dx: x, g (, s), writing dx (, ds)) with
-// a handful of flops per element. At the largest main-path site,
-// (16, 65536, 128) in bf16, one operand is 268 MB: stats 80 us, sums 160
-// (skip 240) us, dx 240 (skip 400) us at 3.35 TB/s; twice that in f32.
+// once (stats: x; sums: x, g (, s); dx: x, g (, s), writing dx (, ds);
+// eval: x, g (, s), writing dx (, ds)) with a handful of flops per
+// element. At the largest main-path site, (16, 65536, 128) in bf16, one
+// operand is 268 MB: stats 80 us, sums 160 (skip 240) us, dx and eval 240
+// (skip 400) us at 3.35 TB/s; twice that in f32.
 //
 // Design: every tensor is the (rows, C) row-major block of a channels-last
 // NCHW tensor. A thread owns one channel PAIR (one bf16x2 or float2 load,
@@ -138,7 +148,9 @@ __global__ void bn_stats_kernel(const T* __restrict__ x,
   }
 }
 
-template <typename T, int ACT, bool HAS_SKIP>
+// WRITE_DX: the eval backward, which also stores dx = dz*a (and ds = dz)
+// from the same loads.
+template <typename T, int ACT, bool HAS_SKIP, bool WRITE_DX>
 __global__ void bn_bwd_sums_kernel(const T* __restrict__ x,
                                    const T* __restrict__ skip,
                                    const T* __restrict__ g,
@@ -146,11 +158,14 @@ __global__ void bn_bwd_sums_kernel(const T* __restrict__ x,
                                    const float* __restrict__ b,
                                    float* __restrict__ s1_part,
                                    float* __restrict__ s2_part,
+                                   T* __restrict__ dx, T* __restrict__ ds,
                                    long long rows, int C) {
   using V = typename Vec2<T>::type;
   const V* xv = reinterpret_cast<const V*>(x);
   const V* sv = reinterpret_cast<const V*>(skip);
   const V* gv = reinterpret_cast<const V*>(g);
+  V* dxv = reinterpret_cast<V*>(dx);
+  V* dsv = reinterpret_cast<V*>(ds);
   const int cp = C / 2;
   long long r0, r1;
   row_chunk(rows, &r0, &r1);
@@ -174,6 +189,12 @@ __global__ void bn_bwd_sums_kernel(const T* __restrict__ x,
         s1.y = __fadd_rn(s1.y, dz1);
         s2.x = __fadd_rn(s2.x, __fmul_rn(dz0, xf.x));
         s2.y = __fadd_rn(s2.y, __fmul_rn(dz1, xf.y));
+        if (WRITE_DX) {
+          // dz * a, the order of ref epilogue.py:152
+          dxv[i] = from_f32x2<T>(make_float2(__fmul_rn(dz0, a0),
+                                             __fmul_rn(dz1, a1)));
+          if (HAS_SKIP) dsv[i] = from_f32x2<T>(make_float2(dz0, dz1));
+        }
       }
     }
     reduce_write(s1, s2, p, active, s1_part, s2_part, C);
@@ -226,11 +247,13 @@ inline dim3 reduce_block(int C) {
   return dim3(tx, kThreads / tx);
 }
 
+// dx == NULL: the train sums pass; else the eval backward, which also
+// writes dx (and ds when the skip is given)
 template <typename T, int ACT>
 cudaError_t launch_sums(const void* x, const void* skip, const void* g,
                         const void* a, const void* b, void* s1, void* s2,
-                        long long rows, int C, int nblocks,
-                        cudaStream_t stream) {
+                        void* dx, void* ds, long long rows, int C,
+                        int nblocks, cudaStream_t stream) {
   const T* xp = static_cast<const T*>(x);
   const T* sp = static_cast<const T*>(skip);
   const T* gp = static_cast<const T*>(g);
@@ -238,12 +261,21 @@ cudaError_t launch_sums(const void* x, const void* skip, const void* g,
   const float* bp = static_cast<const float*>(b);
   float* s1p = static_cast<float*>(s1);
   float* s2p = static_cast<float*>(s2);
-  if (skip != nullptr)
-    bn_bwd_sums_kernel<T, ACT, true><<<nblocks, reduce_block(C), 0, stream>>>(
-        xp, sp, gp, ap, bp, s1p, s2p, rows, C);
+  T* dxp = static_cast<T*>(dx);
+  T* dsp = static_cast<T*>(ds);
+  const dim3 block = reduce_block(C);
+  if (skip != nullptr && dx != nullptr)
+    bn_bwd_sums_kernel<T, ACT, true, true><<<nblocks, block, 0, stream>>>(
+        xp, sp, gp, ap, bp, s1p, s2p, dxp, dsp, rows, C);
+  else if (dx != nullptr)
+    bn_bwd_sums_kernel<T, ACT, false, true><<<nblocks, block, 0, stream>>>(
+        xp, sp, gp, ap, bp, s1p, s2p, dxp, dsp, rows, C);
+  else if (skip != nullptr)
+    bn_bwd_sums_kernel<T, ACT, true, false><<<nblocks, block, 0, stream>>>(
+        xp, sp, gp, ap, bp, s1p, s2p, dxp, dsp, rows, C);
   else
-    bn_bwd_sums_kernel<T, ACT, false><<<nblocks, reduce_block(C), 0, stream>>>(
-        xp, sp, gp, ap, bp, s1p, s2p, rows, C);
+    bn_bwd_sums_kernel<T, ACT, false, false><<<nblocks, block, 0, stream>>>(
+        xp, sp, gp, ap, bp, s1p, s2p, dxp, dsp, rows, C);
   return cudaGetLastError();
 }
 
@@ -275,18 +307,19 @@ cudaError_t launch_dx(const void* x, const void* skip, const void* g,
 template <typename T>
 cudaError_t dispatch_sums(int act, const void* x, const void* skip,
                           const void* g, const void* a, const void* b,
-                          void* s1, void* s2, long long rows, int C,
-                          int nblocks, cudaStream_t stream) {
+                          void* s1, void* s2, void* dx, void* ds,
+                          long long rows, int C, int nblocks,
+                          cudaStream_t stream) {
   switch (act) {
     case kReLU:
-      return launch_sums<T, kReLU>(x, skip, g, a, b, s1, s2, rows, C, nblocks,
-                                   stream);
+      return launch_sums<T, kReLU>(x, skip, g, a, b, s1, s2, dx, ds, rows, C,
+                                   nblocks, stream);
     case kMish:
-      return launch_sums<T, kMish>(x, skip, g, a, b, s1, s2, rows, C, nblocks,
-                                   stream);
+      return launch_sums<T, kMish>(x, skip, g, a, b, s1, s2, dx, ds, rows, C,
+                                   nblocks, stream);
     case kLinear:
-      return launch_sums<T, kLinear>(x, skip, g, a, b, s1, s2, rows, C,
-                                     nblocks, stream);
+      return launch_sums<T, kLinear>(x, skip, g, a, b, s1, s2, dx, ds, rows,
+                                     C, nblocks, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -336,20 +369,27 @@ extern "C" int helmet_bn_stats(const void* x, void* s_part, void* ss_part,
   return (int)cudaGetLastError();
 }
 
+// dx == NULL: the train sums pass. Else the eval backward, which also
+// writes dx (and ds, given with the skip) from the same loads; its
+// partials of d(eff_bias) = sum(dz) and d(eff_scale) = sum(dz * x) are
+// s1_part and s2_part.
 extern "C" int helmet_bn_bwd_sums(const void* x, const void* skip,
                                   const void* g, const void* a, const void* b,
-                                  void* s1_part, void* s2_part,
-                                  long long rows, int C, int nblocks,
-                                  int dtype, int act, void* stream) {
-  if (rows <= 0 || C <= 0 || C % 2 || nblocks <= 0)
+                                  void* s1_part, void* s2_part, void* dx,
+                                  void* ds, long long rows, int C,
+                                  int nblocks, int dtype, int act,
+                                  void* stream) {
+  if (rows <= 0 || C <= 0 || C % 2 || nblocks <= 0 ||
+      (dx != nullptr && (skip != nullptr) != (ds != nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == helmet::kF32)
     return (int)helmet::dispatch_sums<float>(act, x, skip, g, a, b, s1_part,
-                                             s2_part, rows, C, nblocks, s);
+                                             s2_part, dx, ds, rows, C,
+                                             nblocks, s);
   if (dtype == helmet::kBF16)
     return (int)helmet::dispatch_sums<__nv_bfloat16>(
-        act, x, skip, g, a, b, s1_part, s2_part, rows, C, nblocks, s);
+        act, x, skip, g, a, b, s1_part, s2_part, dx, ds, rows, C, nblocks, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -369,3 +409,4 @@ extern "C" int helmet_bn_bwd_dx(const void* x, const void* skip,
                                                    k2, dx, ds, rows, C, s);
   return (int)cudaErrorInvalidValue;
 }
+

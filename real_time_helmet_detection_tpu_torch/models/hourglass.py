@@ -14,9 +14,11 @@ hourglass.py:198-237) and its blocks: `Convolution` (hourglass.py:443),
   BN path. In eval (`model.eval()`) the running statistics fold into a
   per-channel f32 affine (`eff_scale = gamma * rsqrt(var + eps)`,
   `eff_bias = beta - mean * eff_scale`, hourglass.py:387-390) feeding
-  the epilogue (`ops.epilogue.bn_act`) after every BN'd conv and the
-  residual tail (`ops.residual.bn_add_act`) at the end of every Residual
-  block. In train (`model.train()`) the same sites run
+  the epilogue (`ops.epilogue.bn_act_eval`) after every BN'd conv and
+  the residual tail (`ops.residual.bn_add_act_eval`) at the end of every
+  Residual block; both are differentiable through their eval backward
+  kernels, so a gradient of an eval-mode model reaches every parameter,
+  gamma and beta through the fold. In train (`model.train()`) the same sites run
   `bn_act_train`/`bn_add_act_train` with batch moments and update the
   running buffers as flax does (hourglass.py:367-384, :426-436): momentum
   0.9, the biased variance, no gradient.
@@ -80,8 +82,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             a, b = self.folded()
             if skip is None:
-                return epilogue.bn_act(y, a, b, activation)
-            return residual.bn_add_act(y, a, b, skip, activation)
+                return epilogue.bn_act_eval(y, a, b, activation)
+            return residual.bn_add_act_eval(y, a, b, skip, activation)
         if skip is None:
             out, mean, var = epilogue.bn_act_train(
                 y, self.weight, self.bias, activation, self.eps)

@@ -38,7 +38,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
 
 # source name -> {C entry: argtypes}; every entry returns an int error code
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
@@ -48,10 +49,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                        _P)},
     "bn_train": {
         "helmet_bn_stats": (_P, _P, _P, _L, _I, _I, _I, _P),
-        "helmet_bn_bwd_sums": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
-                               _I, _P),
+        "helmet_bn_bwd_sums": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I,
+                               _I, _I, _I, _P),
         "helmet_bn_bwd_dx": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
                              _I, _P),
+    },
+    "loss": {
+        "helmet_loss_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                            _F, _I, _I, _P),
+        "helmet_loss_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _F, _F, _I, _I, _P),
     },
 }
 

@@ -1,11 +1,17 @@
 """BatchNorm + activation epilogue, eval and train.
 
-Eval: `act(x * eff_scale + eff_bias)`, the port of the eval forward of
-ref ops/pallas/epilogue.py:481 `fused_bn_act` (its Pallas `_fwd_kernel`,
-epilogue.py:138). Every BN'd conv of the detector ends here with the
-running statistics folded into a per-channel affine (`eff_scale = gamma
-* rsqrt(var + eps)`, `eff_bias = beta - mean * eff_scale`, ref
-models/hourglass.py:387-390).
+Eval: `act(x * eff_scale + eff_bias)`, the port of ref
+ops/pallas/epilogue.py:481 `fused_bn_act` (its Pallas `_fwd_kernel`,
+epilogue.py:138, and the backward `_bwd_kernel`, epilogue.py:144). Every
+BN'd conv of the detector ends here with the running statistics folded
+into a per-channel affine (`eff_scale = gamma * rsqrt(var + eps)`,
+`eff_bias = beta - mean * eff_scale`, ref models/hourglass.py:387-390).
+`bn_act_eval` is the differentiable form (`BNEval`, a
+`torch.autograd.Function`): its backward is one pass of
+`csrc/bn_train.cu`'s eval kernel, which writes dx = dz * eff_scale and
+the channel partials of d(eff_scale) = sum(dz * x) and d(eff_bias) =
+sum(dz); autograd carries those two through the fold to gamma and beta,
+as `jax.grad` does through the custom_vjp.
 
 Train: `bn_act_train`, the port of ref ops/pallas/epilogue.py:235
 `_make_fused_train` — batch moments, the same pointwise pass with the
@@ -16,14 +22,15 @@ epilogue.py:424 `_stats_kernel`, :430 `_bwd_sums_kernel`, :439
 `_bwd_dx_kernel`); `ops/residual.py` runs the same kernels with a skip
 operand.
 
-* Every wrapper (`bn_act`, `bn_stats`, `bn_bwd_sums`, `bn_bwd_dx`)
-  launches its hand-written kernel for a CUDA tensor or raises, and runs
-  its plain version for a CPU tensor. There is no fallback from one to
-  the other.
+* Every wrapper (`bn_act`, `bn_eval_bwd`, `bn_stats`, `bn_bwd_sums`,
+  `bn_bwd_dx`) launches its hand-written kernel for a CUDA tensor or
+  raises, and runs its plain version for a CPU tensor. There is no
+  fallback from one to the other.
 * `*_reference` are the plain PyTorch versions: the same f32 arithmetic
   as the kernels, one eager op per step.
-* The module counters (`launches`, `stats_launches`, ...) count kernel
-  launches, never plain-version calls; `grad_conversions` counts the
+* The module counters (`launches`, `eval_bwd_launches`,
+  `stats_launches`, ...) count kernel launches, never plain-version
+  calls; `grad_conversions` counts the
   backward gradients that arrived in another layout than channels-last
   and were copied into it.
 
@@ -47,6 +54,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMS = 132  # streaming multiprocessors of the H100
 
 launches = 0
+eval_bwd_launches = 0
 stats_launches = 0
 bwd_sums_launches = 0
 bwd_dx_launches = 0
@@ -173,6 +181,103 @@ def bn_act(x: torch.Tensor, eff_scale: torch.Tensor, eff_bias: torch.Tensor,
     return out
 
 
+# ---------------------------------------------------------- eval backward
+
+
+def eval_bwd_reference(x, a, b, g, activation, skip=None):
+    """Plain PyTorch version of the eval backward (with or without the
+    skip): (dx = dz * a in x's dtype, ds = dz in the skip's dtype or None,
+    (1, C) partial of sum(dz * x), (1, C) partial of sum(dz))."""
+    dz = _dz_reference(x, a, b, g, activation, skip)
+    dx = _channels_last((dz * _channel_vec(a)).to(x.dtype))
+    ds = None if skip is None else _channels_last(dz.to(skip.dtype))
+    dz2 = _rows2d(dz)
+    return (dx, ds, (dz2 * _rows2d(x.float())).sum(0, keepdim=True),
+            dz2.sum(0, keepdim=True))
+
+
+def bn_eval_bwd_reference(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                          g: torch.Tensor, activation: str
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Plain PyTorch version of `bn_eval_bwd`."""
+    dx, _, da, db = eval_bwd_reference(x, a, b, g, activation)
+    return dx, da, db
+
+
+def bn_eval_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                g: torch.Tensor, activation: str
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The eval epilogue's backward in one pass (ref epilogue.py:144):
+    dz = g * act'(x * a + b) recomputed; returns (dx = dz * a in x's
+    dtype, partials of d(eff_scale) = sum(dz * x), partials of
+    d(eff_bias) = sum(dz)), the partials (nblocks, C) float32 whose
+    column sums are the totals."""
+    global eval_bwd_launches
+    _check_bwd(x, a, b, g, activation)
+    if x.device.type == "cpu":
+        return bn_eval_bwd_reference(x, a, b, g, activation)
+    db, da, dx, _, launched = launch_bwd_sums(x, a, b, g, activation,
+                                              write_dx=True)
+    eval_bwd_launches += launched
+    return dx, da, db
+
+
+class EvalPasses(NamedTuple):
+    """The forward and the backward pass of one eval BN family, with the
+    activation bound; each takes the skip operand (None for the
+    epilogue)."""
+    forward: Callable   # (x, a, b, skip) -> out
+    backward: Callable  # (x, a, b, g, skip) -> (dx, ds or None, da, db)
+
+
+def _grad_channels_last(g: torch.Tensor) -> torch.Tensor:
+    """The incoming gradient in channels-last, copied (and counted in
+    `grad_conversions`) when it arrives in another layout."""
+    global grad_conversions
+    if g.is_contiguous(memory_format=torch.channels_last):
+        return g
+    grad_conversions += 1
+    return _channels_last(g)
+
+
+class BNEval(torch.autograd.Function):
+    """Eval-mode BN + activation (+ skip) over the folded running
+    statistics, ref ops/pallas/epilogue.py:157 `_make_fused` and
+    residual.py:147 `_make_fused_add`: the forward kernel, and a backward
+    that recomputes z from the saved inputs in one pass and returns
+    (dx, d eff_scale, d eff_bias[, ds]); the partials are summed here."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, skip, passes):
+        ctx.save_for_backward(x, a, b, skip)
+        ctx.passes = passes
+        return passes.forward(x, a, b, skip)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a, b, skip = ctx.saved_tensors
+        dx, ds, da, db = ctx.passes.backward(x, a, b, _grad_channels_last(g),
+                                             skip)
+        return dx, da.sum(0), db.sum(0), ds, None
+
+
+def bn_act_eval(x: torch.Tensor, eff_scale: torch.Tensor,
+                eff_bias: torch.Tensor, activation: str) -> torch.Tensor:
+    """Eval-mode BatchNorm + activation, differentiable w.r.t. x,
+    eff_scale and eff_bias: `bn_act` forward, `bn_eval_bwd` backward."""
+    check_activation(activation)
+    check_layout("x", x)
+    check_vectors(x, eff_scale=eff_scale, eff_bias=eff_bias)
+
+    def backward(x, a, b, g, skip):
+        dx, da, db = bn_eval_bwd(x, a, b, g, activation)
+        return dx, None, da, db
+
+    return BNEval.apply(x, eff_scale, eff_bias, None, EvalPasses(
+        lambda x, a, b, skip: bn_act(x, a, b, activation), backward))
+
+
 # ------------------------------------------------------------- train passes
 
 
@@ -264,26 +369,32 @@ def bn_bwd_dx_reference(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return _channels_last(dx.to(x.dtype)), ds
 
 
-def launch_bwd_sums(x, a, b, g, activation, skip=None):
+def launch_bwd_sums(x, a, b, g, activation, skip=None, write_dx=False):
     """Launch csrc/bn_train.cu's sums kernel (the skip variant when `skip`
-    is given) on CUDA tensors; returns (s1 partials, s2 partials,
-    launched). The callers count the launch."""
+    is given) on CUDA tensors. With `write_dx`, the eval backward: the
+    same pass also writes dx = dz * a (and ds = dz). Returns (s1
+    partials, s2 partials, dx or None, ds or None, launched); the callers
+    count the launch."""
     check_cuda("bn_bwd_sums", x)
     rows, c = x.numel() // x.shape[1], x.shape[1]
     nb = reduction_blocks(rows)
     part = torch.zeros((2, nb, c), device=x.device, dtype=torch.float32)
+    dx = torch.empty_like(x) if write_dx else None
+    ds = torch.empty_like(skip) if write_dx and skip is not None else None
     if rows == 0:
-        return part[0], part[1], False
-    operands = (x, g) if skip is None else (x, g, skip)
+        return part[0], part[1], dx, ds, False
+    operands = [t for t in (x, g, skip, dx, ds) if t is not None]
     _check_pairs("bn_bwd_sums", *operands)
     lib = _build.load("bn_train")
     err = lib.helmet_bn_bwd_sums(
-        x.data_ptr(), None if skip is None else skip.data_ptr(),
-        g.data_ptr(), a.data_ptr(), b.data_ptr(), part[0].data_ptr(),
-        part[1].data_ptr(), rows, c, nb, _DTYPE_CODE[x.dtype],
-        _ACT_CODE[activation], _build.stream_handle(x.device))
+        *(None if t is None else t.data_ptr() for t in (x, skip, g, a, b)),
+        part[0].data_ptr(), part[1].data_ptr(),
+        None if dx is None else dx.data_ptr(),
+        None if ds is None else ds.data_ptr(), rows, c, nb,
+        _DTYPE_CODE[x.dtype], _ACT_CODE[activation],
+        _build.stream_handle(x.device))
     _build.check(err, "bn_bwd_sums")
-    return part[0], part[1], True
+    return part[0], part[1], dx, ds, True
 
 
 def launch_bwd_dx(x, a, b, g, k1, k2, activation, skip=None):
@@ -316,7 +427,7 @@ def bn_bwd_sums(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     _check_bwd(x, a, b, g, activation)
     if x.device.type == "cpu":
         return bn_bwd_sums_reference(x, a, b, g, activation)
-    s1, s2, launched = launch_bwd_sums(x, a, b, g, activation)
+    s1, s2, _, _, launched = launch_bwd_sums(x, a, b, g, activation)
     bwd_sums_launches += launched
     return s1, s2
 
@@ -373,11 +484,8 @@ class BNTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, _g_mean, _g_var):
-        global grad_conversions
         x, gamma, beta, skip, mean, var = ctx.saved_tensors
-        if not g.is_contiguous(memory_format=torch.channels_last):
-            g = _channels_last(g)
-            grad_conversions += 1
+        g = _grad_channels_last(g)
         count = x.numel() // x.shape[1]
         r2 = 1.0 / (var + ctx.eps)
         sr2 = torch.sqrt(r2)

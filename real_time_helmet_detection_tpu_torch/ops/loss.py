@@ -3,9 +3,24 @@
 Port of ref real_time_helmet_detection_tpu/ops/loss.py:28-163
 (`focal_loss`, `normed_l1_loss`, `detection_loss`,
 `split_stack_predictions`, `stacked_detection_loss`, `LossLog`; reference
-loss.py:9-69). The port trains with this composition (the JAX package's
-`--loss-kernel xla`); the Pallas loss kernels of ref ops/pallas/loss.py
-are not ported yet.
+loss.py:9-69) and of the fused loss, ref ops/pallas/loss.py:290
+`fused_detection_loss` (its Pallas `_fwd_kernel`, loss.py:86, and
+`_bwd_kernel`, loss.py:126).
+
+* `stacked_detection_loss` is the composition (the JAX package's
+  `--loss-kernel xla`), kept as the yardstick the tests hold the fused
+  loss to.
+* `fused_detection_loss` is the loss the port trains with (the JAX TPU
+  default, `--loss-kernel fused`): `LossSums`, a
+  `torch.autograd.Function` over the kernels of `csrc/loss.cu`, gives
+  four (S, B) sums per call — focal positive and negative log terms and
+  the masked L1 of offset and size — and a few scalar ops finish the
+  loss. Its backward writes d(out) in one pass from the four (S, B)
+  cotangents.
+* `loss_sums` / `loss_sums_bwd` launch the kernels for CUDA tensors or
+  raise, and run `loss_sums_reference` / `loss_sums_bwd_reference`, the
+  plain PyTorch versions, for CPU tensors. `fwd_launches` and
+  `bwd_launches` count kernel launches.
 
 Reductions match the JAX package exactly: per-sample sums over
 (H, W, C), a mean over the batch, and normalization by the global
@@ -15,9 +30,18 @@ as the model's output (B, S, H, W, C+4) and the encoded targets are.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+
+from . import _build
+from .epilogue import _DTYPE_CODE, check_cuda
+
+EPS = 1e-7            # focal eps, ref ops/pallas/loss.py:47
+TILE_PIXELS = 1024    # pixels of one (stack, sample) map per kernel block
+
+fwd_launches = 0
+bwd_launches = 0
 
 
 def _num_pos(mask: torch.Tensor) -> torch.Tensor:
@@ -101,6 +125,223 @@ def stacked_detection_loss(out: torch.Tensor, gt_heat: torch.Tensor,
         for k, v in losses.items():
             totals[k] = totals[k] + v if k in totals else v
     return totals
+
+
+# ------------------------------------------------------------ fused loss
+
+
+def check_loss_operands(out: torch.Tensor, heat: torch.Tensor,
+                        off: torch.Tensor, wh: torch.Tensor,
+                        mask: torch.Tensor) -> None:
+    """Raise unless out is a contiguous (B, S, H, W, C+4) f32/bf16 tensor
+    and the targets are contiguous float32 heat (B, H, W, C), off and wh
+    (B, H, W, 2) and mask (B, H, W, 1) on out's device."""
+    if out.dim() != 5 or out.shape[-1] < 5:
+        raise ValueError("out must be (B, S, H, W, C+4), got %s"
+                         % (tuple(out.shape),))
+    if out.dtype not in _DTYPE_CODE or not out.is_contiguous():
+        raise ValueError("out must be contiguous float32 or bfloat16, got "
+                         "%s (contiguous=%s)" % (out.dtype,
+                                                 out.is_contiguous()))
+    b, _, h, w, k = out.shape
+    for name, t, c in (("heat", heat, k - 4), ("off", off, 2),
+                       ("wh", wh, 2), ("mask", mask, 1)):
+        if tuple(t.shape) != (b, h, w, c) or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.device != out.device:
+            raise ValueError("%s must be a contiguous float32 %s tensor on "
+                             "%s, got %s %s on %s" % (
+                                 name, (b, h, w, c), out.device,
+                                 tuple(t.shape), t.dtype, t.device))
+
+
+def loss_terms_reference(out, heat, off, wh, mask, *, alpha: float,
+                         beta: float, normalized: bool):
+    """The summands of the four loss sums, f32, each (B, S, H, W, ·):
+    focal positive and negative log terms (C channels) and the masked
+    L1 of offset and size (2 channels each), with the terms of ref
+    ops/pallas/loss.py:104-121, the logits upcast before the sigmoid."""
+    x = out.float()
+    c = heat.shape[-1]
+    m = mask.float().unsqueeze(1)
+    g = heat.float().unsqueeze(1)
+    p = torch.sigmoid(x[..., :c])
+    pos = torch.log(p + EPS) * torch.pow(1.0 - p, alpha) * m
+    neg = (torch.log(1.0 - p + EPS) * torch.pow(p, alpha)
+           * torch.pow(1.0 - g, beta) * (1.0 - m))
+    po, pw = x[..., c:c + 2], x[..., c + 2:c + 4]
+    if normalized:
+        po, pw = torch.sigmoid(po), torch.sigmoid(pw)
+    offl = torch.abs(po * m - off.float().unsqueeze(1) * m)
+    whl = torch.abs(pw * m - wh.float().unsqueeze(1) * m)
+    return pos, neg, offl, whl
+
+
+def loss_sums_reference(out, heat, off, wh, mask, *, alpha: float,
+                        beta: float, normalized: bool
+                        ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the forward kernel: (pos, neg, off_l1,
+    wh_l1), each (S, B) float32, before negation, batch mean and the
+    positive count (ref ops/pallas/loss.py:86)."""
+    return tuple(t.sum(dim=(2, 3, 4)).t().contiguous()
+                 for t in loss_terms_reference(
+                     out, heat, off, wh, mask, alpha=alpha, beta=beta,
+                     normalized=normalized))
+
+
+def loss_sums_bwd_reference(out, heat, off, wh, mask, gpos, gneg, goff, gwh,
+                            *, alpha: float, beta: float, normalized: bool
+                            ) -> torch.Tensor:
+    """Plain PyTorch version of the backward kernel: d(out) in out's dtype
+    from the four (S, B) cotangents, with the formulas of ref
+    ops/pallas/loss.py:146-175 — the analytic focal derivatives times
+    p(1-p), sign() for |.| (0 at 0), the sigmoid's chain under
+    `normalized`."""
+    x = out.float()
+    c = heat.shape[-1]
+    m = mask.float().unsqueeze(1)
+    g = heat.float().unsqueeze(1)
+
+    def per_sample(t):  # (S, B) -> (B, S, 1, 1, 1)
+        return t.float().t()[:, :, None, None, None]
+
+    p = torch.sigmoid(x[..., :c])
+    dpos = (torch.pow(1.0 - p, alpha) / (p + EPS)
+            - alpha * torch.pow(1.0 - p, alpha - 1.0)
+            * torch.log(p + EPS)) * m
+    dneg = ((-torch.pow(p, alpha) / (1.0 - p + EPS)
+             + alpha * torch.pow(p, alpha - 1.0) * torch.log(1.0 - p + EPS))
+            * torch.pow(1.0 - g, beta) * (1.0 - m))
+    parts = [(per_sample(gpos) * dpos + per_sample(gneg) * dneg)
+             * p * (1.0 - p)]
+    for cot, pred, gt in ((goff, x[..., c:c + 2], off),
+                          (gwh, x[..., c + 2:c + 4], wh)):
+        if normalized:
+            pred = torch.sigmoid(pred)
+        d = per_sample(cot) * torch.sign(
+            pred * m - gt.float().unsqueeze(1) * m) * m
+        if normalized:
+            d = d * pred * (1.0 - pred)
+        parts.append(d)
+    return torch.cat(parts, dim=-1).to(out.dtype).contiguous()
+
+
+def _loss_args(out):
+    """(B, S, H*W, C) of the raw output, as the C entries take them."""
+    b, s, h, w, k = out.shape
+    return b, s, h * w, k - 4
+
+
+def loss_sums(out: torch.Tensor, heat: torch.Tensor, off: torch.Tensor,
+              wh: torch.Tensor, mask: torch.Tensor, *, alpha: float,
+              beta: float, normalized: bool) -> Tuple[torch.Tensor, ...]:
+    """The four (S, B) float32 loss sums of the raw output (ref
+    ops/pallas/loss.py:86 `_fwd_kernel`): the kernel of csrc/loss.cu
+    writes one partial per (quantity, stack, sample, tile), and the tiles
+    are summed here in a fixed order."""
+    global fwd_launches
+    check_loss_operands(out, heat, off, wh, mask)
+    kw = dict(alpha=alpha, beta=beta, normalized=normalized)
+    if out.device.type == "cpu":
+        return loss_sums_reference(out, heat, off, wh, mask, **kw)
+    check_cuda("loss_sums", out)
+    b, s, hw, c = _loss_args(out)
+    tiles = -(-hw // TILE_PIXELS)
+    part = torch.empty((4, s, b, tiles), device=out.device,
+                       dtype=torch.float32)
+    if part.numel() == 0:
+        return tuple(torch.zeros((s, b), device=out.device) for _ in range(4))
+    lib = _build.load("loss")
+    err = lib.helmet_loss_fwd(out.data_ptr(), heat.data_ptr(),
+                              off.data_ptr(), wh.data_ptr(), mask.data_ptr(),
+                              part.data_ptr(), b, s, hw, c, tiles,
+                              float(alpha), float(beta), int(normalized),
+                              _DTYPE_CODE[out.dtype],
+                              _build.stream_handle(out.device))
+    _build.check(err, "loss_sums")
+    fwd_launches += 1
+    return part.sum(-1).unbind(0)
+
+
+def loss_sums_bwd(out: torch.Tensor, heat: torch.Tensor, off: torch.Tensor,
+                  wh: torch.Tensor, mask: torch.Tensor, gpos: torch.Tensor,
+                  gneg: torch.Tensor, goff: torch.Tensor, gwh: torch.Tensor,
+                  *, alpha: float, beta: float, normalized: bool
+                  ) -> torch.Tensor:
+    """d(out) from the four (S, B) cotangents of `loss_sums` (ref
+    ops/pallas/loss.py:126 `_bwd_kernel`), in out's dtype."""
+    global bwd_launches
+    check_loss_operands(out, heat, off, wh, mask)
+    cots = [t.float().contiguous() for t in (gpos, gneg, goff, gwh)]
+    for t in cots:
+        if tuple(t.shape) != (out.shape[1], out.shape[0]) \
+                or t.device != out.device:
+            raise ValueError("cotangents must be (S, B) = %s on %s, got %s "
+                             "on %s" % ((out.shape[1], out.shape[0]),
+                                        out.device, tuple(t.shape),
+                                        t.device))
+    kw = dict(alpha=alpha, beta=beta, normalized=normalized)
+    if out.device.type == "cpu":
+        return loss_sums_bwd_reference(out, heat, off, wh, mask, *cots, **kw)
+    check_cuda("loss_sums_bwd", out)
+    dout = torch.empty_like(out)
+    if dout.numel() == 0:
+        return dout
+    b, s, hw, c = _loss_args(out)
+    lib = _build.load("loss")
+    err = lib.helmet_loss_bwd(out.data_ptr(), heat.data_ptr(),
+                              off.data_ptr(), wh.data_ptr(), mask.data_ptr(),
+                              *(t.data_ptr() for t in cots), dout.data_ptr(),
+                              b, s, hw, c, float(alpha), float(beta),
+                              int(normalized), _DTYPE_CODE[out.dtype],
+                              _build.stream_handle(out.device))
+    _build.check(err, "loss_sums_bwd")
+    bwd_launches += 1
+    return dout
+
+
+class LossSums(torch.autograd.Function):
+    """(out, heat, off, wh, mask) -> the four (S, B) loss sums, ref
+    ops/pallas/loss.py:178 `_make_loss_sums`: the forward kernel, and a
+    backward that recomputes the terms from the saved inputs and writes
+    d(out) in one pass. Differentiable w.r.t. `out` only; the targets are
+    labels."""
+
+    @staticmethod
+    def forward(ctx, out, heat, off, wh, mask, alpha, beta, normalized):
+        ctx.save_for_backward(out, heat, off, wh, mask)
+        ctx.kw = dict(alpha=alpha, beta=beta, normalized=normalized)
+        return loss_sums(out, heat, off, wh, mask, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, gpos, gneg, goff, gwh):
+        dout = loss_sums_bwd(*ctx.saved_tensors, gpos, gneg, goff, gwh,
+                             **ctx.kw)
+        return dout, None, None, None, None, None, None, None
+
+
+def fused_detection_loss(out: torch.Tensor, gt_heat: torch.Tensor,
+                         gt_off: torch.Tensor, gt_wh: torch.Tensor,
+                         mask: torch.Tensor, *, hm_weight: float = 1.0,
+                         offset_weight: float = 1.0,
+                         size_weight: float = 0.1,
+                         focal_alpha: float = 2.0, focal_beta: float = 4.0,
+                         normalized_coord: bool = False
+                         ) -> Dict[str, torch.Tensor]:
+    """Deep-supervision loss over all stacks of the raw output
+    (B, S, H, W, C+4), fused (ref ops/pallas/loss.py:290): the same
+    {'hm', 'offset', 'size', 'total'} scalars as `stacked_detection_loss`
+    — per-sample sums, the batch mean per stack, the global positive
+    count clip(sum(mask), 1, 1e30), summed over stacks — with the logits
+    upcast to f32 before the sigmoid."""
+    pos, neg, off, wh = LossSums.apply(
+        out, gt_heat, gt_off, gt_wh, mask, float(focal_alpha),
+        float(focal_beta), bool(normalized_coord))
+    num_pos = _num_pos(mask.float())
+    hm = (-(pos.mean(1) + neg.mean(1)) / num_pos).sum()
+    off_l = (off.mean(1) / num_pos).sum()
+    size_l = (wh.mean(1) / num_pos).sum()
+    total = hm * hm_weight + off_l * offset_weight + size_l * size_weight
+    return {"hm": hm, "offset": off_l, "size": size_l, "total": total}
 
 
 class LossLog:

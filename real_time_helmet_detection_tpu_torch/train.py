@@ -7,9 +7,10 @@ update (:308), the core loop of `train_epoch` (:1508) and `train`, on
 one card:
 
     batch (host numpy, data/pipeline.py) -> pinned memory -> device
-    -> model.train() forward through the BN kernels -> stacked
-    detection loss (ops/loss.py) -> backward (the kernels' analytic
-    BN backward) -> Adam/AdamW/SGD at the scheduled LR -> checkpoint.
+    -> model.train() forward through the BN kernels -> the fused
+    detection loss (ops/loss.py, the loss kernels) -> backward (the
+    kernels' analytic BN backward) -> Adam/AdamW/SGD at the scheduled
+    LR -> checkpoint.
 
 * Weights start from the port's seeded `init_weights` or from
   `--model-load` of an npz of the flax variable tree (the weight
@@ -36,7 +37,7 @@ from .convert import load_into, load_npz, save_npz, state_dict_to_flax
 from .data.pipeline import Batch, BatchLoader, load_dataset
 from .evaluate import init_weights
 from .models.hourglass import build_model
-from .ops.loss import LossLog, stacked_detection_loss
+from .ops.loss import LossLog, fused_detection_loss
 from .optim import build_optimizer, make_lr_schedule, set_lr
 from .predict import resolve_device
 from .utils import AverageMeter, atomic_write_bytes, timestamp
@@ -47,12 +48,13 @@ WEIGHTS = "weights.npz"
 
 def loss_fn(model: torch.nn.Module, images, gt_heat, gt_off, gt_wh, mask,
             cfg: Config) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Forward + deep-supervision loss over all stacks (ref train.py:246).
-    The model must be in train mode: its BatchNorms use batch moments
-    and update their running statistics."""
+    """Forward + deep-supervision loss over all stacks (ref train.py:246),
+    through the fused loss (the JAX package's TPU default, `--loss-kernel
+    fused`). The model must be in train mode: its BatchNorms use batch
+    moments and update their running statistics."""
     out = model(images)
-    totals = stacked_detection_loss(
-        out, gt_heat, gt_off, gt_wh, mask, num_cls=cfg.num_cls,
+    totals = fused_detection_loss(
+        out, gt_heat, gt_off, gt_wh, mask,
         normalized_coord=cfg.normalized_coord, hm_weight=cfg.hm_weight,
         offset_weight=cfg.offset_weight, size_weight=cfg.size_weight,
         focal_alpha=cfg.focal_alpha, focal_beta=cfg.focal_beta)

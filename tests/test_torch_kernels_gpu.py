@@ -7,18 +7,21 @@ tests. Run on a machine with an H100:
     python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu
 
 Rules: bit-equal for the peak test, the ReLU/Linear epilogue and
-residual tail and the ReLU/Linear train dx pass; Mish within rtol 1e-6
-in f32 and one bf16 ulp in bf16; the train reductions (batch moments,
-S1/S2) per channel within 1e-5 of the sum of the absolute values of
-their terms, the error bound of a float32 sum taken in another order
-(the same as chip_smoke.py).
+residual tail and the ReLU/Linear train dx and eval backward passes;
+Mish within rtol 1e-6 in f32 and one bf16 ulp in bf16; the reductions
+(batch moments, S1/S2, the eval partials) per channel, and the loss sums
+per (stack, sample), within 1e-5 of the sum of the absolute values of
+their terms, the error bound of a float32 sum taken in another order;
+the loss's d(out) within rtol 1e-5 + atol 1e-6 * max|d(out)| (the same
+as chip_smoke.py).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from real_time_helmet_detection_tpu_torch.ops import epilogue, peak, residual
+from real_time_helmet_detection_tpu_torch.ops import (epilogue, loss, peak,
+                                                      residual)
 
 pytestmark = pytest.mark.gpu
 
@@ -143,6 +146,115 @@ def test_bn_backward_kernels_match_plain(cuda, dtype, act, skip):
     assert dx.is_contiguous(memory_format=torch.channels_last)
     if skip:
         _close(ds, wds, act)
+
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["ReLU", "Mish", "Linear"])
+def test_bn_eval_backward_kernel_matches_plain(cuda, dtype, act, skip):
+    shape = (4, 128, 32, 32)
+    x, g = _x(shape, dtype, cuda), _x(shape, dtype, cuda)
+    s = _x(shape, dtype, cuda) if skip else None
+    a = torch.rand(128, generator=cuda, device="cuda") + 0.5
+    b = torch.randn(128, generator=cuda, device="cuda") * 0.1
+    mod = residual if skip else epilogue
+    before = mod.eval_bwd_launches
+    if skip:
+        dx, ds, da, db = residual.bn_add_eval_bwd(x, a, b, s, g, act)
+    else:
+        (dx, da, db), ds = epilogue.bn_eval_bwd(x, a, b, g, act), None
+    assert mod.eval_bwd_launches == before + 1
+    wdx, wds, wda, wdb = epilogue.eval_bwd_reference(x, a, b, g, act,
+                                                     skip=s)
+    dz = _rows(epilogue._dz_reference(x, a, b, g, act, s))
+    _sums_close(da, wda, dz * _rows(x))
+    _sums_close(db, wdb, dz)
+    _close(dx, wdx, act)
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    if skip:
+        _close(ds, wds, act)
+
+
+@pytest.mark.parametrize("normalized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_loss_kernels_match_plain(cuda, dtype, normalized):
+    """Both loss kernels at (4, 2, 64, 64, 6), alpha/beta 3/3 (2/4 runs
+    in the train step test below) on random targets."""
+    b, s, h, c = 4, 2, 64, 2
+    out = (torch.randn((b, s, h, h, c + 4), generator=cuda, device="cuda")
+           * 3).to(dtype)
+    heat, off, wh = (torch.rand((b, h, h, k), generator=cuda, device="cuda")
+                     for k in (c, 2, 2))
+    mask = (torch.rand((b, h, h, 1), generator=cuda, device="cuda")
+            < 0.05).float()
+    kw = dict(alpha=3.0, beta=3.0, normalized=normalized)
+    ops = (out, heat, off, wh, mask)
+    before = (loss.fwd_launches, loss.bwd_launches)
+    got = loss.loss_sums(*ops, **kw)
+    cots = [torch.randn((s, b), generator=cuda, device="cuda")
+            for _ in range(4)]
+    dg = loss.loss_sums_bwd(*ops, *cots, **kw)
+    assert (loss.fwd_launches, loss.bwd_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = loss.loss_sums_reference(*ops, **kw)
+    terms = loss.loss_terms_reference(*ops, **kw)
+    torch.cuda.synchronize()
+    for g, w, t in zip(got, want, terms):
+        bound = 1e-5 * t.abs().sum(dim=(2, 3, 4)).t() + 1e-30
+        assert bool(((g - w).abs() <= bound).all())
+    dw = loss.loss_sums_bwd_reference(*ops, *cots, **kw)
+    assert dg.dtype == dw.dtype == dtype and dg.shape == dw.shape
+    g32, w32 = dg.float(), dw.float()
+    assert bool(((g32 - w32).abs() <= 1e-5 * w32.abs()
+                 + 1e-6 * float(w32.abs().max())).all())
+
+
+def test_small_eval_gradient_card_matches_cpu(cuda, monkeypatch):
+    """The gradient of the fused loss through a small model in eval mode
+    (seeded weights, random BN state, TF32 off) through the kernels on
+    the card against the CPU path: every parameter gets a non-zero
+    gradient on the card, and the gradients taken as one vector are
+    within rel L2 1e-4 of the CPU's (convolutions summed in other orders;
+    no batch statistics amplify it)."""
+    from real_time_helmet_detection_tpu_torch.config import Config
+    from real_time_helmet_detection_tpu_torch.data.synthetic import \
+        synthetic_target_batch
+    from real_time_helmet_detection_tpu_torch.evaluate import init_weights
+    from real_time_helmet_detection_tpu_torch.models.hourglass import (
+        BatchNorm, Residual, build_model)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = Config(device="cpu", hourglass_inch=16, batch_size=2)
+    arrs = [torch.from_numpy(a) for a in synthetic_target_batch(2, 64)]
+    model = init_weights(build_model(cfg), seed=2)
+    gen = torch.Generator().manual_seed(2)
+    for m in model.modules():
+        if hasattr(m, "folded"):
+            m.running_mean.copy_(torch.randn(m.running_mean.shape,
+                                             generator=gen) * 0.1)
+            m.running_var.copy_(torch.rand(m.running_var.shape,
+                                           generator=gen) + 0.5)
+    card = build_model(cfg)
+    card.load_state_dict(model.state_dict())
+    before = (epilogue.eval_bwd_launches, residual.eval_bwd_launches)
+    grads = []
+    for m, dev in ((model.eval(), "cpu"), (card.to("cuda").eval(), "cuda")):
+        a = [t.to(dev) for t in arrs]
+        loss.fused_detection_loss(m(a[0]), *a[1:])["total"].backward()
+        grads.append({n: p.grad.cpu().double() for n, p in
+                      m.named_parameters()})
+    # one launch per BN site: a tail per Residual block, an epilogue at
+    # every other BN (at width 16 the stem has one projection more than
+    # the flagship's 20 epilogues)
+    tails = sum(isinstance(m, Residual) for m in card.modules())
+    sites = sum(isinstance(m, BatchNorm) for m in card.modules())
+    assert (epilogue.eval_bwd_launches - before[0],
+            residual.eval_bwd_launches - before[1]) == (sites - tails, tails)
+    cpu, gpu = grads
+    assert all(float(g.abs().max()) > 0 for g in gpu.values())
+    num = sum(float((gpu[n] - cpu[n]).square().sum()) for n in cpu)
+    den = sum(float(cpu[n].square().sum()) for n in cpu)
+    assert (num / den) ** 0.5 <= 1e-4
 
 
 def test_small_train_step_card_matches_cpu(cuda, monkeypatch):

@@ -1,9 +1,11 @@
 """The PyTorch port's train path against the JAX package, on the CPU.
 
 The port is held against the JAX **fused** configuration
-(`epilogue="fused", block_fuse="fused", loss_kernel="xla"`): off the TPU
-its BN sites run the jnp twins of the Pallas kernels, with the kernels'
-formulas. (The JAX package's fused and xla configurations disagree with
+(`epilogue="fused", block_fuse="fused"`, with `loss_kernel="xla"` and with
+`loss_kernel="fused"`, the JAX TPU default, whose Pallas loss kernels run
+in interpret mode here): off the TPU its BN sites run the jnp twins of
+the Pallas kernels, with the kernels' formulas. The port itself trains
+with its fused loss. (The JAX package's fused and xla configurations disagree with
 each other in train mode beyond their own pins — moment reassociation
 amplified by every later BN, tests/test_epilogue.py:123-127 — so the
 xla composition is not the reference here.)
@@ -65,6 +67,7 @@ from real_time_helmet_detection_tpu_torch.data.synthetic import (
 from real_time_helmet_detection_tpu_torch.models.hourglass import (
     Convolution, Residual, build_model)
 from real_time_helmet_detection_tpu_torch.ops import epilogue, residual
+from real_time_helmet_detection_tpu_torch.ops import loss as loss_ops
 from real_time_helmet_detection_tpu_torch.ops.loss import \
     stacked_detection_loss
 from real_time_helmet_detection_tpu_torch.optim import (build_optimizer,
@@ -74,6 +77,8 @@ from real_time_helmet_detection_tpu_torch.train import (loss_fn,
                                                         make_train_step)
 
 FUSED = dict(epilogue="fused", block_fuse="fused", loss_kernel="xla")
+# the JAX TPU default: the same with the Pallas loss kernels
+FUSED_LOSS = dict(FUSED, loss_kernel="fused")
 # The slice tests run at 128^2, not 64^2: at 64^2 the innermost hourglass
 # level is 1x1, so its BatchNorms see batch-2 = 2 values per channel and
 # normalize them to +-1 whatever they are; the gradient through them is
@@ -299,10 +304,15 @@ def jax_grads(jmodel, jcfg, params, stats, arrs):
         {"params": jax.device_get(grads)})
 
 
-def test_slice_loss_grads_and_stats_match_jax(slice_pair):
-    """One `loss_fn` + backward from the JAX init: loss rtol 1e-5
-    (observed 9.7e-7 relative) and running statistics rtol 1e-2, atol
-    2e-5 (observed max abs 1.3e-4, 2.3% of the allowed error).
+@pytest.mark.parametrize("jax_cfg", [FUSED, FUSED_LOSS],
+                         ids=["xla_loss", "fused_loss"])
+def test_slice_loss_grads_and_stats_match_jax(slice_pair, jax_cfg):
+    """One `loss_fn` + backward from the JAX init, against the JAX step
+    with its XLA loss composition and with its Pallas loss kernels (the
+    same pins for both): loss rtol 1e-5
+    (observed 1.2e-6 relative against the Pallas loss, 9.7e-7 against
+    the composition) and running statistics rtol 1e-2, atol 2e-5
+    (observed max abs 1.3e-4, 2.3% of the allowed error).
 
     Gradients, 1 stack: every element within the JAX package's own
     fused-vs-xla pin, rtol 5e-3, atol 1e-4 (tests/test_epilogue.py:
@@ -317,7 +327,8 @@ def test_slice_loss_grads_and_stats_match_jax(slice_pair):
     rounding source the two JAX configurations share)."""
     p = slice_pair
     arrs = p["batches"][0]
-    jl, jstats, want = jax_grads(p["jmodel"], p["jcfg"], p["params"],
+    jcfg = dataclasses.replace(p["jcfg"], **jax_cfg)
+    jl, jstats, want = jax_grads(p["jmodel"], jcfg, p["params"],
                                  p["stats"], arrs)
     model = p["model"]
     convert.load_into(model, {"params": p["params"],
@@ -335,7 +346,7 @@ def test_slice_loss_grads_and_stats_match_jax(slice_pair):
             np.testing.assert_allclose(got[n], want[n].numpy(), rtol=5e-3,
                                        atol=1e-4, err_msg=n)
         return
-    xcfg = dataclasses.replace(p["jcfg"], epilogue="xla", block_fuse="xla")
+    xcfg = dataclasses.replace(jcfg, epilogue="xla", block_fuse="xla")
     _, _, xla = jax_grads(jax_build(xcfg), xcfg, p["params"], p["stats"],
                           arrs)
     yardstick = max(float((xla[n] - want[n]).abs().max()) for n in want)
@@ -382,8 +393,9 @@ def test_slice_three_steps_match_jax(slice_pair):
 def test_flagship_train_step_launch_sites(monkeypatch):
     """One train step at the flagship width runs the BN passes at every
     site: 37 batch-moment passes, 20 epilogue and 17 residual-tail
-    forwards, and 20 + 17 of each backward pass (the counts chip_smoke.py
-    holds the CUDA launch counters to); on the CPU no counter moves."""
+    forwards, and 20 + 17 of each backward pass, and the fused loss once
+    each way (the counts chip_smoke.py holds the CUDA launch counters
+    to); on the CPU no counter moves."""
     calls = {}
 
     def counting(mod, name):
@@ -399,18 +411,23 @@ def test_flagship_train_step_launch_sites(monkeypatch):
         counting(epilogue, name)
     for name in ("bn_add_act", "bn_add_bwd_sums", "bn_add_bwd_dx"):
         counting(residual, name)
+    for name in ("loss_sums", "loss_sums_bwd"):
+        counting(loss_ops, name)
     cfg = Config(device="cpu", batch_size=1)  # 128 channels, 1 stack
     model = build_model(cfg).train()
     opt = build_optimizer(cfg, model.parameters())
     step = make_train_step(model, opt, make_lr_schedule(cfg, 1), cfg)
     before = (epilogue.stats_launches, epilogue.bwd_sums_launches,
-              residual.bwd_dx_launches, epilogue.launches)
+              residual.bwd_dx_launches, epilogue.launches,
+              loss_ops.fwd_launches, loss_ops.bwd_launches)
     step(0, *map(torch.from_numpy, synthetic_target_batch(1, 64)))
     assert calls == {"bn_act": 20, "bn_stats": 37, "bn_bwd_sums": 20,
                      "bn_bwd_dx": 20, "bn_add_act": 17,
-                     "bn_add_bwd_sums": 17, "bn_add_bwd_dx": 17}
+                     "bn_add_bwd_sums": 17, "bn_add_bwd_dx": 17,
+                     "loss_sums": 1, "loss_sums_bwd": 1}
     assert (epilogue.stats_launches, epilogue.bwd_sums_launches,
-            residual.bwd_dx_launches, epilogue.launches) == before
+            residual.bwd_dx_launches, epilogue.launches,
+            loss_ops.fwd_launches, loss_ops.bwd_launches) == before
 
 
 # -------------------------------------------------------------------- CLI
