@@ -18,13 +18,18 @@ version on the card:
 3. each eval kernel against its plain version at the main path's shapes,
    f32 and bf16, every activation, pool sizes 3 and 5 — bit-equal for
    the peak test and the ReLU/Linear epilogue and residual tail; Mish
-   within rtol 1e-6 (f32) or one bf16 ulp (bf16);
+   within rtol 1e-6 (f32) or one bf16 ulp (bf16); the epilogue also at
+   ragged element counts, at a channel count and on a misaligned view
+   that take its scalar kernel, each site on the variant it should take;
 4. eval kernel time (CUDA graph replay, CUDA events) beside the least
    time the card could take (bytes / 3.35 TB/s), the plain version's
    time and the time of a one-call PyTorch equivalent where one exists;
+   the epilogue's vector and scalar kernels at every EPI_SHAPES site,
+   ReLU, f32 and bf16, in turns (vector, scalar, scalar, vector);
 5. the predict path, batch 16, 512^2, 1 stack, 128 channels, seeded
-   weights, f32 and bf16: launch counts per forward (20 epilogue, 17
-   residual tail, 1 peak, no train kernel), logits of the whole batch
+   weights, f32 and bf16: launch counts per forward (20 epilogue, all on
+   the vector kernel, 17 residual tail, 1 peak, no train kernel), logits
+   of the whole batch
    and Detections against the same path with every kernel swapped for
    its plain version, peak memory, images/s as the median of 5 windows
    of about 2 s each (kernel and plain windows alternate), and a small
@@ -45,7 +50,8 @@ version on the card:
    (stack, sample) sum within 1e-5 of the plain version's sum of
    |terms|, d(out) elementwise within rtol 1e-5 + 1e-6 * max|d(out)|;
 10. loss_timing: the two loss kernels beside their bounds, the plain
-   versions and the eager composition's forward + backward;
+   versions and the eager composition's forward + backward; each
+   kernel's own device time from a torch.profiler trace;
 11. train_main: the flagship --amp train step at b16 512^2 on the port's
    synthetic_target_batch: launch counts per step (37 moments, 20 + 17
    backward sums and dx, 20 epilogue, 17 tail, the loss kernels once
@@ -265,6 +271,8 @@ def site_bytes(totals):
 COUNTERS = {
     "peak_scores": ("peak", "launches"),
     "bn_act": ("epilogue", "launches"),
+    "bn_act_vec": ("epilogue", "vector_launches"),
+    "bn_act_scalar": ("epilogue", "scalar_launches"),
     "bn_add_act": ("residual", "launches"),
     "bn_stats": ("epilogue", "stats_launches"),
     "bn_bwd_sums": ("epilogue", "bwd_sums_launches"),
@@ -381,6 +389,20 @@ EPI_SHAPES = [(16, 64, 256, 256)] + [(16, 128, s, s)
                                      for s in (256, 128, 64, 32, 16, 8)]
 RES_SHAPES = [(16, 128, s, s) for s in (256, 128, 64, 32, 16, 8)]
 PEAK_SHAPE = (16, 1, 128, 128, 6)
+# the epilogue off the flagship's sites: element counts that are no
+# multiple of V x the unroll (C 8, 64, 128: the vector kernel's tail
+# loop) and C = 6 (the scalar kernel); (shape, variant)
+EPI_RAGGED = [((3, c, 5, 7), "vector") for c in (8, 64, 128)] \
+    + [((3, 6, 5, 7), "scalar")]
+
+
+def misaligned(shape, dtype, gen):
+    """A channels-last tensor one element into its storage, so its data
+    is not 16-byte aligned."""
+    import torch
+    n, c, h, w = shape
+    base = rand((n * h * w * c + 1,), dtype, gen, 2.0)
+    return base[1:].view(n, h, w, c).permute(0, 3, 1, 2)
 
 
 def phase_kernels(state):
@@ -390,19 +412,32 @@ def phase_kernels(state):
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = state.setdefault("errs", {})
     n = 0
+    epi_cases = [(s, "vector", False) for s in EPI_SHAPES] \
+        + [(s, v, False) for s, v in EPI_RAGGED] \
+        + [((2, 64, 9, 9), "scalar", True)]
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
         for act in ("ReLU", "Linear", "Mish"):
             mode = ("equal" if act != "Mish" else
                     "rtol1e-6" if dtype == torch.float32 else "bf16ulp")
-            for shape in EPI_SHAPES:
-                x = channels_last(rand(shape, dtype, gen, 2.0))
+            for shape, variant, offset in epi_cases:
+                x = misaligned(shape, dtype, gen) if offset else \
+                    channels_last(rand(shape, dtype, gen, 2.0))
                 a = rand((shape[1],), torch.float32, gen, 0.5) + 1.0
                 b = rand((shape[1],), torch.float32, gen, 0.5)
-                err = compare("bn_act %s %s %s" % (tag, act, shape),
-                              epilogue.bn_act(x, a, b, act),
+                label = "bn_act %s %s %s%s" % (tag, act, shape,
+                                               " misaligned" * offset)
+                before = (epilogue.vector_launches, epilogue.scalar_launches)
+                got = epilogue.bn_act(x, a, b, act)
+                took = "vector" if epilogue.vector_launches > before[0] \
+                    else "scalar" if epilogue.scalar_launches > before[1] \
+                    else None
+                require(took == variant, "%s ran the %s kernel, want %s"
+                        % (label, took, variant))
+                err = compare(label, got,
                               epilogue.bn_act_reference(x, a, b, act), mode)
-                errs[("bn_act", tag, act, shape)] = err
+                errs[("bn_act", tag, act, shape) + ("misaligned",) * offset] \
+                    = err
                 n += 1
             for shape in RES_SHAPES:
                 y = channels_last(rand(shape, dtype, gen, 2.0))
@@ -430,17 +465,18 @@ def phase_kernels(state):
                           "equal")
             errs[("peak_scores", pool_size, label)] = err
             n += 1
-    log("kernels: %d comparisons against the plain versions passed "
+    def mish_err(name, tag):
+        return max(v for k, v in errs.items() if k[:3] == (name, tag, "Mish"))
+
+    log("kernels: %d comparisons against the plain versions passed, the "
+        "epilogue on its vector kernel at every EPI_SHAPES site and at %s, "
+        "on its scalar kernel at %s and on a misaligned (2, 64, 9, 9) view "
         "(max abs err: bn_act Mish f32 %g, bf16 %g; bn_add_act Mish f32 "
         "%g, bf16 %g; all others 0)"
-        % (n, max(v for k, v in errs.items() if k[:3] == ("bn_act", "f32",
-                                                            "Mish")),
-           max(v for k, v in errs.items() if k[:3] == ("bn_act", "bf16",
-                                                       "Mish")),
-           max(v for k, v in errs.items() if k[:3] == ("bn_add_act", "f32",
-                                                       "Mish")),
-           max(v for k, v in errs.items() if k[:3] == ("bn_add_act", "bf16",
-                                                       "Mish"))))
+        % (n, [s for s, v in EPI_RAGGED if v == "vector"],
+           [s for s, v in EPI_RAGGED if v == "scalar"],
+           mish_err("bn_act", "f32"), mish_err("bn_act", "bf16"),
+           mish_err("bn_add_act", "f32"), mish_err("bn_add_act", "bf16")))
     require(all(v == 0.0 for k, v in errs.items() if "Mish" not in k),
             "a bit-equal comparison reported a non-zero error")
 
@@ -498,6 +534,49 @@ def phase_timing(state):
                 "%s %s %s" % key, r["ms"], r["eager_ms"], r["plain_ms"],
                 "%.4f" % r["library_ms"] if r["library_ms"] is not None
                 else "none", r["bound_ms"], r["shape"]))
+    epilogue_sweep(state)
+
+
+def epilogue_sweep(state):
+    """The epilogue's vector kernel against its scalar kernel (the earlier
+    design, still built) at every EPI_SHAPES site, ReLU, f32 and bf16, by
+    CUDA graph replay in turns (vector, scalar, scalar, vector; each the
+    mean of its two), beside the bound (bytes / 3.35 TB/s)."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.ops import epilogue
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    sweep = state.setdefault("epi_sweep", {})
+    log("epilogue sweep (ReLU, ms per call by CUDA graph replay; vector = "
+        "16-byte kernel, scalar = the one-element-a-thread kernel):")
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for shape in EPI_SHAPES:
+            x = channels_last(rand(shape, dtype, gen))
+            a = rand((shape[1],), torch.float32, gen) + 1.0
+            b = rand((shape[1],), torch.float32, gen)
+            times = {"vector": [], "scalar": []}
+            for variant in ("vector", "scalar", "scalar", "vector"):
+                times[variant].append(graph_ms(
+                    lambda: epilogue.bn_act(x, a, b, "ReLU",
+                                            variant=variant)))
+            r = {k: sum(v) / len(v) for k, v in times.items()}
+            r["bound"] = 2 * x.numel() * x.element_size() \
+                / HBM_BYTES_PER_S * 1e3
+            sweep[(tag, shape)] = r
+            log("  %-4s %-20s vector %.4f (%.0f%% of bound)  scalar %.4f "
+                "(%.0f%%)  bound %.4f  vector/scalar %.3f" % (
+                    tag, shape, r["vector"], 100 * r["bound"] / r["vector"],
+                    r["scalar"], 100 * r["bound"] / r["scalar"], r["bound"],
+                    r["vector"] / r["scalar"]))
+            del x
+        torch.cuda.empty_cache()
+    big = [k for k in sweep if k[1][2] >= 128]
+    small = [k for k in sweep if k[1][2] < 128]
+    log("epilogue sweep: vector faster than scalar at every 256^2 and "
+        "128^2 site %s; vector within 5%% of scalar at every smaller site "
+        "%s" % (all(sweep[k]["vector"] < sweep[k]["scalar"] for k in big),
+                all(sweep[k]["vector"] <= 1.05 * sweep[k]["scalar"]
+                    for k in small)))
 
 
 def perturb_bn(model, seed, scale=(0.2, 0.6)):
@@ -573,7 +652,7 @@ def phase_main(state):
     images = np.random.default_rng(0).integers(
         0, 256, (16, 512, 512, 3), dtype=np.uint8)
     want = dict.fromkeys(COUNTERS, 0)  # predict runs no train kernel
-    want.update(bn_act=20, bn_add_act=17, peak_scores=1)
+    want.update(bn_act=20, bn_act_vec=20, bn_add_act=17, peak_scores=1)
     for amp in (False, True):
         tag = "bf16" if amp else "f32"
         cfg = Config(batch_size=16, imsize=512, amp=amp)
@@ -977,7 +1056,10 @@ def phase_loss_timing(state):
     dtype) by CUDA graph replay, beside their bounds and plain versions;
     no single PyTorch call computes the loss, so the library column is
     empty and the eager composition's forward + backward
-    (`stacked_detection_loss`) and the fused loss's stand beside."""
+    (`stacked_detection_loss`) and the fused loss's stand beside. Each
+    wrapper's calls under torch.profiler give its kernel's own device
+    time and the number of device operations per call (1: `loss_sums`
+    folds its tiles inside the launch)."""
     import torch
     from real_time_helmet_detection_tpu_torch.ops import loss
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -1001,6 +1083,7 @@ def phase_loss_timing(state):
     heat_elems = heat.numel() * LOSS_SHAPE[1]
     reg_elems = out.numel() - heat_elems
     rows = state.setdefault("loss_timing", {})
+    reps = 20  # calls under the profiler
     for name, kern, plain, nbytes in (
             ("loss_fwd", lambda: loss.loss_sums(*ops, **kw),
              lambda: loss.loss_sums_reference(*ops, **kw), nout + targets),
@@ -1011,18 +1094,36 @@ def phase_loss_timing(state):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = (per_heat * heat_elems + per_reg * reg_elems) \
             / F32_FLOPS * 1e3
+        ops_seen = {}
+        by_name, _ = trace_device_ms(lambda i: kern(), reps, ops_seen)
+        kernel = "%s_kernel" % name
         rows[name] = dict(
             ms=graph_ms(kern), eager_ms=eager_ms(kern),
             plain_ms=graph_ms(plain), library_ms=None,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
+            kernel_device_ms=sum(v for k, v in by_name.items()
+                                 if kernel in k),
+            device_ops_per_call=sum(ops_seen.values()) or None,
+            other_device_ops=sorted(k for k in ops_seen if kernel not in k),
             composition_ms=composition, fused_ms=fused, shape=LOSS_SHAPE)
+    # the profiler may drop an event, so the count per call may read a
+    # little under 1; any device operation but the kernel is a failure
+    fwd = rows["loss_fwd"]
+    require(not fwd["other_device_ops"]
+            and (fwd["device_ops_per_call"] or 0) <= 1,
+            "loss_sums ran device operations besides its kernel: %s, %s "
+            "per call" % (fwd["other_device_ops"],
+                          fwd["device_ops_per_call"]))
     log("loss_timing (ms per call at %s f32; kernel and plain by CUDA "
-        "graph replay, eager = issued from Python):" % (LOSS_SHAPE,))
+        "graph replay, eager = issued from Python, device = the kernel's "
+        "own time under torch.profiler):" % (LOSS_SHAPE,))
     for name, r in rows.items():
-        log("  %-9s kernel %.4f (eager %.4f)  plain %.4f  library none  "
-            "bound %.4f (%s)" % (name, r["ms"], r["eager_ms"], r["plain_ms"],
-                                 r["bound_ms"], r["bound_by"]))
+        log("  %-9s kernel %.4f (eager %.4f, device %.4f, %s device "
+            "operations per call)  plain %.4f  library none  bound %.4f "
+            "(%s)" % (name, r["ms"], r["eager_ms"], r["kernel_device_ms"],
+                      r["device_ops_per_call"], r["plain_ms"],
+                      r["bound_ms"], r["bound_by"]))
     log("  forward + backward issued from Python: the fused loss %.4f, the "
         "composition stacked_detection_loss %.4f" % (fused, composition))
 
@@ -1097,8 +1198,8 @@ def phase_eval_grad(state):
 
     arrs = train_batch()
     want = dict.fromkeys(COUNTERS, 0)
-    want.update(bn_act=20, bn_add_act=17, bn_eval_bwd=20, bn_add_eval_bwd=17,
-                loss_fwd=1, loss_bwd=1)
+    want.update(bn_act=20, bn_act_vec=20, bn_add_act=17, bn_eval_bwd=20,
+                bn_add_eval_bwd=17, loss_fwd=1, loss_bwd=1)
     runs = {}
     torch.backends.cudnn.deterministic = True
     try:
@@ -1445,9 +1546,9 @@ def phase_train_main(state):
     from real_time_helmet_detection_tpu_torch.ops import epilogue
     conversions = epilogue.grad_conversions
     want = dict.fromkeys(COUNTERS, 0)
-    want.update(bn_act=20, bn_add_act=17, bn_stats=37, bn_bwd_sums=20,
-                bn_add_bwd_sums=17, bn_bwd_dx=20, bn_add_bwd_dx=17,
-                loss_fwd=1, loss_bwd=1)
+    want.update(bn_act=20, bn_act_vec=20, bn_add_act=17, bn_stats=37,
+                bn_bwd_sums=20, bn_add_bwd_sums=17, bn_bwd_dx=20,
+                bn_add_bwd_dx=17, loss_fwd=1, loss_bwd=1)
     require(counts == want, "launches per train step %s, want %s"
             % (counts, want))
     state.setdefault("launches", {})["train"] = counts
@@ -1507,9 +1608,11 @@ CONV_KEYS = ("conv", "xmma", "cudnn", "gemm", "cutlass", "fft", "winograd",
              "wgrad", "dgrad", "pointwise_mult_and_sum_complex")
 
 
-def trace_device_ms(run, reps=3):
+def trace_device_ms(run, reps=3, counts=None):
     """Call `run(i)` for i < reps under torch.profiler (CUDA activity
-    only): (device ms per call by kernel name, traced wall ms per call)."""
+    only): (device ms per call by kernel name, traced wall ms per call);
+    `counts`, a dict when given, gets device operations per call by
+    name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1526,6 +1629,8 @@ def trace_device_ms(run, reps=3):
         if ev.device_type == DeviceType.CUDA:
             by_name[ev.key] = by_name.get(ev.key, 0.0) \
                 + ev.self_device_time_total / 1e3 / reps
+            if counts is not None:
+                counts[ev.key] = counts.get(ev.key, 0) + ev.count / reps
     return by_name, traced_ms
 
 
@@ -1609,9 +1714,9 @@ def profile_train(state):
             "not measured (traced wall %.2f ms per step)" % traced_ms)
         return
     groups = group_device_ms(by_name, (
-        "bn_add_act_kernel", "bn_act_kernel", "bn_stats_kernel",
-        "bn_bwd_sums_kernel", "bn_bwd_dx_kernel", "loss_fwd_kernel",
-        "loss_bwd_kernel"))
+        "bn_add_act_kernel", "bn_act_vec_kernel", "bn_act_kernel",
+        "bn_stats_kernel", "bn_bwd_sums_kernel", "bn_bwd_dx_kernel",
+        "loss_fwd_kernel", "loss_bwd_kernel"))
     state["profile_train"] = dict(wall_ms=wall_ms, traced_ms=traced_ms,
                                   busy_ms=busy, groups=groups, phases=phases)
     log("    step phases by CUDA events (one untraced step): %s"
@@ -1703,6 +1808,7 @@ def phase_profile(state):
                 % (tag, traced_ms))
             continue
         groups = group_device_ms(by_name, ("bn_add_act_kernel",
+                                           "bn_act_vec_kernel",
                                            "bn_act_kernel", "peak_kernel"))
         state.setdefault("profile", {})[tag] = dict(
             wall_ms=wall_ms, traced_ms=traced_ms, busy_ms=busy,
@@ -1820,6 +1926,12 @@ def kernel_rows(state):
         if "composition_ms" in t:
             rows[-1]["composition_ms"] = t["composition_ms"]
             rows[-1]["launches_eval_grad"] = eval_grad[name]
+            rows[-1]["kernel_device_ms"] = t["kernel_device_ms"]
+        if name == "bn_act":  # the vector kernel; the scalar one beside
+            rows[-1].update(
+                launches_vector=counts["bn_act_vec"],
+                launches_scalar=counts["bn_act_scalar"],
+                scalar_ms=state["epi_sweep"][("bf16", BIG)]["scalar"])
     return rows
 
 

@@ -61,4 +61,16 @@ inline unsigned grid_for(long long n, int threads) {
   return (unsigned)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
 }
 
+// Blocks for a grid-stride loop that needs `needed` blocks to give every
+// thread one step: at most one wave of resident blocks, `per_sm` (from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor) on each SM of the
+// current device.
+inline unsigned wave_grid(int per_sm, long long needed) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long wave = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  return (unsigned)(needed < 1 ? 1 : needed < wave ? needed : wave);
+}
+
 }  // namespace helmet

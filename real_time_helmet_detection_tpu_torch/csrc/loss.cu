@@ -19,27 +19,40 @@
 // and 5.9 us at 3.35 TB/s; a few dozen flops per element.
 //
 // Design: the TPU grid has one program per (stack, sample), 16 at b16; here
-// a block covers one tile of kTilePixels pixels of one (s, b) map, so the
-// flagship runs 16 x 16 blocks. `out` stays in the model's (B, S, ...)
-// layout: the (stack, sample) swap is in the indexing, as the Pallas index
-// maps do it. A thread walks pixels of its tile and reads each pixel's C+4
-// logits and its targets; neighbouring threads read neighbouring pixels.
-// The forward sums its tile in shared memory in a fixed tree order and
-// writes one partial per (quantity, s, b, tile); the wrapper folds the
-// tiles with torch in a fixed order. No float atomics: runs reproduce bit
-// for bit. The backward needs no reduction and writes dout once. Math is
-// f32 through the __f*_rn intrinsics in the Pallas kernels' order; the
-// sigmoid is ATen's 1 / (1 + expf(-x)) and x**e for a scalar exponent
-// follows ATen's CUDA pow(Tensor, Scalar) (0, 1, 2 and 3 specialised,
-// powf otherwise), so the terms match the plain PyTorch version's.
+// the forward runs one block per 512-pixel tile of an (s, b) map, two
+// pixels per thread (32 x 16 = 512 blocks at the flagship, one wave on
+// 132 SMs), and the backward one block per 1024-pixel tile. `out` stays
+// in the model's (B, S, ...) layout: the (stack, sample) swap is in the
+// indexing, as the Pallas index maps do it; neighbouring threads read
+// neighbouring pixels.
+//
+// The forward folds its tiles inside the launch ("last block done"): each
+// block sums its pixels in a fixed shuffle order and writes its four tile
+// partials, fences, and takes a ticket from an unsigned counter of its
+// map; the block that takes the last ticket sums the map's partials in a
+// fixed order and writes the (4, S, B) result. atomicInc wraps the counter
+// back to 0 at that ticket, so the wrapper's zeroed counter buffer stays
+// zero across launches and CUDA-graph replays. A cluster folding through
+// distributed shared memory was the alternative; it caps a map at one
+// cluster, 8 blocks portably (16 at most), so 1024-2048 pixels per block
+// and 128-256 blocks at the flagship, where the ticket lets any number of
+// tiles spread over the whole card. No float atomics: the sums reproduce
+// bit for bit from run to run. The backward needs no reduction and writes
+// dout once. Math is f32 through the __f*_rn intrinsics in the Pallas
+// kernels' order; the sigmoid is ATen's 1 / (1 + expf(-x)) and x**e for a
+// scalar exponent follows ATen's CUDA pow(Tensor, Scalar) (0, 1, 2 and 3
+// specialised, powf otherwise), so the terms match the plain PyTorch
+// version's.
 #include "common.cuh"
 
 #include <math.h>
 
 namespace helmet {
 
-constexpr int kLossThreads = 256;  // a power of two: the tree reduction
-constexpr int kTilePixels = 1024;
+constexpr int kLossThreads = 256;  // a multiple of 32, at most 1024
+constexpr int kTilePixels = 1024;  // the backward's tile
+constexpr int kFwdPixels = 2;      // the forward's pixels per thread
+constexpr int kFwdTilePixels = kLossThreads * kFwdPixels;
 constexpr float kLossEps = 1e-7f;  // ref ops/pallas/loss.py:47
 
 __device__ __forceinline__ float sigmoid(float x) {
@@ -69,64 +82,120 @@ struct LossArgs {
   bool normalized;
 };
 
-template <typename T>
-__global__ void loss_fwd_kernel(const T* __restrict__ out, LossArgs args,
-                                float* __restrict__ part) {
-  __shared__ float red[4][kLossThreads];
-  const int t = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
-  const int C = args.C, K = C + 4, HW = args.HW;
-  const T* slab = out + ((long long)b * args.S + s) * HW * K;
-  const int p1 = min((t + 1) * kTilePixels, HW);
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int px = t * kTilePixels + threadIdx.x; px < p1; px += blockDim.x) {
-    const T* o = slab + (long long)px * K;
-    const long long q = (long long)b * HW + px;
-    const float m = args.mask[q];
-    const float nm = __fsub_rn(1.f, m);
-    const float* g = args.heat + q * C;
-    for (int c = 0; c < C; ++c) {
-      const float p = sigmoid(to_f32(o[c]));
-      const float omp = __fsub_rn(1.f, p);
-      // log(p + eps) * (1 - p)^alpha * m
-      acc[0] = __fadd_rn(
-          acc[0], __fmul_rn(__fmul_rn(logf(__fadd_rn(p, kLossEps)),
-                                      spow(omp, args.alpha)),
-                            m));
-      // log(1 - p + eps) * p^alpha * (1 - g)^beta * (1 - m)
-      acc[1] = __fadd_rn(
-          acc[1],
-          __fmul_rn(__fmul_rn(__fmul_rn(logf(__fadd_rn(omp, kLossEps)),
-                                        spow(p, args.alpha)),
-                              spow(__fsub_rn(1.f, g[c]), args.beta)),
-                    nm));
-    }
-    for (int j = 0; j < 2; ++j) {
-      float po = to_f32(o[C + j]), pw = to_f32(o[C + 2 + j]);
-      if (args.normalized) {
-        po = sigmoid(po);
-        pw = sigmoid(pw);
-      }
-      acc[2] = __fadd_rn(acc[2], fabsf(__fsub_rn(
-                                     __fmul_rn(po, m),
-                                     __fmul_rn(args.off[2 * q + j], m))));
-      acc[3] = __fadd_rn(acc[3], fabsf(__fsub_rn(
-                                     __fmul_rn(pw, m),
-                                     __fmul_rn(args.wh[2 * q + j], m))));
-    }
-  }
-  const int tid = threadIdx.x;
-  for (int k = 0; k < 4; ++k) red[k][tid] = acc[k];
+// The four sums of the block's threads into red[k][0], k < 4, in a fixed
+// order: each warp folds its 32 lanes by shuffles, then warp 0 folds the
+// warps' sums. blockDim.x == kLossThreads.
+__device__ __forceinline__ void block_sum4(float (&acc)[4],
+                                           float (*red)[kLossThreads / 32]) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+      acc[k] = __fadd_rn(acc[k], __shfl_down_sync(0xffffffffu, acc[k], off));
+  if (lane == 0)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) red[k][warp] = acc[k];
   __syncthreads();
-  for (int stride = blockDim.x / 2; stride > 0; stride /= 2) {
-    if (tid < stride)
-      for (int k = 0; k < 4; ++k)
-        red[k][tid] = __fadd_rn(red[k][tid], red[k][tid + stride]);
-    __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float v = lane < kLossThreads / 32 ? red[k][lane] : 0.f;
+#pragma unroll
+      for (int off = kLossThreads / 64; off > 0; off /= 2)
+        v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, off));
+      acc[k] = v;
+    }
   }
-  if (tid < 4) {
-    const long long sb = (long long)s * args.B + b;
-    part[((long long)tid * args.S * args.B + sb) * gridDim.x + t] =
-        red[tid][0];
+}
+
+// The four loss terms of pixel px of map (s, b), added to acc.
+template <typename T>
+__device__ __forceinline__ void pixel_terms(const T* __restrict__ out,
+                                            const LossArgs& args, int b,
+                                            int s, int px, float* acc) {
+  const int C = args.C, K = C + 4, HW = args.HW;
+  const T* o = out + (((long long)b * args.S + s) * HW + px) * K;
+  const long long q = (long long)b * HW + px;
+  const float m = args.mask[q];
+  const float nm = __fsub_rn(1.f, m);
+  const float* g = args.heat + q * C;
+  for (int c = 0; c < C; ++c) {
+    const float p = sigmoid(to_f32(o[c]));
+    const float omp = __fsub_rn(1.f, p);
+    // log(p + eps) * (1 - p)^alpha * m
+    acc[0] = __fadd_rn(
+        acc[0], __fmul_rn(__fmul_rn(logf(__fadd_rn(p, kLossEps)),
+                                    spow(omp, args.alpha)),
+                          m));
+    // log(1 - p + eps) * p^alpha * (1 - g)^beta * (1 - m)
+    acc[1] = __fadd_rn(
+        acc[1],
+        __fmul_rn(__fmul_rn(__fmul_rn(logf(__fadd_rn(omp, kLossEps)),
+                                      spow(p, args.alpha)),
+                            spow(__fsub_rn(1.f, g[c]), args.beta)),
+                  nm));
+  }
+  for (int j = 0; j < 2; ++j) {
+    float po = to_f32(o[C + j]), pw = to_f32(o[C + 2 + j]);
+    if (args.normalized) {
+      po = sigmoid(po);
+      pw = sigmoid(pw);
+    }
+    acc[2] = __fadd_rn(acc[2], fabsf(__fsub_rn(
+                                   __fmul_rn(po, m),
+                                   __fmul_rn(args.off[2 * q + j], m))));
+    acc[3] = __fadd_rn(acc[3], fabsf(__fsub_rn(
+                                   __fmul_rn(pw, m),
+                                   __fmul_rn(args.wh[2 * q + j], m))));
+  }
+}
+
+// kFwdPixels pixels per thread (px, px + 256, ...), one kFwdTilePixels
+// tile per block; the block's four tile sums go to part (4, S*B, tiles).
+// The block that takes the last ticket of its (s, b) map folds that map's
+// tiles in tile order into sums (4, S, B): warp 0, lane i summing tiles
+// i, i + 32, ..., then the lanes by shuffles. The ticket is atomicInc on
+// an unsigned counter per map, which wraps back to 0 at the last ticket,
+// so every launch leaves the counters at 0.
+template <typename T>
+__global__ void __launch_bounds__(kLossThreads)
+    loss_fwd_kernel(const T* __restrict__ out, LossArgs args,
+                    float* __restrict__ part, unsigned* __restrict__ tickets,
+                    float* __restrict__ sums) {
+  __shared__ float red[4][kLossThreads / 32];
+  __shared__ bool last;
+  const int t = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
+  const int tiles = gridDim.x;
+  const long long sb = (long long)s * args.B + b;
+  const long long maps = (long long)args.S * args.B;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < kFwdPixels; ++r) {
+    const int px = t * kFwdTilePixels + r * kLossThreads + threadIdx.x;
+    if (px < args.HW) pixel_terms(out, args, b, s, px, acc);
+  }
+  block_sum4(acc, red);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) part[(k * maps + sb) * tiles + t] = acc[k];
+    __threadfence();  // the partials are visible before the ticket
+    last = atomicInc(&tickets[sb], (unsigned)(tiles - 1)) ==
+           (unsigned)(tiles - 1);
+  }
+  __syncthreads();
+  if (!last || threadIdx.x >= 32) return;
+  __threadfence();
+  const int lane = threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float v = 0.f;
+    for (int i = lane; i < tiles; i += 32)
+      v = __fadd_rn(v, __ldcg(part + (k * maps + sb) * tiles + i));
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+      v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, off));
+    if (lane == 0) sums[k * maps + sb] = v;
   }
 }
 
@@ -203,19 +272,25 @@ inline bool loss_shape_ok(int B, int S, int HW, int C) {
 }
 
 inline int loss_tiles(int HW) { return (HW + kTilePixels - 1) / kTilePixels; }
+inline int loss_fwd_tiles(int HW) {
+  return (HW + kFwdTilePixels - 1) / kFwdTilePixels;
+}
 
 }  // namespace helmet
 
 // out (B, S, H, W, C+4) f32 or bf16 (dtype code); heat (B, H, W, C), off
-// and wh (B, H, W, 2), mask (B, H, W, 1), all f32; HW = H * W; part is
-// (4, S, B, tiles) f32 with tiles = ceil(HW / 1024).
+// and wh (B, H, W, 2), mask (B, H, W, 1), all f32; HW = H * W; tiles =
+// ceil(HW / 512); part (4, S, B, tiles) f32 scratch; tickets (S * B)
+// unsigned, all 0 (every launch leaves them at 0); sums (4, S, B) f32, the
+// result.
 extern "C" int helmet_loss_fwd(const void* out, const void* heat,
                                const void* off, const void* wh,
-                               const void* mask, void* part, int B, int S,
-                               int HW, int C, int tiles, float alpha,
-                               float beta, int normalized, int dtype,
-                               void* stream) {
-  if (!helmet::loss_shape_ok(B, S, HW, C) || tiles != helmet::loss_tiles(HW))
+                               const void* mask, void* part, void* tickets,
+                               void* sums, int B, int S, int HW, int C,
+                               int tiles, float alpha, float beta,
+                               int normalized, int dtype, void* stream) {
+  if (!helmet::loss_shape_ok(B, S, HW, C) ||
+      tiles != helmet::loss_fwd_tiles(HW))
     return (int)cudaErrorInvalidValue;
   const helmet::LossArgs args{static_cast<const float*>(heat),
                               static_cast<const float*>(off),
@@ -225,13 +300,15 @@ extern "C" int helmet_loss_fwd(const void* out, const void* heat,
   const dim3 grid(tiles, B, S);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
+  unsigned* tk = static_cast<unsigned*>(tickets);
+  float* r = static_cast<float*>(sums);
   if (dtype == helmet::kF32)
     helmet::loss_fwd_kernel<float><<<grid, helmet::kLossThreads, 0, s>>>(
-        static_cast<const float*>(out), args, p);
+        static_cast<const float*>(out), args, p, tk, r);
   else if (dtype == helmet::kBF16)
     helmet::loss_fwd_kernel<__nv_bfloat16>
         <<<grid, helmet::kLossThreads, 0, s>>>(
-            static_cast<const __nv_bfloat16*>(out), args, p);
+            static_cast<const __nv_bfloat16*>(out), args, p, tk, r);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

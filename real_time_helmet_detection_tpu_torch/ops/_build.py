@@ -44,7 +44,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # source name -> {C entry: argtypes}; every entry returns an int error code
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "peak": {"helmet_peak_scores": (_P, _P, _I, _I, _I, _I, _I, _I, _P)},
-    "epilogue": {"helmet_bn_act": (_P, _P, _P, _P, _L, _I, _I, _I, _P)},
+    "epilogue": {"helmet_bn_act": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
+                 "helmet_bn_act_vec": (_P, _P, _P, _P, _L, _I, _I, _I, _P)},
     "residual": {"helmet_bn_add_act": (_P, _P, _P, _P, _P, _L, _I, _I, _I,
                                        _P)},
     "bn_train": {
@@ -55,8 +56,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                              _I, _P),
     },
     "loss": {
-        "helmet_loss_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                            _F, _I, _I, _P),
+        "helmet_loss_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _F, _F, _I, _I, _P),
         "helmet_loss_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                             _I, _I, _F, _F, _I, _I, _P),
     },

@@ -28,9 +28,14 @@ operand.
   fallback from one to the other.
 * `*_reference` are the plain PyTorch versions: the same f32 arithmetic
   as the kernels, one eager op per step.
+* `bn_act` launches one of two kernels of csrc/epilogue.cu, chosen by
+  `bn_act_variant` from the shape: the 16-byte vector kernel, or the
+  scalar kernel for a channel count or an alignment the vector kernel
+  cannot take. A launch error raises either way.
 * The module counters (`launches`, `eval_bwd_launches`,
   `stats_launches`, ...) count kernel launches, never plain-version
-  calls; `grad_conversions` counts the
+  calls; `vector_launches` and `scalar_launches` split `launches` by
+  variant; `grad_conversions` counts the
   backward gradients that arrived in another layout than channels-last
   and were copied into it.
 
@@ -52,8 +57,13 @@ ACTIVATIONS = ("ReLU", "Mish", "Linear")
 _ACT_CODE = {"ReLU": 0, "Mish": 1, "Linear": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMS = 132  # streaming multiprocessors of the H100
+_ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+_VEC_BYTES = 16   # one access of csrc/epilogue.cu's vector kernel
+_MAX_GROUPS = 256  # its most channel groups (C / V), kMaxGroups there
 
 launches = 0
+vector_launches = 0
+scalar_launches = 0
 eval_bwd_launches = 0
 stats_launches = 0
 bwd_sums_launches = 0
@@ -153,14 +163,30 @@ def bn_act_reference(x: torch.Tensor, eff_scale: torch.Tensor,
     return _channels_last(activate(z, activation).to(x.dtype))
 
 
+def bn_act_variant(channels: int, dtype: torch.dtype, *pointers: int) -> str:
+    """The kernel of csrc/epilogue.cu that `bn_act` launches: "vector"
+    when the channel count is a multiple of V = 16 bytes / element size (8
+    bf16, 4 f32) with C / V <= 256 and every pointer (x's and out's data)
+    is 16-byte aligned, else "scalar". A choice by shape, not a fallback on
+    failure."""
+    v = _VEC_BYTES // _ELEMENT_BYTES[dtype]
+    if channels % v == 0 and channels // v <= _MAX_GROUPS \
+            and all(p % _VEC_BYTES == 0 for p in pointers):
+        return "vector"
+    return "scalar"
+
+
 def bn_act(x: torch.Tensor, eff_scale: torch.Tensor, eff_bias: torch.Tensor,
-           activation: str) -> torch.Tensor:
+           activation: str, variant: Optional[str] = None) -> torch.Tensor:
     """`act(x * eff_scale + eff_bias)` per channel, the forward pass of
     eval and train.
 
     x: (N, C, H, W) channels-last, float32 or bfloat16; eff_scale and
-    eff_bias: (C,) float32. Returns a new tensor like x."""
-    global launches
+    eff_bias: (C,) float32. Returns a new tensor like x. `variant` ("vector"
+    or "scalar") forces a kernel on a CUDA tensor; None takes
+    `bn_act_variant`'s choice. The vector kernel refuses, and this raises
+    on, a shape it cannot take."""
+    global launches, vector_launches, scalar_launches
     check_activation(activation)
     check_layout("x", x)
     check_vectors(x, eff_scale=eff_scale, eff_bias=eff_bias)
@@ -170,14 +196,21 @@ def bn_act(x: torch.Tensor, eff_scale: torch.Tensor, eff_bias: torch.Tensor,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
+    if variant is None:
+        variant = bn_act_variant(x.shape[1], x.dtype, x.data_ptr(),
+                                 out.data_ptr())
     lib = _build.load("epilogue")
-    err = lib.helmet_bn_act(x.data_ptr(), eff_scale.data_ptr(),
-                            eff_bias.data_ptr(), out.data_ptr(), x.numel(),
-                            x.shape[1], _DTYPE_CODE[x.dtype],
-                            _ACT_CODE[activation],
-                            _build.stream_handle(x.device))
-    _build.check(err, "bn_act")
+    entry = {"vector": lib.helmet_bn_act_vec,
+             "scalar": lib.helmet_bn_act}[variant]
+    err = entry(x.data_ptr(), eff_scale.data_ptr(), eff_bias.data_ptr(),
+                out.data_ptr(), x.numel(), x.shape[1], _DTYPE_CODE[x.dtype],
+                _ACT_CODE[activation], _build.stream_handle(x.device))
+    _build.check(err, "bn_act (%s kernel)" % variant)
     launches += 1
+    if variant == "vector":
+        vector_launches += 1
+    else:
+        scalar_launches += 1
     return out
 
 

@@ -17,8 +17,8 @@ loss.py:9-69) and of the fused loss, ref ops/pallas/loss.py:290
   the masked L1 of offset and size — and a few scalar ops finish the
   loss. Its backward writes d(out) in one pass from the four (S, B)
   cotangents.
-* `loss_sums` / `loss_sums_bwd` launch the kernels for CUDA tensors or
-  raise, and run `loss_sums_reference` / `loss_sums_bwd_reference`, the
+* `loss_sums` / `loss_sums_bwd` launch one kernel each for CUDA tensors
+  or raise, and run `loss_sums_reference` / `loss_sums_bwd_reference`, the
   plain PyTorch versions, for CPU tensors. `fwd_launches` and
   `bwd_launches` count kernel launches.
 
@@ -38,7 +38,9 @@ from . import _build
 from .epilogue import _DTYPE_CODE, check_cuda
 
 EPS = 1e-7            # focal eps, ref ops/pallas/loss.py:47
-TILE_PIXELS = 1024    # pixels of one (stack, sample) map per kernel block
+FWD_TILE_PIXELS = 512  # pixels of one (stack, sample) map per forward block
+
+_tickets: Dict[torch.device, list] = {}  # device -> int32 counter buffers
 
 fwd_launches = 0
 bwd_launches = 0
@@ -231,13 +233,34 @@ def _loss_args(out):
     return b, s, h * w, k - 4
 
 
+def fwd_tiles(hw: int) -> int:
+    """Blocks per (stack, sample) map of the forward kernel: block t reads
+    pixels [t * FWD_TILE_PIXELS, (t + 1) * FWD_TILE_PIXELS) of the map,
+    the last one ragged."""
+    return -(-hw // FWD_TILE_PIXELS)
+
+
+def _ticket_buffer(device: torch.device, maps: int) -> torch.Tensor:
+    """The forward kernel's per-map counters on `device`: int32 zeros at
+    allocation, left at zero by every launch. A buffer is kept for the
+    life of the process (a CUDA graph may hold its address); a larger one
+    is added when a launch needs more maps. One stream at a time: two
+    concurrent launches on one device would share the counters."""
+    held = _tickets.setdefault(device, [])
+    if not held or held[-1].numel() < maps:
+        held.append(torch.zeros(max(maps, 256), device=device,
+                                dtype=torch.int32))
+    return held[-1]
+
+
 def loss_sums(out: torch.Tensor, heat: torch.Tensor, off: torch.Tensor,
               wh: torch.Tensor, mask: torch.Tensor, *, alpha: float,
               beta: float, normalized: bool) -> Tuple[torch.Tensor, ...]:
     """The four (S, B) float32 loss sums of the raw output (ref
-    ops/pallas/loss.py:86 `_fwd_kernel`): the kernel of csrc/loss.cu
-    writes one partial per (quantity, stack, sample, tile), and the tiles
-    are summed here in a fixed order."""
+    ops/pallas/loss.py:86 `_fwd_kernel`), one launch of csrc/loss.cu's
+    forward kernel: its blocks write per-tile partials and the last block
+    of each (stack, sample) folds them in a fixed order, so what follows
+    the launch is views of its (4, S, B) result."""
     global fwd_launches
     check_loss_operands(out, heat, off, wh, mask)
     kw = dict(alpha=alpha, beta=beta, normalized=normalized)
@@ -245,21 +268,24 @@ def loss_sums(out: torch.Tensor, heat: torch.Tensor, off: torch.Tensor,
         return loss_sums_reference(out, heat, off, wh, mask, **kw)
     check_cuda("loss_sums", out)
     b, s, hw, c = _loss_args(out)
-    tiles = -(-hw // TILE_PIXELS)
+    tiles = fwd_tiles(hw)
     part = torch.empty((4, s, b, tiles), device=out.device,
                        dtype=torch.float32)
+    sums = torch.empty((4, s, b), device=out.device, dtype=torch.float32)
     if part.numel() == 0:
         return tuple(torch.zeros((s, b), device=out.device) for _ in range(4))
+    tickets = _ticket_buffer(out.device, s * b)
     lib = _build.load("loss")
     err = lib.helmet_loss_fwd(out.data_ptr(), heat.data_ptr(),
                               off.data_ptr(), wh.data_ptr(), mask.data_ptr(),
-                              part.data_ptr(), b, s, hw, c, tiles,
+                              part.data_ptr(), tickets.data_ptr(),
+                              sums.data_ptr(), b, s, hw, c, tiles,
                               float(alpha), float(beta), int(normalized),
                               _DTYPE_CODE[out.dtype],
                               _build.stream_handle(out.device))
     _build.check(err, "loss_sums")
     fwd_launches += 1
-    return part.sum(-1).unbind(0)
+    return sums.unbind(0)
 
 
 def loss_sums_bwd(out: torch.Tensor, heat: torch.Tensor, off: torch.Tensor,

@@ -6,10 +6,11 @@ tests. Run on a machine with an H100:
 
     python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu
 
-Rules: bit-equal for the peak test, the ReLU/Linear epilogue and
-residual tail and the ReLU/Linear train dx and eval backward passes;
-Mish within rtol 1e-6 in f32 and one bf16 ulp in bf16; the reductions
-(batch moments, S1/S2, the eval partials) per channel, and the loss sums
+Rules: bit-equal for the peak test, the ReLU/Linear epilogue (vector
+and scalar kernels, ragged counts, misaligned views) and residual tail
+and the ReLU/Linear train dx and eval backward passes; Mish within
+rtol 1e-6 in f32 and one bf16 ulp in bf16; the reductions (batch
+moments, S1/S2, the eval partials) per channel, and the loss sums
 per (stack, sample), within 1e-5 of the sum of the absolute values of
 their terms, the error bound of a float32 sum taken in another order;
 the loss's d(out) within rtol 1e-5 + atol 1e-6 * max|d(out)| (the same
@@ -65,6 +66,50 @@ def test_bn_act_kernel_matches_plain(cuda, dtype, act):
     assert epilogue.launches == before + 1
     _close(got, epilogue.bn_act_reference(x, a, b, act), act)
     assert got.is_contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["ReLU", "Mish", "Linear"])
+@pytest.mark.parametrize("channels", [8, 64, 128, 6])
+def test_bn_act_variants_at_ragged_counts(cuda, dtype, act, channels):
+    """Element counts that are no multiple of V x the unroll (8 x 4 bf16,
+    4 x 4 f32 vectors): the vector kernel's tail loop; C = 6 takes the
+    scalar kernel. Each launch counts once, under its variant."""
+    x = _x((3, channels, 5, 7), dtype, cuda)
+    a = torch.rand(channels, generator=cuda, device="cuda") + 0.5
+    b = torch.randn(channels, generator=cuda, device="cuda")
+    want = "scalar" if channels == 6 else "vector"
+    before = (epilogue.launches, epilogue.vector_launches,
+              epilogue.scalar_launches)
+    got = epilogue.bn_act(x, a, b, act)
+    assert (epilogue.launches, epilogue.vector_launches,
+            epilogue.scalar_launches) == (
+        before[0] + 1, before[1] + (want == "vector"),
+        before[2] + (want == "scalar"))
+    _close(got, epilogue.bn_act_reference(x, a, b, act), act)
+    if want == "vector":  # the old kernel, forced, agrees too
+        _close(epilogue.bn_act(x, a, b, act, variant="scalar"),
+               epilogue.bn_act_reference(x, a, b, act), act)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_act_misaligned_view_takes_the_scalar_kernel(cuda, dtype):
+    """x one element into its storage: not 16-byte aligned, so the scalar
+    kernel runs; the vector kernel, forced, refuses and the wrapper
+    raises."""
+    n, c, h, w = 2, 64, 9, 9
+    base = torch.randn(n * h * w * c + 1, generator=cuda,
+                       device="cuda").to(dtype)
+    x = base[1:].view(n, h, w, c).permute(0, 3, 1, 2)
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    a = torch.rand(c, generator=cuda, device="cuda") + 0.5
+    b = torch.randn(c, generator=cuda, device="cuda")
+    before = epilogue.scalar_launches
+    _close(epilogue.bn_act(x, a, b, "ReLU"),
+           epilogue.bn_act_reference(x, a, b, "ReLU"), "ReLU")
+    assert epilogue.scalar_launches == before + 1
+    with pytest.raises(RuntimeError, match="vector"):
+        epilogue.bn_act(x, a, b, "ReLU", variant="vector")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -207,6 +252,43 @@ def test_loss_kernels_match_plain(cuda, dtype, normalized):
     g32, w32 = dg.float(), dw.float()
     assert bool(((g32 - w32).abs() <= 1e-5 * w32.abs()
                  + 1e-6 * float(w32.abs().max())).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_loss_sums_one_launch_bit_identical(cuda, dtype):
+    """`loss_sums` at the flagship's map size (b16, 128^2, 1 stack) is one
+    kernel and nothing after it: the four sums are views of one result,
+    the profiler sees one kernel on the card per call, two calls agree bit
+    for bit, and the per-map counters are back at zero."""
+    from torch.profiler import ProfilerActivity, profile
+    b, s, h, c = 16, 1, 128, 2
+    out = (torch.randn((b, s, h, h, c + 4), generator=cuda, device="cuda")
+           * 3).to(dtype)
+    heat, off, wh = (torch.rand((b, h, h, k), generator=cuda, device="cuda")
+                     for k in (c, 2, 2))
+    mask = (torch.rand((b, h, h, 1), generator=cuda, device="cuda")
+            < 0.01).float()
+    kw = dict(alpha=2.0, beta=4.0, normalized=False)
+    ops = (out, heat, off, wh, mask)
+    first = loss.loss_sums(*ops, **kw)  # builds, allocates the counters
+    torch.cuda.synchronize()
+    before = loss.fwd_launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        second = loss.loss_sums(*ops, **kw)
+        torch.cuda.synchronize()
+    assert loss.fwd_launches == before + 1
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert [e.name for e in kernels if "loss_fwd_kernel" in e.name] \
+        and len(kernels) == 1, [e.name for e in kernels]
+    assert len({t.untyped_storage().data_ptr() for t in second}) == 1
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    assert not bool(loss._tickets[out.device][-1].any())
+    want = loss.loss_sums_reference(*ops, **kw)
+    for g, w, t in zip(second, want,
+                       loss.loss_terms_reference(*ops, **kw)):
+        bound = 1e-5 * t.abs().sum(dim=(2, 3, 4)).t() + 1e-30
+        assert bool(((g - w).abs() <= bound).all())
 
 
 def test_small_eval_gradient_card_matches_cpu(cuda, monkeypatch):
