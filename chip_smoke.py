@@ -21,11 +21,16 @@ version on the card:
    within rtol 1e-6 (f32) or one bf16 ulp (bf16); the epilogue also at
    ragged element counts, at a channel count and on a misaligned view
    that take its scalar kernel, each site on the variant it should take;
+   the peak test also with NaN and +-inf logits (NaN-aware), at ragged
+   tiles and a pool of 81 on its vector variant, and at w % 4 != 0,
+   three classes and misaligned logits on its scalar one;
 4. eval kernel time (CUDA graph replay, CUDA events) beside the least
-   time the card could take (bytes / 3.35 TB/s), the plain version's
-   time and the time of a one-call PyTorch equivalent where one exists;
-   the epilogue's vector and scalar kernels at every EPI_SHAPES site,
-   ReLU, f32 and bf16, in turns (vector, scalar, scalar, vector);
+   time the card could take (bytes / 3.35 TB/s; for the peak test also
+   the bytes the logits' layout forces), the plain version's time and
+   the time of a one-call PyTorch equivalent where one exists; the
+   epilogue's vector and scalar kernels at every EPI_SHAPES site, ReLU,
+   f32 and bf16, in turns (vector, scalar, scalar, vector); the peak
+   test's scalar variant beside its vector one;
 5. the predict path, batch 16, 512^2, 1 stack, 128 channels, seeded
    weights, f32 and bf16: launch counts per forward (20 epilogue, all on
    the vector kernel, 17 residual tail, 1 peak, no train kernel), logits
@@ -46,12 +51,18 @@ version on the card:
 9. loss_kernels: the fused loss's two kernels against their plain
    versions at the flagship's (16, 1, 128, 128, 6) output on
    synthetic_target_batch, f32 and bf16 logits, `normalized` both ways,
-   alpha/beta 3/3, no positives, logits x20 (saturated sigmoids): each
-   (stack, sample) sum within 1e-5 of the plain version's sum of
-   |terms|, d(out) elementwise within rtol 1e-5 + 1e-6 * max|d(out)|;
+   alpha/beta 3/3, no positives, logits x20 (saturated sigmoids), a
+   mask of fractions and zeros, NaN and +-inf logits: each (stack,
+   sample) sum within 1e-5 of the plain version's sum of |terms| (NaN
+   where it is NaN), d(out) bit-equal (NaN-aware); the backward also at
+   two stacks with a ragged tile (vector kernel), at H*W % 4 != 0 and on
+   misaligned storage (scalar kernel), each on the kernel it should
+   take;
 10. loss_timing: the two loss kernels beside their bounds, the plain
-   versions and the eager composition's forward + backward; each
-   kernel's own device time from a torch.profiler trace;
+   versions and the eager composition's forward + backward, the
+   backward's scalar kernel beside its vector one; each kernel's own
+   device time and device operations per call from a torch.profiler
+   trace (one each, nothing besides the kernel);
 11. train_main: the flagship --amp train step at b16 512^2 on the port's
    synthetic_target_batch: launch counts per step (37 moments, 20 + 17
    backward sums and dx, 20 epilogue, 17 tail, the loss kernels once
@@ -141,8 +152,20 @@ def bf16_ulp(ref):
     return torch.ldexp(torch.ones_like(ref, dtype=torch.float32), e - 8)
 
 
+def nan_equal(got, want):
+    """Equal values, NaN where the other has NaN."""
+    import torch
+    nan = torch.isnan(got)
+    return bool(torch.equal(nan, torch.isnan(want))
+                and torch.equal(got.masked_fill(nan, 0),
+                                want.masked_fill(nan, 0)))
+
+
 def compare(name, got, want, mode):
-    """mode: 'equal' | 'rtol1e-6' | 'bf16ulp'. Returns the max abs error."""
+    """mode: 'equal' (torch.equal) | 'nan_equal' (equal, NaN where the
+    other has NaN: for inputs that hold NaN) | 'rtol1e-6' | 'bf16ulp'.
+    Returns the max abs error over the cells not NaN in both (NaN if one
+    is)."""
     import torch
     torch.cuda.synchronize()
     require(got.shape == want.shape and got.dtype == want.dtype,
@@ -150,9 +173,13 @@ def compare(name, got, want, mode):
                                                 got.dtype, tuple(want.shape),
                                                 want.dtype))
     g, w = got.float(), want.float()
-    err = float((g - w).abs().max()) if g.numel() else 0.0
+    d = torch.where(g == w, torch.zeros_like(g), (g - w).abs())
+    d = d[~(torch.isnan(g) & torch.isnan(w))]
+    err = float(d.max()) if d.numel() else 0.0
     if mode == "equal":
         ok = torch.equal(got, want)
+    elif mode == "nan_equal":
+        ok = nan_equal(got, want)
     elif mode == "rtol1e-6":
         ok = bool(((g - w).abs() <= 1e-6 * w.abs() + 1e-30).all())
     else:
@@ -270,6 +297,8 @@ def site_bytes(totals):
 # every launch counter: name in the kernels line -> (module, attribute)
 COUNTERS = {
     "peak_scores": ("peak", "launches"),
+    "peak_vec": ("peak", "vector_launches"),
+    "peak_scalar": ("peak", "scalar_launches"),
     "bn_act": ("epilogue", "launches"),
     "bn_act_vec": ("epilogue", "vector_launches"),
     "bn_act_scalar": ("epilogue", "scalar_launches"),
@@ -283,6 +312,8 @@ COUNTERS = {
     "bn_add_eval_bwd": ("residual", "eval_bwd_launches"),
     "loss_fwd": ("loss", "fwd_launches"),
     "loss_bwd": ("loss", "bwd_launches"),
+    "loss_bwd_vec": ("loss", "bwd_vector_launches"),
+    "loss_bwd_scalar": ("loss", "bwd_scalar_launches"),
 }
 
 
@@ -389,6 +420,13 @@ EPI_SHAPES = [(16, 64, 256, 256)] + [(16, 128, s, s)
                                      for s in (256, 128, 64, 32, 16, 8)]
 RES_SHAPES = [(16, 128, s, s) for s in (256, 128, 64, 32, 16, 8)]
 PEAK_SHAPE = (16, 1, 128, 128, 6)
+# the peak kernel off the flagship's shape: (shape, classes, pool sizes,
+# variant): ragged tiles on the vector variant (h % 16, w % 32 != 0), a
+# pool of 81 (110.6 KB of shared memory, past the 48 KB default), and the
+# scalar variant for w % 4 != 0 and three classes
+PEAK_OTHER = [((2, 1, 37, 44, 6), 2, (3, 5, 81), "vector"),
+              ((2, 1, 37, 46, 6), 2, (3, 5), "scalar"),
+              ((2, 2, 37, 44, 7), 3, (3, 5, 81), "scalar")]
 # the epilogue off the flagship's sites: element counts that are no
 # multiple of V x the unroll (C 8, 64, 128: the vector kernel's tail
 # loop) and C = 6 (the scalar kernel); (shape, variant)
@@ -403,6 +441,34 @@ def misaligned(shape, dtype, gen):
     n, c, h, w = shape
     base = rand((n * h * w * c + 1,), dtype, gen, 2.0)
     return base[1:].view(n, h, w, c).permute(0, 3, 1, 2)
+
+
+def nonfinite(t, gen, share=0.002):
+    """t with a seeded `share` of its values each set to NaN, +inf and
+    -inf."""
+    import torch
+    u = torch.rand(t.shape, generator=gen, device=t.device)
+    t = t.masked_fill(u < share, float("nan"))
+    t = t.masked_fill((u >= share) & (u < 2 * share), float("inf"))
+    return t.masked_fill((u >= 2 * share) & (u < 3 * share), float("-inf"))
+
+
+def peak_case(label, logits, num_cls, pool_size, variant):
+    """The peak kernel on `logits` against its plain version, bit-equal,
+    on the variant it should take. Returns the max abs error. The output
+    holds no NaN even where the logits do (a window holding a NaN scores
+    0), so torch.equal is the NaN-aware test here."""
+    from real_time_helmet_detection_tpu_torch.ops import peak
+    before = (peak.vector_launches, peak.scalar_launches)
+    got = peak.peak_scores(logits, num_cls, pool_size)
+    took = "vector" if peak.vector_launches > before[0] \
+        else "scalar" if peak.scalar_launches > before[1] else None
+    name = "peak_scores pool %d %s" % (pool_size, label)
+    require(took == variant, "%s ran the %s variant, want %s"
+            % (name, took, variant))
+    return compare(name, got,
+                   peak.peak_scores_reference(logits, num_cls, pool_size),
+                   "equal")
 
 
 def phase_kernels(state):
@@ -458,23 +524,39 @@ def phase_kernels(state):
                                              gen, 2.0)) / 2),
                 # saturated sigmoid: distinct logits, equal scores
                 ("saturated", rand(PEAK_SHAPE, torch.float32, gen, 4.0)
-                 + 30.0)):
-            err = compare("peak_scores pool %d %s" % (pool_size, label),
-                          peak.peak_scores(logits, 2, pool_size),
-                          peak.peak_scores_reference(logits, 2, pool_size),
-                          "equal")
-            errs[("peak_scores", pool_size, label)] = err
+                 + 30.0),
+                # a diverged model: NaN and +-inf among the logits
+                ("nan-inf", nonfinite(rand(PEAK_SHAPE, torch.float32, gen,
+                                           3.0), gen))):
+            errs[("peak_scores", pool_size, label)] = peak_case(
+                label, logits, 2, pool_size, "vector")
             n += 1
+    for shape, num_cls, pools, variant in PEAK_OTHER:
+        logits = nonfinite(rand(shape, torch.float32, gen, 3.0), gen, 0.01)
+        for pool_size in pools:
+            errs[("peak_scores", pool_size, shape)] = peak_case(
+                "%s nan-inf" % (shape,), logits, num_cls, pool_size, variant)
+            n += 1
+    # logits one element into their storage: not 8-byte aligned
+    base = rand((math.prod(PEAK_SHAPE) + 1,), torch.float32, gen, 3.0)
+    for pool_size in (3, 5):
+        errs[("peak_scores", pool_size, "misaligned")] = peak_case(
+            "misaligned", base[1:].view(PEAK_SHAPE), 2, pool_size, "scalar")
+        n += 1
     def mish_err(name, tag):
         return max(v for k, v in errs.items() if k[:3] == (name, tag, "Mish"))
 
     log("kernels: %d comparisons against the plain versions passed, the "
         "epilogue on its vector kernel at every EPI_SHAPES site and at %s, "
-        "on its scalar kernel at %s and on a misaligned (2, 64, 9, 9) view "
+        "on its scalar kernel at %s and on a misaligned (2, 64, 9, 9) view; "
+        "the peak test with NaN and +-inf logits, on its vector variant at "
+        "%s and on its scalar one at %s and misaligned logits "
         "(max abs err: bn_act Mish f32 %g, bf16 %g; bn_add_act Mish f32 "
         "%g, bf16 %g; all others 0)"
         % (n, [s for s, v in EPI_RAGGED if v == "vector"],
            [s for s, v in EPI_RAGGED if v == "scalar"],
+           [PEAK_SHAPE] + [c[0] for c in PEAK_OTHER if c[3] == "vector"],
+           [c[0] for c in PEAK_OTHER if c[3] == "scalar"],
            mish_err("bn_act", "f32"), mish_err("bn_act", "bf16"),
            mish_err("bn_add_act", "f32"), mish_err("bn_add_act", "bf16")))
     require(all(v == 0.0 for k, v in errs.items() if "Mish" not in k),
@@ -520,6 +602,9 @@ def phase_timing(state):
         del x, s
     logits = rand(PEAK_SHAPE, torch.float32, gen, 3.0)
     pbytes = 2 * (logits[..., :2].numel() * 4)  # 2 heat channels in + out
+    # the bytes the layout forces: every 32-byte sector of the logits holds
+    # a heat pair, so all of the logits cross, and the output
+    forced = (logits.numel() + logits[..., :2].numel()) * 4
     for pool_size in (3, 5):
         rows[("peak_scores", "f32", pool_size)] = dict(
             ms=graph_ms(lambda: peak.peak_scores(logits, 2, pool_size)),
@@ -527,13 +612,29 @@ def phase_timing(state):
             plain_ms=graph_ms(
                 lambda: peak.peak_scores_reference(logits, 2, pool_size)),
             library_ms=None, bound_ms=pbytes / HBM_BYTES_PER_S * 1e3,
-            shape=PEAK_SHAPE)
+            forced_ms=forced / HBM_BYTES_PER_S * 1e3, shape=PEAK_SHAPE,
+            scalar_ms=graph_ms(lambda: peak.peak_scores(
+                logits, 2, pool_size, variant="scalar")))
+    # what moving the heat channels alone costs here: the kernel at pool
+    # size 1 (staging, sigmoid, stores; no window) and one PyTorch copy
+    # that gathers them class-major
+    rows[("peak_scores", "f32", 3)].update(
+        pool1_ms=graph_ms(lambda: peak.peak_scores(logits, 2, 1)),
+        copy_ms=graph_ms(lambda: logits[..., :2].permute(
+            0, 1, 4, 2, 3).contiguous()))
     for key, r in rows.items():
         log("  %-36s kernel %.4f (eager %.4f)  plain %.4f  library %s  "
-            "bound %.4f  at %s" % (
+            "bound %.4f%s  at %s" % (
                 "%s %s %s" % key, r["ms"], r["eager_ms"], r["plain_ms"],
                 "%.4f" % r["library_ms"] if r["library_ms"] is not None
-                else "none", r["bound_ms"], r["shape"]))
+                else "none", r["bound_ms"],
+                " (the bytes the layout forces: %.4f; the scalar variant "
+                "%.4f)" % (r["forced_ms"], r["scalar_ms"])
+                if "forced_ms" in r else "", r["shape"]))
+    r = rows[("peak_scores", "f32", 3)]
+    log("  peak_scores f32 at pool size 1 (no window) %.4f; the heat "
+        "channels gathered class-major by one PyTorch copy %.4f"
+        % (r["pool1_ms"], r["copy_ms"]))
     epilogue_sweep(state)
 
 
@@ -652,7 +753,8 @@ def phase_main(state):
     images = np.random.default_rng(0).integers(
         0, 256, (16, 512, 512, 3), dtype=np.uint8)
     want = dict.fromkeys(COUNTERS, 0)  # predict runs no train kernel
-    want.update(bn_act=20, bn_act_vec=20, bn_add_act=17, peak_scores=1)
+    want.update(bn_act=20, bn_act_vec=20, bn_add_act=17, peak_scores=1,
+                peak_vec=1)
     for amp in (False, True):
         tag = "bf16" if amp else "f32"
         cfg = Config(batch_size=16, imsize=512, amp=amp)
@@ -969,30 +1071,54 @@ def phase_train_timing(state):
 LOSS_SHAPE = (16, 1, 128, 128, 6)  # the flagship's raw output at b16 512^2
 LOSS_SUM_RTOL = 1e-5  # per (stack, sample), relative to the sum of |terms|
 # (label, options, logit scale): the defaults, the coordinate sigmoid,
-# non-default focal exponents, a batch with no positives, and logits x20
-# whose sigmoids round to 1
+# non-default focal exponents, a batch with no positives, logits x20
+# whose sigmoids round to 1, a mask of fractions and zeros (a guard for
+# any later branch on the mask's value), and NaN and +-inf among the
+# logits (both with the coordinate sigmoid too)
 LOSS_CASES = (
     ("default", dict(alpha=2.0, beta=4.0, normalized=False), 2.0),
     ("normalized", dict(alpha=2.0, beta=4.0, normalized=True), 2.0),
     ("alpha3beta3", dict(alpha=3.0, beta=3.0, normalized=False), 2.0),
     ("no positives", dict(alpha=2.0, beta=4.0, normalized=False), 2.0),
-    ("saturated", dict(alpha=2.0, beta=4.0, normalized=False), 40.0))
+    ("saturated", dict(alpha=2.0, beta=4.0, normalized=False), 40.0),
+    ("non-binary mask", dict(alpha=2.0, beta=4.0, normalized=False), 2.0),
+    ("non-binary mask normalized", dict(alpha=2.0, beta=4.0,
+                                        normalized=True), 2.0),
+    ("nan-inf", dict(alpha=2.0, beta=4.0, normalized=False), 2.0),
+    ("nan-inf normalized", dict(alpha=2.0, beta=4.0, normalized=True), 2.0))
 # operations per element of the kernels' arithmetic (a transcendental
 # counts as one): forward 20 per heat channel, 5 per regression channel;
 # backward 31 and 6
 LOSS_OPS = {"loss_fwd": (20, 5), "loss_bwd": (31, 6)}
+# the backward off the flagship's shape, (shape, variant, misaligned): two
+# stacks and a ragged last tile (vector), H*W % 4 != 0 and out one element
+# into its storage (scalar); NaN and +-inf in 1% of the logits each time
+LOSS_OTHER = [((3, 2, 36, 44, 6), "vector", False),
+              ((3, 2, 37, 45, 6), "scalar", False),
+              ((3, 2, 36, 44, 6), "scalar", True)]
+LOSS_KERNELS = {"loss_fwd": "loss_fwd_kernel",  # the kernels' names
+                "loss_bwd": "loss_bwd_vec_kernel"}
 
 
 def loss_sum_errs(got, want, terms):
     """(max relative, max abs) error between two sets of the four (S, B)
-    sums, relative to each (stack, sample)'s sum of |terms|."""
+    sums, relative to each (stack, sample)'s sum of |terms|, over the sums
+    finite in both; NaN if one set is finite or NaN where the other is
+    not."""
     import torch
     torch.cuda.synchronize()
     rel = ab = 0.0
     for g, w, t in zip(got, want, terms):
+        if not (torch.equal(torch.isfinite(g), torch.isfinite(w))
+                and nan_equal(torch.where(torch.isfinite(g), 0.0, g),
+                              torch.where(torch.isfinite(w), 0.0, w))):
+            return float("nan"), float("nan")
+        fin = torch.isfinite(g)
         scale = t.abs().sum(dim=(2, 3, 4)).t().clamp_min(1e-30)
-        d = (g - w).abs()
-        rel, ab = max(rel, float((d / scale).max())), max(ab, float(d.max()))
+        d = (g - w).abs()[fin]
+        if d.numel():
+            rel = max(rel, float((d / scale[fin]).max()))
+            ab = max(ab, float(d.max()))
     return rel, ab
 
 
@@ -1000,25 +1126,36 @@ def phase_loss_kernels(state):
     """The loss kernels against their plain versions at the flagship's
     output shape on synthetic_target_batch's targets, every LOSS_CASES
     case, f32 and bf16 logits: the sums within LOSS_SUM_RTOL of the sum
-    of |terms| per (stack, sample), d(out) elementwise within rtol 1e-5
-    + atol 1e-6 * max|d(out)|."""
+    of |terms| per (stack, sample) (NaN where the plain version's is),
+    d(out) bit-equal (NaN where the plain version's is) from the
+    backward's vector kernel."""
     import torch
     from real_time_helmet_detection_tpu_torch.ops import loss
     gen = torch.Generator(device="cuda").manual_seed(4)
     heat, off, wh, mask = train_batch()[1:]
     errs = state.setdefault("loss_errs", {})
+    fractions = torch.rand(mask.shape, generator=gen, device="cuda") \
+        * (torch.rand(mask.shape, generator=gen, device="cuda") < 0.3)
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
         for label, kw, scale in LOSS_CASES:
-            m = torch.zeros_like(mask) if label == "no positives" else mask
-            ops = (rand(LOSS_SHAPE, dtype, gen, scale), heat, off, wh, m)
+            m = torch.zeros_like(mask) if label == "no positives" \
+                else fractions if label.startswith("non-binary") else mask
+            o = rand(LOSS_SHAPE, dtype, gen, scale)
+            if label.startswith("nan-inf"):
+                o = nonfinite(o, gen)
+            ops = (o, heat, off, wh, m)
             got = loss.loss_sums(*ops, **kw)
             want = loss.loss_sums_reference(*ops, **kw)
             rel, ab = loss_sum_errs(got, want, loss.loss_terms_reference(
                 *ops, **kw))
             cots = [rand(LOSS_SHAPE[1::-1], torch.float32, gen)
                     for _ in range(4)]
+            before = loss.bwd_vector_launches
             dg = loss.loss_sums_bwd(*ops, *cots, **kw)
+            require(loss.bwd_vector_launches == before + 1,
+                    "loss %s %s: the backward did not take its vector "
+                    "kernel" % (tag, label))
             dw = loss.loss_sums_bwd_reference(*ops, *cots, **kw)
             torch.cuda.synchronize()
             name = "loss %s %s" % (tag, label)
@@ -1026,29 +1163,52 @@ def phase_loss_kernels(state):
                     "%s: d(out) %s %s vs %s %s" % (name, tuple(dg.shape),
                                                    dg.dtype, tuple(dw.shape),
                                                    dw.dtype))
-            require(all(bool(torch.isfinite(t).all()) for t in (*got, dg)),
-                    "%s: non-finite kernel output" % name)
-            g32, w32 = dg.float(), dw.float()
-            derr = (g32 - w32).abs()
-            bound = 1e-5 * w32.abs() + 1e-6 * float(w32.abs().max())
+            if not label.startswith("nan-inf"):
+                require(all(bool(torch.isfinite(t).all())
+                            for t in (*got, dg)),
+                        "%s: non-finite kernel output" % name)
             errs[(label, tag)] = dict(
-                sum_rel=rel, sum_abs=ab, dout_abs=float(derr.max()),
-                dout_equal=torch.equal(dg, dw),
-                sums_equal=all(torch.equal(a, b) for a, b in zip(got, want)))
+                sum_rel=rel, sum_abs=ab,
+                dout_abs=compare(name + " d(out)", dg, dw,
+                                 "nan_equal" if label.startswith("nan-inf")
+                                 else "equal"),
+                sums_equal=all(
+                    nan_equal(a, b) for a, b in zip(got, want)))
             require(rel <= LOSS_SUM_RTOL, "%s: sums off by %g of the sum of "
                     "|terms| (tolerance %g)" % (name, rel, LOSS_SUM_RTOL))
-            require(bool((derr <= bound).all()), "%s: d(out) beyond rtol "
-                    "1e-5 + 1e-6 * max (max abs err %g)"
-                    % (name, float(derr.max())))
+    kw = dict(alpha=2.0, beta=4.0, normalized=False)
+    for shape, variant, offset in LOSS_OTHER:
+        b, s, h, w, k = shape
+
+        def target(c, scale=1.0):
+            return torch.rand((b, h, w, c), generator=gen,
+                              device="cuda") * scale
+        targets = (target(k - 4), target(2), target(2, 20.0),
+                   (target(1) < 0.05).float())
+        for dtype in (torch.float32, torch.bfloat16):
+            o = nonfinite(rand((math.prod(shape) + offset,), dtype, gen,
+                               2.0), gen, 0.01)[offset:].view(shape)
+            cots = [rand((s, b), torch.float32, gen) for _ in range(4)]
+            before = (loss.bwd_vector_launches, loss.bwd_scalar_launches)
+            dg = loss.loss_sums_bwd(o, *targets, *cots, **kw)
+            took = "vector" if loss.bwd_vector_launches > before[0] \
+                else "scalar" if loss.bwd_scalar_launches > before[1] \
+                else None
+            name = "loss_sums_bwd %s %s%s" % (dtype, shape,
+                                             " misaligned" * offset)
+            require(took == variant, "%s ran the %s kernel, want %s"
+                    % (name, took, variant))
+            compare(name, dg, loss.loss_sums_bwd_reference(
+                o, *targets, *cots, **kw), "nan_equal")
     worst = max(errs, key=lambda k: errs[k]["sum_rel"])
     log("loss_kernels: %d cases against the plain versions passed; sums' "
         "largest error %.3g of the sum of |terms| (tolerance %g) at %s, "
-        "bit-equal in %d of %d cases; d(out) max abs err %.3g, bit-equal "
-        "in %d of %d cases" % (
-            len(errs), errs[worst]["sum_rel"], LOSS_SUM_RTOL, worst,
-            sum(e["sums_equal"] for e in errs.values()), len(errs),
-            max(e["dout_abs"] for e in errs.values()),
-            sum(e["dout_equal"] for e in errs.values()), len(errs)))
+        "bit-equal in %d of %d cases; d(out) bit-equal in all %d cases "
+        "(NaN-aware), from the backward's vector kernel; and at %s"
+        % (len(errs), errs[worst]["sum_rel"], LOSS_SUM_RTOL, worst,
+           sum(e["sums_equal"] for e in errs.values()), len(errs),
+           len(errs), ", ".join("%s on its %s kernel%s" % (
+               sh, v, " (misaligned)" * o) for sh, v, o in LOSS_OTHER)))
 
 
 def phase_loss_timing(state):
@@ -1096,7 +1256,7 @@ def phase_loss_timing(state):
             / F32_FLOPS * 1e3
         ops_seen = {}
         by_name, _ = trace_device_ms(lambda i: kern(), reps, ops_seen)
-        kernel = "%s_kernel" % name
+        kernel = LOSS_KERNELS[name]
         rows[name] = dict(
             ms=graph_ms(kern), eager_ms=eager_ms(kern),
             plain_ms=graph_ms(plain), library_ms=None,
@@ -1107,23 +1267,32 @@ def phase_loss_timing(state):
             device_ops_per_call=sum(ops_seen.values()) or None,
             other_device_ops=sorted(k for k in ops_seen if kernel not in k),
             composition_ms=composition, fused_ms=fused, shape=LOSS_SHAPE)
+    # the backward's scalar kernel, for the shapes the vector one cannot
+    # take, at the same inputs
+    rows["loss_bwd"]["scalar_ms"] = graph_ms(lambda: loss.loss_sums_bwd(
+        *ops, *cots, **kw, variant="scalar"))
     # the profiler may drop an event, so the count per call may read a
     # little under 1; any device operation but the kernel is a failure
-    fwd = rows["loss_fwd"]
-    require(not fwd["other_device_ops"]
-            and (fwd["device_ops_per_call"] or 0) <= 1,
-            "loss_sums ran device operations besides its kernel: %s, %s "
-            "per call" % (fwd["other_device_ops"],
-                          fwd["device_ops_per_call"]))
+    for name, wrapper in (("loss_fwd", "loss_sums"),
+                          ("loss_bwd", "loss_sums_bwd")):
+        r = rows[name]
+        require(not r["other_device_ops"]
+                and (r["device_ops_per_call"] or 0) <= 1,
+                "%s ran device operations besides its kernel: %s, %s per "
+                "call" % (wrapper, r["other_device_ops"],
+                          r["device_ops_per_call"]))
     log("loss_timing (ms per call at %s f32; kernel and plain by CUDA "
         "graph replay, eager = issued from Python, device = the kernel's "
         "own time under torch.profiler):" % (LOSS_SHAPE,))
     for name, r in rows.items():
         log("  %-9s kernel %.4f (eager %.4f, device %.4f, %s device "
-            "operations per call)  plain %.4f  library none  bound %.4f "
-            "(%s)" % (name, r["ms"], r["eager_ms"], r["kernel_device_ms"],
-                      r["device_ops_per_call"], r["plain_ms"],
-                      r["bound_ms"], r["bound_by"]))
+            "operations per call)%s  plain %.4f  library none  bound %.4f "
+            "(%s, %.0f%% of it)" % (
+                name, r["ms"], r["eager_ms"], r["kernel_device_ms"],
+                r["device_ops_per_call"],
+                "  scalar kernel %.4f" % r["scalar_ms"]
+                if "scalar_ms" in r else "", r["plain_ms"], r["bound_ms"],
+                r["bound_by"], 100 * r["bound_ms"] / r["ms"]))
     log("  forward + backward issued from Python: the fused loss %.4f, the "
         "composition stacked_detection_loss %.4f" % (fused, composition))
 
@@ -1199,7 +1368,7 @@ def phase_eval_grad(state):
     arrs = train_batch()
     want = dict.fromkeys(COUNTERS, 0)
     want.update(bn_act=20, bn_act_vec=20, bn_add_act=17, bn_eval_bwd=20,
-                bn_add_eval_bwd=17, loss_fwd=1, loss_bwd=1)
+                bn_add_eval_bwd=17, loss_fwd=1, loss_bwd=1, loss_bwd_vec=1)
     runs = {}
     torch.backends.cudnn.deterministic = True
     try:
@@ -1548,7 +1717,7 @@ def phase_train_main(state):
     want = dict.fromkeys(COUNTERS, 0)
     want.update(bn_act=20, bn_act_vec=20, bn_add_act=17, bn_stats=37,
                 bn_bwd_sums=20, bn_add_bwd_sums=17, bn_bwd_dx=20,
-                bn_add_bwd_dx=17, loss_fwd=1, loss_bwd=1)
+                bn_add_bwd_dx=17, loss_fwd=1, loss_bwd=1, loss_bwd_vec=1)
     require(counts == want, "launches per train step %s, want %s"
             % (counts, want))
     state.setdefault("launches", {})["train"] = counts
@@ -1716,7 +1885,7 @@ def profile_train(state):
     groups = group_device_ms(by_name, (
         "bn_add_act_kernel", "bn_act_vec_kernel", "bn_act_kernel",
         "bn_stats_kernel", "bn_bwd_sums_kernel", "bn_bwd_dx_kernel",
-        "loss_fwd_kernel", "loss_bwd_kernel"))
+        "loss_fwd_kernel", "loss_bwd_vec_kernel", "loss_bwd_kernel"))
     state["profile_train"] = dict(wall_ms=wall_ms, traced_ms=traced_ms,
                                   busy_ms=busy, groups=groups, phases=phases)
     log("    step phases by CUDA events (one untraced step): %s"
@@ -1932,6 +2101,13 @@ def kernel_rows(state):
                 launches_vector=counts["bn_act_vec"],
                 launches_scalar=counts["bn_act_scalar"],
                 scalar_ms=state["epi_sweep"][("bf16", BIG)]["scalar"])
+        if name in ("peak_scores", "loss_bwd"):  # the same, by variant
+            short = {"peak_scores": "peak", "loss_bwd": "loss_bwd"}[name]
+            rows[-1].update(launches_vector=counts[short + "_vec"],
+                            launches_scalar=counts[short + "_scalar"],
+                            scalar_ms=t["scalar_ms"])
+        if name == "peak_scores":  # the bytes the logits' layout forces
+            rows[-1]["forced_bound_ms"] = t["forced_ms"]
     return rows
 
 
@@ -1940,7 +2116,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of %s (default: all)"
                     % ",".join(PHASES))
-    phases = ap.parse_args(argv).phases.split(",")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
     try:
         import torch
     except ImportError:

@@ -1,6 +1,7 @@
-// Helpers shared by the BN kernels (epilogue.cu, residual.cu,
-// bn_train.cu): element load/store in f32 math for f32 or bf16 storage,
-// the three activations the port supports and their derivatives.
+// Helpers shared by the kernels (epilogue.cu, residual.cu, bn_train.cu,
+// loss.cu, peak.cu): element load/store in f32 math for f32 or bf16 storage,
+// the three activations the port supports and their derivatives, and the
+// grid sizes and per-device launch set-up of the kernels.
 //
 // Rounding rule: every product and sum goes through the __f*_rn
 // intrinsics, so nvcc cannot contract `x * a + b` into one FMA. The plain
@@ -11,9 +12,16 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace helmet {
 
 enum Dtype : int { kF32 = 0, kBF16 = 1 };
+
+// dynamic shared memory a block may opt into on the H100
+constexpr int kMaxDynamicSmem = 227 * 1024;
 enum Act : int { kReLU = 0, kMish = 1, kLinear = 2 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -71,6 +79,38 @@ inline unsigned wave_grid(int per_sm, long long needed) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long long wave = (long long)sms * (per_sm > 0 ? per_sm : 1);
   return (unsigned)(needed < 1 ? 1 : needed < wave ? needed : wave);
+}
+
+// Launch set-up of `kernel` at `threads` threads and `smem` bytes of
+// dynamic shared memory on the current device: opts the kernel into up to
+// kMaxDynamicSmem where smem passes the default 48 KB (the attribute
+// applies to one device only) and gives its resident blocks per SM. Done
+// once per device, kernel and size, under a lock; later calls read the
+// cache, so a launch inside a CUDA-graph capture makes no set-up call.
+inline cudaError_t launch_setup(const void* kernel, int threads, int smem,
+                                int* per_sm) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, int, int>, int> cache;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const auto key = std::make_tuple(dev, kernel, threads, smem);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *per_sm = it->second;
+    return cudaSuccess;
+  }
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem);
+    if (e != cudaSuccess) return e;
+  }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  cache.emplace(key, *per_sm);
+  return cudaSuccess;
 }
 
 }  // namespace helmet

@@ -170,14 +170,11 @@ cudaError_t launch_vec_act(const void* x, const void* a, const void* b,
                            cudaStream_t stream) {
   const auto kernel = bn_act_vec_kernel<T, ACT>;
   const int threads = G * (kVecThreads / G);
-  static int per_sm[kVecThreads + 1];  // resident blocks per SM, by size
-  if (per_sm[threads] == 0) {
-    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm[threads], kernel, threads, 0);
-    if (e != cudaSuccess) return e;
-  }
-  const unsigned blocks =
-      wave_grid(per_sm[threads], (nvec + threads - 1) / threads);
+  int per_sm = 0;
+  const cudaError_t e = launch_setup(reinterpret_cast<const void*>(kernel),
+                                     threads, 0, &per_sm);
+  if (e != cudaSuccess) return e;
+  const unsigned blocks = wave_grid(per_sm, (nvec + threads - 1) / threads);
   kernel<<<blocks, threads, 0, stream>>>(
       static_cast<const uint4*>(x), static_cast<const float*>(a),
       static_cast<const float*>(b), static_cast<uint4*>(out), nvec, G);

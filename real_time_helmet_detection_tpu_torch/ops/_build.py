@@ -41,9 +41,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 
+# dynamic shared memory a block may opt into on sm_90 (common.cuh
+# kMaxDynamicSmem)
+MAX_DYNAMIC_SMEM = 227 * 1024
+
 # source name -> {C entry: argtypes}; every entry returns an int error code
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
-    "peak": {"helmet_peak_scores": (_P, _P, _I, _I, _I, _I, _I, _I, _P)},
+    "peak": {"helmet_peak_scores": (_P, _P, _I, _I, _I, _I, _I, _I, _L, _I,
+                                     _P)},
     "epilogue": {"helmet_bn_act": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
                  "helmet_bn_act_vec": (_P, _P, _P, _P, _L, _I, _I, _I, _P)},
     "residual": {"helmet_bn_add_act": (_P, _P, _P, _P, _P, _L, _I, _I, _I,
@@ -58,8 +63,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "loss": {
         "helmet_loss_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _F, _F, _I, _I, _P),
-        "helmet_loss_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                            _I, _I, _F, _F, _I, _I, _P),
+        "helmet_loss_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                            _I, _I, _I, _F, _F, _I, _I, _P),
+        "helmet_loss_bwd_vec": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),
     },
 }
 

@@ -20,7 +20,10 @@ loss.py:9-69) and of the fused loss, ref ops/pallas/loss.py:290
 * `loss_sums` / `loss_sums_bwd` launch one kernel each for CUDA tensors
   or raise, and run `loss_sums_reference` / `loss_sums_bwd_reference`, the
   plain PyTorch versions, for CPU tensors. `fwd_launches` and
-  `bwd_launches` count kernel launches.
+  `bwd_launches` count kernel launches; `bwd_vector_launches` and
+  `bwd_scalar_launches` split the backward's by the variant
+  `bwd_variant` picks from the shape: the kernel that stages 512-pixel
+  tiles through shared memory in 16-byte pieces, or the scalar one.
 
 Reductions match the JAX package exactly: per-sample sums over
 (H, W, C), a mean over the batch, and normalization by the global
@@ -30,20 +33,24 @@ as the model's output (B, S, H, W, C+4) and the encoded targets are.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
 from . import _build
-from .epilogue import _DTYPE_CODE, check_cuda
+from .epilogue import _DTYPE_CODE, _ELEMENT_BYTES, _VEC_BYTES, check_cuda
 
 EPS = 1e-7            # focal eps, ref ops/pallas/loss.py:47
 FWD_TILE_PIXELS = 512  # pixels of one (stack, sample) map per forward block
+BWD_TILE_PIXELS = 512  # the same for the vector backward kernel
 
 _tickets: Dict[torch.device, list] = {}  # device -> int32 counter buffers
 
 fwd_launches = 0
 bwd_launches = 0
+bwd_vector_launches = 0
+bwd_scalar_launches = 0
 
 
 def _num_pos(mask: torch.Tensor) -> torch.Tensor:
@@ -240,6 +247,37 @@ def fwd_tiles(hw: int) -> int:
     return -(-hw // FWD_TILE_PIXELS)
 
 
+def bwd_tiles(hw: int) -> int:
+    """Tiles per (stack, sample) map of the vector backward kernel: tile t
+    holds pixels [t * BWD_TILE_PIXELS, (t + 1) * BWD_TILE_PIXELS) of the
+    map, the last one ragged."""
+    return -(-hw // BWD_TILE_PIXELS)
+
+
+def bwd_smem_bytes(num_cls: int, dtype: torch.dtype) -> int:
+    """Shared memory of one vector-backward block (csrc/loss.cu
+    `bwd_smem_bytes`): a tile's out in its dtype, heat, off, wh and mask
+    in float32."""
+    return BWD_TILE_PIXELS * ((num_cls + 4) * _ELEMENT_BYTES[dtype]
+                              + (num_cls + 5) * 4)
+
+
+def bwd_variant(hw: int, num_cls: int, dtype: torch.dtype,
+                *pointers: int) -> str:
+    """The backward kernel of csrc/loss.cu that `loss_sums_bwd` launches:
+    "vector" when every tile's run of out, heat, off, wh, mask and dout is
+    whole 16-byte pieces on 16-byte boundaries (hw % 4 == 0, a map of out
+    a multiple of 16 bytes, every pointer 16-byte aligned) and the stage
+    fits a block's shared memory, else "scalar". A choice by shape, not a
+    fallback on failure."""
+    if hw % 4 == 0 \
+            and hw * (num_cls + 4) * _ELEMENT_BYTES[dtype] % _VEC_BYTES == 0 \
+            and all(p % _VEC_BYTES == 0 for p in pointers) \
+            and bwd_smem_bytes(num_cls, dtype) <= _build.MAX_DYNAMIC_SMEM:
+        return "vector"
+    return "scalar"
+
+
 def _ticket_buffer(device: torch.device, maps: int) -> torch.Tensor:
     """The forward kernel's per-map counters on `device`: int32 zeros at
     allocation, left at zero by every launch. A buffer is kept for the
@@ -291,20 +329,24 @@ def loss_sums(out: torch.Tensor, heat: torch.Tensor, off: torch.Tensor,
 def loss_sums_bwd(out: torch.Tensor, heat: torch.Tensor, off: torch.Tensor,
                   wh: torch.Tensor, mask: torch.Tensor, gpos: torch.Tensor,
                   gneg: torch.Tensor, goff: torch.Tensor, gwh: torch.Tensor,
-                  *, alpha: float, beta: float, normalized: bool
-                  ) -> torch.Tensor:
+                  *, alpha: float, beta: float, normalized: bool,
+                  variant: Optional[str] = None) -> torch.Tensor:
     """d(out) from the four (S, B) cotangents of `loss_sums` (ref
-    ops/pallas/loss.py:126 `_bwd_kernel`), in out's dtype."""
-    global bwd_launches
+    ops/pallas/loss.py:126 `_bwd_kernel`), in out's dtype, one launch of
+    csrc/loss.cu's backward; the cotangents are read in place, at their
+    own strides. `variant` ("vector" or "scalar") forces a kernel on a
+    CUDA tensor; None takes `bwd_variant`'s choice. The vector kernel
+    refuses, and this raises on, a shape it cannot take."""
+    global bwd_launches, bwd_vector_launches, bwd_scalar_launches
     check_loss_operands(out, heat, off, wh, mask)
-    cots = [t.float().contiguous() for t in (gpos, gneg, goff, gwh)]
+    cots = (gpos, gneg, goff, gwh)
     for t in cots:
         if tuple(t.shape) != (out.shape[1], out.shape[0]) \
-                or t.device != out.device:
-            raise ValueError("cotangents must be (S, B) = %s on %s, got %s "
-                             "on %s" % ((out.shape[1], out.shape[0]),
-                                        out.device, tuple(t.shape),
-                                        t.device))
+                or t.device != out.device or t.dtype != torch.float32:
+            raise ValueError("cotangents must be float32 (S, B) = %s on %s, "
+                             "got %s %s on %s" % (
+                                 (out.shape[1], out.shape[0]), out.device,
+                                 t.dtype, tuple(t.shape), t.device))
     kw = dict(alpha=alpha, beta=beta, normalized=normalized)
     if out.device.type == "cpu":
         return loss_sums_bwd_reference(out, heat, off, wh, mask, *cots, **kw)
@@ -313,15 +355,28 @@ def loss_sums_bwd(out: torch.Tensor, heat: torch.Tensor, off: torch.Tensor,
     if dout.numel() == 0:
         return dout
     b, s, hw, c = _loss_args(out)
+    ptrs = [t.data_ptr() for t in (out, heat, off, wh, mask)]
+    if variant is None:
+        variant = bwd_variant(hw, c, out.dtype, *ptrs, dout.data_ptr())
+    strides = (ctypes.c_int * 8)(*(n for t in cots for n in t.stride()))
     lib = _build.load("loss")
-    err = lib.helmet_loss_bwd(out.data_ptr(), heat.data_ptr(),
-                              off.data_ptr(), wh.data_ptr(), mask.data_ptr(),
-                              *(t.data_ptr() for t in cots), dout.data_ptr(),
-                              b, s, hw, c, float(alpha), float(beta),
-                              int(normalized), _DTYPE_CODE[out.dtype],
-                              _build.stream_handle(out.device))
-    _build.check(err, "loss_sums_bwd")
+    head = (*ptrs, *(t.data_ptr() for t in cots), ctypes.addressof(strides),
+            dout.data_ptr(), b, s, hw, c)
+    tail = (float(alpha), float(beta), int(normalized),
+            _DTYPE_CODE[out.dtype], _build.stream_handle(out.device))
+    if variant == "vector":
+        err = lib.helmet_loss_bwd_vec(*head, bwd_tiles(hw), *tail)
+    elif variant == "scalar":
+        err = lib.helmet_loss_bwd(*head, *tail)
+    else:
+        raise ValueError("variant must be 'vector' or 'scalar', got %r"
+                         % (variant,))
+    _build.check(err, "loss_sums_bwd (%s kernel)" % variant)
     bwd_launches += 1
+    if variant == "vector":
+        bwd_vector_launches += 1
+    else:
+        bwd_scalar_launches += 1
     return dout
 
 

@@ -3,15 +3,19 @@
 Port of ref ops/pallas/peak.py:95 `fused_peak_scores` (its Pallas
 `_peak_kernel`, peak.py:68): per class map, s = sigmoid(logit), kept
 where s equals the max of its pool_size x pool_size window (ties count,
-cells outside the map are -inf), 0 elsewhere. The peak test runs on
-sigmoid values, not logits, exactly as the JAX decode path does.
+cells outside the map are -inf, a NaN in the window makes its max NaN),
+0 elsewhere. The peak test runs on sigmoid values, not logits, exactly
+as the JAX decode path does.
 
 * `peak_scores` launches `csrc/peak.cu` for CUDA tensors or raises, and
-  runs the plain version for CPU tensors.
+  runs the plain version for CPU tensors. `peak_variant` picks the
+  kernel's variant from the shape: "vector" (both heat channels of a
+  cell in one 8-byte load, 16-byte stores) or "scalar".
 * `peak_scores_reference` is the plain PyTorch version (sigmoid, then
   `ops.decode.peak_mask`: a stride-1 max pool with implicit -inf
   padding, and equality).
-* `launches` counts kernel launches.
+* `launches` counts kernel launches; `vector_launches` and
+  `scalar_launches` split it by variant.
 
 Both read the C heat channels straight out of the model's
 (B, S, h, w, C+4) float32 output and write class-major (B, S, C, h, w),
@@ -21,14 +25,23 @@ two transposes around the TPU kernel (peak.py:109-111) do not exist.
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from . import _build
 from .decode import peak_mask
 
 launches = 0
+vector_launches = 0
+scalar_launches = 0
 
-# shared-memory tile of the kernel: (8 + 2p) x (32 + 2p) floats <= 48 KB
+# the kernel's spatial tile (csrc/peak.cu kPeakTileH x kPeakTileW)
+TILE_H, TILE_W = 16, 32
+# Shared memory of one block: per class plane (16 + 2p) rows of the
+# staged sigmoids, (16 + 2p) x 32 of the horizontal max; two planes in
+# the vector variant. `smem_bytes` mirrors csrc/peak.cu; pool size 81
+# (p = 40) takes 110.6 KB, inside the 227 KB a block may opt into.
 MAX_POOL_SIZE = 2 * 40 + 1
 
 
@@ -36,6 +49,37 @@ def check_pool_size(pool_size: int) -> None:
     if pool_size % 2 != 1 or pool_size < 1 or pool_size > MAX_POOL_SIZE:
         raise ValueError("pool_size must be odd, >= 1 and <= %d, got %d"
                          % (MAX_POOL_SIZE, pool_size))
+
+
+def smem_bytes(pool_size: int, variant: str) -> int:
+    """Dynamic shared memory of one block of the kernel (csrc/peak.cu
+    `peak_plane_floats` x planes x 4 bytes)."""
+    p = (pool_size - 1) // 2
+    lead = -(-p // 4) * 4
+    stride = -(-(lead + TILE_W + p) // 4) * 4
+    planes = 2 if variant == "vector" else 1
+    return planes * (TILE_H + 2 * p) * (stride + TILE_W) * 4
+
+
+def tiles(h: int, w: int) -> Tuple[int, int]:
+    """(rows, columns) of TILE_H x TILE_W tiles that cover one h x w map;
+    tile (i, j) holds rows [i * TILE_H, (i + 1) * TILE_H) and columns
+    [j * TILE_W, (j + 1) * TILE_W), cut at the map's edge."""
+    return -(-h // TILE_H), -(-w // TILE_W)
+
+
+def peak_variant(num_cls: int, k: int, w: int, logits_ptr: int,
+                 out_ptr: int) -> str:
+    """The variant of csrc/peak.cu that `peak_scores` launches: "vector"
+    when there are two classes, the channel count K is even and the
+    logits 8-byte aligned (each cell's heat pair is one 8-byte load), and
+    w is a multiple of 4 with the output 16-byte aligned (four outputs in
+    one 16-byte store); else "scalar". A choice by shape, not a fallback
+    on failure."""
+    if num_cls == 2 and k % 2 == 0 and logits_ptr % 8 == 0 \
+            and w % 4 == 0 and out_ptr % 16 == 0:
+        return "vector"
+    return "scalar"
 
 
 def _check(logits: torch.Tensor, num_cls: int) -> None:
@@ -56,10 +100,13 @@ def peak_scores_reference(logits: torch.Tensor, num_cls: int,
                        torch.zeros_like(heat)).contiguous()
 
 
-def peak_scores(logits: torch.Tensor, num_cls: int,
-                pool_size: int = 3) -> torch.Tensor:
-    """Masked sigmoid peak scores, (B, S, h, w, K) f32 -> (B, S, C, h, w)."""
-    global launches
+def peak_scores(logits: torch.Tensor, num_cls: int, pool_size: int = 3,
+                variant: Optional[str] = None) -> torch.Tensor:
+    """Masked sigmoid peak scores, (B, S, h, w, K) f32 -> (B, S, C, h, w).
+    `variant` ("vector" or "scalar") forces a kernel variant on a CUDA
+    tensor; None takes `peak_variant`'s choice. The vector variant
+    refuses, and this raises on, a shape it cannot take."""
+    global launches, vector_launches, scalar_launches
     check_pool_size(pool_size)
     _check(logits, num_cls)
     if logits.device.type == "cpu":
@@ -68,18 +115,26 @@ def peak_scores(logits: torch.Tensor, num_cls: int,
         raise ValueError("peak_scores runs on cuda or cpu, got %s"
                          % logits.device)
     b, s, h, w, k = logits.shape
-    maps = b * s * num_cls
-    if maps > 65535:
-        raise ValueError("peak_scores: %d maps exceed the kernel's grid "
-                         "(65535); split the batch" % maps)
     out = torch.empty((b, s, num_cls, h, w), dtype=torch.float32,
                       device=logits.device)
     if out.numel() == 0:
         return out
+    if variant is None:
+        variant = peak_variant(num_cls, k, w, logits.data_ptr(),
+                               out.data_ptr())
+    if variant not in ("vector", "scalar"):
+        raise ValueError("variant must be 'vector' or 'scalar', got %r"
+                         % (variant,))
+    rows, cols = tiles(h, w)
     lib = _build.load("peak")
-    err = lib.helmet_peak_scores(logits.data_ptr(), out.data_ptr(), maps,
+    err = lib.helmet_peak_scores(logits.data_ptr(), out.data_ptr(), b * s,
                                  num_cls, h, w, k, (pool_size - 1) // 2,
+                                 b * s * rows * cols, int(variant == "vector"),
                                  _build.stream_handle(logits.device))
-    _build.check(err, "peak_scores")
+    _build.check(err, "peak_scores (%s variant)" % variant)
     launches += 1
+    if variant == "vector":
+        vector_launches += 1
+    else:
+        scalar_launches += 1
     return out

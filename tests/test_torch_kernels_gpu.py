@@ -6,15 +6,17 @@ tests. Run on a machine with an H100:
 
     python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu
 
-Rules: bit-equal for the peak test, the ReLU/Linear epilogue (vector
-and scalar kernels, ragged counts, misaligned views) and residual tail
-and the ReLU/Linear train dx and eval backward passes; Mish within
-rtol 1e-6 in f32 and one bf16 ulp in bf16; the reductions (batch
-moments, S1/S2, the eval partials) per channel, and the loss sums
-per (stack, sample), within 1e-5 of the sum of the absolute values of
-their terms, the error bound of a float32 sum taken in another order;
-the loss's d(out) within rtol 1e-5 + atol 1e-6 * max|d(out)| (the same
-as chip_smoke.py).
+Rules: bit-equal for the peak test (both variants, NaN and +-inf
+logits: NaN-aware), the ReLU/Linear epilogue (vector and scalar
+kernels, ragged counts, misaligned views) and residual tail and the
+ReLU/Linear train dx and eval backward passes, and the loss backward's
+d(out) (both kernels, non-binary masks, NaN and +-inf logits); Mish
+within rtol 1e-6 in f32 and one bf16 ulp in bf16; the reductions
+(batch moments, S1/S2, the eval partials) per channel, and the loss
+sums per (stack, sample), within 1e-5 of the sum of the absolute values
+of their terms, the error bound of a float32 sum taken in another order;
+where a test says so, the loss's d(out) within rtol 1e-5 + atol 1e-6 *
+max|d(out)|.
 """
 
 import numpy as np
@@ -134,6 +136,67 @@ def test_peak_kernel_matches_plain(cuda, pool_size):
     got = peak.peak_scores(logits, 2, pool_size)
     assert peak.launches == before + 1
     _close(got, peak.peak_scores_reference(logits, 2, pool_size), "equal")
+
+
+def _nonfinite(t, gen, share=0.01):
+    """t with a seeded `share` of its values each set to NaN, +inf and
+    -inf."""
+    u = torch.rand(t.shape, generator=gen, device=t.device)
+    t = t.masked_fill(u < share, float("nan"))
+    t = t.masked_fill((u >= share) & (u < 2 * share), float("inf"))
+    return t.masked_fill((u >= 2 * share) & (u < 3 * share), float("-inf"))
+
+
+def _nan_equal(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    nan = torch.isnan(got)
+    assert torch.equal(nan, torch.isnan(want))
+    assert torch.equal(got.masked_fill(nan, 0), want.masked_fill(nan, 0))
+
+
+@pytest.mark.parametrize("pool_size", [3, 5])
+@pytest.mark.parametrize("shape,num_cls,variant", [
+    ((4, 1, 128, 128, 6), 2, "vector"),
+    ((2, 1, 37, 44, 6), 2, "vector"),   # ragged tiles
+    ((2, 1, 37, 46, 6), 2, "scalar"),   # w % 4 != 0
+    ((2, 2, 37, 44, 7), 3, "scalar"),   # three classes
+])
+def test_peak_kernel_nan_inf_matches_plain(cuda, shape, num_cls, variant,
+                                           pool_size):
+    """NaN and +-inf logits: a window that holds a NaN has a NaN max, so
+    its cell is 0, as in F.max_pool2d; bit-equal to the plain version, on
+    the variant the shape should take."""
+    logits = _nonfinite(torch.randn(shape, generator=cuda, device="cuda")
+                        * 3, cuda)
+    before = (peak.vector_launches, peak.scalar_launches)
+    got = peak.peak_scores(logits, num_cls, pool_size)
+    assert (peak.vector_launches - before[0],
+            peak.scalar_launches - before[1]) == \
+        ((1, 0) if variant == "vector" else (0, 1))
+    _nan_equal(got, peak.peak_scores_reference(logits, num_cls, pool_size))
+    assert not bool(torch.isnan(got).any())
+
+
+def test_peak_kernel_large_pool_and_misaligned_logits(cuda):
+    """Pool size 81 (past 48 KB of shared memory) on both variants, and
+    logits one element into their storage (not 8-byte aligned: scalar);
+    forcing the vector variant there raises."""
+    logits = torch.randn((2, 1, 37, 44, 6), generator=cuda,
+                         device="cuda") * 3
+    for variant in ("vector", "scalar"):
+        got = peak.peak_scores(logits, 2, peak.MAX_POOL_SIZE, variant)
+        _close(got, peak.peak_scores_reference(logits, 2,
+                                               peak.MAX_POOL_SIZE), "equal")
+    base = torch.randn((2 * 64 * 64 * 6 + 1,), generator=cuda,
+                       device="cuda") * 3
+    view = base[1:].view(2, 1, 64, 64, 6)
+    before = peak.scalar_launches
+    got = peak.peak_scores(view, 2, 3)
+    assert peak.scalar_launches == before + 1
+    _close(got, peak.peak_scores_reference(view, 2, 3), "equal")
+    with pytest.raises(RuntimeError, match="vector"):
+        peak.peak_scores(view, 2, 3, variant="vector")
 
 
 def _rows(t):
@@ -289,6 +352,92 @@ def test_loss_sums_one_launch_bit_identical(cuda, dtype):
                        loss.loss_terms_reference(*ops, **kw)):
         bound = 1e-5 * t.abs().sum(dim=(2, 3, 4)).t() + 1e-30
         assert bool(((g - w).abs() <= bound).all())
+
+
+def _loss_operands(gen, shape, dtype, mask_kind="binary"):
+    b, s, h, w, k = shape
+    out = (torch.randn(shape, generator=gen, device="cuda") * 3).to(dtype)
+    heat, off, wh = (torch.rand((b, h, w, c), generator=gen, device="cuda")
+                     for c in (k - 4, 2, 2))
+    m = torch.rand((b, h, w, 1), generator=gen, device="cuda")
+    mask = (m < 0.05).float() if mask_kind == "binary" else \
+        m * (torch.rand(m.shape, generator=gen, device="cuda") < 0.3)
+    cots = [torch.randn((s, b), generator=gen, device="cuda")
+            for _ in range(4)]
+    return (out, heat, off, wh, mask), cots
+
+
+@pytest.mark.parametrize("normalized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_loss_backward_non_binary_mask_bit_equal(cuda, dtype, normalized):
+    """A mask of fractions and zeros (a guard for any later branch on the
+    mask's value), and NaN and +-inf among the logits: d(out) equal to
+    the plain version, NaN where it is NaN."""
+    ops, cots = _loss_operands(cuda, (4, 2, 64, 64, 6), dtype, "fractions")
+    kw = dict(alpha=2.0, beta=4.0, normalized=normalized)
+    before = loss.bwd_vector_launches
+    got = loss.loss_sums_bwd(*ops, *cots, **kw)
+    assert loss.bwd_vector_launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    _close(got, loss.loss_sums_bwd_reference(*ops, *cots, **kw), "equal")
+    ops = (_nonfinite(ops[0], cuda),) + ops[1:]
+    _nan_equal(loss.loss_sums_bwd(*ops, *cots, **kw),
+               loss.loss_sums_bwd_reference(*ops, *cots, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_loss_backward_one_launch_bit_identical(cuda, dtype):
+    """`loss_sums_bwd` at the flagship's map size is one kernel on the
+    card and nothing else, and two calls give the same d(out) bit for
+    bit; cotangents that are expanded views at S = 2 are read in place
+    (no copy: still one kernel) and give what their copies give."""
+    from torch.profiler import ProfilerActivity, profile
+    ops, cots = _loss_operands(cuda, (16, 1, 128, 128, 6), dtype)
+    kw = dict(alpha=2.0, beta=4.0, normalized=False)
+    first = loss.loss_sums_bwd(*ops, *cots, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        second = loss.loss_sums_bwd(*ops, *cots, **kw)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "loss_bwd_vec_kernel" in kernels[0], \
+        kernels
+    assert torch.equal(first, second)
+    ops, _ = _loss_operands(cuda, (4, 2, 64, 64, 6), dtype)
+    cots = [torch.randn((2, 1), generator=cuda, device="cuda")
+            .expand(2, 4) for _ in range(4)]
+    assert not cots[0].is_contiguous()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = loss.loss_sums_bwd(*ops, *cots, **kw)
+        torch.cuda.synchronize()
+    assert len([e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]) == 1
+    _close(got, loss.loss_sums_bwd(*ops, *(c.contiguous() for c in cots),
+                                   **kw), "equal")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_loss_backward_scalar_kernel(cuda, dtype):
+    """H*W % 4 != 0 and out one element into its storage take the scalar
+    kernel, bit-equal to the plain version; forcing the vector kernel on
+    them raises."""
+    ops, cots = _loss_operands(cuda, (3, 2, 37, 45, 6), dtype)
+    kw = dict(alpha=2.0, beta=4.0, normalized=False)
+    before = loss.bwd_scalar_launches
+    got = loss.loss_sums_bwd(*ops, *cots, **kw)
+    assert loss.bwd_scalar_launches == before + 1
+    _close(got, loss.loss_sums_bwd_reference(*ops, *cots, **kw), "equal")
+    with pytest.raises(RuntimeError, match="vector"):
+        loss.loss_sums_bwd(*ops, *cots, **kw, variant="vector")
+    (out, *targets), cots = _loss_operands(cuda, (3, 2, 36, 44, 6), dtype)
+    base = torch.empty(out.numel() + 1, dtype=dtype, device="cuda")
+    view = base[1:].view(out.shape)
+    view.copy_(out)
+    got = loss.loss_sums_bwd(view, *targets, *cots, **kw)
+    assert loss.bwd_scalar_launches == before + 2
+    _close(got, loss.loss_sums_bwd_reference(view, *targets, *cots, **kw),
+           "equal")
 
 
 def test_small_eval_gradient_card_matches_cpu(cuda, monkeypatch):

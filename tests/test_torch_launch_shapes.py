@@ -12,17 +12,28 @@ Python that runs anywhere:
   kernel's blocks of FWD_TILE_PIXELS pixels: every pixel in exactly one
   tile, none empty;
 * `ops.loss._ticket_buffer` keeps the forward kernel's per-map counters:
-  zeros, reused while large enough, never freed.
+  zeros, reused while large enough, never freed;
+* `ops.loss.bwd_variant` picks the backward's kernel that stages tiles
+  through shared memory in 16-byte pieces, or its scalar kernel, from
+  H*W, the channel count, the dtype and the six pointers' alignment;
+  `ops.loss.bwd_tiles` cuts each map into its BWD_TILE_PIXELS tiles;
+* `ops.peak.peak_variant` picks the peak kernel's vector variant (two
+  classes, 8-byte heat pairs, 16-byte stores) or its scalar one;
+  `ops.peak.tiles` cuts each map into TILE_H x TILE_W tiles, and
+  `ops.peak.smem_bytes` is a block's shared memory, which MAX_POOL_SIZE
+  keeps inside what a block may opt into.
 
 The JAX reference is the tiling contract of ref
-ops/pallas/epilogue.py:506-510 (the (rows, C) block) and
-ops/pallas/loss.py:86 (one program per (stack, sample) map).
+ops/pallas/epilogue.py:506-510 (the (rows, C) block),
+ops/pallas/loss.py:86 and :126 (one program per (stack, sample) map)
+and ops/pallas/peak.py:68 (one program per class map).
 """
 
 import pytest
 import torch
 
-from real_time_helmet_detection_tpu_torch.ops import epilogue, loss
+from real_time_helmet_detection_tpu_torch.ops import (_build, epilogue, loss,
+                                                      peak)
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -150,3 +161,194 @@ def test_loss_ticket_buffer_is_zero_and_kept():
         loss._tickets.pop(dev, None)
         if saved is not None:
             loss._tickets[dev] = saved
+
+
+# ------------------------------------------------------ loss backward
+
+
+@pytest.mark.parametrize("tag", DTYPES)
+@pytest.mark.parametrize("hw", [128 * 128, 64 * 64, 36 * 44, 4, 1024])
+def test_loss_backward_vector_variant_for_whole_vectors(tag, hw):
+    assert loss.bwd_variant(hw, 2, DTYPES[tag], *([256] * 6)) == "vector"
+
+
+@pytest.mark.parametrize("tag", DTYPES)
+@pytest.mark.parametrize("hw", [37 * 45, 6, 130, 1023])
+def test_loss_backward_scalar_variant_for_ragged_maps(tag, hw):
+    """H*W % 4 != 0: a tile's runs would end inside a 16-byte piece."""
+    assert loss.bwd_variant(hw, 2, DTYPES[tag], *([256] * 6)) == "scalar"
+
+
+@pytest.mark.parametrize("tag", DTYPES)
+@pytest.mark.parametrize("which", range(6))
+def test_loss_backward_scalar_variant_for_misaligned_storage(tag, which):
+    """Any one of out, heat, off, wh, mask and dout off a 16-byte
+    boundary (by one element) takes the scalar kernel."""
+    ptrs = [256] * 6
+    ptrs[which] += 2 if which in (0, 5) and tag == "bf16" else 4
+    assert loss.bwd_variant(128 * 128, 2, DTYPES[tag], *ptrs) == "scalar"
+
+
+def test_loss_backward_variant_by_channel_count_and_dtype():
+    """bf16 with an odd channel count K = C + 4 needs H*W % 8 == 0 for a
+    map of out to be whole 16-byte pieces; f32 does not. A class count
+    whose tile outgrows a block's shared memory takes the scalar
+    kernel."""
+    assert loss.bwd_variant(36, 3, torch.float32, 0) == "vector"
+    assert loss.bwd_variant(36, 3, torch.bfloat16, 0) == "scalar"
+    assert loss.bwd_variant(40, 3, torch.bfloat16, 0) == "vector"
+    big = max(c for c in range(1, 200)
+              if loss.bwd_smem_bytes(c, torch.float32)
+              <= _build.MAX_DYNAMIC_SMEM)
+    assert loss.bwd_variant(64, big, torch.float32, 0) == "vector"
+    assert loss.bwd_variant(64, big + 1, torch.float32, 0) == "scalar"
+    # the flagship's tile: 26 KB in f32, 20 KB in bf16
+    assert loss.bwd_smem_bytes(2, torch.float32) == 512 * (6 * 4 + 7 * 4)
+    assert loss.bwd_smem_bytes(2, torch.bfloat16) == 512 * (6 * 2 + 7 * 4)
+
+
+@pytest.mark.parametrize("hw", [64 * 64, 128 * 128, 36 * 44, 37 * 45, 1])
+def test_loss_backward_tiles_cover_every_pixel_once(hw):
+    size = loss.BWD_TILE_PIXELS
+    cut = [range(t * size, min((t + 1) * size, hw))
+           for t in range(loss.bwd_tiles(hw))]
+    assert [p for tile in cut for p in tile] == list(range(hw))
+    assert all(len(tile) > 0 for tile in cut)
+    if hw % 4 == 0:  # every tile is whole 16-byte pieces of every run
+        assert all(len(tile) % 4 == 0 for tile in cut)
+
+
+@pytest.mark.parametrize("tag", DTYPES)
+def test_flagship_loss_backward_takes_the_vector_kernel(tag):
+    """The train step's loss at b16 512^2: out (16, 1, 128, 128, 6) in
+    f32 or bf16, fresh allocations (aligned), 32 tiles per map, 512 tiles
+    in all, one wave at 4 resident blocks on each of 132 SMs (the kernel
+    fits 6 at 40 registers and 26.6 KB of shared memory, so 4 is the
+    least the wave needs)."""
+    dtype = DTYPES[tag]
+    b, s, h, w, c = 16, 1, 128, 128, 2
+    out = torch.zeros((b, s, h, w, c + 4), dtype=dtype)
+    ptrs = [t.data_ptr() for t in (
+        out, torch.zeros(b, h, w, c), torch.zeros(b, h, w, 2),
+        torch.zeros(b, h, w, 2), torch.zeros(b, h, w, 1),
+        torch.empty_like(out))]
+    assert loss.bwd_variant(h * w, c, dtype, *ptrs) == "vector"
+    assert loss.bwd_tiles(h * w) * b * s == 512 <= 4 * 132
+
+
+def test_loss_backward_variant_is_ignored_on_the_cpu():
+    """A CPU tensor runs the plain version whatever variant is asked for,
+    with cotangents at any strides, and no counter moves."""
+    gen = torch.Generator().manual_seed(0)
+    b, s, h, w = 2, 2, 5, 7
+    out = torch.randn((b, s, h, w, 6), generator=gen)
+    heat, off, wh = (torch.rand((b, h, w, c), generator=gen)
+                     for c in (2, 2, 2))
+    mask = (torch.rand((b, h, w, 1), generator=gen) < 0.2).float()
+    cots = [torch.randn((s, 1), generator=gen).expand(s, b)
+            for _ in range(4)]
+    kw = dict(alpha=2.0, beta=4.0, normalized=False)
+    before = (loss.bwd_launches, loss.bwd_vector_launches,
+              loss.bwd_scalar_launches)
+    want = loss.loss_sums_bwd_reference(out, heat, off, wh, mask,
+                                        *(c.contiguous() for c in cots),
+                                        **kw)
+    for variant in (None, "vector", "scalar"):
+        got = loss.loss_sums_bwd(out, heat, off, wh, mask, *cots, **kw,
+                                 variant=variant)
+        assert torch.equal(got, want)
+    assert (loss.bwd_launches, loss.bwd_vector_launches,
+            loss.bwd_scalar_launches) == before
+
+
+def test_loss_backward_refuses_non_float32_cotangents():
+    """The kernels read float32 cotangents in place; another dtype is
+    refused rather than copied."""
+    out = torch.zeros((1, 1, 2, 2, 6))
+    targets = (torch.zeros(1, 2, 2, 2), torch.zeros(1, 2, 2, 2),
+               torch.zeros(1, 2, 2, 2), torch.zeros(1, 2, 2, 1))
+    cots = [torch.zeros(1, 1, dtype=torch.float64)] * 4
+    with pytest.raises(ValueError, match="float32"):
+        loss.loss_sums_bwd(out, *targets, *cots, alpha=2.0, beta=4.0,
+                           normalized=False)
+
+
+# ---------------------------------------------------------- peak test
+
+
+@pytest.mark.parametrize("w", [128, 44, 4, 256])
+def test_peak_vector_variant_for_two_classes(w):
+    assert peak.peak_variant(2, 6, w, 256, 256) == "vector"
+
+
+@pytest.mark.parametrize("num_cls,k,w,logits_ptr,out_ptr", [
+    (1, 5, 128, 256, 256),   # one class
+    (3, 7, 128, 256, 256),   # three classes
+    (2, 7, 128, 256, 256),   # K odd: the heat pairs not 8-byte aligned
+    (2, 6, 46, 256, 256),    # w % 4 != 0: output rows off 16 bytes
+    (2, 6, 130, 256, 256),
+    (2, 6, 128, 260, 256),   # logits 4 bytes off 8
+    (2, 6, 128, 256, 264),   # output 8 bytes off 16
+])
+def test_peak_scalar_variant_for_other_shapes(num_cls, k, w, logits_ptr,
+                                              out_ptr):
+    assert peak.peak_variant(num_cls, k, w, logits_ptr, out_ptr) == "scalar"
+
+
+@pytest.mark.parametrize("h,w", [(128, 128), (37, 44), (16, 32), (1, 1),
+                                 (17, 33), (256, 96)])
+def test_peak_tiles_cover_every_cell_once(h, w):
+    rows, cols = peak.tiles(h, w)
+    seen = {}
+    for i in range(rows):
+        for j in range(cols):
+            cells = [(y, x)
+                     for y in range(i * peak.TILE_H,
+                                    min((i + 1) * peak.TILE_H, h))
+                     for x in range(j * peak.TILE_W,
+                                    min((j + 1) * peak.TILE_W, w))]
+            assert cells, (i, j)  # no empty tile
+            for cell in cells:
+                seen[cell] = seen.get(cell, 0) + 1
+    assert sorted(seen) == [(y, x) for y in range(h) for x in range(w)]
+    assert set(seen.values()) == {1}
+
+
+def test_flagship_peak_takes_the_vector_variant():
+    """predict's peak test at b16 512^2: logits (16, 1, 128, 128, 6) f32,
+    two classes, fresh allocations; 32 tiles per map, 512 in all, inside
+    one wave (8 resident blocks of 256 threads on each of 132 SMs: the
+    10.1 KB tile at pool size 3 leaves room for them)."""
+    logits = torch.zeros((16, 1, 128, 128, 6))
+    out = torch.empty((16, 1, 2, 128, 128))
+    assert peak.peak_variant(2, 6, 128, logits.data_ptr(),
+                             out.data_ptr()) == "vector"
+    rows, cols = peak.tiles(128, 128)
+    assert rows * cols == 32 and 16 * rows * cols == 512 <= 8 * 132
+    assert peak.smem_bytes(3, "vector") == 10368
+    assert 8 * (peak.smem_bytes(3, "vector") + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("variant", ["vector", "scalar"])
+def test_peak_max_pool_size_fits_shared_memory(variant):
+    """MAX_POOL_SIZE is the largest pool the kernel's shared memory takes
+    (two planes in the vector variant; the scalar one uses one) up to the
+    C entry's bound of p = 40; every odd size up to it fits."""
+    for pool_size in range(1, peak.MAX_POOL_SIZE + 1, 2):
+        assert peak.smem_bytes(pool_size, variant) \
+            <= _build.MAX_DYNAMIC_SMEM
+        peak.check_pool_size(pool_size)
+    with pytest.raises(ValueError, match="pool_size"):
+        peak.check_pool_size(peak.MAX_POOL_SIZE + 2)
+    assert peak.smem_bytes(peak.MAX_POOL_SIZE, "vector") == 110592
+
+
+def test_peak_variant_is_ignored_on_the_cpu():
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.randn((2, 1, 9, 10, 6), generator=gen) * 3
+    before = (peak.launches, peak.vector_launches, peak.scalar_launches)
+    want = peak.peak_scores_reference(logits, 2, 3)
+    for variant in (None, "vector", "scalar"):
+        assert torch.equal(peak.peak_scores(logits, 2, 3, variant), want)
+    assert (peak.launches, peak.vector_launches,
+            peak.scalar_launches) == before

@@ -9,12 +9,16 @@ and their jnp twins, as the JAX suite does. Tolerances:
   Mish adds rtol 1e-6 (about 8 ulps), because XLA:CPU computes tanh by
   a polynomial a few ulps off libm's, and the port's softplus is
   log1p(exp(z)) where JAX's is logaddexp(z, 0);
-* peak test: masks identical, scores rtol 1e-6 (sigmoid rounding);
+* peak test: masks identical, scores rtol 1e-6 (sigmoid rounding); with
+  NaN and +-inf logits, exactly equal (NaN-aware) wherever the two
+  libraries' sigmoids agree, rtol 1e-6 on the few cells where they
+  differ by their last bit;
 * decode: indices, classes and valid exactly equal (tie order included),
   boxes atol 1e-4;
 * NMS: keep masks identical.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -135,6 +139,55 @@ def test_peak_scores_matches_jax(pool_size):
                          peak_scores_reference(heat, pool_size)):
                 want = np.asarray(want).transpose(2, 0, 1)
                 np.testing.assert_array_equal(got[b, s] > 0, want > 0)
+                np.testing.assert_allclose(got[b, s], want, rtol=1e-6,
+                                           atol=0)
+
+
+def _sprinkle(rng, x, share):
+    """x with a `share` of its values each set to NaN, +inf and -inf."""
+    u = rng.random(x.shape)
+    x = x.copy()
+    x[u < share] = np.nan
+    x[(u >= share) & (u < 2 * share)] = np.inf
+    x[(u >= 2 * share) & (u < 3 * share)] = -np.inf
+    return x
+
+
+@pytest.mark.parametrize("pool_size", [1, 3, 5])
+def test_peak_scores_nan_inf_match_jax(pool_size):
+    """A diverged model's logits: NaN and +-inf among them. A window that
+    holds a NaN has a NaN max in JAX's `reduce_window` (the reference),
+    in the Pallas kernel's `jnp.maximum` (interpret mode) and in the
+    port's `F.max_pool2d`, so every cell within reach of a NaN is 0, the
+    NaN cell too; +inf and -inf logits are scores 1 and 0. The port's
+    output equals both NaN-aware, bit for bit wherever the two
+    libraries' sigmoids agree."""
+    rng = np.random.default_rng(11)
+    logits = _sprinkle(rng, rng.normal(0, 3, (2, 2, 16, 16, 6))
+                       .astype(np.float32), 0.02)
+    got = peak.peak_scores(torch.from_numpy(logits), 2, pool_size).numpy()
+    heat = logits[..., :2]
+    sig_same = torch.sigmoid(torch.from_numpy(heat)).numpy() == np.asarray(
+        jax.nn.sigmoid(jnp.asarray(heat)))
+    near_nan = torch.nn.functional.max_pool2d(
+        torch.from_numpy(np.isnan(heat).astype(np.float32))
+        .permute(0, 1, 4, 2, 3).flatten(0, 1), pool_size, 1,
+        pool_size // 2).unflatten(0, (2, 2)).numpy() > 0
+    assert near_nan.any() and np.isinf(heat).any()
+    assert not np.isnan(got).any()
+    assert (got[near_nan] == 0).all()
+    for b in range(2):
+        for s in range(2):
+            h = jnp.asarray(logits[b, s, ..., :2])
+            for want in (fused_peak_scores(h, interpret=True,
+                                           pool_size=pool_size),
+                         peak_scores_reference(h, pool_size)):
+                want = np.asarray(want).transpose(2, 0, 1)
+                same = sig_same[b, s].transpose(2, 0, 1)
+                np.testing.assert_array_equal(np.isnan(got[b, s]),
+                                              np.isnan(want))
+                np.testing.assert_array_equal(got[b, s] > 0, want > 0)
+                np.testing.assert_array_equal(got[b, s][same], want[same])
                 np.testing.assert_allclose(got[b, s], want, rtol=1e-6,
                                            atol=0)
 
