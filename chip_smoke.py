@@ -8,7 +8,10 @@ JAX package's eval command, ref main.py:32-37 -> evaluate.py:121
 `evaluate`), training (ref main.py:25-27 -> train.py:1698 `train`,
 the flagship `--train-flag --batch-size 16 --amp --num-stack 1`, with
 the fused loss of ref train.py:274-278) and a gradient through the
-eval-mode model (`jax.grad` of `model.apply(train=False)`) — and checks
+eval-mode model (`jax.grad` of `model.apply(train=False)`) — then the
+same paths for the JAX model's other architectures and NMS modes
+(VARIANT_CONFIGS: the edge and quality tiers' architectures, ref
+config.py:59-85, the depthwise variant, the other options), and checks
 every hand-written kernel of those paths against its plain PyTorch
 version on the card:
 
@@ -33,10 +36,10 @@ version on the card:
    test's scalar variant beside its vector one;
 5. the predict path, batch 16, 512^2, 1 stack, 128 channels, seeded
    weights, f32 and bf16: launch counts per forward (20 epilogue, all on
-   the vector kernel, 17 residual tail, 1 peak, no train kernel), logits
-   of the whole batch
-   and Detections against the same path with every kernel swapped for
-   its plain version, peak memory, images/s as the median of 5 windows
+   the vector kernel, 17 residual tail, 1 peak, no train kernel;
+   `expected_launches`), logits of the whole batch bit-equal and
+   Detections identical, and matched both ways, against the same path
+   with every kernel swapped for its plain version, peak memory, images/s as the median of 5 windows
    of about 2 s each (kernel and plain windows alternate), and a small
    model on the card against the CPU path;
 6. the same kernel-vs-plain rule under two BN states with larger
@@ -77,21 +80,47 @@ version on the card:
    of the sum of |terms|); then the flagship model in eval mode at b16
    512^2, the fused loss and backward(), f32 and bf16, through the
    kernels and through the plain versions: launch counts (20 + 17 eval
-   backward, the loss kernels once each), a non-zero gradient for every
+   backward, the loss kernels once each; `expected_launches`), a
+   non-zero gradient for every
    parameter, f32 gradient rel L2 <= 1e-5, bf16 no further from the f32
    plain gradient than 1.5x the bf16 plain path;
 13. eval_timing: the eval backward kernels at the largest site beside
    their bounds, the plain versions and ATen's BN backward (Linear);
-14. a torch.profiler trace (CUDA activity) of a predict and of a train
+14. variants: predict at b16 512^2, f32 and bf16, for each of
+   VARIANT_CONFIGS (edge-arch: ghost, width 64, stem 64; quality-arch: 2
+   stacks, soft-NMS; depthwise-128; options: PReLU, a Mish neck, the
+   Conv pool, the SPP neck, the s2d stem): launch counts per forward
+   against the counts derived from the architecture (`bn_sites`,
+   `expected_launches`), logits bit-equal and Detections identical
+   against the plain-version path (where a site takes Mish: phase main's
+   rule), peak memory, images/s (three ~0.5 s windows a path), device
+   busy and idle share from one profiled predict; the stem direct and
+   space-to-depth, side by side; the SPP pools' cascade bit-equal to the
+   direct pools;
+15. variants_small: the other options (Avg and SPP pools, LReLU, Sigmoid,
+   CELU, Mish, maxpool NMS) at b4 128^2, width 32, the same way;
+16. variants_train: the --amp train step at b16 512^2 for edge-arch and
+   depthwise-128: launch counts, the step against its plain-version twin
+   under train_main's rule, the loss over 8 steps, images/s; an
+   eval-mode gradient for edge-arch and options (every parameter, the
+   PReLU slopes among them, non-zero);
+17. nms: soft-NMS, maxpool and hard NMS, the card against the CPU (keep
+   masks identical, decayed scores within 1e-6), on seeded clustered
+   boxes where each mode keeps some and drops others, and on a
+   quality-arch predict's decoded boxes, with the time of each per b16
+   batch;
+18. a torch.profiler trace (CUDA activity) of a predict and of a train
    step: device time by kernel group and the idle share against the
    untraced walls of phases 5 and 11, and the train step's phases by
    CUDA events;
-15. the eval CLI end to end on a synthetic VOC fixture (32 images at
+19. the eval CLI end to end on a synthetic VOC fixture (32 images at
    512^2, batch 16, --amp) to a printed mAP, txt files and pickle;
-16. train_cli: `--train-flag` for one epoch on a 32-image 512^2 fixture,
+20. train_cli: `--train-flag` for one epoch on a 32-image 512^2 fixture,
    then the eval CLI on the weights it wrote.
 
-Any failure exits non-zero. Each phase prints its wall time. The last
+`--phases variants` (or any comma-separated subset; `identity` always
+runs) runs phases alone. Any failure exits non-zero. Each phase prints
+its wall time. The last
 three lines are the card's name and power limit, one JSON object of
 per-kernel numbers (all 13 TPU kernels), and
 {"ok": true, "device": {...}}.
@@ -115,7 +144,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PHASES = ("identity", "build", "kernels", "timing", "main", "states",
           "train_kernels", "train_timing", "loss_kernels", "loss_timing",
-          "train_main", "eval_grad", "eval_timing", "profile", "cli",
+          "train_main", "eval_grad", "eval_timing", "variants",
+          "variants_small", "variants_train", "nms", "profile", "cli",
           "train_cli")
 
 
@@ -315,6 +345,102 @@ COUNTERS = {
     "loss_bwd_vec": ("loss", "bwd_vector_launches"),
     "loss_bwd_scalar": ("loss", "bwd_scalar_launches"),
 }
+
+
+# the configurations of phases variants, variants_train and nms, at b16
+# 512^2: the architecture fields of the JAX package's edge tier (ghost,
+# width 64, stem width 64) and quality tier (2 stacks, soft-NMS; ref
+# config.py:74-76, :82-84), the depthwise variant and the other options at
+# the flagship's width
+VARIANT_CONFIGS = {
+    "edge-arch": dict(variant="ghost", hourglass_inch=64, stem_width=64),
+    "quality-arch": dict(num_stack=2, hourglass_inch=128, nms="soft-nms"),
+    "depthwise-128": dict(variant="depthwise"),
+    "options": dict(activation="PReLU", neck_activation="Mish", pool="Conv",
+                    neck_pool="SPP", stem_s2d=True),
+}
+# the options of phase variants_small, each at 128^2, width 32
+SMALL_CONFIGS = {
+    "pool-avg": dict(pool="Avg"), "pool-spp": dict(pool="SPP"),
+    "lrelu": dict(activation="LReLU"), "sigmoid": dict(activation="Sigmoid"),
+    "celu": dict(activation="CELU", neck_activation="CELU"),
+    "mish": dict(activation="Mish"), "nms-maxpool": dict(nms="maxpool"),
+}
+
+def bn_sites(cfg):
+    """(channel counts of the epilogue sites, channel counts of the fused
+    residual-tail sites) of one forward of cfg's model, derived from the
+    architecture (ref models/hourglass.py:564-863): a BN'd conv is an
+    epilogue site, except the tail conv of a residual or depthwise block
+    whose post-add activation the kernels take (hourglass.py:650-654),
+    which is a tail site; a ghost module is two BN'd convs of half the
+    width; the PreLayer's and the neck's blocks are ReLU."""
+    from real_time_helmet_detection_tpu_torch.ops.epilogue import \
+        ACTIVATIONS as KERNEL_ACTIVATIONS
+    epi, tail = [], []
+
+    def residual(cin, cout, act):
+        v = cfg.variant
+        body = {"residual": [cout, cout], "depthwise": [cin, cout, cout, cout],
+                "ghost": [cout // 2] * 4}[v]
+        if cin != cout:
+            body.append(cout)  # the skip's 1x1 projection
+        if v != "ghost" and act in KERNEL_ACTIVATIONS:
+            tail.append(body.pop(1 if v == "residual" else 3))
+        epi.extend(body)
+
+    def hourglass(n, c):
+        m = c + cfg.increase_ch
+        residual(c, c, cfg.activation)
+        residual(c, m, cfg.activation)
+        if n > 1:
+            hourglass(n - 1, m)
+        else:
+            residual(m, m, cfg.activation)
+        residual(m, c, cfg.activation)
+
+    width, mid = cfg.hourglass_inch, cfg.stem_width or 128
+    epi.append(64)  # the stem conv
+    for cin, cout in ((64, mid), (mid, mid), (mid, width)):
+        residual(cin, cout, "ReLU")
+    for _ in range(cfg.num_stack):
+        hourglass(4, width)
+        epi.append(width)  # the neck conv
+        residual(width, width, "ReLU")
+    return epi, tail
+
+
+def expected_launches(cfg, path, dtype):
+    """Every launch counter after one predict ("predict"), one train step
+    ("train") or one eval-mode loss + backward ("eval_grad") of cfg's
+    model at cfg.imsize with activations of `dtype`: bn_sites' counts, the
+    epilogue's variant per site from `bn_act_variant` (fresh, aligned
+    tensors), the peak test once and the loss kernels once each way, each
+    on the variant its shape takes."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.ops import epilogue, loss, peak
+    epi, tail = bn_sites(cfg)
+    vec = sum(epilogue.bn_act_variant(c, dtype) == "vector" for c in epi)
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(bn_act=len(epi), bn_act_vec=vec,
+                bn_act_scalar=len(epi) - vec, bn_add_act=len(tail))
+    side = cfg.imsize // (2 if cfg.pool in ("SPP", "None") else 4)
+    k = cfg.num_cls + 4
+    if path == "predict":
+        pv = peak.peak_variant(cfg.num_cls, k, side, 0, 0)
+        want["peak_scores"] = 1
+        want["peak_vec" if pv == "vector" else "peak_scalar"] = 1
+        return want
+    lv = loss.bwd_variant(side * side, cfg.num_cls, torch.float32)
+    want.update(loss_fwd=1, loss_bwd=1)
+    want["loss_bwd_vec" if lv == "vector" else "loss_bwd_scalar"] = 1
+    if path == "train":
+        want.update(bn_stats=len(epi) + len(tail), bn_bwd_sums=len(epi),
+                    bn_bwd_dx=len(epi), bn_add_bwd_sums=len(tail),
+                    bn_add_bwd_dx=len(tail))
+    else:
+        want.update(bn_eval_bwd=len(epi), bn_add_eval_bwd=len(tail))
+    return want
 
 
 def _ops():
@@ -701,11 +827,12 @@ def perturb_bn(model, seed, scale=(0.2, 0.6)):
     return model
 
 
-def throughput(predict, images, windows=5, window_s=2.0):
+def throughput(predict, images, windows=5, window_s=2.0, min_predicts=10):
     """Predict images/s of the kernel path and of the plain-version path,
-    in `windows` alternating windows of about `window_s` seconds each (so
-    host noise falls on both alike). Returns, per path, the list of
-    per-window images/s and the median ms per predict."""
+    in `windows` alternating windows of about `window_s` seconds and at
+    least `min_predicts` predicts each (so host noise falls on both
+    alike). Returns, per path, the list of per-window images/s and the
+    median ms per predict."""
     import statistics
     import torch
 
@@ -717,7 +844,7 @@ def throughput(predict, images, windows=5, window_s=2.0):
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    n = max(10, int(window_s / (one_window(3) / 3)))
+    n = max(min_predicts, int(window_s / (one_window(3) / 3)))
     rates = {"kernels": [], "plain": []}
     for _ in range(windows):
         rates["kernels"].append(len(images) * n / one_window(n))
@@ -745,6 +872,10 @@ def full_batch_logits(model, images):
 
 
 def phase_main(state):
+    """The flagship's predict at b16 512^2, f32 and bf16
+    (`predict_against_plain`, Detections also matched both ways), its peak
+    memory and images/s; then a small model on the card against the CPU
+    path."""
     import numpy as np
     import torch
     from real_time_helmet_detection_tpu_torch.config import Config
@@ -752,41 +883,12 @@ def phase_main(state):
     from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
     images = np.random.default_rng(0).integers(
         0, 256, (16, 512, 512, 3), dtype=np.uint8)
-    want = dict.fromkeys(COUNTERS, 0)  # predict runs no train kernel
-    want.update(bn_act=20, bn_act_vec=20, bn_add_act=17, peak_scores=1,
-                peak_vec=1)
     for amp in (False, True):
         tag = "bf16" if amp else "f32"
         cfg = Config(batch_size=16, imsize=512, amp=amp)
-        model = perturb_bn(load_eval_state(cfg), seed=3)
-        predict = make_predict_fn(model, cfg, normalize="imagenet")
-        predict(images)  # warm-up: cuDNN plans, allocator
-        torch.cuda.synchronize()
-        reset_counts()
-        dets = predict(images)  # THE main-path run the counts read
-        torch.cuda.synchronize()
-        counts = read_counts()
-        require(counts == want, "%s launches per forward %s, want %s"
-                % (tag, counts, want))
-        state.setdefault("launches", {})[tag] = counts
-        require(tuple(dets.boxes.shape) == (16, 100, 4)
-                and bool(torch.isfinite(dets.boxes).all())
-                and bool(torch.isfinite(dets.scores).all()),
-                "%s detections malformed" % tag)
-        # logits of the whole batch through kernel and plain paths
-        lk, lp = full_batch_logits(model, images)
-        tol = 1e-4 if not amp else 2e-2
-        lerr = float((lk - lp).abs().max())
-        require(bool(torch.isfinite(lk).all()) and lk.shape == (16, 1, 128,
-                                                                 128, 6),
-                "%s logits malformed" % tag)
-        require(bool(torch.allclose(lk, lp, rtol=tol, atol=tol)),
-                "%s logits kernel vs plain: max abs err %g > tol %g"
-                % (tag, lerr, tol))
-        with plain_kernels():
-            dets_plain = predict(images)
-        checked = detections_match(dets, dets_plain) \
-            + detections_match(dets_plain, dets)
+        model, predict, rec = predict_against_plain(
+            "main " + tag, cfg, images, seed=3, match_both_ways=True)
+        state.setdefault("launches", {})[tag] = rec["counts"]
         # peak memory of one kernel-path predict, then throughput
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -795,13 +897,15 @@ def phase_main(state):
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         rates = throughput(predict, images)
         state.setdefault("main", {})[tag] = dict(
-            rates=rates, peak_gb=peak_gb, logit_err=lerr,
-            valid=int(dets.valid.sum()), checked=checked)
+            rates=rates, peak_gb=peak_gb, logit_err=rec["logit_err"],
+            valid=rec["valid"], checked=rec["checked"])
         log("main %s: launches %s per forward; logits (16 images) kernel vs "
-            "plain max abs err %g (tol %g, bit-equal %s); %d detections >= "
-            "0.1 matched both ways; %d valid after NMS; peak memory %.2f GB"
-            % (tag, counts, lerr, tol, torch.equal(lk, lp), checked,
-               int(dets.valid.sum()), peak_gb))
+            "plain max abs err %g (tol %g, bit-equal %s), Detections "
+            "identical %s; %d detections >= 0.1 matched both ways; %d valid "
+            "after NMS; peak memory %.2f GB"
+            % (tag, rec["counts"], rec["logit_err"], rec["tol"],
+               rec["bit_equal"], rec["identical"], rec["checked"],
+               rec["valid"], peak_gb))
         for path, r in rates.items():
             log("main %s: predict b16 512^2 with %s: median %.1f img/s "
                 "(%.2f ms per predict), min %.1f, max %.1f over %d windows "
@@ -810,7 +914,7 @@ def phase_main(state):
                     min(r["ips"]), max(r["ips"]), len(r["ips"]),
                     r["predicts_per_window"],
                     ", ".join("%.1f" % v for v in r["ips"])))
-        del model, predict, lk, lp
+        del model, predict
         torch.cuda.empty_cache()
     # a small model on the card (kernels) against the CPU path (plain)
     cfg = Config(batch_size=2, imsize=64, hourglass_inch=32, num_stack=2)
@@ -1310,12 +1414,7 @@ def phase_eval_grad(state):
     versions under cudnn.deterministic."""
     import torch
     from real_time_helmet_detection_tpu_torch.config import Config
-    from real_time_helmet_detection_tpu_torch.evaluate import init_weights
-    from real_time_helmet_detection_tpu_torch.models.hourglass import \
-        build_model
     from real_time_helmet_detection_tpu_torch.ops import epilogue, residual
-    from real_time_helmet_detection_tpu_torch.ops.loss import \
-        fused_detection_loss
     gen = torch.Generator(device="cuda").manual_seed(5)
     errs = state.setdefault("eval_errs", {})
     n = 0
@@ -1366,59 +1465,25 @@ def phase_eval_grad(state):
             "a bit-equal eval dx comparison reported a non-zero error")
 
     arrs = train_batch()
-    want = dict.fromkeys(COUNTERS, 0)
-    want.update(bn_act=20, bn_act_vec=20, bn_add_act=17, bn_eval_bwd=20,
-                bn_add_eval_bwd=17, loss_fwd=1, loss_bwd=1, loss_bwd_vec=1)
     runs = {}
-    torch.backends.cudnn.deterministic = True
-    try:
-        for amp in (False, True):
-            tag = "bf16" if amp else "f32"
-            cfg = Config(batch_size=16, amp=amp)
-            model = build_model(cfg, dtype=torch.bfloat16 if amp else None)
-            model = perturb_bn(init_weights(model, 0), seed=5).cuda().eval()
-
-            def backward():
-                model.zero_grad(set_to_none=True)
-                total = fused_detection_loss(model(arrs[0]),
-                                             *arrs[1:])["total"]
-                total.backward()
-                torch.cuda.synchronize()
-                return total.item(), {n: p.grad.detach().clone()
-                                      for n, p in model.named_parameters()}
-
-            backward()  # warm-up: cuDNN plans, allocator
-            reset_counts()
-            lk, gk = backward()  # THE eval-grad run the counts read
-            counts = read_counts()
-            with plain_kernels():
-                lp, gp = backward()
-            require(counts == want, "%s launches per eval backward %s, want "
-                    "%s" % (tag, counts, want))
-            state.setdefault("launches", {})["eval_grad_" + tag] = counts
-            zero = [n for n, g in gk.items() if float(g.abs().max()) == 0.0]
-            require(not zero and len(gk) == len(list(model.parameters())),
-                    "%s eval backward left parameters without a gradient: "
-                    "%s" % (tag, zero))
-            runs[tag] = (lk, gk, lp, gp)
-            del model
-            torch.cuda.empty_cache()
-    finally:
-        torch.backends.cudnn.deterministic = False
-    lk32, gk32, lp32, gp32 = runs["f32"]
-    lk16, gk16, lp16, gp16 = runs["bf16"]
-    e = dict(f32_loss=abs(lk32 - lp32) / abs(lp32),
-             f32_grad=rel_l2(gk32, gp32),
-             bf16_loss=abs(lk16 - lp16) / abs(lp16),
-             bf16_grad_vs_f32=(rel_l2(gk16, gp32), rel_l2(gp16, gp32)))
-    state["eval_grad"] = dict(errs=e, params=len(gk32))
+    for amp in (False, True):
+        tag = "bf16" if amp else "f32"
+        runs[tag] = eval_grad_against_plain(
+            "eval_grad " + tag, Config(batch_size=16, imsize=512, amp=amp),
+            arrs)
+        state.setdefault("launches", {})["eval_grad_" + tag] = \
+            runs[tag]["counts"]
+    f32, b16 = runs["f32"], runs["bf16"]
+    e = dict(f32_loss=f32["loss_err"], f32_grad=f32["grad_err"],
+             bf16_loss=b16["loss_err"],
+             bf16_grad_vs_f32=(rel_l2(b16["grads"], f32["plain_grads"]),
+                               rel_l2(b16["plain_grads"],
+                                      f32["plain_grads"])))
+    state["eval_grad"] = dict(errs=e, params=f32["params"])
     log("eval_grad model (b16 512^2, eval mode, fused loss, backward): "
-        "launches %s; all %d parameters have a non-zero gradient; f32 loss "
-        "%.7f vs %.7f plain, gradient rel L2 kernels vs plain %.3g (tol "
-        "1e-5); bf16 loss %.6f vs %.6f, gradient rel L2 to the f32 plain "
-        "path: kernels %.3g, plain %.3g (kernels at most 1.5x plain)" % (
-            state["launches"]["eval_grad_bf16"], len(gk32), lk32, lp32,
-            e["f32_grad"], lk16, lp16, *e["bf16_grad_vs_f32"]))
+        "bf16 loss %.6f vs %.6f, gradient rel L2 to the f32 plain path: "
+        "kernels %.3g, plain %.3g (kernels at most 1.5x plain)" % (
+            b16["loss"], b16["plain_loss"], *e["bf16_grad_vs_f32"]))
     require(e["f32_grad"] <= 1e-5 and e["f32_loss"] <= 1e-5,
             "f32 eval gradient kernels vs plain beyond tolerance: %s" % e)
     require(e["bf16_grad_vs_f32"][0] <= 1.5 * e["bf16_grad_vs_f32"][1],
@@ -1714,10 +1779,8 @@ def phase_train_main(state):
     counts = read_counts()
     from real_time_helmet_detection_tpu_torch.ops import epilogue
     conversions = epilogue.grad_conversions
-    want = dict.fromkeys(COUNTERS, 0)
-    want.update(bn_act=20, bn_act_vec=20, bn_add_act=17, bn_stats=37,
-                bn_bwd_sums=20, bn_add_bwd_sums=17, bn_bwd_dx=20,
-                bn_add_bwd_dx=17, loss_fwd=1, loss_bwd=1, loss_bwd_vec=1)
+    want = expected_launches(Config(batch_size=16, imsize=512, amp=True),
+                             "train", torch.bfloat16)
     require(counts == want, "launches per train step %s, want %s"
             % (counts, want))
     state.setdefault("launches", {})["train"] = counts
@@ -1768,6 +1831,461 @@ def phase_train_main(state):
             1e3 * statistics.median(times), 16 / statistics.median(times),
             state["train_main"]["f32"]["peak_gb"]))
     del model, opt, step, arrs
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------- variant phases
+
+
+def variant_cfg(name, **kw):
+    """The port's Config of one of VARIANT_CONFIGS / SMALL_CONFIGS."""
+    from real_time_helmet_detection_tpu_torch.config import Config
+    fields = VARIANT_CONFIGS.get(name, SMALL_CONFIGS.get(name))
+    return Config(**dict(fields, **kw))
+
+
+def predict_against_plain(label, cfg, images, seed, match_both_ways=False):
+    """One predict of cfg's model (seeded weights, random BN state) on the
+    card: the launch counts of the run against `expected_launches`, the
+    Detections' shape, the logits of the batch (shape, finite) and the
+    Detections against the same path with every kernel swapped for its
+    plain version: logits within 1e-4 (f32) or 2e-2 (bf16), and bit-equal
+    with Detections identical where no site takes Mish (whose kernel
+    holds rtol 1e-6 / one bf16 ulp to its plain version); where a site
+    takes Mish, or `match_both_ways`, every detection >= 0.1 matched both
+    ways (`detections_match`). Returns (model, predict, record)."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.evaluate import load_eval_state
+    from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
+    dtype = torch.bfloat16 if cfg.amp else torch.float32
+    model = perturb_bn(load_eval_state(cfg), seed=seed)
+    predict = make_predict_fn(model, cfg, normalize="imagenet")
+    predict(images)  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    reset_counts()
+    dets = predict(images)  # THE run the counts read
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = expected_launches(cfg, "predict", dtype)
+    require(counts == want, "%s launches per forward %s, want %s"
+            % (label, counts, want))
+    n = cfg.num_stack * cfg.topk
+    require(tuple(dets.boxes.shape) == (len(images), n, 4)
+            and bool(torch.isfinite(dets.boxes).all())
+            and bool(torch.isfinite(dets.scores).all()),
+            "%s detections malformed" % label)
+    lk, lp = full_batch_logits(model, images)
+    side = cfg.imsize // (2 if cfg.pool in ("SPP", "None") else 4)
+    require(bool(torch.isfinite(lk).all()) and tuple(lk.shape) == (
+        len(images), cfg.num_stack, side, side, cfg.num_cls + 4),
+        "%s logits malformed: %s" % (label, tuple(lk.shape)))
+    with plain_kernels():
+        dets_plain = predict(images)
+    bit_equal = torch.equal(lk, lp)
+    identical = all(torch.equal(a, b) for a, b in zip(dets, dets_plain))
+    lerr = float((lk - lp).abs().max())
+    tol = 1e-4 if not cfg.amp else 2e-2
+    require(bool(torch.allclose(lk, lp, rtol=tol, atol=tol)),
+            "%s logits kernel vs plain: max abs err %g > tol %g"
+            % (label, lerr, tol))
+    mish = "Mish" in (cfg.activation, cfg.neck_activation)
+    if not mish:
+        require(bit_equal and identical, "%s kernels vs plain: logits "
+                "bit-equal %s (max abs err %g), Detections identical %s"
+                % (label, bit_equal, lerr, identical))
+    checked = None
+    if mish or match_both_ways:
+        checked = detections_match(dets, dets_plain) \
+            + detections_match(dets_plain, dets)
+    record = dict(counts=counts, bit_equal=bit_equal,
+                  identical=identical, logit_err=lerr, tol=tol,
+                  checked=checked, valid=int(dets.valid.sum()),
+                  logit_max=float(lk.abs().max()))
+    del lk, lp
+    return model, predict, record
+
+
+def phase_variants(state):
+    """Predict at b16 512^2, f32 and bf16, for each of VARIANT_CONFIGS
+    (`predict_against_plain`), then its peak memory, images/s (3
+    alternating windows of ~0.5 s and at least 3 predicts, kernels and
+    plain) and, from a torch.profiler trace of one predict, device busy
+    time by kernel group and the idle share against the untraced wall;
+    then the stem conv direct and in its space-to-depth form side by side,
+    and the SPP pools' cascade against the direct pools (bit-equal)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from real_time_helmet_detection_tpu_torch.models import hourglass
+    images = np.random.default_rng(0).integers(
+        0, 256, (16, 512, 512, 3), dtype=np.uint8)
+    out = state.setdefault("variants", {})
+    for name in VARIANT_CONFIGS:
+        for amp in (False, True):
+            tag = "bf16" if amp else "f32"
+            label = "variants %s %s" % (name, tag)
+            cfg = variant_cfg(name, batch_size=16, imsize=512, amp=amp)
+            model, predict, rec = predict_against_plain(label, cfg, images,
+                                                        seed=3)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            predict(images)
+            torch.cuda.synchronize()
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            rates = throughput(predict, images, windows=3, window_s=0.5,
+                               min_predicts=3)
+            wall = rates["kernels"]["ms_per_predict"]
+            by_name, traced = trace_device_ms(lambda i: predict(images),
+                                              reps=1)
+            busy = sum(by_name.values())
+            groups = group_device_ms(by_name, (
+                "bn_add_act_kernel", "bn_act_vec_kernel", "bn_act_kernel",
+                "peak_kernel"))
+            rec.update(rates=rates, busy_ms=busy, traced_ms=traced,
+                       idle=max(0.0, 1 - busy / wall) if busy else None,
+                       groups=groups)
+            out[(name, tag)] = rec
+            epi = {k: v for k, v in rec["counts"].items() if v}
+            log("%s: launches %s; logits (16 images) kernel vs plain "
+                "bit-equal %s (max abs err %g, |logit| max %.3g), Detections "
+                "identical %s%s; %d valid after NMS; peak memory %.2f GB" % (
+                    label, epi, rec["bit_equal"],
+                    rec["logit_err"], rec["logit_max"], rec["identical"],
+                    "" if rec["checked"] is None else
+                    ", %d detections >= 0.1 matched both ways"
+                    % rec["checked"], rec["valid"], rec["peak_gb"]))
+            for path, r in rates.items():
+                log("%s: predict b16 512^2 with %s: median %.1f img/s "
+                    "(%.2f ms per predict), min %.1f, max %.1f over %d "
+                    "windows of %d predicts" % (
+                        label, path, r["median_ips"], r["ms_per_predict"],
+                        min(r["ips"]), max(r["ips"]), len(r["ips"]),
+                        r["predicts_per_window"]))
+            if busy:
+                log_profile("%s (ms per predict, wall from the kernel "
+                            "windows)" % label, wall, traced, by_name,
+                            groups, top=4)
+            else:
+                log("%s: the profiler saw no device time; idle share not "
+                    "measured" % label)
+            del model, predict
+            torch.cuda.empty_cache()
+    # the stem, direct and space-to-depth, at the main path's input
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    stem = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        conv = torch.nn.Conv2d(3, 64, 7, 2, 3).cuda().to(dtype).to(
+            memory_format=torch.channels_last)
+        x = channels_last(rand((16, 3, 512, 512), dtype, gen))
+        with torch.no_grad():
+            direct = hourglass.conv2d(x, conv)
+            s2d = hourglass.stem_s2d_conv(x, conv)
+            times = {"direct": [], "s2d": []}
+            for form in ("direct", "s2d", "s2d", "direct"):
+                fn = hourglass.conv2d if form == "direct" \
+                    else hourglass.stem_s2d_conv
+                times[form].append(graph_ms(lambda: fn(x, conv)))
+        stem[tag] = dict({k: sum(v) / len(v) for k, v in times.items()},
+                         max_abs=float((direct.float() - s2d.float())
+                                       .abs().max()),
+                         scale=float(direct.float().abs().max()))
+        log("variants stem %s (16, 3, 512, 512) -> 64 ch, by CUDA graph "
+            "replay in turns: direct 7x7/2 %.4f ms, space-to-depth 4x4/1 "
+            "%.4f ms (its layout copies included); outputs differ by %.3g "
+            "(|out| max %.3g)" % (tag, stem[tag]["direct"], stem[tag]["s2d"],
+                                  stem[tag]["max_abs"], stem[tag]["scale"]))
+        require(stem[tag]["max_abs"] <= (1e-4 if tag == "f32" else 5e-2)
+                * max(1.0, stem[tag]["scale"]),
+                "stem %s: the s2d form disagrees with the direct conv" % tag)
+    state["stem"] = stem
+    # the SPP pools as the model takes them (5 x 5 pools of the one
+    # before) against the direct 5/9/13 pools, at the neck's input
+    for dtype in (torch.float32, torch.bfloat16):
+        x = channels_last(rand((16, 64, 128, 128), dtype, gen))
+        direct = [F.max_pool2d(x, k, 1, (k - 1) // 2) for k in (5, 9, 13)]
+        require(all(torch.equal(a, b) for a, b in
+                    zip(direct, hourglass.spp_pools(x)[1:])),
+                "SPP pools %s: the cascade differs from the direct pools"
+                % dtype)
+    log("variants SPP pools (16, 64, 128, 128), f32 and bf16: the cascade "
+        "is bit-equal to the direct pools")
+
+
+def phase_variants_small(state):
+    """The options outside VARIANT_CONFIGS (SMALL_CONFIGS: the Avg and SPP
+    pools, LReLU, Sigmoid, CELU (also the neck's), Mish and maxpool NMS)
+    at batch 4, 128^2, width 32, f32 and bf16, through the kernels against
+    the plain versions on the card, each with its launch counts
+    (`predict_against_plain`)."""
+    import numpy as np
+    import torch
+    images = np.random.default_rng(2).integers(
+        0, 256, (4, 128, 128, 3), dtype=np.uint8)
+    out = state.setdefault("variants_small", {})
+    for name in SMALL_CONFIGS:
+        for amp in (False, True):
+            tag = "bf16" if amp else "f32"
+            label = "variants_small %s %s" % (name, tag)
+            cfg = variant_cfg(name, batch_size=4, imsize=128,
+                              hourglass_inch=32, amp=amp)
+            model, predict, rec = predict_against_plain(label, cfg, images,
+                                                        seed=6)
+            out[(name, tag)] = rec
+            del model, predict
+    log("variants_small: %d runs passed (b4 128^2, width 32): %s" % (
+        len(out), "; ".join(
+            "%s %s: bn_act %d, bn_add_act %d, bit-equal %s, identical %s, "
+            "%d valid" % (n, t, r["counts"]["bn_act"],
+                          r["counts"]["bn_add_act"], r["bit_equal"],
+                          r["identical"], r["valid"])
+            for (n, t), r in out.items())))
+    torch.cuda.empty_cache()
+
+
+def eval_grad_against_plain(label, cfg, arrs):
+    """The eval-mode model (seeded weights, random BN state; bf16 weights
+    under cfg.amp), the fused loss and backward(), through the kernels and
+    through the plain versions (cudnn.deterministic): launch counts of the
+    kernel run against `expected_launches`, every parameter non-zero
+    (PReLU slopes among them); in f32, loss and gradient rel L2 kernels
+    vs plain within 1e-5. Returns both runs' losses and gradients and
+    their errors."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.evaluate import init_weights
+    from real_time_helmet_detection_tpu_torch.models.hourglass import \
+        build_model
+    from real_time_helmet_detection_tpu_torch.ops.loss import \
+        fused_detection_loss
+    dtype = torch.bfloat16 if cfg.amp else torch.float32
+    model = build_model(cfg, dtype=torch.bfloat16 if cfg.amp else None)
+    model = perturb_bn(init_weights(model, 0), seed=5).cuda().eval()
+
+    def backward():
+        model.zero_grad(set_to_none=True)
+        total = fused_detection_loss(model(arrs[0]), *arrs[1:])["total"]
+        total.backward()
+        torch.cuda.synchronize()
+        return total.item(), {n: p.grad.detach().clone()
+                              for n, p in model.named_parameters()}
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        backward()  # warm-up: cuDNN plans, allocator
+        reset_counts()
+        lk, gk = backward()  # THE eval-grad run the counts read
+        counts = read_counts()
+        with plain_kernels():
+            lp, gp = backward()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    want = expected_launches(cfg, "eval_grad", dtype)
+    require(counts == want, "%s launches per eval backward %s, want %s"
+            % (label, counts, want))
+    zero = [n for n, g in gk.items() if float(g.abs().max()) == 0.0]
+    require(not zero and len(gk) == len(list(model.parameters())),
+            "%s eval backward left parameters without a gradient: %s"
+            % (label, zero))
+    e = dict(loss=lk, plain_loss=lp, grads=gk, plain_grads=gp,
+             loss_err=abs(lk - lp) / abs(lp), grad_err=rel_l2(gk, gp),
+             slopes=sum(n.endswith("negative_slope") for n in gk),
+             params=len(gk), counts=counts)
+    log("%s: launches %s; all %d parameters have a non-zero gradient (%d "
+        "PReLU slopes); loss %.7f vs %.7f plain, gradient rel L2 kernels vs "
+        "plain %.3g%s" % (
+            label, {k: v for k, v in counts.items() if v}, e["params"],
+            e["slopes"], lk, lp, e["grad_err"],
+            "" if cfg.amp else " (tol 1e-5)"))
+    require(cfg.amp or (e["grad_err"] <= 1e-5 and e["loss_err"] <= 1e-5),
+            "%s eval gradient kernels vs plain beyond tolerance: loss %g, "
+            "gradient %g" % (label, e["loss_err"], e["grad_err"]))
+    del model
+    torch.cuda.empty_cache()
+    return e
+
+
+def phase_variants_train(state):
+    """The --amp train step at b16 512^2 for edge-arch and depthwise-128
+    (seeded weights, the port's synthetic_target_batch): launch counts of
+    one step against `expected_launches`, the step against its
+    plain-version twin under train_main's rule (STEP_TOL, f32 and bf16),
+    the loss over 8 steps on one batch, images/s (3 alternating windows
+    of ~0.5 s), peak memory; then one eval-mode gradient (f32) each for
+    edge-arch and options (PReLU slopes), as eval_grad takes one."""
+    import statistics
+    import torch
+    arrs = train_batch()
+    out = state.setdefault("variants_train", {})
+    for name in ("edge-arch", "depthwise-128"):
+        label = "variants_train %s" % name
+        cfg = variant_cfg(name, batch_size=16, imsize=512, amp=True)
+        model, opt, step = make_trainer(cfg)
+        saved = {k: v.clone() for k, v in model.state_dict().items()}
+        saved_opt = opt.state_dict()
+        step(0, *arrs)  # warm-up on a throwaway copy of the weights
+        torch.cuda.synchronize()
+        model.load_state_dict(saved)
+        opt.load_state_dict(saved_opt)
+        cfg32 = variant_cfg(name, batch_size=16, imsize=512)
+        model32, _, _ = make_trainer(cfg32)
+        model32.load_state_dict(model.state_dict())
+        log("%s: the step against its plain-version twin:" % label)
+        errs = check_train_step(model, model32, arrs, cfg, cfg32)
+        del model32
+        reset_counts()
+        step(0, *arrs)  # THE train-path run the counts read
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = expected_launches(cfg, "train", torch.bfloat16)
+        require(counts == want, "%s launches per train step %s, want %s"
+                % (label, counts, want))
+        losses = [float(step(i + 1, *arrs)["total"]) for i in range(8)]
+        require(all(map(math.isfinite, losses))
+                and statistics.mean(losses[-3:]) < statistics.mean(losses[:3])
+                and losses[-1] < losses[0],
+                "%s loss does not fall over 8 steps on one batch: %s"
+                % (label, losses))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(9, *arrs)
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        rates = train_throughput(step, arrs, windows=3, window_s=0.5)
+        out[name] = dict(counts=counts, errs=errs, losses=losses,
+                         peak_gb=peak_gb, rates=rates)
+        log("%s bf16: launches %s per step; loss over 8 steps %.4f -> %.4f; "
+            "peak memory %.2f GB" % (
+                label, {k: v for k, v in counts.items() if v}, losses[0],
+                losses[-1], peak_gb))
+        for path, r in rates.items():
+            log("%s bf16: train step b16 512^2 with %s: median %.1f img/s "
+                "(%.2f ms per step), min %.1f, max %.1f over %d windows of "
+                "%d steps" % (label, path, r["median_ips"], r["ms_per_step"],
+                              min(r["ips"]), max(r["ips"]), len(r["ips"]),
+                              r["steps_per_window"]))
+        del model, opt, step
+        torch.cuda.empty_cache()
+    for name in ("edge-arch", "options"):
+        e = eval_grad_against_plain(
+            "variants_train eval_grad %s f32" % name,
+            variant_cfg(name, batch_size=16, imsize=512), arrs)
+        out["eval_grad " + name] = {k: v for k, v in e.items()
+                                    if k not in ("grads", "plain_grads")}
+
+
+def nms_time_ms(fn, reps=5):
+    """Median host wall of one synchronised fn() call, in ms."""
+    import statistics
+    import torch
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times[1:])
+
+
+def clustered_boxes(seed, n=200, clusters=24, jitter=10.0, extent=512.0):
+    """(boxes (n, 4), scores (n,)) of seeded clustered, overlapping boxes,
+    as the JAX package's own NMS tests make them (ref
+    tests/test_nms.py:184), 20-70 px wide around `clusters` centres."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    centers = rng.uniform(60, extent - 60, (clusters, 2))
+    xy = centers[rng.randint(0, clusters, n)] + rng.uniform(
+        -jitter, jitter, (n, 2))
+    wh = rng.uniform(20, 70, (n, 2))
+    boxes = np.clip(np.concatenate([xy - wh / 2, xy + wh / 2], 1),
+                    0, extent).astype(np.float32)
+    return boxes, rng.uniform(0.1, 1.0, n).astype(np.float32)
+
+
+def phase_nms(state):
+    """Hard, soft and maxpool NMS on the card against the same functions
+    on the CPU: on 16 sets of 200 seeded clustered boxes (a tenth
+    invalid), where each mode must keep some boxes and drop others and
+    soft-NMS must decay scores (score floor 0.3, as the JAX package's
+    soft-NMS oracle test); and on the decoded boxes of a quality-arch
+    predict (b16 512^2, bf16, 200 boxes an image), whose host wall per
+    b16 batch is recorded. Keep masks identical, soft-NMS's decayed
+    scores within 1e-6."""
+    import numpy as np
+    import torch
+    from real_time_helmet_detection_tpu_torch.evaluate import load_eval_state
+    from real_time_helmet_detection_tpu_torch.ops import decode, nms, peak
+    from real_time_helmet_detection_tpu_torch.utils import normalizer_stats
+    cfg = variant_cfg("quality-arch", batch_size=16, imsize=512, amp=True)
+
+    def modes(score_th):
+        return {
+            "nms": lambda *a: (nms.nms_mask(*a, cfg.nms_th), a[1]),
+            "soft-nms": lambda *a: nms.soft_nms_mask(*a, score_th=score_th),
+            "maxpool": lambda *a: (nms.maxpool_nms_mask(
+                *a, extent=float(cfg.imsize)), a[1]),
+        }
+
+    def card_vs_cpu(what, mode, fn, card):
+        cpu = [t.cpu() for t in card]
+        kg, sg = fn(*card)
+        kc, sc = fn(*cpu)
+        same = torch.equal(kg.cpu(), kc)
+        err = float((sg.cpu() - sc).abs().max())
+        require(same and err <= 1e-6, "nms %s on %s: the card disagrees "
+                "with the CPU (identical %s, score err %g)"
+                % (mode, what, same, err))
+        return kg, sg, same, err
+
+    sets = [clustered_boxes(seed) for seed in range(16)]
+    card = [torch.from_numpy(np.stack([b for b, _ in sets])).cuda(),
+            torch.from_numpy(np.stack([c for _, c in sets])).cuda(),
+            torch.from_numpy(np.random.RandomState(0).rand(16, 200) >= 0.1)
+            .cuda()]
+    n_valid = int(card[2].sum())
+    rec = state.setdefault("nms", {})
+    for mode, fn in modes(0.3).items():
+        kg, sg, same, err = card_vs_cpu("clustered boxes", mode, fn, card)
+        kept = int(kg.sum())
+        decayed = int(((sg != card[1]) & card[2]).sum())
+        rec["clustered " + mode] = dict(kept=kept, decayed=decayed)
+        log("nms %s on 16 x 200 seeded clustered boxes (%d valid): keep "
+            "masks card vs CPU identical %s (%d kept), %d scores decayed, "
+            "scores max abs diff %.3g" % (mode, n_valid, same, kept,
+                                          decayed, err))
+        require(0 < kept < n_valid, "nms %s on clustered boxes keeps %d of "
+                "%d: the comparison tests nothing" % (mode, kept, n_valid))
+        require(mode != "soft-nms" or decayed > 0,
+                "soft-nms decayed no score on clustered boxes")
+
+    model = perturb_bn(load_eval_state(cfg), seed=3)
+    images = np.random.default_rng(0).integers(
+        0, 256, (16, 512, 512, 3), dtype=np.uint8)
+    mean, std = (torch.as_tensor(s, device="cuda")
+                 for s in normalizer_stats("imagenet"))
+    x = (torch.as_tensor(images).cuda().float() / 255.0 - mean) / std
+    with torch.inference_mode():
+        out = model(x)
+        dets = decode.decode_peak_scores(
+            peak.peak_scores(out, 2, 3), out[..., 2:4], out[..., 4:6],
+            topk=cfg.topk, conf_th=cfg.conf_th)
+    b = out.shape[0]
+    card = [dets.boxes.reshape(b, -1, 4), dets.scores.reshape(b, -1),
+            dets.valid.reshape(b, -1)]
+    cpu = [t.cpu() for t in card]
+    for mode, fn in modes(cfg.conf_th).items():
+        kg, _, same, err = card_vs_cpu("a quality-arch predict", mode, fn,
+                                       card)
+        ms = nms_time_ms(lambda: fn(*card))
+        cpu_ms = nms_time_ms(lambda: fn(*cpu))
+        rec[mode] = dict(same=same, score_err=err, ms=ms, cpu_ms=cpu_ms,
+                         kept=int(kg.sum()))
+        log("nms %s on (16, %d) boxes of a quality-arch predict: keep masks "
+            "card vs CPU identical %s (%d kept), scores max abs diff %.3g; "
+            "%.2f ms per b16 batch on the card (host wall, synchronised), "
+            "%.2f ms on the CPU" % (mode, card[0].shape[1], same,
+                                    rec[mode]["kept"], err, ms, cpu_ms))
+    del model, out, x
     torch.cuda.empty_cache()
 
 

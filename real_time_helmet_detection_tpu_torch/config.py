@@ -6,14 +6,18 @@ config.py:139-169), with the same names and defaults, plus `--device`.
 Field name -> CLI flag: underscores become dashes; list fields take
 several values (`--multiscale 320 512 64`).
 
-Values the port has not built yet raise `NotImplementedError` instead of
-running something else: NMS other than hard "nms"; activations other
-than ReLU/Mish/Linear, pools other than Max/None, a neck pool other than
-None, variants other than "residual" and `--num-stack` < 1 where the
-model is built (models/hourglass.py); and the train options below whose
-value differs from the plain step (`--sub-divisions`, `--grad-accum`,
-`--remat`, `--param-policy`, `--ema-decay`, `--sentinel`, `--distill`,
-`--device-augment`, `--fwd-dtype`). The JAX flags that only choose
+Every architecture option of the JAX model but int8 is built
+(`--variant residual|depthwise|ghost`, `--activation` and
+`--neck-activation` ReLU|LReLU|PReLU|Linear|Mish|Sigmoid|CELU, `--pool
+Max|Avg|Conv|SPP|None`, `--neck-pool None|SPP`, `--stem-s2d`), and every
+`--nms` mode (nms|soft-nms|maxpool). Values the port has not built yet
+raise `NotImplementedError` instead of running something else: any other
+activation, pool, neck pool or variant and `--num-stack` < 1 where the
+model is built (models/hourglass.py); any other `--nms`; and the train
+options below whose value differs from the plain step
+(`--sub-divisions`, `--grad-accum`, `--remat`, `--param-policy`,
+`--ema-decay`, `--sentinel`, `--distill`, `--device-augment`,
+`--fwd-dtype`). The JAX flags that only choose
 between a kernel and its XLA composition (`--use-pallas`, `--epilogue`,
 `--block-fuse`, `--loss-kernel`) and `--infer-dtype` have no field: the
 port has one path — the kernels, the fused loss among them (the JAX
@@ -92,7 +96,7 @@ class Config:
     pool_size: int = 3
     model_load: Optional[str] = None  # npz of the flax variable tree, or
     # (train) a port checkpoint to resume
-    nms: str = "nms"
+    nms: str = "nms"              # nms | soft-nms | maxpool
     fontsize: int = 10
 
     # network
@@ -109,6 +113,8 @@ class Config:
     pool: str = "Max"
     neck_activation: str = "ReLU"
     neck_pool: str = "None"
+    stem_s2d: bool = False        # the 7x7 s2 stem as a 4x4 conv over the
+    # 2x2 space-to-depth input: the same sums, the same parameters
 
     def __post_init__(self):
         def only(flag, value, allowed):
@@ -117,7 +123,7 @@ class Config:
                     "--%s %r is not ported yet (have %s)"
                     % (flag, value, ", ".join(map(str, allowed))))
 
-        only("nms", self.nms, ("nms",))
+        only("nms", self.nms, ("nms", "soft-nms", "maxpool"))
         only("sub-divisions", self.sub_divisions, (1,))
         only("grad-accum", self.grad_accum, (1,))
         only("remat", self.remat, ("none",))

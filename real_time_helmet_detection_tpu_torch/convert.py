@@ -10,6 +10,11 @@ flax module path maps one to one onto a torch state-dict key:
     params/.../BatchNorm_0/{scale, bias}  -> .../BatchNorm_0.{weight, bias}
     batch_stats/.../BatchNorm_0/{mean, var}
         -> .../BatchNorm_0.{running_mean, running_var}
+    params/.../Activation_0/PReLU_0/negative_slope  (shape ())
+        -> .../Activation_0.PReLU_0.negative_slope  (a 0-d tensor)
+
+Grouped kernels take the same transpose: the depthwise HWIO (k, k, 1, C)
+becomes OIHW (C, 1, k, k).
 
 Flax keeps the biased batch variance; eval uses it as is.
 `state_dict_to_flax` is the inverse, so a port checkpoint also writes
@@ -17,8 +22,9 @@ the flax-shaped npz that `--model-load` reads.
 
 The port's `--model-load` format is an `.npz` of the flattened tree
 (`save_npz`/`load_npz`, keys like `params/PreLayer_0/.../kernel`): an
-orbax checkpoint cannot be read without jax. Converting orbax -> npz is
-on the roadmap.
+orbax checkpoint cannot be read without jax, so
+`scripts/orbax_to_npz.py` converts one with the JAX package on a machine
+that has it.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ _LEAF = {
     ("params", "bias"): "bias",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
+    ("params", "negative_slope"): "negative_slope",
 }
 
 
@@ -84,7 +91,8 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
             key = ".".join(modules + [name])
             if key in state:
                 raise KeyError("two flax leaves map to %s" % key)
-            state[key] = torch.from_numpy(np.ascontiguousarray(arr))
+            # (np.ascontiguousarray would make a 0-d slope 1-d)
+            state[key] = torch.from_numpy(arr.copy(order="C"))
     return state
 
 
@@ -101,7 +109,8 @@ def state_dict_to_flax(state: Mapping[str, torch.Tensor]) -> Dict:
         if name == "weight":
             leaf = ("params", "kernel") if arr.ndim == 4 else \
                 ("params", "scale")
-        elif name in ("bias", "running_mean", "running_var"):
+        elif name in ("bias", "running_mean", "running_var",
+                      "negative_slope"):
             leaf = inverse[name]
         else:
             raise KeyError("no flax counterpart for state-dict entry %s"
@@ -109,7 +118,7 @@ def state_dict_to_flax(state: Mapping[str, torch.Tensor]) -> Dict:
         if leaf[1] == "kernel":
             arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
         flat["/".join([leaf[0]] + modules + [leaf[1]])] = \
-            np.ascontiguousarray(arr)
+            arr.copy(order="C")
     return unflatten_tree(flat)
 
 

@@ -30,7 +30,7 @@ from .convert import load_into, load_npz
 from .data.eval_loader import eval_batches
 from .data.voc import CLASS2COLOR, INDEX2CLASS, VOCDataset, boxes_from_voc_dict
 from .metrics import compute_map, write_detection_txt
-from .models.hourglass import build_model, cast_convs
+from .models.hourglass import PReLU, build_model, cast_convs
 from .predict import make_predict_fn, resolve_device
 from .utils import (AverageMeter, atomic_write_bytes, draw_box, imload,
                     save_pickle, timestamp, write_text)
@@ -38,9 +38,10 @@ from .utils import (AverageMeter, atomic_write_bytes, draw_box, imload,
 
 def init_weights(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     """Seeded fresh weights, drawn on the CPU from one `torch.Generator`:
-    conv kernels normal with variance 1/fan_in (flax's lecun scale),
-    conv biases 0, BatchNorm at flax's init (scale 1, bias 0, mean 0,
-    var 1)."""
+    conv kernels (the pool and SPP convs among them) normal with variance
+    1/fan_in (flax's lecun scale), conv biases 0, PReLU slopes 0.25
+    (ref models/hourglass.py:119-122), BatchNorm at flax's init (scale 1,
+    bias 0, mean 0, var 1)."""
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for m in model.modules():
@@ -50,6 +51,8 @@ def init_weights(model: torch.nn.Module, seed: int) -> torch.nn.Module:
                 m.weight.copy_(w / math.sqrt(fan_in))
                 if m.bias is not None:
                     m.bias.zero_()
+            elif isinstance(m, PReLU):
+                m.negative_slope.fill_(0.25)
     return model
 
 
@@ -64,8 +67,10 @@ def load_eval_state(cfg: Config, device=None) -> torch.nn.Module:
         if not cfg.model_load.endswith(".npz"):
             raise ValueError(
                 "--model-load must be an .npz of the flax variable tree "
-                "(convert.save_npz); orbax checkpoints need jax to read, "
-                "and their conversion is not built yet: %r" % cfg.model_load)
+                "(convert.save_npz); an orbax checkpoint of the JAX package "
+                "needs jax to read: convert it first with `python "
+                "scripts/orbax_to_npz.py CKPT_DIR OUT.npz`: %r"
+                % cfg.model_load)
         load_into(model, load_npz(cfg.model_load))
     else:
         init_weights(model, cfg.random_seed)

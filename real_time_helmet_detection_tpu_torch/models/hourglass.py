@@ -1,12 +1,16 @@
 """Stacked-hourglass CenterNet detector in PyTorch, train and eval.
 
 Port of ref models/hourglass.py:877 `StackedHourglass` (reference
-hourglass.py:198-237) and its blocks: `Convolution` (hourglass.py:443),
-`Residual` (:603, the flagship "residual" variant), `Pool` (:155),
-`Hourglass` (:740), `PreLayer` (:793), `Neck` (:836), `Head` (:866).
+hourglass.py:198-237) and its blocks: `Activation` (hourglass.py:103),
+`SPP` (:132), `Pool` (:155), `StemConv` (:180), `Convolution` (:443),
+`GhostModule` (:564), `Residual` (:603, the "residual", "depthwise" and
+"ghost" variants), `Hourglass` (:740), `PreLayer` (:793), `Neck` (:836),
+`Head` (:866) — every architecture option of JAX `build_model`
+(:967) but the int8/quantized twins.
 
 * Submodules carry the flax auto-names (`PreLayer_0`, `Convolution_1`,
-  `Conv_0`, `BatchNorm_0`, ...), so a state dict's keys mirror the flax
+  `GhostModule_0`, `Pool_0`, `SPP_0`, `Conv_0`, `BatchNorm_0`,
+  `Activation_0/PReLU_0`, ...), so a state dict's keys mirror the flax
   module paths and `convert.py` fills every leaf under
   `load_state_dict(strict=True)`.
 * Every BatchNorm runs through the hand-written BN kernels — the TPU
@@ -14,29 +18,44 @@ hourglass.py:198-237) and its blocks: `Convolution` (hourglass.py:443),
   BN path. In eval (`model.eval()`) the running statistics fold into a
   per-channel f32 affine (`eff_scale = gamma * rsqrt(var + eps)`,
   `eff_bias = beta - mean * eff_scale`, hourglass.py:387-390) feeding
-  the epilogue (`ops.epilogue.bn_act_eval`) after every BN'd conv and
-  the residual tail (`ops.residual.bn_add_act_eval`) at the end of every
-  Residual block; both are differentiable through their eval backward
-  kernels, so a gradient of an eval-mode model reaches every parameter,
-  gamma and beta through the fold. In train (`model.train()`) the same sites run
-  `bn_act_train`/`bn_add_act_train` with batch moments and update the
-  running buffers as flax does (hourglass.py:367-384, :426-436): momentum
-  0.9, the biased variance, no gradient.
+  the epilogue (`ops.epilogue.bn_act_eval`) after every BN'd conv and,
+  where the JAX rule fuses it, the residual tail
+  (`ops.residual.bn_add_act_eval`); both are differentiable through their
+  eval backward kernels, so a gradient of an eval-mode model reaches every
+  parameter, gamma and beta through the fold. In train (`model.train()`)
+  the same sites run `bn_act_train`/`bn_add_act_train` with batch moments
+  and update the running buffers as flax does (hourglass.py:367-384,
+  :426-436): momentum 0.9, the biased variance, no gradient.
+* The kernels take the activations ReLU, Mish and Linear
+  (`FUSED_ACTIVATIONS`, JAX `FUSED_EPILOGUE_ACTIVATIONS`). At a BN site
+  with another activation (LReLU, PReLU, Sigmoid, CELU) the same BN
+  kernels run with Linear and the activation follows in plain PyTorch,
+  chosen by name when the module is built (JAX keeps `nn.BatchNorm` +
+  `Activation` in XLA there, hourglass.py:556-561).
+* The residual tail kernel runs where JAX fuses the tail
+  (hourglass.py:650-654): the residual and depthwise variants with a
+  post-add activation in `FUSED_ACTIVATIONS`. In every other block the
+  tail conv's BN runs the epilogue with Linear and the skip-add and the
+  activation follow in plain PyTorch (hourglass.py:689). The PreLayer
+  and Neck Residual blocks always use ReLU (hourglass.py:829-832, :861),
+  so their tails stay fused whatever `--activation` is.
 * Activations are NCHW tensors in `torch.channels_last` memory format
-  (physically NHWC, what the kernels read and cuDNN prefers). The public
-  contract is the JAX one: images (B, H, W, 3) in, logits
-  (B, S, H/4, W/4, C+4) float32 out.
+  (physically NHWC, what the kernels read and cuDNN prefers; the ghost
+  and SPP concatenations keep it). The public contract is the JAX one:
+  images (B, H, W, 3) in, logits (B, S, H/4, W/4, C+4) float32 out (H/2
+  with `--pool SPP` or `None`, which never downsample).
 * Precision follows the JAX fp32 param policy: parameters stay float32
   and every conv casts its weight and bias to its input's dtype at each
-  call (bf16 under --amp), so gradients and optimizer state stay
-  float32. Eval may cast the conv weights once (`cast_convs`); the
-  per-call cast is then a no-op.
+  call (bf16 under --amp), as does the PReLU slope, so gradients and
+  optimizer state stay float32. Eval may cast the conv weights once
+  (`cast_convs`); the per-call cast is then a no-op.
 * Padding is the reference's symmetric (k-1)//2; the 2x upsample is
-  exact nearest.
-* Quirks kept from the JAX model: the PreLayer and Neck Residual blocks
-  always use ReLU (their `Residual` is built without the activation
-  argument, hourglass.py:829-832, :861), and the Neck conv has a bias
-  before its BN (hourglass.py:859).
+  exact nearest; `stem_s2d` computes the 7x7 stride-2 stem as a 4x4
+  stride-1 conv over the 2x2 space-to-depth input (odd H or W take the
+  direct conv), with the same `Conv_0` parameters.
+* Quirks kept from the JAX model: the Neck conv has a bias before its BN
+  (hourglass.py:859); the PReLU slope is one scalar initialised at 0.25
+  (hourglass.py:119-122), not torch's per-channel default.
 """
 
 from __future__ import annotations
@@ -48,10 +67,66 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import epilogue, residual
-from ..ops.epilogue import ACTIVATIONS
 
-POOLS = ("Max", "None")
-VARIANTS = ("residual",)
+ACTIVATIONS = ("ReLU", "LReLU", "PReLU", "Linear", "Mish", "Sigmoid", "CELU")
+FUSED_ACTIVATIONS = epilogue.ACTIVATIONS  # what the BN kernels compute
+POOLS = ("Max", "Avg", "Conv", "SPP", "None")
+NECK_POOLS = ("None", "SPP")
+VARIANTS = ("residual", "depthwise", "ghost")
+
+
+def _check(kind: str, value: str, allowed) -> None:
+    if value not in allowed:
+        raise NotImplementedError("%s %r is not ported (have %s)"
+                                  % (kind, value, ", ".join(allowed)))
+
+
+def _channels_last(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """`conv` applied with its weight and bias cast to x's dtype."""
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride,
+                    conv.padding, conv.dilation, conv.groups)
+
+
+class PReLU(nn.Module):
+    """flax `nn.PReLU(negative_slope_init=0.25)`: one scalar slope,
+    `x if x >= 0 else slope * x`, the slope cast to x's dtype."""
+
+    def __init__(self, init: float = 0.25):
+        super().__init__()
+        self.negative_slope = nn.Parameter(torch.tensor(float(init)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.negative_slope.to(x.dtype) * x)
+
+
+class Activation(nn.Module):
+    """The activation factory (ref hourglass.py:103-129) in plain
+    PyTorch: ReLU | LReLU (slope 0.01) | PReLU | Linear | Mish | Sigmoid |
+    CELU (alpha 1). PReLU keeps its slope in the child `PReLU_0`."""
+
+    def __init__(self, activation: str):
+        super().__init__()
+        _check("activation", activation, ACTIVATIONS)
+        self.activation = activation
+        if activation == "PReLU":
+            self.PReLU_0 = PReLU()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        name = self.activation
+        if name == "PReLU":
+            return self.PReLU_0(x)
+        if name == "LReLU":
+            return F.leaky_relu(x, 0.01)
+        if name == "Sigmoid":
+            return torch.sigmoid(x)
+        if name == "CELU":
+            return F.celu(x, 1.0)
+        return epilogue.activate(x, name)  # ReLU, Mish, Linear
 
 
 class BatchNorm(nn.Module):
@@ -97,81 +172,228 @@ class BatchNorm(nn.Module):
         return out
 
 
+def stem_s2d_conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """The 7x7 stride-2 conv with padding 3 as a 4x4 stride-1 conv over
+    the 2x2 space-to-depth input (ref models/hourglass.py:180-229): the
+    kernel padded to 8x8 at the top and left and regrouped so that
+    out(i, j) = sum W8[2a+p, 2b+q] x[2(i+a-2)+p, 2(j+b-2)+q]. Needs even
+    H and W."""
+    n, c, h, w = x.shape
+    f = conv.weight.shape[0]
+    xs = x.reshape(n, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+    xs = _channels_last(xs.reshape(n, 4 * c, h // 2, w // 2))
+    k8 = F.pad(conv.weight.to(x.dtype), (1, 0, 1, 0))        # (F, C, 8, 8)
+    ks = k8.reshape(f, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+    ks = _channels_last(ks.reshape(f, 4 * c, 4, 4))
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.conv2d(F.pad(xs, (2, 1, 2, 1)), ks, bias)
+
+
 class Convolution(nn.Module):
     """Conv -> optional BN + activation (ref hourglass.py:443-561). With
-    `skip`, the BN feeds the residual tail: act(BN(conv(x)) + skip). The
-    conv's weight and bias are cast to the input's dtype at each call."""
+    `skip`, the BN feeds the residual tail: act(BN(conv(x)) + skip), which
+    takes an activation the kernels compute. An activation they do not
+    compute runs after a Linear BN as `Activation_0`. `groups` is the
+    conv's feature-group count (depthwise when it equals the channels);
+    `stem_s2d`, set on the 7x7 stride-2 stem only, computes it in its
+    space-to-depth form."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, use_bias: bool = True, bn: bool = False,
-                 activation: str = "ReLU"):
+                 activation: str = "ReLU", groups: int = 1,
+                 stem_s2d: bool = False):
         super().__init__()
-        if activation not in ACTIVATIONS:
-            raise NotImplementedError("activation %r is not ported (have %s)"
-                                      % (activation, ACTIVATIONS))
+        _check("activation", activation, ACTIVATIONS)
         if not bn and activation != "Linear":
             raise NotImplementedError("a conv without BN is Linear in this "
                                       "model, got %r" % activation)
         self.Conv_0 = nn.Conv2d(in_ch, out_ch, kernel_size, stride,
                                 padding=(kernel_size - 1) // 2,
-                                bias=use_bias)
+                                groups=groups, bias=use_bias)
         self.bn = bn
+        self.s2d = stem_s2d
+        self.activation = activation
         if bn:
             self.BatchNorm_0 = BatchNorm(out_ch)
-        self.activation = activation
+            if activation not in FUSED_ACTIVATIONS:
+                self.Activation_0 = Activation(activation)
 
     def forward(self, x: torch.Tensor,
                 skip: Optional[torch.Tensor] = None) -> torch.Tensor:
-        conv = self.Conv_0
-        bias = None if conv.bias is None else conv.bias.to(x.dtype)
-        y = F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride,
-                     conv.padding)
+        if self.s2d and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
+            y = stem_s2d_conv(x, self.Conv_0)
+        else:
+            y = conv2d(x, self.Conv_0)
         if not self.bn:
             return y
-        return self.BatchNorm_0(y, self.activation, skip)
+        if self.activation in FUSED_ACTIVATIONS:
+            return self.BatchNorm_0(y, self.activation, skip)
+        if skip is not None:
+            raise ValueError("the fused residual tail takes an activation "
+                             "in %s, got %r" % (FUSED_ACTIVATIONS,
+                                                self.activation))
+        return self.Activation_0(self.BatchNorm_0(y, "Linear"))
+
+
+class GhostModule(nn.Module):
+    """Ghost module (ref hourglass.py:564-600): a 1x1 BN conv to out_ch/2
+    "primary" features, a depthwise kxk BN conv of those to the other
+    out_ch/2, concatenated along the channels."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 stride: int = 1, activation: str = "ReLU"):
+        super().__init__()
+        if out_ch % 2:
+            raise ValueError(
+                "ghost variant needs an even channel width (half primary "
+                "+ half ghost features), got out_ch=%d" % out_ch)
+        half = out_ch // 2
+        self.Convolution_0 = Convolution(in_ch, half, 1, stride,
+                                         use_bias=False, bn=True,
+                                         activation=activation)
+        self.Convolution_1 = Convolution(half, half, kernel_size, 1,
+                                         use_bias=False, bn=True,
+                                         activation=activation, groups=half)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        primary = self.Convolution_0(x)
+        ghost = self.Convolution_1(primary)
+        return _channels_last(torch.cat([primary, ghost], dim=1))
 
 
 class Residual(nn.Module):
-    """Residual block, "residual" variant (ref hourglass.py:603-733): two
-    3x3 BN convs, a 1x1 BN projection on the skip when the width
-    changes, and the post-add activation carried by the tail conv."""
+    """Residual block, `variant`-selectable (ref hourglass.py:603-733):
+
+    * "residual" — two 3x3 BN convs;
+    * "depthwise" — each 3x3 conv becomes a depthwise 3x3 and a pointwise
+      1x1 BN conv (`Convolution_0..3`);
+    * "ghost" — each 3x3 conv becomes a `GhostModule` (`GhostModule_0/1`);
+
+    a 1x1 BN projection on the skip when the width changes (named after
+    the body convs: `Convolution_2`, `_4`, `_0`), and the post-add
+    activation. The tail is fused (`fuse_tail`: the last conv's BN, the
+    add and the activation in the residual tail kernel) for the residual
+    and depthwise variants with an activation in FUSED_ACTIVATIONS;
+    otherwise the tail conv is Linear and `Activation_0` follows the add
+    (ref hourglass.py:650-654, :689)."""
 
     def __init__(self, in_ch: int, out_ch: int, activation: str = "ReLU",
                  variant: str = "residual"):
         super().__init__()
-        if variant not in VARIANTS:
-            raise NotImplementedError("variant %r is not ported (have %s)"
-                                      % (variant, VARIANTS))
-        self.Convolution_0 = Convolution(in_ch, out_ch, 3, 1, use_bias=False,
-                                         bn=True, activation=activation)
-        self.Convolution_1 = Convolution(out_ch, out_ch, 3, 1,
-                                         use_bias=False, bn=True,
-                                         activation=activation)
-        self.project = in_ch != out_ch
-        if self.project:
-            self.Convolution_2 = Convolution(in_ch, out_ch, 1, 1,
-                                             use_bias=False, bn=True,
-                                             activation="Linear")
+        _check("variant", variant, VARIANTS)
+        _check("activation", activation, ACTIVATIONS)
+        self.fuse_tail = (variant in ("residual", "depthwise")
+                          and activation in FUSED_ACTIVATIONS)
+        tail_act = activation if self.fuse_tail else "Linear"
+        bn = dict(use_bias=False, bn=True)
+        if variant == "residual":
+            self.body = ("Convolution_0",)
+            self.Convolution_0 = Convolution(in_ch, out_ch, 3, 1,
+                                             activation=activation, **bn)
+            self.tail = "Convolution_1"
+            self.Convolution_1 = Convolution(out_ch, out_ch, 3, 1,
+                                             activation=tail_act, **bn)
+            skip = "Convolution_2"
+        elif variant == "depthwise":
+            self.body = ("Convolution_0", "Convolution_1", "Convolution_2")
+            self.Convolution_0 = Convolution(in_ch, in_ch, 3, 1,
+                                             activation=activation,
+                                             groups=in_ch, **bn)
+            self.Convolution_1 = Convolution(in_ch, out_ch, 1, 1,
+                                             activation=activation, **bn)
+            self.Convolution_2 = Convolution(out_ch, out_ch, 3, 1,
+                                             activation=activation,
+                                             groups=out_ch, **bn)
+            self.tail = "Convolution_3"
+            self.Convolution_3 = Convolution(out_ch, out_ch, 1, 1,
+                                             activation=tail_act, **bn)
+            skip = "Convolution_4"
+        else:  # ghost: its tail is a concat of two BN'd halves
+            self.body = ("GhostModule_0",)
+            self.GhostModule_0 = GhostModule(in_ch, out_ch, 3, 1, activation)
+            self.tail = "GhostModule_1"
+            self.GhostModule_1 = GhostModule(out_ch, out_ch, 3, 1, "Linear")
+            skip = "Convolution_0"
+        self.skip = skip if in_ch != out_ch else None
+        if self.skip:
+            setattr(self, skip, Convolution(in_ch, out_ch, 1, 1,
+                                            activation="Linear", **bn))
+        if not self.fuse_tail:
+            self.Activation_0 = Activation(activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.Convolution_0(x)
-        skip = self.Convolution_2(x) if self.project else x
-        return self.Convolution_1(y, skip=skip)
+        y = x
+        for name in self.body:
+            y = getattr(self, name)(y)
+        skip = getattr(self, self.skip)(x) if self.skip else x
+        tail = getattr(self, self.tail)
+        if self.fuse_tail:
+            return tail(y, skip=skip)
+        return self.Activation_0(tail(y) + skip)
 
 
-def pool(x: torch.Tensor, kind: str) -> torch.Tensor:
-    """Downsample (ref hourglass.py:155-177): Max 2x2/2 or None."""
-    if kind == "Max":
-        return F.max_pool2d(x, 2, 2)
-    if kind == "None":
+def spp_pools(x: torch.Tensor, kernel_sizes=(5, 9, 13)) -> list:
+    """[x] + its stride-1 k x k max pools (padded with -inf), each pool
+    taken from the one before it: a k x k max is the max over a p x p
+    window of (k - p + 1) x (k - p + 1) maxes, exactly, so 5, 9 and 13
+    are three 5 x 5 pools (75 reads an output instead of 275)."""
+    pooled, prev = [x], 1
+    for k in kernel_sizes:
+        step = k - prev + 1
+        pooled.append(F.max_pool2d(pooled[-1], step, 1, (step - 1) // 2))
+        prev = k
+    return pooled
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling (ref hourglass.py:132-152): a 1x1 conv to
+    ch/2, stride-1 max pools of 5, 9 and 13 (padded with -inf;
+    `spp_pools`), the four concatenated, a 1x1 conv back to ch; neither
+    conv has a bias."""
+
+    def __init__(self, ch: int, kernel_sizes=(5, 9, 13)):
+        super().__init__()
+        half = ch // 2
+        self.kernel_sizes = tuple(kernel_sizes)
+        self.Conv_0 = nn.Conv2d(ch, half, 1, bias=False)
+        self.Conv_1 = nn.Conv2d(half * (1 + len(self.kernel_sizes)), ch, 1,
+                                bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pooled = spp_pools(conv2d(x, self.Conv_0), self.kernel_sizes)
+        return conv2d(_channels_last(torch.cat(pooled, dim=1)), self.Conv_1)
+
+
+class Pool(nn.Module):
+    """Downsample factory (ref hourglass.py:155-177): Max or Avg 2x2/2,
+    Conv (2x2 stride-2 VALID conv with bias, `Conv_0`), SPP (`SPP_0`,
+    keeps the resolution) or None (identity)."""
+
+    def __init__(self, channel: int, pool: str = "Max"):
+        super().__init__()
+        _check("pool", pool, POOLS)
+        self.pool = pool
+        if pool == "Conv":
+            self.Conv_0 = nn.Conv2d(channel, channel, 2, 2, bias=True)
+        elif pool == "SPP":
+            self.SPP_0 = SPP(channel)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pool == "Max":
+            return F.max_pool2d(x, 2, 2)
+        if self.pool == "Avg":
+            return F.avg_pool2d(x, 2, 2)
+        if self.pool == "Conv":
+            return conv2d(x, self.Conv_0)
+        if self.pool == "SPP":
+            return self.SPP_0(x)
         return x
-    raise NotImplementedError("pool %r is not ported (have %s)"
-                              % (kind, POOLS))
 
 
 class Hourglass(nn.Module):
     """Recursive U-module (ref hourglass.py:740-790): skip branch +
-    [pool -> residual -> recurse/bottom -> residual -> nearest 2x up]."""
+    [pool -> residual -> recurse/bottom -> residual -> nearest 2x up];
+    SPP and None pools keep the resolution, so nothing is upsampled."""
 
     def __init__(self, num_layer: int, in_ch: int, increase_ch: int = 0,
                  activation: str = "ReLU", pool: str = "Max",
@@ -179,8 +401,9 @@ class Hourglass(nn.Module):
         super().__init__()
         mid = in_ch + increase_ch
         self.num_layer = num_layer
-        self.pool = pool
+        self.upsample = pool not in ("SPP", "None")
         self.Residual_0 = Residual(in_ch, in_ch, activation, variant)
+        self.Pool_0 = Pool(in_ch, pool)
         self.Residual_1 = Residual(in_ch, mid, activation, variant)
         if num_layer > 1:
             self.Hourglass_0 = Hourglass(num_layer - 1, mid, increase_ch,
@@ -192,54 +415,54 @@ class Hourglass(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         up1 = self.Residual_0(x)
-        low = self.Residual_1(pool(x, self.pool))
+        low = self.Residual_1(self.Pool_0(x))
         if self.num_layer > 1:
             low = self.Residual_2(self.Hourglass_0(low))
         else:
             low = self.Residual_3(self.Residual_2(low))
-        if self.pool != "None":
+        if self.upsample:
             low = F.interpolate(low, scale_factor=2, mode="nearest")
         return up1 + low
 
 
 class PreLayer(nn.Module):
-    """Stem, a fixed 4x downsample (ref hourglass.py:793-833): 7x7 s2
-    conv(64, BN) -> Residual(mid) -> pool -> Residual(mid) ->
-    Residual(out)."""
+    """Stem, a 4x downsample with the Max/Avg/Conv pools (ref
+    hourglass.py:793-833): 7x7 s2 conv(64, BN) -> Residual(mid) -> pool ->
+    Residual(mid) -> Residual(out); its Residuals use ReLU."""
 
     def __init__(self, mid_ch: int = 128, out_ch: int = 128,
                  activation: str = "ReLU", pool: str = "Max",
-                 variant: str = "residual"):
+                 variant: str = "residual", stem_s2d: bool = False):
         super().__init__()
-        self.pool = pool
         self.Convolution_0 = Convolution(3, 64, 7, 2, use_bias=True, bn=True,
-                                         activation=activation)
+                                         activation=activation,
+                                         stem_s2d=stem_s2d)
         self.Residual_0 = Residual(64, mid_ch, "ReLU", variant)
+        self.Pool_0 = Pool(mid_ch, pool)
         self.Residual_1 = Residual(mid_ch, mid_ch, "ReLU", variant)
         self.Residual_2 = Residual(mid_ch, out_ch, "ReLU", variant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.Residual_0(self.Convolution_0(x))
-        x = self.Residual_1(pool(x, self.pool))
+        x = self.Residual_1(self.Pool_0(x))
         return self.Residual_2(x)
 
 
 class Neck(nn.Module):
-    """Feature neck (ref hourglass.py:836-863): pool (None) -> 1x1 BN
-    conv -> Residual."""
+    """Feature neck (ref hourglass.py:836-863): pool (None | SPP) -> 1x1
+    BN conv -> Residual (ReLU)."""
 
     def __init__(self, ch: int = 128, activation: str = "ReLU",
                  pool: str = "None", variant: str = "residual"):
         super().__init__()
-        if pool != "None":
-            raise NotImplementedError("neck_pool %r is not ported (have "
-                                      "'None')" % pool)
+        _check("neck_pool", pool, NECK_POOLS)
+        self.Pool_0 = Pool(ch, pool)
         self.Convolution_0 = Convolution(ch, ch, 1, 1, use_bias=True, bn=True,
                                          activation=activation)
         self.Residual_0 = Residual(ch, ch, "ReLU", variant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.Residual_0(self.Convolution_0(x))
+        return self.Residual_0(self.Convolution_0(self.Pool_0(x)))
 
 
 class Head(nn.Module):
@@ -267,18 +490,16 @@ class StackedHourglass(nn.Module):
                  increase_ch: int = 0, activation: str = "ReLU",
                  pool: str = "Max", neck_activation: str = "ReLU",
                  neck_pool: str = "None", variant: str = "residual",
-                 stem_width: int = 0, dtype: Optional[torch.dtype] = None):
+                 stem_width: int = 0, stem_s2d: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if num_stack < 1:
             raise NotImplementedError("num_stack must be >= 1, got %d"
                                       % num_stack)
-        if pool not in POOLS:
-            raise NotImplementedError("pool %r is not ported (have %s)"
-                                      % (pool, POOLS))
         self.num_stack = num_stack
         self.dtype = dtype
         self.PreLayer_0 = PreLayer(stem_width or 128, in_ch, activation,
-                                   pool, variant)
+                                   pool, variant, stem_s2d)
         for i in range(num_stack):
             setattr(self, "Hourglass_%d" % i,
                     Hourglass(4, in_ch, increase_ch, activation, pool,
@@ -299,7 +520,7 @@ class StackedHourglass(nn.Module):
         x = images.permute(0, 3, 1, 2)
         if self.dtype is not None:
             x = x.to(self.dtype)
-        x = self.PreLayer_0(x.contiguous(memory_format=torch.channels_last))
+        x = self.PreLayer_0(_channels_last(x))
         predictions = []
         for i in range(self.num_stack):
             hg = getattr(self, "Hourglass_%d" % i)(x)
@@ -315,8 +536,9 @@ class StackedHourglass(nn.Module):
 
 def cast_convs(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast every conv's weight and bias to the compute dtype, once, for
-    eval; the BatchNorm state stays float32 (the BN fold is f32). Never
-    for training: the optimizer must update float32 weights."""
+    eval; the BatchNorm state and the PReLU slopes stay float32 (the BN
+    fold is f32). Never for training: the optimizer must update float32
+    weights."""
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             m.to(dtype)
@@ -332,5 +554,6 @@ def build_model(cfg, dtype: Optional[torch.dtype] = None) -> StackedHourglass:
         out_ch=cfg.num_cls + 4, increase_ch=cfg.increase_ch,
         activation=cfg.activation, pool=cfg.pool,
         neck_activation=cfg.neck_activation, neck_pool=cfg.neck_pool,
-        variant=cfg.variant, stem_width=cfg.stem_width, dtype=dtype)
+        variant=cfg.variant, stem_width=cfg.stem_width,
+        stem_s2d=cfg.stem_s2d, dtype=dtype)
     return model.to(memory_format=torch.channels_last)

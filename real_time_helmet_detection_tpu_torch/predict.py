@@ -1,10 +1,13 @@
-"""Prediction path: network -> sigmoid + peak test -> top-k -> hard NMS.
+"""Prediction path: network -> sigmoid + peak test -> top-k -> NMS.
 
 Port of ref real_time_helmet_detection_tpu/predict.py:32
 `make_predict_fn` (reference evaluate.py:114-180 `Prediction`). Shapes
 stay fixed: `(B, S * topk)` boxes, classes, scores and a `valid` mask
 that combines the confidence threshold and the NMS keep mask; hosts
-filter when they write files.
+filter when they write files. `--nms` picks the suppression as the JAX
+package does (ref predict.py:84-146): hard NMS at `nms_th`; soft-NMS
+with `score_th = conf_th`, whose decayed scores replace the scores; or
+maxpool NMS over an extent of `imsize or 512`, which keeps the scores.
 
 On CUDA the peak test is the hand-written kernel (`ops.peak`) and every
 BN of the network runs through the epilogue and residual-tail kernels;
@@ -56,8 +59,8 @@ def make_predict_fn(model: torch.nn.Module, cfg,
     scale_factor = int(cfg.scale_factor)
     pool_size = int(cfg.pool_size)
     peak.check_pool_size(pool_size)
-    if cfg.nms != "nms":
-        raise NotImplementedError("nms %r is not ported yet" % cfg.nms)
+    mode = cfg.nms  # Config refuses any other mode
+    extent = float(cfg.imsize or 512)  # the maxpool NMS grid's extent
     normalized = bool(cfg.normalized_coord)
     if normalize is not None:
         mean, std = (torch.as_tensor(s, device=dev)
@@ -87,7 +90,13 @@ def make_predict_fn(model: torch.nn.Module, cfg,
         classes = dets.classes.reshape(b, s * topk)
         scores = dets.scores.reshape(b, s * topk)
         valid = dets.valid.reshape(b, s * topk)
-        keep = nms.nms_mask(boxes, scores, valid, nms_th)
+        if mode == "soft-nms":
+            keep, scores = nms.soft_nms_mask(boxes, scores, valid,
+                                             score_th=conf_th)
+        elif mode == "maxpool":
+            keep = nms.maxpool_nms_mask(boxes, scores, valid, extent=extent)
+        else:
+            keep = nms.nms_mask(boxes, scores, valid, nms_th)
         return Detections(boxes=boxes, classes=classes, scores=scores,
                           valid=keep & valid)
 

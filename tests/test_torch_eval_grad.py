@@ -174,24 +174,36 @@ def rel_l2(got: dict, want: dict) -> float:
     return math.sqrt(num / den)
 
 
-@pytest.mark.parametrize("ns", [1, 2])
+# architectures beside the flagship's stacks: the ghost variant with a
+# PReLU slope at every unfused site, and the depthwise variant with Mish
+# (its tails fused)
+EVAL_GRAD_CASES = {
+    "ghost-prelu": dict(variant="ghost", activation="PReLU"),
+    "depthwise-mish": dict(variant="depthwise", activation="Mish"),
+}
+
+
+@pytest.mark.parametrize("ns", [1, 2] + list(EVAL_GRAD_CASES))
 def test_eval_model_gradient_matches_jax(ns):
     """`model.eval()`, the fused loss, `backward()`: every parameter of
-    the port gets a non-zero gradient, and the gradient of all of them,
-    taken as one vector, is within rel L2 1e-4 of `jax.grad` through
-    `model.apply(train=False)` (epilogue and block tail fused, the JAX
-    fused loss in interpret mode) on the same bridged weights and a
-    random BN state (observed 1 stack 1.4e-7, 2 stacks 2.2e-7: no batch
-    statistics, so nothing amplifies the summation order); the loss rtol
-    1e-5 (observed 1.3e-7)."""
+    the port gets a non-zero gradient (the PReLU slopes among them), and
+    the gradient of all of them, taken as one vector, is within rel L2
+    1e-4 of `jax.grad` through `model.apply(train=False)` (epilogue and
+    block tail fused where JAX fuses them, the JAX fused loss in
+    interpret mode) on the same bridged weights and a random BN state
+    (observed 1 stack 1.4e-7, 2 stacks 2.2e-7, ghost-prelu 3.2e-7,
+    depthwise-mish 2.8e-7: no batch statistics, so nothing amplifies the
+    summation order); the loss rtol 1e-5 (observed 1.3e-7)."""
     imsize = 64
-    jcfg = JaxConfig(num_stack=ns, hourglass_inch=16, imsize=imsize,
+    arch = dict(num_stack=ns) if ns in (1, 2) else EVAL_GRAD_CASES[ns]
+    seed = ns if ns in (1, 2) else 3
+    jcfg = JaxConfig(hourglass_inch=16, imsize=imsize,
                      batch_size=2, epilogue="fused", block_fuse="fused",
-                     loss_kernel="fused")
+                     loss_kernel="fused", **arch)
     jmodel = jax_build(jcfg)
     params, stats = jax.device_get(init_variables(
-        jmodel, jax.random.key(ns), imsize))
-    rng = np.random.default_rng(ns)
+        jmodel, jax.random.key(seed), imsize))
+    rng = np.random.default_rng(seed)
     flat = convert.flatten_tree({"params": params, "batch_stats": stats})
     for k, v in flat.items():  # a random BN state: the fold matters
         if k.startswith("batch_stats") and k.endswith("mean"):
@@ -201,7 +213,7 @@ def test_eval_model_gradient_matches_jax(ns):
         elif k.endswith("scale"):
             flat[k] = rng.uniform(0.2, 0.6, v.shape).astype(np.float32)
     variables = convert.unflatten_tree(flat)
-    arrs = synthetic_target_batch(2, imsize, seed=ns)
+    arrs = synthetic_target_batch(2, imsize, seed=seed)
 
     def jtotal(p):
         out = jmodel.apply({"params": p,
@@ -213,8 +225,8 @@ def test_eval_model_gradient_matches_jax(ns):
     jl, jgrads = jax.jit(jax.value_and_grad(jtotal))(variables["params"])
     want = {n: t.numpy() for n, t in convert.flax_to_state_dict(
         {"params": jax.device_get(jgrads)}).items()}
-    model = build_model(Config(device="cpu", num_stack=ns, hourglass_inch=16,
-                               batch_size=2))
+    model = build_model(Config(device="cpu", hourglass_inch=16,
+                               batch_size=2, **arch))
     convert.load_into(model, variables)
     model.eval()
     total = fused_detection_loss(model(torch.from_numpy(arrs[0])),
@@ -225,8 +237,49 @@ def test_eval_model_gradient_matches_jax(ns):
     assert sorted(got) == sorted(want) == sorted(
         n for n, _ in model.named_parameters())
     assert all(np.abs(g).max() > 0 for g in got.values())
+    if ns == "ghost-prelu":
+        assert sum(n.endswith("negative_slope") for n in got) == 1 + 3 * 13
     np.testing.assert_allclose(total.item(), float(jl), rtol=1e-5)
     assert rel_l2(got, want) <= 1e-4, rel_l2(got, want)
+
+
+@pytest.mark.parametrize("name", ["edge-arch", "quality-arch",
+                                  "depthwise-128", "options"])
+def test_variant_eval_backward_launch_sites(monkeypatch, name):
+    """One eval-mode loss + backward of each of chip_smoke.py's
+    configurations at 64^2 runs the eval backward at every site of
+    tests/test_torch_predict.py's VARIANT_SITES (the counts its phase
+    variants_train holds for the eval-mode gradient); no launch counter
+    moves on the CPU."""
+    from test_torch_predict import VARIANT_SITES, chip_smoke
+    calls = {}
+
+    def counting(mod, attr):
+        real = getattr(mod, attr)
+        calls[attr] = 0
+
+        def wrapper(*args, **kw):
+            calls[attr] += 1
+            return real(*args, **kw)
+        monkeypatch.setattr(mod, attr, wrapper)
+
+    for mod, attr in ((epilogue, "bn_act"), (epilogue, "bn_eval_bwd"),
+                      (residual, "bn_add_act"),
+                      (residual, "bn_add_eval_bwd")):
+        counting(mod, attr)
+    cfg = Config(device="cpu", batch_size=1, imsize=64,
+                 **chip_smoke.VARIANT_CONFIGS[name])
+    model = build_model(cfg).eval()
+    before = (epilogue.eval_bwd_launches, residual.eval_bwd_launches)
+    arrs = [torch.from_numpy(a) for a in synthetic_target_batch(1, 64)]
+    fused_detection_loss(model(arrs[0]), *arrs[1:])["total"].backward()
+    epi, tail = VARIANT_SITES[name]
+    assert calls == {"bn_act": epi, "bn_eval_bwd": epi, "bn_add_act": tail,
+                     "bn_add_eval_bwd": tail}
+    want = chip_smoke.expected_launches(cfg, "eval_grad", torch.float32)
+    assert (want["bn_eval_bwd"], want["bn_add_eval_bwd"]) == (epi, tail)
+    assert all(p.grad is not None for p in model.parameters())
+    assert (epilogue.eval_bwd_launches, residual.eval_bwd_launches) == before
 
 
 def test_flagship_eval_backward_launch_sites(monkeypatch):

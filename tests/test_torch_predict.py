@@ -8,7 +8,11 @@
   synthetic VOC fixture and weights give mAP within 1e-3 and matching
   per-image detections;
 * launch sites: one forward at the flagship width calls the epilogue at
-  20 sites, the residual tail at 17 and the peak test once;
+  20 sites, the residual tail at 17 and the peak test once; each of
+  chip_smoke.py's other configurations (VARIANT_SITES) at its own counts,
+  which chip_smoke.py's derivation (`bn_sites`) must reproduce;
+* evaluation with `--nms soft-nms` against the JAX driver, mAP within
+  1e-3;
 * entry points: the default device is CUDA, and without a card they
   raise instead of running on the CPU; the CLI runs eval and the demo
   with --device cpu.
@@ -16,6 +20,7 @@
 
 import os
 import pickle
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +48,30 @@ from real_time_helmet_detection_tpu_torch.ops import epilogue, peak, residual
 from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
 
 ARCH = dict(imsize=64, hourglass_inch=32, num_cls=2)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+import chip_smoke  # noqa: E402  (repo root: the configurations it runs)
+
+# (epilogue sites, residual-tail sites) of one forward of each of
+# chip_smoke.py's VARIANT_CONFIGS, by hand from models/hourglass.py: a
+# block's BN'd convs are epilogue sites, except the tail conv of a
+# residual or depthwise block whose activation the kernels take (a tail
+# site); the PreLayer's 3 blocks and the neck's are ReLU; the hourglass
+# has 13 blocks per stack.
+VARIANT_SITES = {
+    # ghost, 64 wide: 4 convs a block (2 ghost modules of 2), never a
+    # fused tail: stem 1 + PreLayer 3 x 4 + hourglass 13 x 4 + neck 1 + 4
+    "edge-arch": (70, 0),
+    # residual, 2 stacks: stem 1 + 64->128 block (conv, projection) 2 +
+    # 2 x 1, per stack hourglass 13 x 1 + neck 1 + 1; one tail a block
+    "quality-arch": (1 + 2 + 2 + 2 * (13 + 2), 3 + 2 * (13 + 1)),
+    # depthwise: 3 convs and the fused tail a block, + the projection
+    "depthwise-128": (1 + 4 + 3 + 3 + 13 * 3 + 1 + 3, 3 + 13 + 1),
+    # PReLU hourglass blocks are unfused (2 epilogue sites each); the
+    # PreLayer's and the neck's ReLU blocks fuse; the neck conv is Mish
+    "options": (1 + 2 + 1 + 1 + 13 * 2 + 1 + 1, 3 + 1),
+}
 
 
 def load_pickle(path):
@@ -156,6 +185,38 @@ def test_flagship_forward_launch_sites(monkeypatch):
     assert epilogue.launches == residual.launches == peak.launches == 0
 
 
+@pytest.mark.parametrize("name", list(VARIANT_SITES))
+def test_variant_forward_launch_sites(monkeypatch, name):
+    """Each of chip_smoke.py's configurations, at imsize 64 on the CPU:
+    the epilogue, tail and peak calls of one predict equal VARIANT_SITES
+    and chip_smoke.py's derived launch counts; no launch counter moves."""
+    assert sorted(VARIANT_SITES) == sorted(chip_smoke.VARIANT_CONFIGS)
+    calls = {"bn_act": 0, "bn_add_act": 0, "peak_scores": 0}
+
+    def counting(mod, attr):
+        real = getattr(mod, attr)
+
+        def wrapper(*args, **kw):
+            calls[attr] += 1
+            return real(*args, **kw)
+        monkeypatch.setattr(mod, attr, wrapper)
+
+    counting(epilogue, "bn_act")
+    counting(residual, "bn_add_act")
+    counting(peak, "peak_scores")
+    cfg = Config(device="cpu", imsize=64, **chip_smoke.VARIANT_CONFIGS[name])
+    predict = make_predict_fn(load_eval_state(cfg), cfg, device="cpu")
+    dets = predict(np.zeros((1, 64, 64, 3), np.float32))
+    epi, tail = VARIANT_SITES[name]
+    assert calls == {"bn_act": epi, "bn_add_act": tail, "peak_scores": 1}
+    assert dets.boxes.shape == (1, cfg.num_stack * 100, 4)
+    assert tuple(map(len, chip_smoke.bn_sites(cfg))) == (epi, tail)
+    want = chip_smoke.expected_launches(cfg, "predict", torch.float32)
+    assert (want["bn_act"], want["bn_act_vec"], want["bn_add_act"],
+            want["peak_scores"]) == (epi, epi, tail, 1)
+    assert epilogue.launches == residual.launches == peak.launches == 0
+
+
 def test_synthetic_fixture_matches_jax_generator(tmp_path):
     a = make_synthetic_voc(str(tmp_path / "port"), num_train=2, num_test=3,
                            imsize=(96, 72), seed=4)
@@ -178,10 +239,22 @@ def voc(tmp_path_factory):
 
 
 def test_evaluate_matches_jax(voc, tmp_path):
+    evaluate_both(voc, tmp_path)
+
+
+def test_evaluate_soft_nms_matches_jax(voc, tmp_path):
+    """The same with `--nms soft-nms` on both sides: the decayed scores are
+    what the txt files and the mAP take."""
+    evaluate_both(voc, tmp_path, nms="soft-nms")
+
+
+def evaluate_both(voc, tmp_path, **extra):
+    """JAX `evaluate` and the port's on the same fixture and weights: mAP
+    and per-class AP within 1e-3, matching per-image detections."""
     from real_time_helmet_detection_tpu.evaluate import \
         evaluate as jax_evaluate
     common = dict(data=voc, batch_size=2, print_interval=1,
-                  random_seed=7, **ARCH)
+                  random_seed=7, **ARCH, **extra)
     jcfg = JaxConfig(save_path=str(tmp_path / "jax"), serve_buckets=[2],
                      num_workers=1, **common)
     jm = jax_evaluate(jcfg)

@@ -430,6 +430,58 @@ def test_flagship_train_step_launch_sites(monkeypatch):
             loss_ops.fwd_launches, loss_ops.bwd_launches) == before
 
 
+@pytest.mark.parametrize("name", ["edge-arch", "quality-arch",
+                                  "depthwise-128", "options"])
+def test_variant_train_step_launch_sites(monkeypatch, name):
+    """One train step of each of chip_smoke.py's configurations at 64^2
+    runs the BN passes at every site of tests/test_torch_predict.py's
+    VARIANT_SITES: a moment pass at each, each epilogue site's forward and
+    backward sums and dx, each tail site's, the loss once each way (the
+    counts chip_smoke.py's variants_train holds the launch counters to);
+    no launch counter moves on the CPU."""
+    from test_torch_predict import VARIANT_SITES, chip_smoke
+    calls = {}
+
+    def counting(mod, attr):
+        real = getattr(mod, attr)
+        calls[attr] = 0
+
+        def wrapper(*args, **kw):
+            calls[attr] += 1
+            return real(*args, **kw)
+        monkeypatch.setattr(mod, attr, wrapper)
+
+    for attr in ("bn_act", "bn_stats", "bn_bwd_sums", "bn_bwd_dx"):
+        counting(epilogue, attr)
+    for attr in ("bn_add_act", "bn_add_bwd_sums", "bn_add_bwd_dx"):
+        counting(residual, attr)
+    for attr in ("loss_sums", "loss_sums_bwd"):
+        counting(loss_ops, attr)
+    cfg = Config(device="cpu", batch_size=1, imsize=64,
+                 **chip_smoke.VARIANT_CONFIGS[name])
+    model = build_model(cfg).train()
+    step = make_train_step(model, build_optimizer(cfg, model.parameters()),
+                           make_lr_schedule(cfg, 1), cfg)
+    before = (epilogue.stats_launches, epilogue.bwd_sums_launches,
+              residual.bwd_dx_launches, loss_ops.bwd_launches)
+    losses = step(0, *map(torch.from_numpy, synthetic_target_batch(1, 64)))
+    assert np.isfinite(float(losses["total"]))
+    epi, tail = VARIANT_SITES[name]
+    assert calls == {"bn_act": epi, "bn_stats": epi + tail,
+                     "bn_bwd_sums": epi, "bn_bwd_dx": epi,
+                     "bn_add_act": tail, "bn_add_bwd_sums": tail,
+                     "bn_add_bwd_dx": tail, "loss_sums": 1,
+                     "loss_sums_bwd": 1}
+    want = chip_smoke.expected_launches(cfg, "train", torch.float32)
+    assert {k: want[n] for k, n in (
+        ("bn_stats", "bn_stats"), ("bn_bwd_dx", "bn_bwd_dx"),
+        ("bn_add_bwd_dx", "bn_add_bwd_dx"), ("loss_sums_bwd", "loss_bwd"))} \
+        == {"bn_stats": epi + tail, "bn_bwd_dx": epi, "bn_add_bwd_dx": tail,
+            "loss_sums_bwd": 1}
+    assert (epilogue.stats_launches, epilogue.bwd_sums_launches,
+            residual.bwd_dx_launches, loss_ops.bwd_launches) == before
+
+
 # -------------------------------------------------------------------- CLI
 
 
