@@ -109,13 +109,30 @@ version on the card:
    boxes where each mode keeps some and drops others, and on a
    quality-arch predict's decoded boxes, with the time of each per b16
    batch;
-18. a torch.profiler trace (CUDA activity) of a predict and of a train
+18. serve: the serving engine (the eval and demo predict path; ref
+   serving/engine.py:274) at b16 512^2, the uint8 wire: the flagship f32
+   and bf16 with buckets 1-16, depth 2 — one CUDA graph per bucket
+   (capture time, graph nodes) and none after construction, each
+   bucket's replay launches from a profiler trace against
+   `expected_launches` (no train kernel), each bucket's rows bit-equal to
+   the eager predict at its batch size, across buckets f32 rows matched
+   both ways and bf16 logits no further apart than bf16 is from f32, a
+   dispatch fault and a hung fetch retried bit-identically, a
+   hot reload (storages kept, rows equal to an eager predict of the new
+   weights), a saturated closed loop (64 outstanding, three ~1 s windows)
+   against eager windows, the serial bucket-1 latency p50/p99, the idle
+   share of a saturated window, peak memory; then `--tier edge` and
+   `--tier quality` (bf16, through `apply_tier`): captures, launches, rows,
+   images/s at the largest bucket and bucket-1 latency;
+19. a torch.profiler trace (CUDA activity) of a predict and of a train
    step: device time by kernel group and the idle share against the
    untraced walls of phases 5 and 11, and the train step's phases by
    CUDA events;
-19. the eval CLI end to end on a synthetic VOC fixture (32 images at
-   512^2, batch 16, --amp) to a printed mAP, txt files and pickle;
-20. train_cli: `--train-flag` for one epoch on a 32-image 512^2 fixture,
+20. the eval CLI end to end (through the serving engine) on a synthetic
+   VOC fixture (32 images at 512^2, batch 16, --amp) to a printed mAP,
+   txt files and pickle, the mAP within 1e-3 of eager predicts' over the
+   same fixture;
+21. train_cli: `--train-flag` for one epoch on a 32-image 512^2 fixture,
    then the eval CLI on the weights it wrote.
 
 `--phases variants` (or any comma-separated subset; `identity` always
@@ -130,6 +147,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import glob
 import json
 import math
@@ -145,8 +163,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PHASES = ("identity", "build", "kernels", "timing", "main", "states",
           "train_kernels", "train_timing", "loss_kernels", "loss_timing",
           "train_main", "eval_grad", "eval_timing", "variants",
-          "variants_small", "variants_train", "nms", "profile", "cli",
-          "train_cli")
+          "variants_small", "variants_train", "nms", "serve", "profile",
+          "cli", "train_cli")
 
 
 class SmokeFailure(RuntimeError):
@@ -480,13 +498,13 @@ def box_iou(box, boxes):
     return np.where(union > 0, inter / np.where(union > 0, union, 1), 0.0)
 
 
-def detections_match(a, b, min_score=0.1):
-    """Every valid detection scoring >= min_score in `a` has one in `b`
+def match_misses(a, b, min_score=0.1):
+    """(detections checked, the misses (box, class, score, image)): every
+    valid detection scoring >= min_score in `a` should have one in `b`
     with the same class, |score difference| <= 1e-3 and IoU >= 0.99 (or,
-    for a box of zero area, corners within 1e-2). Returns the number of
-    detections checked."""
+    for a box of zero area, corners within 1e-2)."""
     import numpy as np
-    checked = 0
+    checked, misses = 0, []
     a = [t.cpu().numpy() for t in a]
     b = [t.cpu().numpy() for t in b]
     for i in range(a[0].shape[0]):
@@ -497,9 +515,20 @@ def detections_match(a, b, min_score=0.1):
             checked += 1
             close = (box_iou(box, bb) >= 0.99) | (
                 np.abs(bb - box).max(axis=1, initial=0) <= 1e-2)
-            hit = (bc == c) & (np.abs(bs - s) <= 1e-3) & close
-            require(bool(hit.any()), "detection %s cls %d score %.4f of "
-                    "image %d has no match" % (box, c, s, i))
+            if not ((bc == c) & (np.abs(bs - s) <= 1e-3) & close).any():
+                misses.append((box, c, s, i))
+    return checked, misses
+
+
+def detections_match(a, b, min_score=0.1):
+    """`match_misses` with no miss allowed. Returns the number of
+    detections checked."""
+    checked, misses = match_misses(a, b, min_score)
+    if misses:
+        box, c, s, i = misses[0]
+        require(False, "detection %s cls %d score %.4f of image %d has no "
+                "match (%d of %d missed)" % (box, c, s, i, len(misses),
+                                              checked))
     return checked
 
 
@@ -2289,6 +2318,394 @@ def phase_nms(state):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- serving
+
+SERVE_BUCKETS = (1, 2, 4, 8, 16)
+# a kernel's name in a profiler trace -> its launch counter
+TRACE_KERNELS = (("bn_act_vec_kernel", "bn_act_vec"),
+                 ("bn_add_act_kernel", "bn_add_act"),
+                 ("bn_act_kernel", "bn_act_scalar"),
+                 ("peak_kernel<true>", "peak_vec"),
+                 ("peak_kernel<false>", "peak_scalar"),
+                 ("bn_stats_kernel", "bn_stats"),
+                 ("bn_bwd_sums_kernel", "bn_bwd_sums"),
+                 ("bn_bwd_dx_kernel", "bn_bwd_dx"),
+                 ("loss_fwd_kernel", "loss_fwd"),
+                 ("loss_bwd", "loss_bwd"))
+
+
+def graph_nodes(graph):
+    """Nodes of a captured CUDA graph (`cuGraphGetNodes` on the kept
+    cudaGraph_t, through libcuda), or None where that call fails."""
+    import ctypes
+    try:
+        raw = graph.raw_cuda_graph()
+        count = ctypes.c_size_t(0)
+        err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+            ctypes.c_void_p(raw), None, ctypes.byref(count))
+    except (AttributeError, OSError, RuntimeError):
+        return None
+    return int(count.value) if err == 0 else None
+
+
+def replay_launches(runner):
+    """Our kernels' launches in one replay of a bucket's graph, counted by
+    kernel name in a torch.profiler trace of it, as launch counters
+    (bn_act = vector + scalar, peak_scores = vector + scalar)."""
+    names = {}
+    trace_device_ms(lambda i: runner.graph.replay(), reps=1, counts=names)
+    got = {}
+    for name, n in names.items():
+        hit = next((c for key, c in TRACE_KERNELS if key in name), None)
+        if hit:
+            got[hit] = got.get(hit, 0) + int(round(n))
+    got["bn_act"] = got.get("bn_act_vec", 0) + got.get("bn_act_scalar", 0)
+    got["peak_scores"] = got.get("peak_vec", 0) + got.get("peak_scalar", 0)
+    return got
+
+
+def want_replay(cfg, dtype):
+    """`expected_launches` of one predict, on the counters a trace can
+    tell apart."""
+    want = expected_launches(cfg, "predict", dtype)
+    keys = {c for _, c in TRACE_KERNELS} | {"bn_act", "peak_scores"}
+    return {k: want[k] for k in sorted(keys)}
+
+
+def served_logits(model, images):
+    """The model's logits on the normalized uint8 batch, as the serving
+    path computes them."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.utils import normalizer_stats
+    mean, std = (torch.as_tensor(s, device="cuda")
+                 for s in normalizer_stats("imagenet"))
+    with torch.inference_mode():
+        return model((torch.as_tensor(images).cuda().float() / 255.0
+                      - mean) / std)
+
+
+def np_rows(rows):
+    """Engine rows (numpy Detections) -> one torch Detections batch."""
+    import numpy as np
+    import torch
+    from real_time_helmet_detection_tpu_torch.ops.decode import Detections
+    return Detections(*(torch.from_numpy(np.stack(leaf)) for leaf in
+                        zip(*rows)))
+
+
+def rows_equal(a, b):
+    import numpy as np
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def serve_group(engine, images):
+    """Submit `images` at once and wait: with the engine's max wait they
+    form one batch. Returns the rows; requires that one batch of the
+    matching bucket served them."""
+    before = engine.stats()["batches"]
+    futs = [engine.submit(img) for img in images]
+    rows = [f.result(timeout=120) for f in futs]
+    require(engine.stats()["batches"] == before + 1
+            and all(f.bucket == len(images) for f in futs),
+            "serve: %d requests did not form one bucket-%d batch"
+            % (len(images), len(images)))
+    return rows
+
+
+def closed_loop(engine, images, seconds, outstanding=64):
+    """Images/s of a saturated closed loop: `outstanding` requests in
+    flight, one submitted as each completes, for about `seconds`."""
+    import collections
+    queued = collections.deque()
+    i = 0
+    while len(queued) < outstanding:
+        queued.append(engine.submit(images[i % len(images)]))
+        i += 1
+    t0 = time.perf_counter()
+    done = 0
+    while time.perf_counter() - t0 < seconds:
+        queued.popleft().result(timeout=120)
+        done += 1
+        queued.append(engine.submit(images[i % len(images)]))
+        i += 1
+    elapsed = time.perf_counter() - t0
+    for f in queued:
+        f.result(timeout=120)
+    return done / elapsed
+
+
+def serial_latency_ms(engine, images, n):
+    """Latency (ms, submit to result) of n requests sent one at a time."""
+    out = []
+    for i in range(n):
+        f = engine.submit(images[i % len(images)])
+        f.result(timeout=120)
+        out.append(1e3 * (f.t_done - f.t_submit))
+    return out
+
+
+def serve_engine(predict, images, buckets, **kw):
+    """A serving engine of `predict` on the uint8 wire of `images`' shape,
+    with its own metrics registry and no span log."""
+    import numpy as np
+    from real_time_helmet_detection_tpu_torch.obs.metrics import \
+        MetricsRegistry
+    from real_time_helmet_detection_tpu_torch.obs.spans import SpanTracer
+    from real_time_helmet_detection_tpu_torch.serving import ServingEngine
+    return ServingEngine(predict, None, images.shape[1:], np.uint8,
+                         buckets=buckets, tracer=SpanTracer(None),
+                         metrics=MetricsRegistry(), **kw)
+
+
+def serve_config(label, cfg, images, seed, full):
+    """One configuration through the serving engine (buckets from the
+    config, 20 ms max wait, depth 2): one graph per bucket (capture time,
+    nodes), launches of each bucket's replay from the profiler against
+    `expected_launches`, each bucket's rows bit-equal to the eager predict
+    at its batch size; across buckets (against the largest), f32 rows
+    matched both ways under phase main's rule; bf16 logits of two batch
+    sizes no further apart than bf16 is from f32 on the same images
+    (cuDNN takes other bf16 algorithms at other batch sizes), the matches
+    counted;
+    images/s of a saturated closed loop, and the serial bucket-1 latency
+    (an engine of bucket 1, no wait). `full` (the flagship) adds the
+    chaos retries, the hot reload, three throughput windows against eager
+    windows, p99 and the idle share."""
+    import numpy as np
+    import torch
+    from real_time_helmet_detection_tpu_torch.evaluate import load_eval_state
+    from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
+    from real_time_helmet_detection_tpu_torch.runtime import (
+        ChaosInjector, FaultEvent, FaultSchedule)
+    from real_time_helmet_detection_tpu_torch.serving import \
+        resolve_buckets
+    dtype = torch.bfloat16 if cfg.amp else torch.float32
+    buckets = resolve_buckets(cfg)
+    top = buckets[-1]
+    l_twin = None
+    if cfg.amp:  # the f32 twin's logits: same seeds, TF32 off
+        twin = perturb_bn(load_eval_state(dataclasses.replace(cfg,
+                                                              amp=False)),
+                          seed=seed)
+        l_twin = served_logits(twin, images[:top])
+        del twin
+        torch.cuda.empty_cache()
+    model = perturb_bn(load_eval_state(cfg), seed=seed)
+    predict = make_predict_fn(model, cfg, normalize="imagenet")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine = serve_engine(predict, images, buckets, max_wait_ms=20.0, depth=2)
+    build_s = time.perf_counter() - t0
+    rec = dict(build_s=build_s, buckets={},
+               graph_gb=(torch.cuda.memory_allocated() - mem0) / 1e9)
+    want = want_replay(cfg, dtype)
+    rows, eager = {}, {}
+    t_trace = 0.0
+    for b in buckets:
+        runner = engine.runners[b]
+        t0 = time.perf_counter()
+        got = replay_launches(runner)
+        t_trace += time.perf_counter() - t0
+        got = {k: got.get(k, 0) for k in want}
+        require(got == want, "%s bucket %d: launches per replay %s, want %s"
+                % (label, b, got, want))
+        rows[b] = serve_group(engine, images[:b])
+        eager[b] = [tuple(t[i].cpu().numpy() for t in predict(images[:b]))
+                    for i in range(b)]
+        same = [rows_equal(r, e) for r, e in zip(rows[b], eager[b])]
+        require(all(same), "%s bucket %d: %d of %d rows differ from the "
+                "eager predict at batch %d" % (label, b, same.count(False),
+                                                b, b))
+        rec["buckets"][b] = dict(capture_s=runner.build_s,
+                                 nodes=graph_nodes(runner.graph))
+    # across buckets: each smaller bucket's rows against the largest's;
+    # f32 rows must match both ways (phase main's rule); in bf16, where
+    # cuDNN's algorithm for another batch size rounds otherwise, the
+    # logits of two batch sizes may be no further apart than bf16 is from
+    # f32 on the same images (the f32 twin: same seeds, TF32 off), and
+    # the matches are counted
+    l_top = served_logits(model, images[:top])
+    bound = None if l_twin is None else float((l_twin - l_top).abs().max())
+    del l_twin
+    checked, missed, differ, lerr = 0, 0, 0, 0.0
+    for b in buckets[:-1]:
+        pairs = ((np_rows(rows[b]), np_rows(rows[top][:b])),
+                 (np_rows(rows[top][:b]), np_rows(rows[b])))
+        for x, y in pairs:
+            n, misses = match_misses(x, y)
+            checked, missed = checked + n, missed + len(misses)
+            require(cfg.amp or not misses, "%s bucket %d vs %d: %d of %d "
+                    "detections have no match" % (label, b, top,
+                                                   len(misses), n))
+        differ += sum(not rows_equal(x, y)
+                      for x, y in zip(rows[b], rows[top][:b]))
+        err = float((served_logits(model, images[:b]) - l_top[:b])
+                    .abs().max())
+        lerr = max(lerr, err)
+        if bound is not None:
+            require(err <= bound, "%s bucket %d vs %d: bf16 logits differ "
+                    "by %g, more than bf16 from f32 (%g)"
+                    % (label, b, top, err, bound))
+    rec["trace_s"] = t_trace
+    rec.update(launches=want, matched=checked - missed, checked=checked,
+               rows_differ=differ, rows_compared=sum(buckets[:-1]),
+               logit_err=lerr, bf16_vs_f32=bound)
+    if full:
+        # (d) a dispatch fault, then a hung fetch (the watchdog at 0.5 s),
+        # each retried through the same graph
+        inj = ChaosInjector(FaultSchedule([
+            FaultEvent("serve:dispatch", "device-loss", 1),
+            FaultEvent("serve:fetch", "hung-fetch", 1, {"hang_s": 1.5})]))
+        with serve_engine(predict, images, (4,), max_wait_ms=20.0, depth=2,
+                          max_retries=2, hang_timeout_s=0.5,
+                          injector=inj) as chaos:
+            futs = [chaos.submit(img) for img in images[:4]]
+            got = [f.result(timeout=120) for f in futs]
+            st = chaos.stats()
+        require(len(inj.fired) == 2 and st["hung_batches"] == 1
+                and st["failed"] == 0 and st["retried"] >= 4
+                and all(rows_equal(r, e) for r, e in zip(got, eager[4])),
+                "%s chaos: fired %s, stats %s, rows bit-identical %s"
+                % (label, [e.key for e in inj.fired], st,
+                   [rows_equal(r, e) for r, e in zip(got, eager[4])]))
+        rec["chaos"] = dict(fired=[e.key for e in inj.fired],
+                            retried=st["retried"],
+                            hung=st["hung_batches"])
+        # (e) hot reload: weights of another BN state, copied in place
+        ptrs = [t.data_ptr() for t in list(model.parameters())
+                + list(model.buffers())]
+        fresh = perturb_bn(load_eval_state(cfg), seed=seed + 2)
+        engine.reload(fresh.state_dict())
+        del fresh
+        new_rows = serve_group(engine, images[:top])
+        new_eager = [tuple(t[i].cpu().numpy() for t in
+                           predict(images[:top])) for i in range(top)]
+        same_ptrs = ptrs == [t.data_ptr() for t in list(model.parameters())
+                             + list(model.buffers())]
+        changed = sum(not rows_equal(a, b)
+                      for a, b in zip(new_rows, rows[top]))
+        require(same_ptrs and changed > 0 and all(
+            rows_equal(a, b) for a, b in zip(new_rows, new_eager)),
+            "%s reload: storages kept %s, rows changed %d, rows equal the "
+            "eager predict of the new weights %s" % (
+                label, same_ptrs, changed,
+                [rows_equal(a, b) for a, b in zip(new_rows, new_eager)]))
+        rec["reload"] = dict(changed=changed)
+        # (f) saturated closed loop against eager predicts, in turns
+        # (eager: predicts of the b16 batch queued back to back, one sync
+        # at the window's end, as phase main times them)
+        rates = {"engine": [], "eager": []}
+        for _ in range(3):
+            rates["engine"].append(closed_loop(engine, images, 1.0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = 0
+            while time.perf_counter() - t0 < 1.0:
+                predict(images)
+                n += 1
+            torch.cuda.synchronize()
+            rates["eager"].append(n * len(images)
+                                  / (time.perf_counter() - t0))
+        rec["rates"] = rates
+        # (h) the device's idle share over a saturated window
+        by_name, traced = trace_device_ms(
+            lambda i: closed_loop(engine, images, 0.5), reps=1)
+        busy = sum(by_name.values())
+        rec["idle"] = (max(0.0, 1 - busy / traced) if busy else None)
+        rec["busy_ms"], rec["traced_ms"] = busy, traced
+    else:
+        rec["rates"] = {"engine": [closed_loop(engine, images, 1.0)]}
+    require(engine.stats()["bucket_builds"] == len(buckets)
+            and engine.stats()["failed"] == 0,
+            "%s: bucket builds %d for %d buckets after serving"
+            % (label, engine.stats()["bucket_builds"], len(buckets)))
+    engine.close()
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del engine
+    # (g) the serial bucket-1 stream, no wait
+    with serve_engine(predict, images, (1,), max_wait_ms=0.0,
+                      depth=2) as one:
+        serial_latency_ms(one, images, 5)
+        lat = np.array(serial_latency_ms(one, images, 100 if full else 40))
+    rec["p50_ms"] = float(np.percentile(lat, 50))
+    rec["p99_ms"] = float(np.percentile(lat, 99))
+    del model, predict
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_serve(state):
+    """The serving engine, the port's eval and demo predict path, at b16
+    512^2 with seeded weights and BN state: the flagship f32 and bf16
+    (buckets 1-16, depth 2, the uint8 wire; `serve_config` with chaos,
+    reload, throughput, latency and idle share), then the edge and quality
+    tiers through `apply_tier`, bf16."""
+    import numpy as np
+    import torch
+    from real_time_helmet_detection_tpu_torch.config import (Config,
+                                                             apply_tier)
+    images = np.random.default_rng(0).integers(
+        0, 256, (16, 512, 512, 3), dtype=np.uint8)
+    out = state.setdefault("serve", {})
+    runs = [("flagship f32", Config(batch_size=16, imsize=512), True),
+            ("flagship bf16", Config(batch_size=16, imsize=512, amp=True),
+             True),
+            ("edge bf16", apply_tier(Config(tier="edge", batch_size=16,
+                                            imsize=512, amp=True)), False),
+            ("quality bf16", apply_tier(Config(tier="quality",
+                                               batch_size=16, imsize=512,
+                                               amp=True)), False)]
+    for label, cfg, full in runs:
+        t0 = time.perf_counter()
+        rec = serve_config("serve " + label, cfg, images, seed=3, full=full)
+        rec["secs"] = time.perf_counter() - t0
+        out[label] = rec
+        log("serve %s: engine built in %.2f s; per bucket capture s / graph "
+            "nodes: %s; graphs hold %.3f GB; peak memory %.2f GB"
+            % (label, rec["build_s"], ", ".join(
+                "b%d %.3f / %s" % (b, r["capture_s"], r["nodes"])
+                for b, r in rec["buckets"].items()), rec["graph_gb"],
+               rec["peak_gb"]))
+        log("serve %s: launches per replay (profiler, every bucket) %s; "
+            "rows bit-equal to eager at each batch size; across buckets %d "
+            "of %d rows differ from the largest bucket's in some bit, "
+            "logits by up to %g%s, %d of %d detections >= 0.1 matched both "
+            "ways; %.1f s (%.1f s in the profiler)" % (
+                label, {k: v for k, v in rec["launches"].items() if v},
+                rec["rows_differ"], rec["rows_compared"], rec["logit_err"],
+                "" if rec["bf16_vs_f32"] is None else
+                " (bf16 vs f32 at the largest bucket: %g)"
+                % rec["bf16_vs_f32"], rec["matched"], rec["checked"],
+                rec["secs"], rec["trace_s"]))
+        eng = rec["rates"]["engine"]
+        line = ("serve %s: saturated closed loop (64 outstanding) median "
+                "%.1f img/s (min %.1f, max %.1f over %d windows)" % (
+                    label, float(np.median(eng)), min(eng), max(eng),
+                    len(eng)))
+        if "eager" in rec["rates"]:
+            ea = rec["rates"]["eager"]
+            line += "; eager predict b16 median %.1f img/s (min %.1f, max " \
+                    "%.1f)" % (float(np.median(ea)), min(ea), max(ea))
+            tag = label.split()[-1]
+            if tag in state.get("main", {}):
+                line += ", phase main's %.1f" % state["main"][tag]["rates"][
+                    "kernels"]["median_ips"]
+        log(line + "; serial bucket 1 latency p50 %.3f ms, p99 %.3f ms"
+            % (rec["p50_ms"], rec["p99_ms"]))
+        if full:
+            log("serve %s: chaos %s retried bit-identically (%d retries, %d "
+                "hung); reload kept every storage, %d of 16 rows changed, "
+                "all equal to eager with the new weights; idle share %s "
+                "(device busy %.2f ms of a traced %.2f ms window)" % (
+                    label, rec["chaos"]["fired"], rec["chaos"]["retried"],
+                    rec["chaos"]["hung"], rec["reload"]["changed"],
+                    "not measured (no device time)" if rec["idle"] is None
+                    else "%.1f%%" % (100 * rec["idle"]), rec["busy_ms"],
+                    rec["traced_ms"]))
+
+
 # cuDNN's convolution kernels: implicit GEMMs (fprop, dgrad, wgrad), FFT
 # and Winograd algorithms and their layout transforms
 CONV_KEYS = ("conv", "xmma", "cudnn", "gemm", "cutlass", "fft", "winograd",
@@ -2513,7 +2930,50 @@ def phase_profile(state):
     profile_train(state)
 
 
+def eager_map(cfg):
+    """(mAP, {image id: (boxes, classes, scores)}) of eager one-shot
+    predicts (no serving engine) over cfg's test split, scored and
+    rescaled as `evaluate` does: the yardstick of the eval CLI, which
+    predicts through the engine."""
+    import numpy as np
+    from real_time_helmet_detection_tpu_torch.data.eval_loader import \
+        eval_batches
+    from real_time_helmet_detection_tpu_torch.data.voc import (
+        VOCDataset, boxes_from_voc_dict)
+    from real_time_helmet_detection_tpu_torch.evaluate import load_eval_state
+    from real_time_helmet_detection_tpu_torch.metrics import compute_map
+    from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
+    predict = make_predict_fn(load_eval_state(cfg), cfg,
+                              normalize=cfg.pretrained, device=cfg.device)
+    rows, gt_boxes, gt_labels = {}, {}, {}
+    t = cfg.imsize
+    for batch in eval_batches(VOCDataset(cfg.data, image_set="test"), t,
+                              cfg.batch_size):
+        b, c, s, v = (x.cpu().numpy() for x in predict(batch.image))
+        for j, info in enumerate(batch.infos):
+            key = os.path.splitext(info["annotation"]["filename"])[0]
+            size = info["annotation"]["size"]
+            ow, oh = int(size["width"]), int(size["height"])
+            scale = np.array([ow / t, oh / t, ow / t, oh / t], np.float32)
+            rows[key] = (b[j][v[j]] * scale, c[j][v[j]], s[j][v[j]])
+            gt_boxes[key], gt_labels[key] = boxes_from_voc_dict(info)
+    m = compute_map(gt_boxes, gt_labels, *({k: r[i] for k, r in rows.items()}
+                                          for i in range(3)),
+                    num_cls=cfg.num_cls)["map"]
+    return m, rows
+
+
 def phase_cli(state):
+    """The eval CLI (which predicts through the serving engine, 50 ms
+    max wait so each loader batch of 16 is one bucket-16 batch) on 32
+    synthetic images at 512^2, batch 16, --amp: a printed mAP, 32 txt
+    files and the pickle; the mAP within 1e-3 of eager predicts' over the
+    same fixture and weights, and every image's detections in the pickle
+    equal to the eager predict's at batch 16."""
+    import pickle
+
+    import numpy as np
+    from real_time_helmet_detection_tpu_torch.config import Config
     from real_time_helmet_detection_tpu_torch.data.synthetic import \
         make_synthetic_voc
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2522,7 +2982,7 @@ def phase_cli(state):
         out = os.path.join(tmp, "out")
         cmd = [sys.executable, "-m", "real_time_helmet_detection_tpu_torch",
                "--data", root, "--imsize", "512", "--batch-size", "16",
-               "--amp", "--save-path", out]
+               "--amp", "--serve-max-wait-ms", "50", "--save-path", out]
         t0 = time.time()
         proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                               timeout=600)
@@ -2537,9 +2997,25 @@ def phase_cli(state):
         require(len(map_lines) == 1 and n_txt == 32 and pickle_ok,
                 "eval CLI: mAP lines %d, txt files %d, pickle %s:\n%s"
                 % (len(map_lines), n_txt, pickle_ok, tail))
-        log("cli: python %s (%.1f s, 32 txt files, pickle written) -> %s"
+        served = float(map_lines[0].split(": mAP ", 1)[1].split()[0])
+        eager, rows = eager_map(Config(data=root, imsize=512, batch_size=16,
+                                       amp=True))
+        with open(os.path.join(out, "prediction_results.pickle"), "rb") as f:
+            got = pickle.load(f)
+        same = sorted(got) == sorted(rows) and all(
+            all(np.array_equal(x, y) for x, y in zip(
+                (got[k]["box"], got[k]["cls"], got[k]["score"]), rows[k]))
+            for k in rows)
+        n_det = sum(len(r[2]) for r in rows.values())
+        require(abs(served - eager) <= 1e-3 and same, "eval CLI through "
+                "the engine: mAP %.4f vs %.4f by eager predicts; per-image "
+                "detections equal %s" % (served, eager, same))
+        state["cli"] = dict(served=served, eager=eager, detections=n_det)
+        log("cli: python %s (%.1f s, 32 txt files, pickle written) -> %s; "
+            "eager predicts over the same fixture: mAP %.4f, and all %d "
+            "detections of the pickle equal to theirs"
             % (" ".join(cmd[1:]).replace(tmp, "<tmp>"), secs,
-               map_lines[0].split(": ", 1)[1]))
+               map_lines[0].split(": ", 1)[1], eager, n_det))
 
 
 # ------------------------------------------------------------------ main

@@ -6,10 +6,14 @@ evaluate.py:245).
     python -m real_time_helmet_detection_tpu_torch --train-flag --data DIR \\
         [--batch-size 16] [--amp] [--num-stack 1] [--device cpu]
     python -m real_time_helmet_detection_tpu_torch --data DIR|IMG \\
-        --imsize 512 [--model-load w.npz] [--amp] [--device cpu]
+        --imsize 512 [--model-load w.npz] [--amp] [--device cpu] \\
+        [--tier edge|quality] [--serve-buckets 1 2 4 8 16] \\
+        [--serve-max-wait-ms 5] [--serve-depth 2] [--serve-queue 128]
 
-Runs on the CUDA card unless `--device cpu` is given; without a card the
-default raises rather than running on the CPU.
+Eval and the demo predict through the serving engine (one CUDA graph per
+bucket). `--tier` applies its preset before anything runs. Runs on the
+CUDA card unless `--device cpu` is given; without a card the default
+raises rather than running on the CPU.
 """
 
 from __future__ import annotations
@@ -17,11 +21,11 @@ from __future__ import annotations
 import os
 import time
 
-from .config import parse_args
+from .config import apply_tier, parse_args
 
 
 def main(argv=None) -> None:
-    cfg = parse_args(argv)
+    cfg = apply_tier(parse_args(argv))
     if cfg.data is None:
         raise SystemExit("--data is required (a VOC root or an image file)")
     tic = time.time()

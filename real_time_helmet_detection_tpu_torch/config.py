@@ -17,12 +17,19 @@ model is built (models/hourglass.py); any other `--nms`; and the train
 options below whose value differs from the plain step
 (`--sub-divisions`, `--grad-accum`, `--remat`, `--param-policy`,
 `--ema-decay`, `--sentinel`, `--distill`, `--device-augment`,
-`--fwd-dtype`). The JAX flags that only choose
+`--fwd-dtype`), and `--tier throughput` (its int8 inference is not
+ported). The JAX flags that only choose
 between a kernel and its XLA composition (`--use-pallas`, `--epilogue`,
 `--block-fuse`, `--loss-kernel`) and `--infer-dtype` have no field: the
 port has one path — the kernels, the fused loss among them (the JAX
 package's TPU default, `--loss-kernel fused`) — and the parser refuses
 those flags.
+
+Serving (ref config.py:181-210): the `--serve-*` fields configure the
+serving engine (`serving/engine.py`) that eval and the demo predict
+through. `--tier edge|quality` (ref config.py:59-85 `TIER_PRESETS`,
+:813 `apply_tier`) sets a named architecture + serving bundle, applied by
+the CLI before it dispatches; the tier wins over the individual flags.
 """
 
 from __future__ import annotations
@@ -31,6 +38,24 @@ import argparse
 import dataclasses
 from dataclasses import dataclass, field
 from typing import List, Optional
+
+# Latency-tier presets, the JAX package's (ref config.py:68-85): each
+# overrides the listed fields. Each tier's serve_buckets is its own
+# bucket set (one CUDA graph each in the engine).
+TIER_PRESETS = {
+    # latency first: ghost blocks at width 64, small buckets, no wait
+    "edge": dict(variant="ghost", num_stack=1, hourglass_inch=64,
+                 stem_width=64, increase_ch=0, serve_buckets=[1, 2, 4],
+                 serve_max_wait_ms=0.0),
+    # batch-16 goodput with int8 inference (not ported: Config refuses it)
+    "throughput": dict(variant="ghost", num_stack=1, hourglass_inch=96,
+                       stem_width=96, increase_ch=0, infer_dtype="int8",
+                       serve_buckets=[4, 8, 16]),
+    # accuracy first: the flagship with 2 stacks and soft-NMS
+    "quality": dict(variant="residual", num_stack=2, hourglass_inch=128,
+                    increase_ch=0, nms="soft-nms",
+                    serve_buckets=[1, 2, 4, 8, 16]),
+}
 
 
 @dataclass
@@ -99,6 +124,19 @@ class Config:
     nms: str = "nms"              # nms | soft-nms | maxpool
     fontsize: int = 10
 
+    # serving engine (serving/engine.py), the eval and demo predict path
+    serve_buckets: List[int] = field(
+        default_factory=lambda: [1, 2, 4, 8, 16])  # static batch sizes, one
+    # CUDA graph each; a batch takes the smallest bucket >= its size
+    serve_max_wait_ms: float = 5.0  # dispatch when the largest bucket
+    # fills or this long after the oldest queued request arrived
+    serve_depth: int = 2          # batches in flight (H2D, replay, D2H)
+    serve_queue: int = 128        # admission bound on queued requests
+    serve_max_retries: int = 2    # per-request retries after a failed or
+    # hung batch
+    serve_hang_timeout_ms: float = 0.0  # fetch watchdog; 0 disables
+    tier: str = ""                # "" | edge | quality (see TIER_PRESETS)
+
     # network
     variant: str = "residual"
     stem_width: int = 0
@@ -134,6 +172,33 @@ class Config:
         only("device-augment", self.device_augment, (False,))
         only("fwd-dtype", self.fwd_dtype, ("bf16",))
         only("optim", self.optim.lower(), ("adam", "adamw", "sgd"))
+        if self.tier and self.tier not in TIER_PRESETS:
+            raise ValueError("--tier must be '' or one of %s, got %r"
+                             % (sorted(TIER_PRESETS), self.tier))
+        if self.tier == "throughput":
+            raise NotImplementedError(
+                "--tier throughput needs int8 inference (--infer-dtype "
+                "int8), which is not ported yet (have --tier edge, quality)")
+        if not self.serve_buckets or any(int(b) < 1
+                                         for b in self.serve_buckets):
+            raise ValueError("--serve-buckets must be a non-empty list of "
+                             "positive batch sizes, got %r"
+                             % (self.serve_buckets,))
+        if self.serve_max_wait_ms < 0:
+            raise ValueError("--serve-max-wait-ms must be >= 0, got %r"
+                             % (self.serve_max_wait_ms,))
+        if self.serve_depth < 1:
+            raise ValueError("--serve-depth must be >= 1, got %d"
+                             % self.serve_depth)
+        if self.serve_queue < 1:
+            raise ValueError("--serve-queue must be >= 1, got %d"
+                             % self.serve_queue)
+        if self.serve_max_retries < 0:
+            raise ValueError("--serve-max-retries must be >= 0, got %d"
+                             % self.serve_max_retries)
+        if self.serve_hang_timeout_ms < 0:
+            raise ValueError("--serve-hang-timeout-ms must be >= 0, got %r"
+                             % (self.serve_hang_timeout_ms,))
         if self.scale_factor != 4:
             raise ValueError("--scale-factor must be 4: the stem's 4x "
                              "downsample is structural")
@@ -175,3 +240,28 @@ def build_parser() -> argparse.ArgumentParser:
 def parse_args(argv=None) -> Config:
     ns = vars(build_parser().parse_args(argv))
     return Config(**{f.name: ns[f.name] for f in dataclasses.fields(Config)})
+
+
+def apply_tier(cfg: Config) -> Config:
+    """Resolve `--tier` into its preset's fields (a no-op when unset); the
+    tier wins over individually passed architecture and serving flags
+    (ref config.py:813)."""
+    if not cfg.tier:
+        return cfg
+    over = TIER_PRESETS[cfg.tier]
+    print("--tier %s: %s" % (cfg.tier, over), flush=True)
+    return dataclasses.replace(cfg, **over)
+
+
+def tier_of(cfg) -> str:
+    """The tier whose architecture (variant, stacks, width) `cfg` has,
+    else "flagship" (residual, 1 stack, 128) or "custom"; serving fields
+    do not count (ref config.py:828)."""
+    arch = (cfg.variant, cfg.num_stack, cfg.hourglass_inch)
+    for name, over in TIER_PRESETS.items():
+        if arch == (over["variant"], over["num_stack"],
+                    over["hourglass_inch"]):
+            return name
+    if arch == ("residual", 1, 128):
+        return "flagship"
+    return "custom"

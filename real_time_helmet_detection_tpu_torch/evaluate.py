@@ -1,17 +1,21 @@
 """Test-split evaluation and the single-image demo for the PyTorch port.
 
 Port of ref real_time_helmet_detection_tpu/evaluate.py:121 `evaluate`
-and :453 `demo` (reference evaluate.py:15-97, 245-290), without the
-serving engine, mesh or multi-host paths:
+and :453 `demo` (reference evaluate.py:15-97, 245-290), through the
+serving engine as the JAX package's are (ref evaluate.py:236-300,
+:474-477), without its mesh or multi-host paths:
 
 * `load_eval_state` builds the model and fills it from an npz of the
   flax variable tree (`convert.py`), or seeds fresh weights from a
   `torch.Generator`;
-* `evaluate` runs plain batched predict over the test split, rescales
-  boxes to each image's original W x H from its VOC XML
-  (ref evaluate.py:209-234), writes per-image txt files and
+* `evaluate` submits every test image to a `ServingEngine` (buckets: the
+  `--serve-buckets` up to the batch size, and the batch size; depth
+  `--serve-depth`), consumes the head of its pending batches while later
+  ones are in flight, rescales boxes to each image's original W x H from
+  its VOC XML (ref evaluate.py:209-234), writes per-image txt files and
   `prediction_results.pickle`, and scores the VOC mAP;
-* `demo` runs one image end to end and saves the overlay as `image.png`.
+* `demo` serves one image through bucket (1,) with no wait and saves
+  the overlay as `image.png`.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import io
 import math
 import os
 import time
+from collections import deque
 from typing import Dict, Tuple
 
 import numpy as np
@@ -31,7 +36,9 @@ from .data.eval_loader import eval_batches
 from .data.voc import CLASS2COLOR, INDEX2CLASS, VOCDataset, boxes_from_voc_dict
 from .metrics import compute_map, write_detection_txt
 from .models.hourglass import PReLU, build_model, cast_convs
+from .obs.spans import maybe_tracer
 from .predict import make_predict_fn, resolve_device
+from .serving import ServingEngine, resolve_buckets
 from .utils import (AverageMeter, atomic_write_bytes, draw_box, imload,
                     save_pickle, timestamp, write_text)
 
@@ -85,6 +92,19 @@ def _origin_size(voc_dict: Dict) -> Tuple[int, int]:
     return int(size["width"]), int(size["height"])
 
 
+def serve_engine(cfg: Config, predict, imsize: int, image_dtype,
+                 buckets, max_wait_ms: float) -> ServingEngine:
+    """The serving engine eval and the demo predict through, with the
+    `--serve-*` depth, queue, retry and watchdog settings."""
+    return ServingEngine(
+        predict, None, (imsize, imsize, 3), image_dtype, buckets=buckets,
+        max_wait_ms=max_wait_ms, depth=cfg.serve_depth,
+        queue_capacity=cfg.serve_queue, tracer=maybe_tracer(),
+        max_retries=cfg.serve_max_retries,
+        hang_timeout_s=(cfg.serve_hang_timeout_ms / 1e3
+                        if cfg.serve_hang_timeout_ms > 0 else None))
+
+
 def evaluate(cfg: Config) -> Dict:
     """Test-split evaluation (≡ ref evaluate.py:15-97) + in-repo mAP.
     Returns `compute_map`'s dict plus host timing."""
@@ -99,42 +119,64 @@ def evaluate(cfg: Config) -> Dict:
     results: Dict[str, Dict] = {}
     gt_boxes: Dict[str, np.ndarray] = {}
     gt_labels: Dict[str, np.ndarray] = {}
-    meters = {k: AverageMeter() for k in ("data", "predict", "consume")}
+    # "submit": the engine's submit wall (it batches and dispatches in its
+    # own threads); "consume": the wait for the rows + the host's box
+    # rescale and txt writes
+    meters = {k: AverageMeter() for k in ("data", "submit", "consume")}
     n_batches = -(-len(dataset) // cfg.batch_size)
     seen = 0
-    tic = time.time()
-    for i, batch in enumerate(eval_batches(dataset, imsize, cfg.batch_size)):
-        meters["data"].update(time.time() - tic)
+
+    def consume_row(row, info):
+        nonlocal seen
+        image_id = os.path.splitext(
+            info["annotation"].get("filename") or "%06d" % seen)[0]
+        seen += 1
+        ow, oh = _origin_size(info)
+        keep = row.valid
+        # (imsize x imsize) -> original W x H (ref evaluate.py:100-112)
+        boxes = row.boxes[keep] * np.array(
+            [ow / imsize, oh / imsize, ow / imsize, oh / imsize],
+            np.float32)
+        classes, scores = row.classes[keep], row.scores[keep]
+        results[image_id] = {"box": boxes, "cls": classes, "score": scores}
+        write_detection_txt(txt_dir, image_id, boxes, classes, scores)
+        gt_boxes[image_id], gt_labels[image_id] = boxes_from_voc_dict(info)
+
+    def consume_batch(futs, infos):
         t0 = time.time()
-        dets = predict(batch.image)
-        rows = [t.cpu().numpy() for t in dets]  # waits for the device
-        meters["predict"].update(time.time() - t0)
-        t0 = time.time()
-        boxes_b, classes_b, scores_b, valid_b = rows
-        for j, info in enumerate(batch.infos):
-            image_id = os.path.splitext(
-                info["annotation"].get("filename") or "%06d" % seen)[0]
-            seen += 1
-            ow, oh = _origin_size(info)
-            keep = valid_b[j]
-            # (imsize x imsize) -> original W x H (ref evaluate.py:100-112)
-            boxes = boxes_b[j][keep] * np.array(
-                [ow / imsize, oh / imsize, ow / imsize, oh / imsize],
-                np.float32)
-            classes, scores = classes_b[j][keep], scores_b[j][keep]
-            results[image_id] = {"box": boxes, "cls": classes,
-                                 "score": scores}
-            write_detection_txt(txt_dir, image_id, boxes, classes, scores)
-            gt_boxes[image_id], gt_labels[image_id] = \
-                boxes_from_voc_dict(info)
+        for fut, info in zip(futs, infos):
+            consume_row(fut.result(), info)
         meters["consume"].update(time.time() - t0)
-        if i % max(1, cfg.print_interval // 10) == 0:
-            print("%s: eval iter %d/%d, data %.3fs predict %.3fs "
-                  "consume %.3fs" % (timestamp(), i, n_batches,
-                                     meters["data"].avg,
-                                     meters["predict"].avg,
-                                     meters["consume"].avg), flush=True)
+
+    # the last partial batch takes a smaller bucket: nothing is padded on
+    # the host and nothing is captured after the engine starts
+    buckets = tuple(sorted({b for b in resolve_buckets(cfg)
+                            if b <= cfg.batch_size} | {cfg.batch_size}))
+    pending: deque = deque()  # (futures, infos) per loader batch
+    with serve_engine(cfg, predict, imsize, np.uint8, buckets,
+                      cfg.serve_max_wait_ms) as engine:
         tic = time.time()
+        for i, batch in enumerate(eval_batches(dataset, imsize,
+                                               cfg.batch_size)):
+            meters["data"].update(time.time() - tic)
+            t0 = time.time()
+            futs = [engine.submit(img) for img in batch.image]
+            meters["submit"].update(time.time() - t0)
+            pending.append((futs, batch.infos))
+            # consume finished heads without blocking: the host's txt
+            # writes overlap the engine's pipeline
+            while len(pending) > 1 and all(f.done() for f in pending[0][0]):
+                consume_batch(*pending.popleft())
+            if i % max(1, cfg.print_interval // 10) == 0:
+                print("%s: eval iter %d/%d, data %.3fs submit %.3fs "
+                      "fetch+consume %.3fs" % (timestamp(), i, n_batches,
+                                               meters["data"].avg,
+                                               meters["submit"].avg,
+                                               meters["consume"].avg),
+                      flush=True)
+            tic = time.time()
+        while pending:
+            consume_batch(*pending.popleft())
 
     save_pickle(os.path.join(cfg.save_path, "prediction_results.pickle"),
                 results)
@@ -160,11 +202,12 @@ def demo(cfg: Config) -> Dict:
     imsize = int(cfg.imsize or 512)
     img, img_pil, origin_size = imload(cfg.data, cfg.pretrained, imsize)
     predict = make_predict_fn(model, cfg, device=dev)
-    dets = predict(img)
-    boxes_b, classes_b, scores_b, valid_b = (t.cpu().numpy() for t in dets)
-    keep = valid_b[0]
-    boxes = np.clip(boxes_b[0][keep], 0, imsize)  # clamp (ref :270)
-    classes, scores = classes_b[0][keep], scores_b[0][keep]
+    # one image through the engine's bucket (1,), the normalized wire
+    with serve_engine(cfg, predict, imsize, np.float32, (1,), 0.0) as engine:
+        row = engine.submit(img[0]).result()
+    keep = row.valid
+    boxes = np.clip(row.boxes[keep], 0, imsize)  # clamp (ref :270)
+    classes, scores = row.classes[keep], row.scores[keep]
     pil = img_pil.resize((imsize, imsize))
     rw, rh = origin_size[0] / imsize, origin_size[1] / imsize
     for box, c, s in zip(boxes, classes, scores):

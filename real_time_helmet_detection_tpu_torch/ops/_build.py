@@ -13,7 +13,13 @@ C interface, and binds them with `ctypes`:
   is never loaded and an unchanged one is never rebuilt. A library lands
   under its final name by `os.replace`, so a concurrent reader never sees
   a half-written file.
-* `build()` starts one `nvcc` per source, all at once, and waits for all.
+* `build()` starts one `nvcc` per source, all at once, and waits for all;
+  each writes a temporary file of its own (`tempfile.mkstemp` in the
+  build directory), so two threads or processes that build one library
+  at once never write the same file.
+* `load()` holds a module lock, so threads that reach one library at
+  first use (the serving engine's warm-up, its dispatcher, a caller)
+  build and open it once.
 * Every C entry returns `cudaGetLastError()`; `check()` raises on a
   non-zero code.
 
@@ -27,6 +33,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import threading
 from typing import Dict, Iterable, Optional
 
 from ..utils import atomic_write_bytes
@@ -71,6 +79,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -117,7 +126,9 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     procs = {}
     for name in todo:
         so = library_path(name)
-        tmp = "%s.tmp.%d" % (so, os.getpid())
+        fd, tmp = tempfile.mkstemp(prefix=os.path.basename(so) + ".",
+                                   suffix=".tmp", dir=BUILD_DIR)
+        os.close(fd)
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT), so, tmp)
@@ -146,16 +157,18 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `name`, built first if needed, with every
-    entry's argtypes/restype declared."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(library_path(name))
-        for fn, argtypes in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = list(argtypes)
-            getattr(lib, fn).restype = ctypes.c_int
-        _loaded[name] = lib
-    return lib
+    entry's argtypes/restype declared; one build and one open per
+    process, whichever threads ask."""
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(library_path(name))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+            _loaded[name] = lib
+        return lib
 
 
 def check(err: int, what: str) -> None:

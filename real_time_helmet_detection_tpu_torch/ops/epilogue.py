@@ -298,10 +298,15 @@ class BNEval(torch.autograd.Function):
 def bn_act_eval(x: torch.Tensor, eff_scale: torch.Tensor,
                 eff_bias: torch.Tensor, activation: str) -> torch.Tensor:
     """Eval-mode BatchNorm + activation, differentiable w.r.t. x,
-    eff_scale and eff_bias: `bn_act` forward, `bn_eval_bwd` backward."""
+    eff_scale and eff_bias: `bn_act` forward, `bn_eval_bwd` backward.
+    With grad mode off (`no_grad`, `inference_mode`: predict, the serving
+    engine's graphs) the forward runs alone, without the autograd
+    Function around it: the same kernel, the same bits."""
     check_activation(activation)
     check_layout("x", x)
     check_vectors(x, eff_scale=eff_scale, eff_bias=eff_bias)
+    if not torch.is_grad_enabled():
+        return bn_act(x, eff_scale, eff_bias, activation)
 
     def backward(x, a, b, g, skip):
         dx, da, db = bn_eval_bwd(x, a, b, g, activation)

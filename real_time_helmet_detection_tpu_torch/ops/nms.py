@@ -83,6 +83,9 @@ def soft_nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
     b, n = scores.shape
     iou = _iou_matrix(boxes, plus_one=plus_one)
     rows = torch.arange(b, device=scores.device)
+    # the mark written each round, on the device: a Python True would be
+    # a host-to-device copy per round, which a CUDA graph cannot hold
+    mark = torch.ones(b, dtype=torch.bool, device=scores.device)
     cur = scores.clone()
     processed = torch.zeros_like(valid)
     for _ in range(n):
@@ -95,7 +98,7 @@ def soft_nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
         decayed = torch.where(blocked, cur, cur * weight)
         decayed[rows, i] = cur[rows, i]  # the selected box keeps its score
         cur = torch.where(has_cand[:, None], decayed, cur)
-        processed[rows, i] = True
+        processed[rows, i] = mark
     return (cur > score_th) & valid, cur
 
 

@@ -118,11 +118,14 @@ def bn_add_act_eval(y: torch.Tensor, eff_scale: torch.Tensor,
                     activation: str) -> torch.Tensor:
     """Eval-mode residual tail, differentiable w.r.t. y, eff_scale,
     eff_bias and skip: `bn_add_act` forward, `bn_add_eval_bwd`
-    backward."""
+    backward. With grad mode off the forward runs alone, as in
+    `epilogue.bn_act_eval`."""
     check_activation(activation)
     check_layout("y", y)
     check_layout("skip", skip, like=y)
     check_vectors(y, eff_scale=eff_scale, eff_bias=eff_bias)
+    if not torch.is_grad_enabled():
+        return bn_add_act(y, eff_scale, eff_bias, skip, activation)
     return BNEval.apply(y, eff_scale, eff_bias, skip, EvalPasses(
         lambda y, a, b, skip: bn_add_act(y, a, b, skip, activation),
         lambda y, a, b, g, skip: bn_add_eval_bwd(y, a, b, skip, g,

@@ -12,11 +12,22 @@ maxpool NMS over an extent of `imsize or 512`, which keeps the scores.
 On CUDA the peak test is the hand-written kernel (`ops.peak`) and every
 BN of the network runs through the epilogue and residual-tail kernels;
 on the CPU the same calls run their plain versions.
+
+`make_predict_fn` returns a `Predict`: its `body` takes a device tensor
+and is what the serving engine captures; calling the `Predict` with host
+images is the one-shot path. A `BucketRunner` is one serving
+bucket of a body (the counterpart of the JAX engine's per-bucket AOT
+compile, ref serving/engine.py:365-370): on CUDA a static input, a
+warm-up on a side stream (kernel libraries loaded, cuDNN plans made,
+before any capture) and one `torch.cuda.CUDAGraph` of the body under
+`inference_mode`, replayed by `run()` into static outputs; on the CPU
+the same body, called eagerly.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import time
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -39,9 +50,25 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+class Predict:
+    """`predict(images) -> Detections`: host images (B, H, W, 3) copied to
+    `device`, then `body`. `body(x)` takes the images already on the
+    device; `model` and `device` are what the serving engine reads."""
+
+    def __init__(self, body: Callable[[torch.Tensor], Detections],
+                 model: torch.nn.Module, device: torch.device):
+        self.body = body
+        self.model = model
+        self.device = device
+
+    def __call__(self, images) -> Detections:
+        with torch.inference_mode():
+            return self.body(torch.as_tensor(images).to(self.device))
+
+
 def make_predict_fn(model: torch.nn.Module, cfg,
                     normalize: Optional[str] = None,
-                    device="cuda") -> Callable[..., Detections]:
+                    device="cuda") -> Predict:
     """Build `predict(images) -> Detections` for a model on `device`.
 
     images: (B, H, W, 3), either normalized float32 or, when `normalize`
@@ -71,9 +98,9 @@ def make_predict_fn(model: torch.nn.Module, cfg,
         torch.backends.cuda.matmul.allow_tf32 = False
     model = model.to(dev).eval()
 
-    @torch.inference_mode()
-    def predict(images) -> Detections:
-        x = torch.as_tensor(images).to(dev)
+    def body(x: torch.Tensor) -> Detections:
+        """The predict program on device images: no host sync, fixed
+        shapes, so a CUDA graph can hold all of it."""
         if normalize is not None:
             x = (x.to(torch.float32) / 255.0 - mean) / std
         out = model(x)                                   # (B, S, h, w, K)
@@ -100,4 +127,51 @@ def make_predict_fn(model: torch.nn.Module, cfg,
         return Detections(boxes=boxes, classes=classes, scores=scores,
                           valid=keep & valid)
 
-    return predict
+    return Predict(body, model, dev)
+
+
+class BucketRunner:
+    """One serving bucket: `input` is the static (batch, *image_shape)
+    tensor the caller fills, `run()` computes the body on it and returns
+    the Detections. On CUDA `run()` replays the captured graph on the
+    current stream and returns the static `outputs`, which the next
+    replay overwrites; on the CPU it calls the body. `build_s` is the
+    warm-up and capture wall time. On CUDA a failed capture raises."""
+
+    def __init__(self, predict: Predict, batch: int,
+                 image_shape: Sequence[int], dtype: torch.dtype):
+        dev = predict.device
+        self.body = predict.body
+        self.batch = int(batch)
+        self.input = torch.zeros((self.batch,) + tuple(image_shape),
+                                 dtype=dtype, device=dev)
+        self.graph = None
+        t0 = time.perf_counter()
+        if dev.type != "cuda":
+            self.outputs = self.run()  # shapes and dtypes for the caller
+            self.build_s = time.perf_counter() - t0
+            return
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side), torch.inference_mode():
+            for _ in range(2):  # cuDNN plans, kernel libraries, allocator
+                self.body(self.input)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        # keep_graph: the cudaGraph_t stays readable (node counts) after
+        # capture; instantiate() builds the executable now, not at the
+        # first replay. thread_local: another engine's threads may query
+        # their events while this thread captures.
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.inference_mode(), torch.cuda.graph(
+                self.graph, capture_error_mode="thread_local"):
+            self.outputs = self.body(self.input)
+        self.graph.instantiate()
+        torch.cuda.synchronize(dev)
+        self.build_s = time.perf_counter() - t0
+
+    def run(self) -> Detections:
+        if self.graph is None:
+            with torch.inference_mode():
+                return self.body(self.input)
+        self.graph.replay()
+        return self.outputs

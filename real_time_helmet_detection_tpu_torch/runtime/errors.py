@@ -1,0 +1,16 @@
+"""The error types of the port's fault injection.
+
+Port of ref real_time_helmet_detection_tpu/runtime/errors.py:40
+`InjectedBackendError`: the synthetic transient backend failure a
+`ChaosInjector` raises at an instrumented site. Its message carries the
+status prefix a real failure would (`UNAVAILABLE:`,
+`DEADLINE_EXCEEDED:`). The serving engine's own errors (`SheddedError`,
+`EngineClosedError`, `FetchHungError`) live in `serving/engine.py`, as
+they do in the JAX package.
+"""
+
+from __future__ import annotations
+
+
+class InjectedBackendError(RuntimeError):
+    """Synthetic transient backend failure raised by a ChaosInjector."""

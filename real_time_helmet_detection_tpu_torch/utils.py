@@ -12,6 +12,7 @@ from __future__ import annotations
 import json
 import os
 import pickle
+import threading
 import time
 from typing import Optional, Tuple
 
@@ -21,8 +22,10 @@ from PIL import Image, ImageDraw, ImageFont
 
 def atomic_write_bytes(path, data: bytes) -> None:
     """Write through a tmp file beside the target and `os.replace`: a kill
-    mid-write never leaves a truncated file where a complete one stood."""
-    tmp = "%s.tmp.%d" % (path, os.getpid())
+    mid-write never leaves a truncated file where a complete one stood.
+    The tmp name carries the pid and the thread, so concurrent writers of
+    one path never share it."""
+    tmp = "%s.tmp.%d.%d" % (path, os.getpid(), threading.get_ident())
     try:
         # the atomic-write implementation itself
         with open(tmp, "wb") as f:  # graftlint: off=raw-artifact-write

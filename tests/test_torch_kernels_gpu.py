@@ -549,3 +549,38 @@ def test_small_model_card_matches_cpu(cuda):
         torch.backends.cudnn.allow_tf32 = False
         got = model.to("cuda")(x.cuda()).cpu()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("nms", ["nms", "soft-nms", "maxpool"])
+def test_serving_engine_rows_bit_equal_to_eager(cuda, nms):
+    """The serving engine on the card (one CUDA graph per bucket, each
+    NMS mode inside it): each bucket's rows, served as one batch, equal
+    the eager predict at that batch size bit for bit; no bucket is
+    captured again."""
+    from real_time_helmet_detection_tpu_torch.config import Config
+    from real_time_helmet_detection_tpu_torch.evaluate import \
+        load_eval_state
+    from real_time_helmet_detection_tpu_torch.obs.metrics import \
+        MetricsRegistry
+    from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
+    from real_time_helmet_detection_tpu_torch.serving import ServingEngine
+    cfg = Config(imsize=64, hourglass_inch=32, topk=16, nms=nms)
+    model = load_eval_state(cfg)
+    for m in model.modules():  # BN scales below 1: O(1) logits
+        if hasattr(m, "folded"):
+            m.weight.data.fill_(0.4)
+    predict = make_predict_fn(model, cfg, normalize="imagenet")
+    images = np.random.default_rng(0).integers(0, 256, (4, 64, 64, 3),
+                                               dtype=np.uint8)
+    with ServingEngine(predict, None, (64, 64, 3), np.uint8,
+                       buckets=(1, 2, 4), max_wait_ms=20.0,
+                       metrics=MetricsRegistry()) as engine:
+        for b in (1, 2, 4):
+            futs = [engine.submit(img) for img in images[:b]]
+            rows = [f.result(timeout=60) for f in futs]
+            assert all(f.bucket == b for f in futs)
+            want = [t.cpu().numpy() for t in predict(images[:b])]
+            for i, row in enumerate(rows):
+                assert all(np.array_equal(got, leaf[i])
+                           for got, leaf in zip(row, want))
+        assert engine.stats()["bucket_builds"] == 3
