@@ -124,22 +124,45 @@ version on the card:
    share of a saturated window, peak memory; then `--tier edge` and
    `--tier quality` (bf16, through `apply_tier`): captures, launches, rows,
    images/s at the largest bucket and bucket-1 latency;
-19. a torch.profiler trace (CUDA activity) of a predict and of a train
+19. qkernels: the int8 kernels (#14 the dense 1x1/3x3 int8 conv, #15
+   the depthwise one, #16 the activation quantizer; no Pallas
+   counterpart) against their plain versions at every int8 conv site of
+   the throughput tier and the flagship at b16 512^2 (the int32 sums and
+   the f32/bf16 ReLU/Linear outputs bit-equal), at odd shapes, on the
+   quantizer's ties, +-inf, saturation and NaN (0, JAX-CPU's value), and
+   the wrappers' refusals (misaligned, not channels-last, other
+   geometry);
+20. qtiming: their time at the throughput tier's largest sites and the
+   flagship's largest 3x3 beside the bound, the plain version and
+   `torch._int_mm` (the library's int32 sums alone);
+21. int8: `--infer-dtype int8` predicts at b16 512^2 for the throughput
+   tier and the flagship, bf16 and f32: scales calibrated on the card,
+   launches as derived (`qconv_sites`; the peak test once, no BN
+   kernel), logits bit-equal and Detections identical to the plain
+   twin, peak memory, images/s against the float model and the int8 vs
+   float agreement (a record);
+22. serve_int8: `--tier throughput` through the engine (buckets 4/8/16)
+   with an SLO watchdog: one graph per bucket, replay launches, rows
+   bit-equal to eager, a closed loop of 64 clients and open loops at 50%
+   and 90% of its rate (p50/p99, alerts), a reload of weights and scales
+   with no capture, and eval at the tier through the engine against
+   eager int8 predicts;
+23. a torch.profiler trace (CUDA activity) of a predict and of a train
    step: device time by kernel group and the idle share against the
    untraced walls of phases 5 and 11, and the train step's phases by
    CUDA events;
-20. the eval CLI end to end (through the serving engine) on a synthetic
+24. the eval CLI end to end (through the serving engine) on a synthetic
    VOC fixture (32 images at 512^2, batch 16, --amp) to a printed mAP,
    txt files and pickle, the mAP within 1e-3 of eager predicts' over the
    same fixture;
-21. train_cli: `--train-flag` for one epoch on a 32-image 512^2 fixture,
+25. train_cli: `--train-flag` for one epoch on a 32-image 512^2 fixture,
    then the eval CLI on the weights it wrote.
 
 `--phases variants` (or any comma-separated subset; `identity` always
 runs) runs phases alone. Any failure exits non-zero. Each phase prints
 its wall time. The last
 three lines are the card's name and power limit, one JSON object of
-per-kernel numbers (all 13 TPU kernels), and
+per-kernel numbers (all 13 TPU kernels and the int8 kernels #14-#16), and
 {"ok": true, "device": {...}}.
 """
 
@@ -163,8 +186,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PHASES = ("identity", "build", "kernels", "timing", "main", "states",
           "train_kernels", "train_timing", "loss_kernels", "loss_timing",
           "train_main", "eval_grad", "eval_timing", "variants",
-          "variants_small", "variants_train", "nms", "serve", "profile",
-          "cli", "train_cli")
+          "variants_small", "variants_train", "nms", "serve", "qkernels",
+          "qtiming", "int8", "serve_int8", "profile", "cli", "train_cli")
 
 
 class SmokeFailure(RuntimeError):
@@ -301,8 +324,12 @@ def swapped(swaps, value=None):
 def plain_kernels():
     """Every kernel wrapper of the paths swapped for its plain version."""
     from real_time_helmet_detection_tpu_torch.ops import (epilogue, loss,
-                                                          peak, residual)
+                                                          peak, qconv,
+                                                          residual)
     return swapped([
+        (qconv, "quantize_act", qconv.quantize_act_reference),
+        (qconv, "conv_dense", qconv.conv_dense_reference),
+        (qconv, "conv_dw", qconv.conv_dw_reference),
         (loss, "loss_sums", loss.loss_sums_reference),
         (loss, "loss_sums_bwd", loss.loss_sums_bwd_reference),
         (epilogue, "bn_eval_bwd", epilogue.bn_eval_bwd_reference),
@@ -362,6 +389,9 @@ COUNTERS = {
     "loss_bwd": ("loss", "bwd_launches"),
     "loss_bwd_vec": ("loss", "bwd_vector_launches"),
     "loss_bwd_scalar": ("loss", "bwd_scalar_launches"),
+    "quantize_act": ("qconv", "quant_launches"),
+    "qconv_dense": ("qconv", "dense_launches"),
+    "qconv_dw": ("qconv", "dw_launches"),
 }
 
 
@@ -428,20 +458,61 @@ def bn_sites(cfg):
     return epi, tail
 
 
+def qconv_sites(cfg):
+    """(dense int8 convs, depthwise int8 convs) of one forward of cfg's
+    int8 twin, derived from the architecture (ref models/hourglass.py:
+    500-561, :825-828): every BN'd conv but the stem is a QuantConv; a
+    residual block is two dense 3x3, a depthwise block two depthwise 3x3
+    and two pointwise 1x1, a ghost block two ghost modules of a 1x1 and a
+    depthwise 3x3 each, + the 1x1 projection where the width changes; the
+    neck conv is a 1x1."""
+    dense = dw = 0
+
+    def residual(cin, cout):
+        nonlocal dense, dw
+        dense += 2 + (cin != cout)
+        dw += 0 if cfg.variant == "residual" else 2
+
+    def hourglass(n, c):
+        m = c + cfg.increase_ch
+        residual(c, c)
+        residual(c, m)
+        if n > 1:
+            hourglass(n - 1, m)
+        else:
+            residual(m, m)
+        residual(m, c)
+
+    width, mid = cfg.hourglass_inch, cfg.stem_width or 128
+    for cin, cout in ((64, mid), (mid, mid), (mid, width)):
+        residual(cin, cout)
+    for _ in range(cfg.num_stack):
+        hourglass(4, width)
+        dense += 1  # the neck conv
+        residual(width, width)
+    return dense, dw
+
+
 def expected_launches(cfg, path, dtype):
     """Every launch counter after one predict ("predict"), one train step
     ("train") or one eval-mode loss + backward ("eval_grad") of cfg's
     model at cfg.imsize with activations of `dtype`: bn_sites' counts, the
     epilogue's variant per site from `bn_act_variant` (fresh, aligned
     tensors), the peak test once and the loss kernels once each way, each
-    on the variant its shape takes."""
+    on the variant its shape takes. An int8 predict (`cfg.infer_dtype`)
+    runs no BN kernel: the quantizer and an int8 conv at each of
+    `qconv_sites`, and the peak test."""
     import torch
     from real_time_helmet_detection_tpu_torch.ops import epilogue, loss, peak
     epi, tail = bn_sites(cfg)
     vec = sum(epilogue.bn_act_variant(c, dtype) == "vector" for c in epi)
     want = dict.fromkeys(COUNTERS, 0)
-    want.update(bn_act=len(epi), bn_act_vec=vec,
-                bn_act_scalar=len(epi) - vec, bn_add_act=len(tail))
+    if getattr(cfg, "infer_dtype", "bf16") == "int8":
+        dense, dw = qconv_sites(cfg)
+        want.update(quantize_act=dense + dw, qconv_dense=dense, qconv_dw=dw)
+    else:
+        want.update(bn_act=len(epi), bn_act_vec=vec,
+                    bn_act_scalar=len(epi) - vec, bn_add_act=len(tail))
     side = cfg.imsize // (2 if cfg.pool in ("SPP", "None") else 4)
     k = cfg.num_cls + 4
     if path == "predict":
@@ -464,7 +535,7 @@ def expected_launches(cfg, path, dtype):
 def _ops():
     from real_time_helmet_detection_tpu_torch import ops
     from real_time_helmet_detection_tpu_torch.ops import (  # noqa: F401
-        epilogue, loss, peak, residual)
+        epilogue, loss, peak, qconv, residual)
     return ops
 
 
@@ -2331,7 +2402,10 @@ TRACE_KERNELS = (("bn_act_vec_kernel", "bn_act_vec"),
                  ("bn_bwd_sums_kernel", "bn_bwd_sums"),
                  ("bn_bwd_dx_kernel", "bn_bwd_dx"),
                  ("loss_fwd_kernel", "loss_fwd"),
-                 ("loss_bwd", "loss_bwd"))
+                 ("loss_bwd", "loss_bwd"),
+                 ("qconv_dense_kernel", "qconv_dense"),
+                 ("qconv_dw_kernel", "qconv_dw"),
+                 ("quantize_kernel", "quantize_act"))
 
 
 def graph_nodes(graph):
@@ -2348,12 +2422,19 @@ def graph_nodes(graph):
     return int(count.value) if err == 0 else None
 
 
-def replay_launches(runner):
+def replay_launches(runner, attempts=3):
     """Our kernels' launches in one replay of a bucket's graph, counted by
     kernel name in a torch.profiler trace of it, as launch counters
-    (bn_act = vector + scalar, peak_scores = vector + scalar)."""
-    names = {}
-    trace_device_ms(lambda i: runner.graph.replay(), reps=1, counts=names)
+    (bn_act = vector + scalar, peak_scores = vector + scalar). A trace
+    that holds no device kernel at all missed the replay (the profiler
+    has done so) and is taken again, up to `attempts` times; the counts
+    of a trace that saw the replay are what the caller checks."""
+    for _ in range(attempts):
+        names = {}
+        trace_device_ms(lambda i: runner.graph.replay(), reps=1,
+                        counts=names)
+        if names:
+            break
     got = {}
     for name, n in names.items():
         hit = next((c for key, c in TRACE_KERNELS if key in name), None)
@@ -2412,36 +2493,21 @@ def serve_group(engine, images):
     return rows
 
 
-def closed_loop(engine, images, seconds, outstanding=64):
-    """Images/s of a saturated closed loop: `outstanding` requests in
-    flight, one submitted as each completes, for about `seconds`."""
-    import collections
-    queued = collections.deque()
-    i = 0
-    while len(queued) < outstanding:
-        queued.append(engine.submit(images[i % len(images)]))
-        i += 1
-    t0 = time.perf_counter()
-    done = 0
-    while time.perf_counter() - t0 < seconds:
-        queued.popleft().result(timeout=120)
-        done += 1
-        queued.append(engine.submit(images[i % len(images)]))
-        i += 1
-    elapsed = time.perf_counter() - t0
-    for f in queued:
-        f.result(timeout=120)
-    return done / elapsed
+def closed_loop(engine, images, seconds, clients=64):
+    """Images/s of a saturated closed loop (`serving.loadgen.closed_loop`):
+    `clients` clients, each submitting its next request as its last
+    completes, for about `seconds`."""
+    from real_time_helmet_detection_tpu_torch.serving import loadgen
+    return loadgen.closed_loop(engine, images, clients,
+                               seconds)["goodput_rps"]
 
 
-def serial_latency_ms(engine, images, n):
-    """Latency (ms, submit to result) of n requests sent one at a time."""
-    out = []
-    for i in range(n):
-        f = engine.submit(images[i % len(images)])
-        f.result(timeout=120)
-        out.append(1e3 * (f.t_done - f.t_submit))
-    return out
+def serial_latency_ms(engine, images, seconds):
+    """(p50, p99) latency in ms, submit to result, of a serial stream: one
+    client of `serving.loadgen.closed_loop` for about `seconds`."""
+    from real_time_helmet_detection_tpu_torch.serving import loadgen
+    r = loadgen.closed_loop(engine, images, 1, seconds)
+    return r["p50_ms"], r["p99_ms"]
 
 
 def serve_engine(predict, images, buckets, **kw):
@@ -2627,10 +2693,9 @@ def serve_config(label, cfg, images, seed, full):
     # (g) the serial bucket-1 stream, no wait
     with serve_engine(predict, images, (1,), max_wait_ms=0.0,
                       depth=2) as one:
-        serial_latency_ms(one, images, 5)
-        lat = np.array(serial_latency_ms(one, images, 100 if full else 40))
-    rec["p50_ms"] = float(np.percentile(lat, 50))
-    rec["p99_ms"] = float(np.percentile(lat, 99))
+        serial_latency_ms(one, images, 0.2)
+        rec["p50_ms"], rec["p99_ms"] = serial_latency_ms(
+            one, images, 1.5 if full else 0.6)
     del model, predict
     torch.cuda.empty_cache()
     return rec
@@ -2704,6 +2769,752 @@ def phase_serve(state):
                     "not measured (no device time)" if rec["idle"] is None
                     else "%.1f%%" % (100 * rec["idle"]), rec["busy_ms"],
                     rec["traced_ms"]))
+
+
+# ----------------------------------------------------- int8 (#14 - #16)
+
+# the configurations of the int8 phases, at b16 512^2: the JAX package's
+# throughput tier (ghost blocks at width 96, stem width 96, int8
+# inference, buckets 4/8/16; ref config.py:77-80) and the flagship with
+# --infer-dtype int8
+INT8_CONFIGS = ("throughput", "flagship-int8")
+# dense int8 tensor-core peak of the H100 SXM (data sheet); the depthwise
+# conv and the quantizer run on the CUDA cores: 64 INT32 lanes an SM, half
+# the 128 FP32 lanes behind the data sheet's 67 TFLOP/s
+INT8_OPS_PER_S = 1979e12
+INT32_OPS_PER_S = 33.5e12
+# the deadline of the served throughput tier's open loops and of the SLO
+# watchdog's latency-burn rule: a tenth of a second
+SERVE_DEADLINE_MS = 100.0
+
+
+def int8_cfg(name, amp):
+    """The port's Config of one of INT8_CONFIGS (bf16 under --amp)."""
+    from real_time_helmet_detection_tpu_torch.config import (Config,
+                                                             apply_tier)
+    if name == "throughput":
+        return apply_tier(Config(tier="throughput", batch_size=16,
+                                 imsize=512, amp=amp))
+    return Config(batch_size=16, imsize=512, amp=amp, infer_dtype="int8")
+
+
+def int8_predict(cfg, seed, scales=None):
+    """(float model, activation scales, int8 predict) of cfg's
+    architecture with seeded weights and BN state (`perturb_bn`): the
+    scales calibrated on the card over two seeded b16 batches of raw
+    pixels unless given."""
+    from real_time_helmet_detection_tpu_torch.evaluate import load_eval_state
+    from real_time_helmet_detection_tpu_torch.ops import quant
+    from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
+    model = perturb_bn(load_eval_state(cfg), seed=seed)
+    if scales is None:
+        scales = quant.calibrate_scales(
+            cfg, model.state_dict(), quant.synthetic_calibration_batches(
+                16, cfg.imsize, n=2, raw=True, seed=seed),
+            dtype=model.dtype, normalize="imagenet")
+    return model, scales, make_predict_fn(model, cfg, normalize="imagenet",
+                                          quant_scales=scales)
+
+
+def int8_sites(cfg):
+    """{(kind, input shape, out channels, k): calls} of one b16 forward of
+    cfg's int8 twin on the card, kind dense | dw, recorded from its
+    QuantConvs (random weights; the shapes are what matter)."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.models.hourglass import \
+        QuantConv
+    from real_time_helmet_detection_tpu_torch.ops import quant
+    dtype = torch.bfloat16 if cfg.amp else None
+    twin = quant.make_quant_model(cfg, dtype=dtype, mode="int8")
+    twin = twin.cuda().eval()
+    sites = {}
+
+    def hook(mod, args, _out):
+        key = ("dw" if mod.depthwise else "dense", tuple(args[0].shape),
+               mod.weight.shape[0], mod.k)
+        sites[key] = sites.get(key, 0) + 1
+    handles = [m.register_forward_hook(hook) for m in twin.modules()
+               if isinstance(m, QuantConv)]
+    x = torch.zeros((16, cfg.imsize, cfg.imsize, 3), device="cuda")
+    with torch.inference_mode():
+        twin(x)
+    for h in handles:
+        h.remove()
+    del twin
+    return sites
+
+
+def qconv_operands(kind, shape, cout, k, gen):
+    """Seeded int8 input and weights and float32 (mult, bias) of one int8
+    conv site."""
+    import torch
+    n, c, h, w = shape
+    q = channels_last(torch.randint(-127, 128, shape, generator=gen,
+                                    device="cuda", dtype=torch.int8))
+    wshape = (9, c) if kind == "dw" else (cout, k, k, c)
+    wq = torch.randint(-127, 128, wshape, generator=gen, device="cuda",
+                       dtype=torch.int8)
+    mult = torch.rand((cout,), generator=gen, device="cuda") * 1e-3 + 1e-5
+    bias = torch.randn((cout,), generator=gen, device="cuda")
+    return q, wq, mult, bias
+
+
+def qconv_case(kind, shape, cout, k, gen, errs, label):
+    """One int8 conv site against its plain version: the int32 sums
+    bit-equal, then the float32 and bfloat16 outputs with ReLU and
+    Linear bit-equal (the plain rescale of the plain sums). Returns the
+    number of comparisons."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    q, wq, mult, bias = qconv_operands(kind, shape, cout, k, gen)
+    conv = qconv.conv_dw if kind == "dw" else qconv.conv_dense
+    ref = (qconv.conv_dw_reference if kind == "dw"
+           else qconv.conv_dense_reference)
+    acc = ref(q, wq, mult, bias, torch.int32, "Linear")
+    errs[(kind, "i32", label)] = compare(
+        "%s int32 %s" % (kind, label),
+        conv(q, wq, mult, bias, torch.int32, "Linear"), acc, "equal")
+    n = 1
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for act in ("ReLU", "Linear"):
+            want = qconv.rescale_reference(acc, mult, bias, dtype, act)
+            errs[(kind, tag, act, label)] = compare(
+                "%s %s %s %s" % (kind, tag, act, label),
+                conv(q, wq, mult, bias, dtype, act), want, "equal")
+            n += 1
+    return n
+
+
+def quant_case(x, step, errs, label):
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    errs[("quantize_act", label)] = compare(
+        "quantize_act %s" % (label,), qconv.quantize_act(x, step),
+        qconv.quantize_act_reference(x, step), "equal")
+    return 1
+
+
+# off the main path: (N, Cin, H, W, Cout, k) for the dense conv: a Cin of
+# 16 and 48 (a half-filled 32-byte K step), 144 (two K stages: 128 + 16),
+# 256, a Cout of 8 and a ragged last block of 64 channels (72, 136, 200),
+# pixel counts that are no multiple of 128, a 1x1 image; (N, C, H, W) for
+# the depthwise conv; odd element counts for the quantizer
+QDENSE_ODD = [(1, 16, 5, 7, 8, 1), (3, 48, 9, 13, 24, 3),
+              (2, 144, 11, 6, 72, 3), (1, 256, 3, 3, 136, 1),
+              (2, 32, 1, 1, 8, 3), (5, 16, 17, 19, 200, 3)]
+QDW_ODD = [(1, 8, 5, 7), (3, 24, 9, 13), (2, 136, 11, 6), (1, 8, 1, 1)]
+QUANT_ODD = [(3, 5, 7, 9), (1, 3, 1, 1), (2, 16, 9, 13)]
+# what JAX-CPU's int8 quantizer gives for NaN input (tests/
+# test_torch_quant.py holds the port's plain version to it)
+JAX_NAN_TO_INT8 = 0
+
+
+def phase_qkernels(state):
+    """The int8 kernels (#14 - #16) against their plain versions on the
+    card: at every int8 site of a b16 512^2 forward of the throughput tier
+    and the flagship (bf16), the int32 sums and the f32 and bf16
+    ReLU/Linear outputs bit-equal, the quantizer bit-equal in f32 and
+    bf16; then off the main path (QDENSE_ODD, QDW_ODD, QUANT_ODD); the
+    quantizer's ties at .5, +-inf (clipped to +-127), saturation and NaN
+    (0, JAX-CPU's value); and the wrappers' refusals (a misaligned
+    pointer, a layout that is not channels-last, a Cin the dense kernel
+    does not take)."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    errs = state.setdefault("qerrs", {})
+    n = 0
+    all_sites = {}
+    for name in INT8_CONFIGS:
+        sites = int8_sites(int8_cfg(name, amp=True))
+        state.setdefault("int8_sites", {})[name] = sites
+        all_sites.update(sites)
+    quant_shapes = set()
+    for (kind, shape, cout, k), _calls in sorted(all_sites.items()):
+        n += qconv_case(kind, shape, cout, k, gen, errs, (shape, cout, k))
+        quant_shapes.add(shape)
+    for shape in sorted(quant_shapes):
+        step = torch.rand((), generator=gen, device="cuda") * 0.05 + 0.01
+        for dtype in (torch.float32, torch.bfloat16):
+            x = channels_last(rand(shape, dtype, gen, 2.0))
+            n += quant_case(x, step, errs, (shape, str(dtype)))
+    for nb, cin, h, w, cout, k in QDENSE_ODD:
+        n += qconv_case("dense", (nb, cin, h, w), cout, k, gen, errs,
+                        ("odd", nb, cin, h, w, cout, k))
+    for shape in QDW_ODD:
+        n += qconv_case("dw", shape, shape[1], 3, gen, errs, ("odd",) + shape)
+    for shape in QUANT_ODD:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = channels_last(rand(shape, dtype, gen, 3.0))
+            n += quant_case(x, torch.tensor(0.0173, device="cuda"), errs,
+                            ("odd", shape, str(dtype)))
+    # ties at .5 (a power-of-two step: x / step exact), +-inf, saturation,
+    # NaN
+    step = torch.tensor(0.25, device="cuda")
+    ties = (torch.arange(-130, 130, device="cuda", dtype=torch.float32)
+            + 0.5) * 0.25
+    special = torch.tensor([float("inf"), float("-inf"), float("nan"), 1e30,
+                            -1e30, 31.75, -31.75, 0.125, -0.125],
+                           device="cuda")
+    flat = torch.cat([ties, special])
+    x = flat.view(1, 1, 1, -1).permute(0, 3, 1, 2)
+    x = channels_last(x)
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = channels_last(x.to(dtype))
+        n += quant_case(xd, step, errs, ("special", str(dtype)))
+    got = qconv.quantize_act(x, step).reshape(-1).cpu().tolist()
+    t = ties.cpu().tolist()
+    want_ties = [max(-127, min(127, round(v / 0.25))) for v in t]
+    require(got[:len(t)] == want_ties, "quantize_act: ties at .5 do not "
+            "round half to even or do not saturate at +-127")
+    inf, ninf, nan, big, nbig, hi, lo, half, nhalf = got[len(t):]
+    require((inf, ninf, nan, big, nbig, hi, lo, half, nhalf)
+            == (127, -127, JAX_NAN_TO_INT8, 127, -127, 127, -127, 0, 0),
+            "quantize_act special values: +inf %d, -inf %d, NaN %d, "
+            "+-1e30 %d %d, +-127 %d %d, +-0.5 %d %d" % (
+                inf, ninf, nan, big, nbig, hi, lo, half, nhalf))
+    # the refusals: no fallback to the plain version on the card
+    q, wq, mult, bias = qconv_operands("dense", (2, 32, 8, 8), 16, 3, gen)
+    base = torch.randint(-127, 128, (2 * 32 * 8 * 8 + 1,), generator=gen,
+                         device="cuda", dtype=torch.int8)
+    misaligned_q = base[1:].view(2, 8, 8, 32).permute(0, 3, 1, 2)
+    refused = {}
+    for label, fn in (
+            ("misaligned", lambda: qconv.conv_dense(
+                misaligned_q, wq, mult, bias, torch.float32)),
+            ("not channels-last", lambda: qconv.conv_dense(
+                q.contiguous(), wq, mult, bias, torch.float32)),
+            ("Cin 24", lambda: qconv.conv_dense(
+                q[:, :24].contiguous(memory_format=torch.channels_last),
+                wq[..., :24].contiguous(), mult, bias, torch.float32)),
+            ("5x5", lambda: qconv.conv_dense(
+                q, torch.zeros((16, 5, 5, 32), dtype=torch.int8,
+                               device="cuda"), mult, bias, torch.float32)),
+            ("quantize misaligned", lambda: qconv.quantize_act(
+                rand((17,), torch.float32, gen)[1:].view(1, 1, 1, 16),
+                step))):
+        try:
+            fn()
+            refused[label] = False
+        except ValueError:
+            refused[label] = True
+    require(all(refused.values()), "wrappers did not refuse: %s"
+            % [k for k, v in refused.items() if not v])
+    state["qkernels"] = dict(n=n, sites=len(all_sites))
+    log("qkernels: %d comparisons bit-equal against the plain versions: "
+        "the int32 sums and the f32/bf16 ReLU/Linear outputs at all %d "
+        "int8 conv sites of the throughput tier and the flagship at b16 "
+        "512^2 and at %d odd shapes, the quantizer at every site input, "
+        "odd counts, ties at .5 (half to even), +-inf and +-1e30 (+-127) "
+        "and NaN (%d, JAX-CPU's value); refused: %s"
+        % (n, len(all_sites), len(QDENSE_ODD) + len(QDW_ODD),
+           JAX_NAN_TO_INT8, ", ".join(refused)))
+
+
+def im2col_int8(q, k):
+    """(N*H*W, k*k*C) int8 rows of a channels-last int8 input, taps in
+    (ky, kx) order, zero padding k // 2: the library yardstick's input."""
+    import torch
+    import torch.nn.functional as F
+    n, c, h, w = q.shape
+    p = k // 2
+    x = F.pad(q.permute(0, 2, 3, 1), (0, 0, p, p, p, p))
+    taps = [x[:, dy:dy + h, dx:dx + w, :] for dy in range(k)
+            for dx in range(k)]
+    return torch.cat(taps, dim=3).reshape(n * h * w, k * k * c)
+
+
+def qconv_timing(kind, shape, cout, k, gen):
+    """Graph-replay ms of one int8 conv site, bf16 out, Linear: the
+    kernel, the plain version, and for a dense conv the library's int32
+    sums alone (`torch._int_mm` on the input rows, an im2col for 3x3,
+    built outside the timing); the bound and what bounds it; whether the
+    library's sums equal the kernel's."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    q, wq, mult, bias = qconv_operands(kind, shape, cout, k, gen)
+    n, c, h, w = shape
+    m = n * h * w
+    if kind == "dw":
+        fn = lambda: qconv.conv_dw(q, wq, mult, bias, torch.bfloat16)  # noqa
+        ref = lambda: qconv.conv_dw_reference(  # noqa: E731
+            q, wq, mult, bias, torch.bfloat16, "Linear")
+        ops, peak = 2.0 * m * c * 9, INT32_OPS_PER_S
+        lib_ms, lib_equal = None, None
+    else:
+        fn = lambda: qconv.conv_dense(q, wq, mult, bias,  # noqa: E731
+                                      torch.bfloat16)
+        ref = lambda: qconv.conv_dense_reference(  # noqa: E731
+            q, wq, mult, bias, torch.bfloat16, "Linear")
+        ops, peak = 2.0 * m * c * k * k * cout, INT8_OPS_PER_S
+        rows = (q.permute(0, 2, 3, 1).reshape(m, c) if k == 1
+                else im2col_int8(q, k))
+        w2d = wq.reshape(cout, -1)
+        lib_ms = graph_ms(lambda: torch._int_mm(rows, w2d.t()))
+        acc = qconv.conv_dense(q, wq, mult, bias, torch.int32)
+        lib_equal = bool(torch.equal(
+            torch._int_mm(rows, w2d.t()),
+            acc.permute(0, 2, 3, 1).reshape(m, cout)))
+        del rows, acc
+    nbytes = q.numel() + wq.numel() + m * cout * 2
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / peak * 1e3
+    return dict(ms=graph_ms(fn), eager_ms=eager_ms(fn),
+                plain_ms=graph_ms(ref, calls=2, replays=2),
+                library_ms=lib_ms, library_equal=lib_equal,
+                bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bytes_ms=by_bytes, ops_ms=by_ops, shape=shape, cout=cout,
+                k=k)
+
+
+def site_bytes_of(site):
+    kind, (n, c, h, w), cout, k = site
+    return n * h * w * (c + 2 * cout)
+
+
+def phase_qtiming(state):
+    """The int8 kernels' device time by CUDA graph replay (CUDA events),
+    bf16, at the throughput tier's largest sites (by bytes) of each
+    kind, the flagship's largest dense 3x3 site and the quantizer at the
+    throughput tier's largest conv input, beside the bound (the larger of
+    bytes / 3.35 TB/s and operations / the peak of their type), the plain
+    version and, for the dense conv, `torch._int_mm` on the same int8
+    rows (the library's int32 sums alone, no rescale)."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = state.setdefault("qtiming", {})
+    tp = state["int8_sites"]["throughput"]
+    fl = state["int8_sites"]["flagship-int8"]
+    dense = max((s for s in tp if s[0] == "dense"), key=site_bytes_of)
+    dw = max((s for s in tp if s[0] == "dw"), key=site_bytes_of)
+    dense3 = max((s for s in fl if s[0] == "dense" and s[3] == 3),
+                 key=lambda s: s[1][0] * s[1][2] * s[1][3] * s[1][1] * s[2])
+    rows["qconv_dense"] = qconv_timing(*dense, gen)
+    rows["qconv_dense_3x3"] = qconv_timing(*dense3, gen)
+    rows["qconv_dw"] = qconv_timing(*dw, gen)
+    shape = max((s[1] for s in tp), key=lambda s: math.prod(s))
+    x = channels_last(rand(shape, torch.bfloat16, gen, 2.0))
+    step = torch.tensor(0.02, device="cuda")
+    nbytes = x.numel() * 3
+    rows["quantize_act"] = dict(
+        ms=graph_ms(lambda: qconv.quantize_act(x, step)),
+        eager_ms=eager_ms(lambda: qconv.quantize_act(x, step)),
+        plain_ms=graph_ms(lambda: qconv.quantize_act_reference(x, step)),
+        library_ms=None, library_equal=None,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        shape=shape)
+    del x
+    torch.cuda.empty_cache()
+    log("qtiming (ms per call, bf16, CUDA graph replay; eager = issued "
+        "from Python; library = torch._int_mm's int32 sums alone):")
+    for key, r in rows.items():
+        log("  %-16s kernel %.4f (eager %.4f)  plain %.4f  library %s%s  "
+            "bound %.4f (%s)  at %s%s" % (
+                key, r["ms"], r["eager_ms"], r["plain_ms"],
+                "%.4f" % r["library_ms"] if r["library_ms"] is not None
+                else "none",
+                "" if r["library_equal"] is None else
+                " (sums equal the kernel's: %s)" % r["library_equal"],
+                r["bound_ms"], r["bound_by"], r["shape"],
+                " -> %d, k %d" % (r["cout"], r["k"]) if "cout" in r
+                else ""))
+
+
+def paired_rates(predicts, images, windows=3, window_s=1.0):
+    """Images/s of each named predict in alternating windows of about
+    `window_s` (at least 3 predicts each): {name: per-window rates}."""
+    import torch
+
+    def one_window(fn, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(images)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    per = {k: max(3, int(window_s / (one_window(fn, 2) / 2)))
+           for k, fn in predicts.items()}
+    out = {k: [] for k in predicts}
+    for _ in range(windows):
+        for k, fn in predicts.items():
+            out[k].append(len(images) * per[k] / one_window(fn, per[k]))
+    return out
+
+
+def loose_matches(a, b, min_score=0.1):
+    """(detections >= min_score of `a` with one in `b` of the same class,
+    IoU >= 0.5 and |score difference| <= 0.05, detections checked)."""
+    import numpy as np
+    a = [t.cpu().numpy() for t in a]
+    b = [t.cpu().numpy() for t in b]
+    hit = checked = 0
+    for i in range(a[0].shape[0]):
+        sel = b[3][i]
+        bb, bc, bs = b[0][i][sel], b[1][i][sel], b[2][i][sel]
+        for box, c, s, v in zip(a[0][i], a[1][i], a[2][i], a[3][i]):
+            if not v or s < min_score:
+                continue
+            checked += 1
+            hit += bool(((bc == c) & (np.abs(bs - s) <= 0.05)
+                         & (box_iou(box, bb) >= 0.5)).any())
+    return hit, checked
+
+
+def int8_vs_float(dets_q, dets_f, twin, fmodel, images):
+    """How far the int8 predict is from the float model of the same
+    weights (a record): heat logits and their sigmoid scores, and the
+    detections under phase main's rule and a loose one."""
+    import torch
+    lq, lf = served_logits(twin, images[:4]), served_logits(fmodel, images[:4])
+    num_cls = lq.shape[-1] - 4
+    hq, hf = lq[..., :num_cls].float(), lf[..., :num_cls].float()
+    d = (hq - hf).abs()
+    sd = (torch.sigmoid(hq) - torch.sigmoid(hf)).abs()
+    n_a, miss_a = match_misses(dets_q, dets_f)
+    n_b, miss_b = match_misses(dets_f, dets_q)
+    return dict(heat_max=float(d.max()),
+                heat_rel=float(d.max() / hf.abs().max()),
+                score_max=float(sd.max()), score_mean=float(sd.mean()),
+                strict=(n_a - len(miss_a), n_a, n_b - len(miss_b), n_b),
+                loose=loose_matches(dets_q, dets_f)
+                + loose_matches(dets_f, dets_q))
+
+
+# kernel-name groups of the int8 and float predicts' device time
+INT8_TRACE = ("quantize_kernel", "qconv_dense_kernel", "qconv_dw_kernel",
+              "peak_kernel")
+FLOAT_TRACE = ("bn_act_vec_kernel", "bn_add_act_kernel", "peak_kernel")
+
+
+def predict_profile(predict, images, ips, kernels):
+    """Device ms of one b16 predict by group (a profiler trace of 3),
+    against the untraced wall of `ips` images/s: busy, wall, idle share,
+    groups."""
+    by_name, _ = trace_device_ms(lambda i: predict(images), reps=3)
+    busy = sum(by_name.values())
+    wall = 1e3 * len(images) / ips
+    return dict(busy=busy, wall=wall,
+                idle=max(0.0, 1 - busy / wall) if busy else None,
+                groups=group_device_ms(by_name, kernels))
+
+
+def phase_int8(state):
+    """The int8 predict (`--infer-dtype int8`) at b16 512^2 for
+    INT8_CONFIGS, bf16 and f32: scales calibrated on the card, launch
+    counts per predict against `expected_launches` (the quantizer and an
+    int8 conv at each of `qconv_sites`, the peak test once, no BN kernel),
+    logits bit-equal and Detections identical against the same twin with
+    every kernel swapped for its plain version, finite logits of the
+    expected shape, peak memory; in bf16 also images/s against the float
+    model of the same architecture and weights in alternating windows and
+    the int8-vs-float agreement of detections >= 0.1 (a record)."""
+    import numpy as np
+    import torch
+    from real_time_helmet_detection_tpu_torch.evaluate import load_eval_state
+    from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
+    images = np.random.default_rng(0).integers(
+        0, 256, (16, 512, 512, 3), dtype=np.uint8)
+    out = state.setdefault("int8", {})
+    for name in INT8_CONFIGS:
+        for amp in (True, False):
+            tag = "bf16" if amp else "f32"
+            label = "int8 %s %s" % (name, tag)
+            cfg = int8_cfg(name, amp)
+            dtype = torch.bfloat16 if amp else torch.float32
+            t0 = time.perf_counter()
+            model, scales, predict = int8_predict(cfg, seed=3)
+            calib_s = time.perf_counter() - t0
+            predict(images)
+            torch.cuda.synchronize()
+            reset_counts()
+            dets = predict(images)  # THE run the counts read
+            torch.cuda.synchronize()
+            counts = read_counts()
+            want = expected_launches(cfg, "predict", dtype)
+            require(counts == want, "%s launches per predict %s, want %s"
+                    % (label, {k: v for k, v in counts.items() if v},
+                       {k: v for k, v in want.items() if v}))
+            state.setdefault("launches", {})[label] = counts
+            lk, lp = full_batch_logits(predict.model, images)
+            side = cfg.imsize // 4
+            require(bool(torch.isfinite(lk).all()) and tuple(lk.shape) == (
+                16, cfg.num_stack, side, side, cfg.num_cls + 4),
+                "%s logits malformed: %s" % (label, tuple(lk.shape)))
+            with plain_kernels():
+                dets_plain = predict(images)
+            bit_equal = bool(torch.equal(lk, lp))
+            identical = all(torch.equal(a, b)
+                            for a, b in zip(dets, dets_plain))
+            require(bit_equal and identical, "%s kernels vs plain: logits "
+                    "bit-equal %s (max abs err %g), Detections identical "
+                    "%s" % (label, bit_equal, float((lk - lp).abs().max()),
+                            identical))
+            del lk, lp
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            predict(images)
+            torch.cuda.synchronize()
+            rec = dict(counts=counts, calib_s=calib_s,
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       valid=int(dets.valid.sum()))
+            if amp:
+                fcfg = dataclasses.replace(cfg, infer_dtype="bf16")
+                fmodel = perturb_bn(load_eval_state(fcfg), seed=3)
+                fpredict = make_predict_fn(fmodel, fcfg, normalize="imagenet")
+                rec["agree"] = int8_vs_float(dets, fpredict(images),
+                                             predict.model, fmodel, images)
+                rates = paired_rates({"int8": predict, "float": fpredict},
+                                     images)
+                rec["rates"] = rates
+                rec["profile"] = {
+                    path: predict_profile(fn, images, np.median(rates[path]),
+                                          kernels)
+                    for path, fn, kernels in (
+                        ("int8", predict, INT8_TRACE),
+                        ("float", fpredict, FLOAT_TRACE))}
+                del fmodel, fpredict
+            out[label] = rec
+            log("%s: calibrated + built in %.1f s; launches per predict "
+                "%s; logits bit-equal and Detections identical to the "
+                "plain twin; %d valid after NMS; peak memory %.2f GB"
+                % (label, calib_s, {k: v for k, v in counts.items() if v},
+                   rec["valid"], rec["peak_gb"]))
+            if amp:
+                r = rec["rates"]
+                a = rec["agree"]
+                log("%s: images/s b16 512^2 int8 median %.1f (%s) vs the "
+                    "float model %.1f (%s); int8 vs float (a record): "
+                    "heat logits max |diff| %.4g (%.4g of the float's max "
+                    "|logit|), scores max |diff| %.4g, mean %.4g; "
+                    "detections >= 0.1 matched under phase main's rule %d "
+                    "of %d / %d of %d, with the same class, IoU >= 0.5 and "
+                    "|score diff| <= 0.05 %d of %d / %d of %d" % (
+                        label, float(np.median(r["int8"])),
+                        ", ".join("%.1f" % v for v in r["int8"]),
+                        float(np.median(r["float"])),
+                        ", ".join("%.1f" % v for v in r["float"]),
+                        a["heat_max"], a["heat_rel"], a["score_max"],
+                        a["score_mean"], *a["strict"], *a["loose"]))
+                for path, pr in rec["profile"].items():
+                    log("%s: %s predict device time (profiler, ms per b16 "
+                        "predict) %.3f of an untraced %.3f ms: idle share "
+                        "%s; by group %s" % (
+                            label, path, pr["busy"], pr["wall"],
+                            "not measured (no device time)"
+                            if pr["idle"] is None
+                            else "%.1f%%" % (100 * pr["idle"]),
+                            ", ".join("%s %.3f" % kv
+                                      for kv in pr["groups"].items())))
+            del model, predict
+            torch.cuda.empty_cache()
+
+
+def phase_serve_int8(state):
+    """`--tier throughput` through the serving engine (bf16, buckets
+    4/8/16, 20 ms max wait, depth 2) with an SLO watchdog
+    (`default_serving_rules`, the deadline SERVE_DEADLINE_MS): one graph
+    per bucket and none after construction, each bucket's replay launches
+    from a profiler trace against `expected_launches`, rows bit-equal to
+    the eager int8 predict at each bucket's batch size; a closed loop of
+    64 clients (`serving.loadgen`), then open loops of seeded Poisson
+    arrivals at 50% and 90% of its rate with that deadline: p50/p99,
+    on-time, shed, lost and the watchdog's alerts of each; a hot reload
+    of other weights and rescaled activation scales (storages kept, no
+    capture, rows equal to a fresh engine's on them); then the eval of a
+    16-image fixture at `--tier throughput` (calibration on its first
+    batch, through the engine) against eager int8 predicts with the
+    scales it saved."""
+    import numpy as np
+    import torch
+    from real_time_helmet_detection_tpu_torch.evaluate import load_eval_state
+    from real_time_helmet_detection_tpu_torch.obs.metrics import \
+        MetricsRegistry
+    from real_time_helmet_detection_tpu_torch.obs.slo import (
+        SloWatchdog, default_serving_rules)
+    from real_time_helmet_detection_tpu_torch.obs.spans import SpanTracer
+    from real_time_helmet_detection_tpu_torch.serving import (
+        ServingEngine, loadgen, resolve_buckets)
+    images = np.random.default_rng(0).integers(
+        0, 256, (16, 512, 512, 3), dtype=np.uint8)
+    cfg = int8_cfg("throughput", amp=True)
+    buckets = resolve_buckets(cfg)
+    require(buckets == (4, 8, 16), "throughput tier buckets %s" % (buckets,))
+    model, scales, predict = int8_predict(cfg, seed=3)
+    reg = MetricsRegistry()
+    wd = SloWatchdog(default_serving_rules(deadline_ms=SERVE_DEADLINE_MS),
+                     registry=reg)
+
+    t0 = time.perf_counter()
+    engine = ServingEngine(predict, None, images.shape[1:], np.uint8,
+                           buckets=buckets, max_wait_ms=20.0, depth=2,
+                           tracer=SpanTracer(None), metrics=reg, watchdog=wd)
+    rec = dict(build_s=time.perf_counter() - t0, buckets={})
+    want = want_replay(cfg, torch.bfloat16)
+    for b in buckets:
+        got = replay_launches(engine.runners[b])
+        got = {k: got.get(k, 0) for k in want}
+        require(got == want, "serve_int8 bucket %d: launches per replay %s, "
+                "want %s" % (b, got, want))
+        rows = serve_group(engine, images[:b])
+        eager = [tuple(t[i].cpu().numpy() for t in predict(images[:b]))
+                 for i in range(b)]
+        same = [rows_equal(r, e) for r, e in zip(rows, eager)]
+        require(all(same), "serve_int8 bucket %d: %d of %d rows differ from "
+                "the eager int8 predict" % (b, same.count(False), b))
+        rec["buckets"][b] = dict(capture_s=engine.runners[b].build_s,
+                                 nodes=graph_nodes(engine.runners[b].graph))
+    rec["launches"] = want
+    closed = loadgen.closed_loop(engine, images, 64, 2.0)
+    closed["alerts"] = [a["rule"] for a in wd.alerts]
+    rec["closed"] = closed
+    rec["open"] = {}
+    for share in (0.5, 0.9):
+        rate = share * closed["goodput_rps"]
+        sched = loadgen.arrival_schedule(rate, 3.0, seed=int(share * 100))
+        n_alerts = len(wd.alerts)
+        r = loadgen.open_loop(engine, images, sched, 3.0,
+                              SERVE_DEADLINE_MS / 1e3, rate)
+        r["alerts"] = [a["rule"] for a in wd.alerts[n_alerts:]]
+        r["state"] = engine.state
+        rec["open"][share] = r
+    by_name, traced = trace_device_ms(
+        lambda i: loadgen.closed_loop(engine, images, 64, 0.5), reps=1)
+    busy = sum(by_name.values())
+    rec["idle"] = max(0.0, 1 - busy / traced) if busy else None
+    rec["busy_ms"], rec["traced_ms"] = busy, traced
+    health = engine.health()
+    require("alerts" in health and engine.stats()["failed"] == 0,
+            "serve_int8: health %s, stats %s" % (sorted(health),
+                                                 engine.stats()))
+    # hot reload: other weights and rescaled clip ranges, into the same
+    # storages
+    twin = predict.model
+    ptrs = [t.data_ptr() for t in list(twin.parameters())
+            + list(twin.buffers())]
+    before = serve_group(engine, images[:16])
+    fresh = perturb_bn(load_eval_state(cfg), seed=5)
+    scales2 = scale_tree(scales, 1.25)
+    engine.reload(fresh.state_dict(), scales=scales2)
+    after = serve_group(engine, images[:16])
+    from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
+    with serve_engine(make_predict_fn(fresh, cfg, normalize="imagenet",
+                                      quant_scales=scales2), images, (16,),
+                      max_wait_ms=20.0, depth=2) as other:
+        want_rows = serve_group(other, images[:16])
+    kept = ptrs == [t.data_ptr() for t in list(twin.parameters())
+                    + list(twin.buffers())]
+    changed = sum(not rows_equal(a, b) for a, b in zip(after, before))
+    require(kept and changed > 0
+            and all(rows_equal(a, b) for a, b in zip(after, want_rows))
+            and engine.stats()["bucket_builds"] == len(buckets),
+            "serve_int8 reload: storages kept %s, rows changed %d, rows "
+            "equal to a fresh engine's %s, bucket builds %d" % (
+                kept, changed,
+                [rows_equal(a, b) for a, b in zip(after, want_rows)],
+                engine.stats()["bucket_builds"]))
+    rec["reload"] = dict(changed=changed)
+    engine.close()
+    rec["eval"] = int8_eval(cfg)
+    state["serve_int8"] = rec
+    log("serve_int8 (--tier throughput, bf16): engine built in %.2f s; "
+        "per bucket capture s / graph nodes: %s; launches per replay "
+        "(profiler, every bucket) %s; rows bit-equal to the eager int8 "
+        "predict at each batch size" % (
+            rec["build_s"], ", ".join(
+                "b%d %.3f / %s" % (b, r["capture_s"], r["nodes"])
+                for b, r in rec["buckets"].items()),
+            {k: v for k, v in want.items() if v}))
+    log("serve_int8: closed loop (64 clients, %.1f s) %.1f img/s, p50 "
+        "%.3f ms, p99 %.3f ms; alerts %s; idle share of a saturated window "
+        "%s (device busy %.2f ms of a traced %.2f ms)" % (
+            closed["duration_s"], closed["goodput_rps"], closed["p50_ms"],
+            closed["p99_ms"], closed["alerts"] or "none",
+            "not measured (no device time)" if rec["idle"] is None
+            else "%.1f%%" % (100 * rec["idle"]), rec["busy_ms"],
+            rec["traced_ms"]))
+    for share, r in rec["open"].items():
+        log("serve_int8: open loop at %d%% (%.1f req/s offered, %d "
+            "arrivals, deadline %.0f ms): goodput %.1f img/s, p50 %s ms, "
+            "p99 %s ms, on time %d, late %d, shed %d, lost %d; alerts %s; "
+            "state %s" % (100 * share, r["offered_rps"], r["n"],
+                          r["deadline_ms"], r["goodput_rps"], r["p50_ms"],
+                          r["p99_ms"], r["ontime"], r["late"], r["shed"],
+                          r["lost"], r["alerts"] or "none", r["state"]))
+    e = rec["eval"]
+    log("serve_int8: reload of other weights and x1.25 scales kept every "
+        "storage, %d of 16 rows changed, all equal to a fresh engine's; "
+        "eval --tier throughput on 16 images: mAP %.4f through the engine, "
+        "calibration saved (sha256 %s), all %d detections equal to eager "
+        "int8 predicts with the saved scales"
+        % (changed, e["map"], e["sha256"][:12], e["detections"]))
+
+
+def scale_tree(tree, factor):
+    """A copy of a scales tree with every leaf times `factor`."""
+    import numpy as np
+    if isinstance(tree, dict):
+        return {k: scale_tree(v, factor) for k, v in tree.items()}
+    return np.float32(np.float32(tree) * np.float32(factor))
+
+
+def int8_eval(cfg):
+    """`evaluate` of a 16-image 512^2 fixture at cfg (calibrating on its
+    first batch, persisting the scales, predicting through the engine),
+    against eager int8 predicts of the same weights with the saved
+    scales: every image's detections equal."""
+    import json as json_mod
+    import pickle
+
+    import numpy as np
+    from real_time_helmet_detection_tpu_torch.data.synthetic import \
+        make_synthetic_voc
+    from real_time_helmet_detection_tpu_torch.evaluate import (
+        evaluate, load_eval_state)
+    from real_time_helmet_detection_tpu_torch.ops.quant import load_scales
+    from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
+    from real_time_helmet_detection_tpu_torch.data.eval_loader import \
+        eval_batches
+    from real_time_helmet_detection_tpu_torch.data.voc import VOCDataset
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        root = make_synthetic_voc(os.path.join(tmp, "voc"), num_train=0,
+                                  num_test=16, imsize=(512, 512), seed=0)
+        out = os.path.join(tmp, "out")
+        ecfg = dataclasses.replace(cfg, data=root, save_path=out,
+                                   calib_batches=1, serve_max_wait_ms=50.0,
+                                   print_interval=1000)
+        m = evaluate(ecfg)
+        path = os.path.join(out, "calibration", "quant_scales.json")
+        require(os.path.exists(path) and math.isfinite(m["map"]),
+                "int8 eval: scales %s, mAP %s" % (os.path.exists(path),
+                                                  m["map"]))
+        with open(path) as f:
+            digest = json_mod.load(f)["sha256"]
+        predict = make_predict_fn(load_eval_state(ecfg), ecfg,
+                                  normalize="imagenet",
+                                  quant_scales=load_scales(path))
+        with open(os.path.join(out, "prediction_results.pickle"), "rb") as f:
+            got = pickle.load(f)
+        n_det, same = 0, True
+        t = ecfg.imsize
+        for batch in eval_batches(VOCDataset(root, image_set="test"), t, 16):
+            b, c, s, v = (x.cpu().numpy() for x in predict(batch.image))
+            for j, info in enumerate(batch.infos):
+                key = os.path.splitext(info["annotation"]["filename"])[0]
+                size = info["annotation"]["size"]
+                ow, oh = int(size["width"]), int(size["height"])
+                scale = np.array([ow / t, oh / t, ow / t, oh / t],
+                                 np.float32)
+                row = (b[j][v[j]] * scale, c[j][v[j]], s[j][v[j]])
+                n_det += len(row[2])
+                same &= all(np.array_equal(x, y) for x, y in zip(
+                    (got[key]["box"], got[key]["cls"], got[key]["score"]),
+                    row))
+        require(same, "int8 eval through the engine: detections differ "
+                "from eager int8 predicts with the saved scales")
+        return dict(map=m["map"], sha256=digest, detections=n_det)
 
 
 # cuDNN's convolution kernels: implicit GEMMs (fprop, dgrad, wgrad), FFT
@@ -3028,15 +3839,17 @@ def kernel_rows(state):
     the flagship's f32 output), the comparison's max abs error there,
     and the launches of the kernel's main path — predict for the eval
     forward kernels, one train step for the train kernels and the loss,
-    one eval-mode backward for the eval backward kernels."""
+    one eval-mode backward for the eval backward kernels; then the int8
+    kernels #14 - #16 (no Pallas counterpart) at the throughput tier's
+    largest sites, launches from its bf16 int8 predict."""
     errs, timing = state["errs"], state["timing"]
     terrs, ttiming = state["train_errs"], state["train_timing"]
+    src = "real_time_helmet_detection_tpu_torch/csrc/%s.cu"
     eerrs, etiming = state["eval_errs"], state["eval_timing"]
     lerrs, ltiming = state["loss_errs"], state["loss_timing"]
     launches = state["launches"]
     predict, train = launches["bf16"], launches["train"]
     eval_grad = launches["eval_grad_bf16"]
-    src = "real_time_helmet_detection_tpu_torch/csrc/%s.cu"
     pallas = "real_time_helmet_detection_tpu/ops/pallas/"
     fwd = (timing[("bn_act", "bf16", "ReLU")],
            errs[("bn_act", "bf16", "ReLU", BIG)])
@@ -3102,6 +3915,35 @@ def kernel_rows(state):
                             scalar_ms=t["scalar_ms"])
         if name == "peak_scores":  # the bytes the logits' layout forces
             rows[-1]["forced_bound_ms"] = t["forced_ms"]
+    # the int8 kernels, which have no Pallas counterpart: their main path
+    # is the throughput tier's bf16 int8 predict
+    qt, qe = state["qtiming"], state["qerrs"]
+    int8 = launches["int8 throughput bf16"]
+    xla = "real_time_helmet_detection_tpu/"
+    for row, name, replaces in (
+            (14, "qconv_dense", xla + "models/hourglass.py:287 QuantConv "
+             "int8 conv (XLA; no Pallas kernel)"),
+            (15, "qconv_dw", xla + "models/hourglass.py:287 QuantConv int8 "
+             "conv, groups = C (XLA; no Pallas kernel)"),
+            (16, "quantize_act", xla + "ops/quant.py:167 "
+             "quantize_activations (XLA; no Pallas kernel)")):
+        t = qt[name]
+        kind = {"qconv_dense": "dense", "qconv_dw": "dw"}.get(name)
+        err = max(v for k, v in qe.items()
+                  if (k[0] == kind if kind else k[0] == "quantize_act"))
+        rows.append({
+            "name": name, "route": "cuda", "source": src % "qconv",
+            "replaces": replaces, "launches": int8[name],
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "table_row": row,
+            "shape": list(t["shape"])})
+        if name == "qconv_dense":
+            f = qt["qconv_dense_3x3"]
+            rows[-1].update(ms_3x3=f["ms"], bound_ms_3x3=f["bound_ms"],
+                            bound_by_3x3=f["bound_by"],
+                            library_ms_3x3=f["library_ms"],
+                            shape_3x3=list(f["shape"]))
     return rows
 
 

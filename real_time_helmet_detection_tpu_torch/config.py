@@ -6,7 +6,7 @@ config.py:139-169), with the same names and defaults, plus `--device`.
 Field name -> CLI flag: underscores become dashes; list fields take
 several values (`--multiscale 320 512 64`).
 
-Every architecture option of the JAX model but int8 is built
+Every architecture option of the JAX model is built
 (`--variant residual|depthwise|ghost`, `--activation` and
 `--neck-activation` ReLU|LReLU|PReLU|Linear|Mish|Sigmoid|CELU, `--pool
 Max|Avg|Conv|SPP|None`, `--neck-pool None|SPP`, `--stem-s2d`), and every
@@ -17,19 +17,25 @@ model is built (models/hourglass.py); any other `--nms`; and the train
 options below whose value differs from the plain step
 (`--sub-divisions`, `--grad-accum`, `--remat`, `--param-policy`,
 `--ema-decay`, `--sentinel`, `--distill`, `--device-augment`,
-`--fwd-dtype`), and `--tier throughput` (its int8 inference is not
-ported). The JAX flags that only choose
+`--fwd-dtype`). The JAX flags that only choose
 between a kernel and its XLA composition (`--use-pallas`, `--epilogue`,
-`--block-fuse`, `--loss-kernel`) and `--infer-dtype` have no field: the
-port has one path — the kernels, the fused loss among them (the JAX
-package's TPU default, `--loss-kernel fused`) — and the parser refuses
-those flags.
+`--block-fuse`, `--loss-kernel`) have no field: the port has one path —
+the kernels, the fused loss among them (the JAX package's TPU default,
+`--loss-kernel fused`) — and the parser refuses those flags.
+
+Inference precision (ref config.py:168-179): `--infer-dtype int8` runs
+eval and the demo on the BN-folded, post-training-quantized twin
+(`ops/quant.py`, the int8 conv kernels of `ops/qconv.py`), with the
+activation scales of `--quant-scales` or calibrated on the first
+`--calib-batches` eval batches (`--calib-percentile` < 100 clips to that
+percentile of |x|). Training stays float and refuses it.
 
 Serving (ref config.py:181-210): the `--serve-*` fields configure the
 serving engine (`serving/engine.py`) that eval and the demo predict
-through. `--tier edge|quality` (ref config.py:59-85 `TIER_PRESETS`,
+through. `--tier edge|throughput|quality` (ref config.py:59-85 `TIER_PRESETS`,
 :813 `apply_tier`) sets a named architecture + serving bundle, applied by
 the CLI before it dispatches; the tier wins over the individual flags.
+The throughput tier sets `infer_dtype="int8"`.
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ TIER_PRESETS = {
     "edge": dict(variant="ghost", num_stack=1, hourglass_inch=64,
                  stem_width=64, increase_ch=0, serve_buckets=[1, 2, 4],
                  serve_max_wait_ms=0.0),
-    # batch-16 goodput with int8 inference (not ported: Config refuses it)
+    # batch-16 goodput with int8 inference
     "throughput": dict(variant="ghost", num_stack=1, hourglass_inch=96,
                        stem_width=96, increase_ch=0, infer_dtype="int8",
                        serve_buckets=[4, 8, 16]),
@@ -123,6 +129,15 @@ class Config:
     # (train) a port checkpoint to resume
     nms: str = "nms"              # nms | soft-nms | maxpool
     fontsize: int = 10
+    infer_dtype: str = "bf16"     # eval/demo numeric path: "bf16" = the
+    # float model (compute dtype from --amp); "int8" = the BN-folded,
+    # post-training-quantized twin (ops/quant.py). Training refuses int8.
+    quant_scales: Optional[str] = None  # a saved activation-scales
+    # artifact (ops.quant.save_scales); unset = calibrate on the first
+    # --calib-batches eval batches and save one
+    calib_batches: int = 4        # calibration batches when no --quant-scales
+    calib_percentile: float = 100.0  # activation clip statistic: 100 =
+    # abs-max, < 100 = that upper percentile of |x|
 
     # serving engine (serving/engine.py), the eval and demo predict path
     serve_buckets: List[int] = field(
@@ -135,7 +150,8 @@ class Config:
     serve_max_retries: int = 2    # per-request retries after a failed or
     # hung batch
     serve_hang_timeout_ms: float = 0.0  # fetch watchdog; 0 disables
-    tier: str = ""                # "" | edge | quality (see TIER_PRESETS)
+    tier: str = ""                # "" | edge | throughput | quality (see
+    # TIER_PRESETS)
 
     # network
     variant: str = "residual"
@@ -175,10 +191,21 @@ class Config:
         if self.tier and self.tier not in TIER_PRESETS:
             raise ValueError("--tier must be '' or one of %s, got %r"
                              % (sorted(TIER_PRESETS), self.tier))
-        if self.tier == "throughput":
+        if self.infer_dtype not in ("bf16", "int8"):
+            raise ValueError("--infer-dtype must be 'bf16' or 'int8', "
+                             "got %r" % (self.infer_dtype,))
+        if self.calib_batches < 1:
+            raise ValueError("--calib-batches must be >= 1, got %d"
+                             % self.calib_batches)
+        if not 0.0 < self.calib_percentile <= 100.0:
+            raise ValueError("--calib-percentile must be in (0, 100], "
+                             "got %r" % (self.calib_percentile,))
+        if self.train_flag and self.infer_dtype == "int8":
             raise NotImplementedError(
-                "--tier throughput needs int8 inference (--infer-dtype "
-                "int8), which is not ported yet (have --tier edge, quality)")
+                "--infer-dtype int8 (also set by --tier throughput) is an "
+                "eval/demo path: training stays float. Train the "
+                "architecture with --variant/--hourglass-inch/--stem-width "
+                "and evaluate it with --infer-dtype int8")
         if not self.serve_buckets or any(int(b) < 1
                                          for b in self.serve_buckets):
             raise ValueError("--serve-buckets must be a non-empty list of "

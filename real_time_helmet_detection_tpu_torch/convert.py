@@ -16,6 +16,14 @@ flax module path maps one to one onto a torch state-dict key:
 Grouped kernels take the same transpose: the depthwise HWIO (k, k, 1, C)
 becomes OIHW (C, 1, k, k).
 
+The int8 twin (`models/hourglass.py` `QuantConv`, JAX's `fold_bn=True,
+quant_mode=...` model) maps the same way: a folded params tree (the
+output of either package's `fold_batchnorm`: each `Conv_0` a kernel and
+a bias, no BatchNorm) fills its `Conv_0.weight`/`bias`, and the `quant`
+collection of calibrated clip ranges fills its buffers:
+
+    quant/.../Conv_0/act_scale  (shape ())  -> .../Conv_0.act_scale
+
 Flax keeps the biased batch variance; eval uses it as is.
 `state_dict_to_flax` is the inverse, so a port checkpoint also writes
 the flax-shaped npz that `--model-load` reads.
@@ -44,7 +52,9 @@ _LEAF = {
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
     ("params", "negative_slope"): "negative_slope",
+    ("quant", "act_scale"): "act_scale",
 }
+COLLECTIONS = ("params", "batch_stats", "quant")
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -72,10 +82,11 @@ def unflatten_tree(flat: Mapping[str, np.ndarray]) -> Dict:
 
 
 def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """{"params": ..., "batch_stats": ...} nested numpy dicts -> a torch
-    state dict (float32 tensors) for the port's `StackedHourglass`."""
+    """{"params": ..., "batch_stats": ..., "quant": ...} nested numpy
+    dicts (any of them) -> a torch state dict (float32 tensors) for the
+    port's `StackedHourglass` or its twins."""
     state: Dict[str, torch.Tensor] = {}
-    for collection in ("params", "batch_stats"):
+    for collection in COLLECTIONS:
         for path, value in flatten_tree(variables.get(collection, {})).items():
             *modules, leaf = path.split("/")
             name = _LEAF.get((collection, leaf))
@@ -100,7 +111,8 @@ def state_dict_to_flax(state: Mapping[str, torch.Tensor]) -> Dict:
     """The inverse bridge: a state dict of the port's `StackedHourglass`
     -> {"params": ..., "batch_stats": ...} nested float32 numpy dicts
     under the flax module paths (OIHW -> HWIO), the tree `save_npz`
-    writes and `flax_to_state_dict` reads back."""
+    writes and `flax_to_state_dict` reads back; a twin's clip ranges go
+    to "quant"."""
     inverse = {name: key for key, name in _LEAF.items()}
     flat: Dict[str, np.ndarray] = {}
     for key, value in state.items():
@@ -110,7 +122,7 @@ def state_dict_to_flax(state: Mapping[str, torch.Tensor]) -> Dict:
             leaf = ("params", "kernel") if arr.ndim == 4 else \
                 ("params", "scale")
         elif name in ("bias", "running_mean", "running_var",
-                      "negative_slope"):
+                      "negative_slope", "act_scale"):
             leaf = inverse[name]
         else:
             raise KeyError("no flax counterpart for state-dict entry %s"

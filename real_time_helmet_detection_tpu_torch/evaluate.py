@@ -16,6 +16,13 @@ serving engine as the JAX package's are (ref evaluate.py:236-300,
   `prediction_results.pickle`, and scores the VOC mAP;
 * `demo` serves one image through bucket (1,) with no wait and saves
   the overlay as `image.png`.
+
+`--infer-dtype int8` (ref evaluate.py:69-118, :182-194, :460-470) serves
+the int8 twin: its activation scales come from `--quant-scales`, or from
+a calibration pass over the first `--calib-batches` eval batches (raw
+uint8, a short last batch padded to `--batch-size`, normalized on the
+device) that is saved to `<save_path>/calibration/quant_scales.json`
+with its sha256 printed; the demo calibrates on its own image.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from .data.voc import CLASS2COLOR, INDEX2CLASS, VOCDataset, boxes_from_voc_dict
 from .metrics import compute_map, write_detection_txt
 from .models.hourglass import PReLU, build_model, cast_convs
 from .obs.spans import maybe_tracer
+from .ops.quant import calibrate_scales, load_scales, save_scales
 from .predict import make_predict_fn, resolve_device
 from .serving import ServingEngine, resolve_buckets
 from .utils import (AverageMeter, atomic_write_bytes, draw_box, imload,
@@ -66,7 +74,8 @@ def init_weights(model: torch.nn.Module, seed: int) -> torch.nn.Module:
 def load_eval_state(cfg: Config, device=None) -> torch.nn.Module:
     """The eval model on its device (≡ ref evaluate.py:42-60): weights from
     `cfg.model_load` (npz) or seeded from `cfg.random_seed`; under --amp
-    the conv weights are cast to bf16 once."""
+    the conv weights are cast to bf16 once, except for --infer-dtype int8,
+    whose twin folds the float32 weights."""
     dev = resolve_device(cfg.device if device is None else device)
     dtype = torch.bfloat16 if cfg.amp else None
     model = build_model(cfg, dtype=dtype)
@@ -82,9 +91,47 @@ def load_eval_state(cfg: Config, device=None) -> torch.nn.Module:
     else:
         init_weights(model, cfg.random_seed)
     model = model.to(dev).eval()
-    if dtype is not None:
+    if dtype is not None and cfg.infer_dtype != "int8":
         cast_convs(model, dtype)
     return model
+
+
+def eval_quant_scales(cfg: Config, model: torch.nn.Module, dataset,
+                      imsize: int, device) -> Dict:
+    """Activation scales for --infer-dtype int8: the `--quant-scales`
+    artifact, else a calibration pass over the first `--calib-batches`
+    eval batches (each a short tail padded to the batch size with zero
+    images), persisted atomically under `<save_path>/calibration/`."""
+    if cfg.quant_scales:
+        print("%s: int8 scales <- %s" % (timestamp(), cfg.quant_scales),
+              flush=True)
+        return load_scales(cfg.quant_scales)
+
+    def batches():
+        for n, batch in enumerate(eval_batches(dataset, imsize,
+                                               cfg.batch_size)):
+            if n >= cfg.calib_batches:
+                return
+            images = batch.image
+            if images.shape[0] < cfg.batch_size:
+                pad = cfg.batch_size - images.shape[0]
+                images = np.concatenate(
+                    [images, np.zeros((pad,) + images.shape[1:],
+                                      images.dtype)])
+            yield images
+
+    scales = calibrate_scales(cfg, model.state_dict(), batches(),
+                              dtype=model.dtype, normalize=cfg.pretrained,
+                              percentile=cfg.calib_percentile, device=device)
+    path = os.path.join(cfg.save_path, "calibration", "quant_scales.json")
+    digest = save_scales(path, scales, meta={
+        "calib_batches": cfg.calib_batches,
+        "calib_percentile": cfg.calib_percentile,
+        "model_load": cfg.model_load})
+    print("%s: int8 calibration (%d batches, p%.5g) -> %s (sha256 %s)"
+          % (timestamp(), cfg.calib_batches, cfg.calib_percentile, path,
+             digest[:12]), flush=True)
+    return scales
 
 
 def _origin_size(voc_dict: Dict) -> Tuple[int, int]:
@@ -110,10 +157,14 @@ def evaluate(cfg: Config) -> Dict:
     Returns `compute_map`'s dict plus host timing."""
     dev = resolve_device(cfg.device)
     model = load_eval_state(cfg, dev)
-    predict = make_predict_fn(model, cfg, normalize=cfg.pretrained,
-                              device=dev)
     dataset = VOCDataset(cfg.data, image_set="test")
     imsize = int(cfg.imsize or 512)
+    scales = None
+    if cfg.infer_dtype == "int8":
+        with maybe_tracer().span("calibrate", batches=cfg.calib_batches):
+            scales = eval_quant_scales(cfg, model, dataset, imsize, dev)
+    predict = make_predict_fn(model, cfg, normalize=cfg.pretrained,
+                              device=dev, quant_scales=scales)
     txt_dir = os.path.join(cfg.save_path, "results", "txt")
     os.makedirs(cfg.save_path, exist_ok=True)
     results: Dict[str, Dict] = {}
@@ -201,7 +252,16 @@ def demo(cfg: Config) -> Dict:
     model = load_eval_state(cfg, dev)
     imsize = int(cfg.imsize or 512)
     img, img_pil, origin_size = imload(cfg.data, cfg.pretrained, imsize)
-    predict = make_predict_fn(model, cfg, device=dev)
+    scales = None
+    if cfg.infer_dtype == "int8":
+        # the saved artifact when given, else calibrate on the demo image
+        # (the normalized wire)
+        scales = (load_scales(cfg.quant_scales) if cfg.quant_scales
+                  else calibrate_scales(cfg, model.state_dict(), [img],
+                                        dtype=model.dtype,
+                                        percentile=cfg.calib_percentile,
+                                        device=dev))
+    predict = make_predict_fn(model, cfg, device=dev, quant_scales=scales)
     # one image through the engine's bucket (1,), the normalized wire
     with serve_engine(cfg, predict, imsize, np.float32, (1,), 0.0) as engine:
         row = engine.submit(img[0]).result()

@@ -2,11 +2,12 @@
 
 Port of ref models/hourglass.py:877 `StackedHourglass` (reference
 hourglass.py:198-237) and its blocks: `Activation` (hourglass.py:103),
-`SPP` (:132), `Pool` (:155), `StemConv` (:180), `Convolution` (:443),
-`GhostModule` (:564), `Residual` (:603, the "residual", "depthwise" and
-"ghost" variants), `Hourglass` (:740), `PreLayer` (:793), `Neck` (:836),
-`Head` (:866) — every architecture option of JAX `build_model`
-(:967) but the int8/quantized twins.
+`SPP` (:132), `Pool` (:155), `StemConv` (:180), `QuantConv` (:228),
+`Convolution` (:443), `GhostModule` (:564), `Residual` (:603, the
+"residual", "depthwise" and "ghost" variants), `Hourglass` (:740),
+`PreLayer` (:793), `Neck` (:836), `Head` (:866) — every architecture
+option of JAX `build_model` (:967), and its inference-compression twins
+(`fold_bn`, `quant_mode`).
 
 * Submodules carry the flax auto-names (`PreLayer_0`, `Convolution_1`,
   `GhostModule_0`, `Pool_0`, `SPP_0`, `Conv_0`, `BatchNorm_0`,
@@ -53,6 +54,19 @@ hourglass.py:198-237) and its blocks: `Activation` (hourglass.py:103),
   exact nearest; `stem_s2d` computes the 7x7 stride-2 stem as a 4x4
   stride-1 conv over the 2x2 space-to-depth input (odd H or W take the
   direct conv), with the same `Conv_0` parameters.
+* The twins (ref hourglass.py:443-561, ops/quant.py): `fold_bn=True`
+  builds the model without BatchNorm, each BN'd conv with a bias that
+  holds the fold (`ops.quant.fold_batchnorm`), its activation in plain
+  PyTorch after it and every residual tail unfused (`act(y + skip)`,
+  hourglass.py:650-655), so no BN kernel runs. `quant_mode="calibrate"`
+  or `"int8"` (fold required) makes each BN'd conv but the stem a
+  `QuantConv` (same `Conv_0` name): in "calibrate" a float conv that
+  records the running abs-max (or percentile) of its input in its
+  `act_scale` buffer; in "int8" the activation quantizer and the int8
+  conv kernels of `ops.qconv`, with ReLU/Linear fused into the conv's
+  epilogue. The stem stays a float conv (its BN still folds), as do the
+  heads, the inter-stack merges and the pool/SPP convs, which carry no
+  BN.
 * Quirks kept from the JAX model: the Neck conv has a bias before its BN
   (hourglass.py:859); the PReLU slope is one scalar initialised at 0.25
   (hourglass.py:119-122), not torch's per-channel default.
@@ -66,13 +80,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import epilogue, residual
+from ..ops import epilogue, qconv, residual
 
 ACTIVATIONS = ("ReLU", "LReLU", "PReLU", "Linear", "Mish", "Sigmoid", "CELU")
 FUSED_ACTIVATIONS = epilogue.ACTIVATIONS  # what the BN kernels compute
 POOLS = ("Max", "Avg", "Conv", "SPP", "None")
 NECK_POOLS = ("None", "SPP")
 VARIANTS = ("residual", "depthwise", "ghost")
+QUANT_MODES = ("off", "calibrate", "int8")
 
 
 def _check(kind: str, value: str, allowed) -> None:
@@ -189,6 +204,94 @@ def stem_s2d_conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     return F.conv2d(F.pad(xs, (2, 1, 2, 1)), ks, bias)
 
 
+class QuantConv(nn.Module):
+    """The conv body of the int8 twin (ref hourglass.py:228-298), stride
+    1, dense (k 1 or 3) or 3 x 3 depthwise, under the `Conv_0` name.
+
+    State dict: `weight` (OIHW float32) and `bias` (float32), the BN fold
+    (`ops.quant.fold_batchnorm`), and `act_scale`, the calibrated clip
+    range of its input (the JAX `quant` collection's leaf). Derived by
+    `requantize` and kept out of the state dict: `weight_q`, the int8
+    weights as the kernel reads them ((Cout, k*k*Cin) dense, (9, C)
+    depthwise), `step` = max(act_scale, 1e-8) / 127 and `mult` = step *
+    the per-channel weight scale (JAX's float32 product), all device
+    tensors the kernels read, so new weights or scales need no new CUDA
+    graph.
+
+    mode "calibrate": the float conv of the folded weights, after raising
+    `act_scale` to the abs-max (or the `calib_percentile` of |x|) of the
+    input. mode "int8": `qconv.quantize_act` and `qconv.conv_dense` /
+    `conv_dw`, the rescale in the input's dtype, `activation` (ReLU or
+    Linear) fused."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 groups: int = 1, mode: str = "int8",
+                 calib_percentile: float = 100.0):
+        super().__init__()
+        _check("quant mode", mode, QUANT_MODES[1:])
+        self.depthwise = groups > 1
+        if self.depthwise and (groups != in_ch or in_ch != out_ch
+                               or kernel_size != 3):
+            raise NotImplementedError(
+                "a grouped int8 conv is a 3x3 depthwise one (groups = in = "
+                "out channels), got %d -> %d, groups %d, k %d"
+                % (in_ch, out_ch, groups, kernel_size))
+        if kernel_size not in (1, 3):
+            raise NotImplementedError("int8 convs are 1x1 or 3x3, got %d"
+                                      % kernel_size)
+        self.k, self.groups, self.mode = kernel_size, groups, mode
+        self.calib_percentile = float(calib_percentile)
+        k = kernel_size
+        # inference only: no gradient is ever taken through the twin
+        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch // groups, k, k),
+                                   requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(out_ch), requires_grad=False)
+        self.register_buffer("act_scale", torch.ones(()))
+        wq = (k * k, out_ch) if self.depthwise else (out_ch, k * k * in_ch)
+        self.register_buffer("weight_q", torch.zeros(wq, dtype=torch.int8),
+                             persistent=False)
+        self.register_buffer("mult", torch.zeros(out_ch), persistent=False)
+        self.register_buffer("step", torch.ones(()), persistent=False)
+
+    @torch.no_grad()
+    def requantize(self) -> None:
+        """weight_q, step and mult from weight and act_scale, on the host
+        (the CPU and the card get the same bits), copied in place."""
+        from ..ops import quant
+        q, w_scale = quant.quantize_weights(self.weight.detach().cpu())
+        step = quant.act_step(self.act_scale.detach().cpu())
+        cout = q.shape[0]
+        if self.depthwise:
+            wq = q.reshape(cout, self.k * self.k).t()
+        else:
+            wq = q.permute(0, 2, 3, 1).reshape(cout, -1)
+        self.weight_q.copy_(wq)
+        self.step.copy_(step)
+        self.mult.copy_(step * w_scale)
+
+    def forward(self, x: torch.Tensor,
+                activation: str = "Linear") -> torch.Tensor:
+        dt = x.dtype
+        if self.mode == "calibrate":
+            from ..ops import quant
+            stat = (x.detach().float().abs().amax()
+                    if self.calib_percentile >= 100.0
+                    else quant.abs_percentile(x, self.calib_percentile))
+            self.act_scale.copy_(torch.maximum(self.act_scale, stat))
+            y = F.conv2d(x, self.weight.to(dt), None, 1, self.k // 2, 1,
+                         self.groups)
+            y = y + self.bias.to(dt).view(1, -1, 1, 1)
+            return epilogue.activate(_channels_last(y), activation)
+        q = qconv.quantize_act(x, self.step)
+        if self.depthwise:
+            return qconv.conv_dw(q, self.weight_q, self.mult, self.bias, dt,
+                                 activation)
+        cout, cin = self.weight.shape[:2]
+        return qconv.conv_dense(q, self.weight_q.view(cout, self.k, self.k,
+                                                      cin),
+                                self.mult, self.bias, dt, activation)
+
+
 class Convolution(nn.Module):
     """Conv -> optional BN + activation (ref hourglass.py:443-561). With
     `skip`, the BN feeds the residual tail: act(BN(conv(x)) + skip), which
@@ -196,34 +299,67 @@ class Convolution(nn.Module):
     compute runs after a Linear BN as `Activation_0`. `groups` is the
     conv's feature-group count (depthwise when it equals the channels);
     `stem_s2d`, set on the 7x7 stride-2 stem only, computes it in its
-    space-to-depth form."""
+    space-to-depth form.
+
+    Twins: with `fold_bn` a BN'd conv has no BatchNorm and a bias (the
+    fold), and its activation follows in plain PyTorch; with `quant_mode`
+    calibrate/int8 (fold required) and `quantize` (the stem opts out) its
+    body is a `QuantConv`, whose int8 epilogue fuses ReLU/Linear."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, use_bias: bool = True, bn: bool = False,
                  activation: str = "ReLU", groups: int = 1,
-                 stem_s2d: bool = False):
+                 stem_s2d: bool = False, fold_bn: bool = False,
+                 quant_mode: str = "off", quantize: bool = True,
+                 calib_percentile: float = 100.0):
         super().__init__()
         _check("activation", activation, ACTIVATIONS)
         if not bn and activation != "Linear":
             raise NotImplementedError("a conv without BN is Linear in this "
                                       "model, got %r" % activation)
-        self.Conv_0 = nn.Conv2d(in_ch, out_ch, kernel_size, stride,
-                                padding=(kernel_size - 1) // 2,
-                                groups=groups, bias=use_bias)
-        self.bn = bn
+        fold = bn and fold_bn
+        quant = quant_mode != "off" and quantize and bn
+        if quant and not fold:
+            raise ValueError(
+                "quant_mode=%r requires fold_bn: BN must be folded into "
+                "the conv before its weights are quantized (ops/quant.py)"
+                % quant_mode)
+        if quant:
+            if stride != 1:
+                raise NotImplementedError("int8 convs have stride 1, got %d"
+                                          % stride)
+            self.Conv_0 = QuantConv(in_ch, out_ch, kernel_size, groups,
+                                    quant_mode, calib_percentile)
+        else:
+            self.Conv_0 = nn.Conv2d(in_ch, out_ch, kernel_size, stride,
+                                    padding=(kernel_size - 1) // 2,
+                                    groups=groups, bias=use_bias or fold)
+        self.bn = bn and not fold
+        self.fold = fold
         self.s2d = stem_s2d
         self.activation = activation
-        if bn:
+        if self.bn:
             self.BatchNorm_0 = BatchNorm(out_ch)
-            if activation not in FUSED_ACTIVATIONS:
-                self.Activation_0 = Activation(activation)
+        if bn and activation not in FUSED_ACTIVATIONS:
+            self.Activation_0 = Activation(activation)
+
+    def _activate(self, y: torch.Tensor) -> torch.Tensor:
+        if self.activation in FUSED_ACTIVATIONS:
+            return epilogue.activate(y, self.activation)
+        return self.Activation_0(y)
 
     def forward(self, x: torch.Tensor,
                 skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if isinstance(self.Conv_0, QuantConv):
+            fuse = self.activation in qconv.ACTIVATIONS
+            y = self.Conv_0(x, self.activation if fuse else "Linear")
+            return y if fuse else self._activate(y)
         if self.s2d and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
             y = stem_s2d_conv(x, self.Conv_0)
         else:
             y = conv2d(x, self.Conv_0)
+        if self.fold:
+            return self._activate(y)
         if not self.bn:
             return y
         if self.activation in FUSED_ACTIVATIONS:
@@ -241,7 +377,7 @@ class GhostModule(nn.Module):
     out_ch/2, concatenated along the channels."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
-                 stride: int = 1, activation: str = "ReLU"):
+                 stride: int = 1, activation: str = "ReLU", **twin):
         super().__init__()
         if out_ch % 2:
             raise ValueError(
@@ -250,10 +386,11 @@ class GhostModule(nn.Module):
         half = out_ch // 2
         self.Convolution_0 = Convolution(in_ch, half, 1, stride,
                                          use_bias=False, bn=True,
-                                         activation=activation)
+                                         activation=activation, **twin)
         self.Convolution_1 = Convolution(half, half, kernel_size, 1,
                                          use_bias=False, bn=True,
-                                         activation=activation, groups=half)
+                                         activation=activation, groups=half,
+                                         **twin)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         primary = self.Convolution_0(x)
@@ -273,19 +410,21 @@ class Residual(nn.Module):
     the body convs: `Convolution_2`, `_4`, `_0`), and the post-add
     activation. The tail is fused (`fuse_tail`: the last conv's BN, the
     add and the activation in the residual tail kernel) for the residual
-    and depthwise variants with an activation in FUSED_ACTIVATIONS;
-    otherwise the tail conv is Linear and `Activation_0` follows the add
-    (ref hourglass.py:650-654, :689)."""
+    and depthwise variants with an activation in FUSED_ACTIVATIONS, and
+    no twin (`twin`: the Convolution keywords `fold_bn`, `quant_mode`,
+    `calib_percentile`); otherwise the tail conv is Linear and
+    `Activation_0` follows the add (ref hourglass.py:650-655, :689)."""
 
     def __init__(self, in_ch: int, out_ch: int, activation: str = "ReLU",
-                 variant: str = "residual"):
+                 variant: str = "residual", **twin):
         super().__init__()
         _check("variant", variant, VARIANTS)
         _check("activation", activation, ACTIVATIONS)
         self.fuse_tail = (variant in ("residual", "depthwise")
-                          and activation in FUSED_ACTIVATIONS)
+                          and activation in FUSED_ACTIVATIONS
+                          and not twin.get("fold_bn"))
         tail_act = activation if self.fuse_tail else "Linear"
-        bn = dict(use_bias=False, bn=True)
+        bn = dict(use_bias=False, bn=True, **twin)
         if variant == "residual":
             self.body = ("Convolution_0",)
             self.Convolution_0 = Convolution(in_ch, out_ch, 3, 1,
@@ -310,9 +449,11 @@ class Residual(nn.Module):
             skip = "Convolution_4"
         else:  # ghost: its tail is a concat of two BN'd halves
             self.body = ("GhostModule_0",)
-            self.GhostModule_0 = GhostModule(in_ch, out_ch, 3, 1, activation)
+            self.GhostModule_0 = GhostModule(in_ch, out_ch, 3, 1, activation,
+                                             **twin)
             self.tail = "GhostModule_1"
-            self.GhostModule_1 = GhostModule(out_ch, out_ch, 3, 1, "Linear")
+            self.GhostModule_1 = GhostModule(out_ch, out_ch, 3, 1, "Linear",
+                                             **twin)
             skip = "Convolution_0"
         self.skip = skip if in_ch != out_ch else None
         if self.skip:
@@ -397,21 +538,23 @@ class Hourglass(nn.Module):
 
     def __init__(self, num_layer: int, in_ch: int, increase_ch: int = 0,
                  activation: str = "ReLU", pool: str = "Max",
-                 variant: str = "residual"):
+                 variant: str = "residual", **twin):
         super().__init__()
         mid = in_ch + increase_ch
         self.num_layer = num_layer
         self.upsample = pool not in ("SPP", "None")
-        self.Residual_0 = Residual(in_ch, in_ch, activation, variant)
+        self.Residual_0 = Residual(in_ch, in_ch, activation, variant, **twin)
         self.Pool_0 = Pool(in_ch, pool)
-        self.Residual_1 = Residual(in_ch, mid, activation, variant)
+        self.Residual_1 = Residual(in_ch, mid, activation, variant, **twin)
         if num_layer > 1:
             self.Hourglass_0 = Hourglass(num_layer - 1, mid, increase_ch,
-                                         activation, pool, variant)
-            self.Residual_2 = Residual(mid, in_ch, activation, variant)
+                                         activation, pool, variant, **twin)
+            self.Residual_2 = Residual(mid, in_ch, activation, variant,
+                                       **twin)
         else:
-            self.Residual_2 = Residual(mid, mid, activation, variant)
-            self.Residual_3 = Residual(mid, in_ch, activation, variant)
+            self.Residual_2 = Residual(mid, mid, activation, variant, **twin)
+            self.Residual_3 = Residual(mid, in_ch, activation, variant,
+                                       **twin)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         up1 = self.Residual_0(x)
@@ -428,19 +571,22 @@ class Hourglass(nn.Module):
 class PreLayer(nn.Module):
     """Stem, a 4x downsample with the Max/Avg/Conv pools (ref
     hourglass.py:793-833): 7x7 s2 conv(64, BN) -> Residual(mid) -> pool ->
-    Residual(mid) -> Residual(out); its Residuals use ReLU."""
+    Residual(mid) -> Residual(out); its Residuals use ReLU. The stem conv
+    is never quantized (its BN still folds)."""
 
     def __init__(self, mid_ch: int = 128, out_ch: int = 128,
                  activation: str = "ReLU", pool: str = "Max",
-                 variant: str = "residual", stem_s2d: bool = False):
+                 variant: str = "residual", stem_s2d: bool = False,
+                 **twin):
         super().__init__()
         self.Convolution_0 = Convolution(3, 64, 7, 2, use_bias=True, bn=True,
                                          activation=activation,
-                                         stem_s2d=stem_s2d)
-        self.Residual_0 = Residual(64, mid_ch, "ReLU", variant)
+                                         stem_s2d=stem_s2d, quantize=False,
+                                         **twin)
+        self.Residual_0 = Residual(64, mid_ch, "ReLU", variant, **twin)
         self.Pool_0 = Pool(mid_ch, pool)
-        self.Residual_1 = Residual(mid_ch, mid_ch, "ReLU", variant)
-        self.Residual_2 = Residual(mid_ch, out_ch, "ReLU", variant)
+        self.Residual_1 = Residual(mid_ch, mid_ch, "ReLU", variant, **twin)
+        self.Residual_2 = Residual(mid_ch, out_ch, "ReLU", variant, **twin)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.Residual_0(self.Convolution_0(x))
@@ -453,13 +599,13 @@ class Neck(nn.Module):
     BN conv -> Residual (ReLU)."""
 
     def __init__(self, ch: int = 128, activation: str = "ReLU",
-                 pool: str = "None", variant: str = "residual"):
+                 pool: str = "None", variant: str = "residual", **twin):
         super().__init__()
         _check("neck_pool", pool, NECK_POOLS)
         self.Pool_0 = Pool(ch, pool)
         self.Convolution_0 = Convolution(ch, ch, 1, 1, use_bias=True, bn=True,
-                                         activation=activation)
-        self.Residual_0 = Residual(ch, ch, "ReLU", variant)
+                                         activation=activation, **twin)
+        self.Residual_0 = Residual(ch, ch, "ReLU", variant, **twin)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.Residual_0(self.Convolution_0(self.Pool_0(x)))
@@ -484,14 +630,15 @@ class StackedHourglass(nn.Module):
     (B, S, H/4, W/4, out_ch) float32 raw logits.
 
     `dtype` is the compute dtype (None = float32; bfloat16 under --amp,
-    with float32 parameters cast at each conv call)."""
+    with float32 parameters cast at each conv call). `twin`: the
+    Convolution keywords `fold_bn`, `quant_mode`, `calib_percentile`."""
 
     def __init__(self, num_stack: int = 1, in_ch: int = 128, out_ch: int = 6,
                  increase_ch: int = 0, activation: str = "ReLU",
                  pool: str = "Max", neck_activation: str = "ReLU",
                  neck_pool: str = "None", variant: str = "residual",
                  stem_width: int = 0, stem_s2d: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, **twin):
         super().__init__()
         if num_stack < 1:
             raise NotImplementedError("num_stack must be >= 1, got %d"
@@ -499,13 +646,13 @@ class StackedHourglass(nn.Module):
         self.num_stack = num_stack
         self.dtype = dtype
         self.PreLayer_0 = PreLayer(stem_width or 128, in_ch, activation,
-                                   pool, variant, stem_s2d)
+                                   pool, variant, stem_s2d, **twin)
         for i in range(num_stack):
             setattr(self, "Hourglass_%d" % i,
                     Hourglass(4, in_ch, increase_ch, activation, pool,
-                              variant))
+                              variant, **twin))
             setattr(self, "Neck_%d" % i,
-                    Neck(in_ch, neck_activation, neck_pool, variant))
+                    Neck(in_ch, neck_activation, neck_pool, variant, **twin))
             setattr(self, "Head_%d" % i, Head(in_ch, out_ch))
             if i < num_stack - 1:
                 setattr(self, "Convolution_%d" % (2 * i),
@@ -545,15 +692,29 @@ def cast_convs(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     return model
 
 
-def build_model(cfg, dtype: Optional[torch.dtype] = None) -> StackedHourglass:
+def build_model(cfg, dtype: Optional[torch.dtype] = None,
+                fold_bn: bool = False, quant_mode: str = "off",
+                calib_percentile: float = 100.0) -> StackedHourglass:
     """The detector from a config with the JAX flag names
     (ref models/hourglass.py:967 `build_model`), conv weights in
-    channels-last memory format."""
+    channels-last memory format. `fold_bn` / `quant_mode` build the
+    inference twins (see the module docstring); quantization needs the
+    fold, as in JAX."""
+    if quant_mode not in QUANT_MODES:
+        raise ValueError("quant_mode must be one of %s, got %r"
+                         % (QUANT_MODES, quant_mode))
+    if quant_mode != "off" and not fold_bn:
+        raise ValueError("quant_mode=%r requires fold_bn=True (BN folds "
+                         "before quantization)" % quant_mode)
+    twin = {}
+    if fold_bn:
+        twin = dict(fold_bn=True, quant_mode=quant_mode,
+                    calib_percentile=calib_percentile)
     model = StackedHourglass(
         num_stack=cfg.num_stack, in_ch=cfg.hourglass_inch,
         out_ch=cfg.num_cls + 4, increase_ch=cfg.increase_ch,
         activation=cfg.activation, pool=cfg.pool,
         neck_activation=cfg.neck_activation, neck_pool=cfg.neck_pool,
         variant=cfg.variant, stem_width=cfg.stem_width,
-        stem_s2d=cfg.stem_s2d, dtype=dtype)
+        stem_s2d=cfg.stem_s2d, dtype=dtype, **twin)
     return model.to(memory_format=torch.channels_last)

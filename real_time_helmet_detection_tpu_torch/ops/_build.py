@@ -68,6 +68,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "helmet_bn_bwd_dx": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
                              _I, _P),
     },
+    "qconv": {
+        "helmet_qconv_dense": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _P),
+        "helmet_qconv_dw": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "helmet_quantize": (_P, _P, _P, _L, _I, _P),
+    },
     "loss": {
         "helmet_loss_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _F, _F, _I, _I, _P),

@@ -13,6 +13,13 @@ On CUDA the peak test is the hand-written kernel (`ops.peak`) and every
 BN of the network runs through the epilogue and residual-tail kernels;
 on the CPU the same calls run their plain versions.
 
+`--infer-dtype int8` (ref predict.py:96-107, :152-159) predicts with the
+BN-folded int8 twin (`ops.quant.make_quant_model`) and the calibrated
+activation scales (`quant_scales`, required): the float model's weights
+are folded and quantized once when the predict is built
+(`ops.quant.load_twin`), not in every call, and its convs run the int8
+kernels (`ops.qconv`); decode, the peak test and NMS are the same.
+
 `make_predict_fn` returns a `Predict`: its `body` takes a device tensor
 and is what the serving engine captures; calling the `Predict` with host
 images is the one-shot path. A `BucketRunner` is one serving
@@ -27,10 +34,11 @@ the same body, called eagerly.
 from __future__ import annotations
 
 import time
-from typing import Callable, Optional, Sequence
+from typing import Callable, Mapping, Optional, Sequence
 
 import torch
 
+from .convert import flax_to_state_dict
 from .ops import decode, nms, peak
 from .ops.decode import Detections
 from .utils import normalizer_stats
@@ -53,13 +61,32 @@ def resolve_device(device) -> torch.device:
 class Predict:
     """`predict(images) -> Detections`: host images (B, H, W, 3) copied to
     `device`, then `body`. `body(x)` takes the images already on the
-    device; `model` and `device` are what the serving engine reads."""
+    device; `model` (the float model, or the int8 twin), `device` and
+    `load` are what the serving engine reads."""
 
     def __init__(self, body: Callable[[torch.Tensor], Detections],
-                 model: torch.nn.Module, device: torch.device):
+                 model: torch.nn.Module, device: torch.device,
+                 int8: bool = False):
         self.body = body
         self.model = model
         self.device = device
+        self.int8 = int8
+
+    def load(self, variables, scales=None) -> None:
+        """New weights, copied in place into the storages `body` reads (a
+        captured graph sees them): a flax variable tree or a state dict of
+        the float model. The int8 twin folds and quantizes them (and takes
+        new activation `scales`, the `quant` tree, when given)."""
+        if self.int8:
+            from .ops.quant import load_twin
+            load_twin(self.model, variables, scales)
+            return
+        if scales is not None:
+            raise ValueError("activation scales apply to --infer-dtype int8")
+        state = (flax_to_state_dict(variables)
+                 if isinstance(variables, Mapping) and "params" in variables
+                 else variables)
+        self.model.load_state_dict(state, strict=True)
 
     def __call__(self, images) -> Detections:
         with torch.inference_mode():
@@ -68,13 +95,18 @@ class Predict:
 
 def make_predict_fn(model: torch.nn.Module, cfg,
                     normalize: Optional[str] = None,
-                    device="cuda") -> Predict:
+                    device="cuda", quant_scales=None) -> Predict:
     """Build `predict(images) -> Detections` for a model on `device`.
 
     images: (B, H, W, 3), either normalized float32 or, when `normalize`
     names a statistics set ("imagenet"/"scratch"), raw pixels (uint8 or
     float in [0, 255]) that are cast and normalized on the device
     (ref predict.py:148-151) — `evaluate` ships uint8.
+
+    With `cfg.infer_dtype == "int8"` the int8 twin of `model`'s
+    architecture predicts, its weights folded from `model`'s (float32
+    conv weights: an --amp model's must not be cast yet) with the
+    activation scales `quant_scales` (the `quant` tree), which it needs.
 
     Returns Detections with leaves (B, S * topk, ...) on `device`. On
     CUDA it turns TF32 off for cuDNN and matmuls, process-wide."""
@@ -96,7 +128,26 @@ def make_predict_fn(model: torch.nn.Module, cfg,
         # fp32 means fp32: cuDNN would otherwise run f32 convs in TF32
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    model = model.to(dev).eval()
+    infer_dtype = getattr(cfg, "infer_dtype", "bf16")
+    if infer_dtype not in ("bf16", "int8"):
+        raise NotImplementedError("Not expected infer dtype: %s"
+                                  % infer_dtype)
+    int8 = infer_dtype == "int8"
+    if int8:
+        if quant_scales is None:
+            raise ValueError(
+                "--infer-dtype int8 needs calibrated activation scales: "
+                "pass quant_scales (ops.quant.calibrate_scales or "
+                "load_scales of a saved artifact)")
+        from .models.hourglass import cast_convs
+        from .ops.quant import load_twin, make_quant_model
+        twin = make_quant_model(cfg, dtype=model.dtype, mode="int8")
+        load_twin(twin, model.state_dict(), quant_scales)
+        model = twin.to(dev).eval()
+        if model.dtype is not None:
+            cast_convs(model, model.dtype)  # the float convs, once
+    else:
+        model = model.to(dev).eval()
 
     def body(x: torch.Tensor) -> Detections:
         """The predict program on device images: no host sync, fixed
@@ -127,7 +178,7 @@ def make_predict_fn(model: torch.nn.Module, cfg,
         return Detections(boxes=boxes, classes=classes, scores=scores,
                           valid=keep & valid)
 
-    return Predict(body, model, dev)
+    return Predict(body, model, dev, int8=int8)
 
 
 class BucketRunner:

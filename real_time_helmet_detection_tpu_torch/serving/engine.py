@@ -7,8 +7,12 @@ Port of ref real_time_helmet_detection_tpu/serving/engine.py:130-1011
 the one predict surface of the port's eval and demo (ref evaluate.py:
 236-300, :474-477). The public API is the JAX engine's, except that
 `reload` (and the constructor's `variables`) take a flax variable tree
-(numpy) or a state dict, loaded in place into the parameters the graphs
-read; there is no sharding and no SLO watchdog.
+(numpy) or a state dict, loaded in place into the storages the graphs
+read (for an int8 predict: folded and quantized, with new activation
+scales when `reload` is given them); there is no sharding. An optional
+`obs.slo.SloWatchdog` (ref engine.py:310, :529-539, :575-585) is checked
+after every batch outcome and may `degrade()` the engine; its alerts
+are in `health()["alerts"]`.
 
 Design rules:
 
@@ -78,13 +82,12 @@ import contextlib
 import queue
 import threading
 import time
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import predict as predict_mod
-from ..convert import flax_to_state_dict
 from ..obs import metrics as metrics_mod
 from ..obs.spans import maybe_tracer
 from ..obs.trace import links_of, new_root
@@ -243,6 +246,8 @@ class ServingEngine:
     injector : optional `runtime.faults.ChaosInjector`.
     metrics : optional `obs.metrics.MetricsRegistry` (default: the
         process-wide one).
+    watchdog : optional `obs.slo.SloWatchdog`, checked after every batch
+        outcome; its serving alerts degrade this engine.
     """
 
     def __init__(self, predict, variables, image_shape: Sequence[int],
@@ -251,7 +256,8 @@ class ServingEngine:
                  queue_capacity: int = 128, tracer=None,
                  start: bool = True, max_retries: int = 2,
                  hang_timeout_s: Optional[float] = None,
-                 recover_after: int = 2, injector=None, metrics=None):
+                 recover_after: int = 2, injector=None, metrics=None,
+                 watchdog=None):
         self._buckets = tuple(sorted({int(b) for b in buckets}))
         if not self._buckets or self._buckets[0] < 1:
             raise ValueError("buckets must be positive, got %r" % (buckets,))
@@ -273,6 +279,7 @@ class ServingEngine:
         self._metrics = (metrics if metrics is not None
                          else metrics_mod.default_registry())
         self._m_writer = metrics_mod.maybe_writer(registry=self._metrics)
+        self._watchdog = watchdog
         mm = self._metrics
         self._mc = {name: mm.counter("serve." + name) for name in (
             "submitted", "completed", "batches_total", "batch_slots",
@@ -341,14 +348,13 @@ class ServingEngine:
         if start:
             self.start()
 
-    def _load_weights(self, variables) -> None:
-        """A flax tree or a state dict, copied in place into the model's
-        parameters and buffers (`load_state_dict` keeps every storage, and
-        casts into the bf16 conv weights of `--amp`)."""
-        state = (flax_to_state_dict(variables)
-                 if isinstance(variables, Mapping) and "params" in variables
-                 else variables)
-        self._predict.model.load_state_dict(state, strict=True)
+    def _load_weights(self, variables, scales=None) -> None:
+        """A flax tree or a state dict, copied in place into the storages
+        the graphs read (`Predict.load`: `load_state_dict` keeps every
+        storage and casts into the bf16 conv weights of `--amp`; the int8
+        twin folds and quantizes into its int8 weights, steps and
+        rescales, with new activation `scales` when given)."""
+        self._predict.load(variables, scales)
 
     # ---- lifecycle -------------------------------------------------------
 
@@ -436,10 +442,21 @@ class ServingEngine:
         with self._lock:
             return self._state
 
+    def degrade(self, reason: str) -> None:
+        """External DEGRADED flip (the SLO watchdog's lever): the engine
+        keeps serving but advertises trouble, as after a failed batch;
+        `recover_after` healthy batches in a row clear it. A closed engine
+        ignores it."""
+        with self._lock:
+            self._consecutive_ok = 0
+            self._last_error = "degraded: %s" % str(reason)[:200]
+        self._tracer.event("serve:degrade", reason=str(reason)[:200])
+        self._set_state(DEGRADED)
+
     def health(self, include_metrics: bool = True) -> Dict:
         """Point-in-time snapshot: state, backlog depths, failure counters
-        (read under one lock acquisition), and the digested `serve.*`
-        metrics."""
+        (read under one lock acquisition), the digested `serve.*` metrics
+        and, with a watchdog, its alerts so far."""
         with self._lock:
             state = self._state
             stats = dict(self._stats)
@@ -456,7 +473,17 @@ class ServingEngine:
                "last_error": last_error, "stats": stats}
         if include_metrics:
             out["metrics"] = self._metrics.digest(prefix="serve.")
+            if self._watchdog is not None:
+                out["alerts"] = list(self._watchdog.alerts)
         return out
+
+    def _after_batch_outcome(self) -> None:
+        """After every batch outcome, healthy or failed: check the SLO
+        watchdog (an alert may degrade this engine) and give the metrics
+        exporter its flush point. Host-side only."""
+        if self._watchdog is not None:
+            self._watchdog.check(engine=self)
+        self._m_writer.maybe_flush()
 
     def _is_idle(self) -> bool:
         with self._lock:
@@ -475,11 +502,13 @@ class ServingEngine:
             time.sleep(0.002)
         return True
 
-    def reload(self, variables, timeout_s: float = 30.0) -> None:
+    def reload(self, variables, timeout_s: float = 30.0,
+               scales=None) -> None:
         """Hot weight swap: drain admitted work (served with the old
-        weights), copy the new weights in place under the dispatch mutex,
-        resume. Nothing is captured again and no request is dropped;
-        requests admitted during the drain get the new weights."""
+        weights), copy the new weights (and, for an int8 predict, new
+        activation `scales`) in place under the dispatch mutex, resume.
+        Nothing is captured again and no request is dropped; requests
+        admitted during the drain get the new weights."""
         if self._closed:
             raise EngineClosedError("engine closed")
         self._set_state(DRAINING)
@@ -489,7 +518,7 @@ class ServingEngine:
                 raise TimeoutError(
                     "reload: engine did not drain within %.1fs" % timeout_s)
             with self._dispatch_mutex:
-                self._load_weights(variables)
+                self._load_weights(variables, scales)
                 if self._cuda:
                     # the copies ran on this thread's stream
                     self._stream.wait_stream(
@@ -629,7 +658,7 @@ class ServingEngine:
                 self._q.put_nowait(_WAKE)
             except queue.Full:
                 pass  # a full queue wakes the dispatcher anyway
-        self._m_writer.maybe_flush()
+        self._after_batch_outcome()
 
     def _note_batch_ok(self) -> None:
         with self._lock:
@@ -639,7 +668,7 @@ class ServingEngine:
                          and self._consecutive_ok >= self._recover_after)
         if recovered:
             self._set_state(SERVING)
-        self._m_writer.maybe_flush()
+        self._after_batch_outcome()
 
     # ---- dispatcher ------------------------------------------------------
 

@@ -16,7 +16,12 @@ within rtol 1e-6 in f32 and one bf16 ulp in bf16; the reductions
 sums per (stack, sample), within 1e-5 of the sum of the absolute values
 of their terms, the error bound of a float32 sum taken in another order;
 where a test says so, the loss's d(out) within rtol 1e-5 + atol 1e-6 *
-max|d(out)|.
+max|d(out)|. The int8 kernels (#14 - #16: the dense and depthwise int8
+convs, the activation quantizer) bit-equal to their plain versions, in
+int32, f32 and bf16, at ragged and multi-stage shapes, the quantizer on
+ties, +-inf and NaN; their wrappers' refusals; the int8 twin through the
+serving engine bit-equal to its eager predict, before and after a
+reload.
 """
 
 import numpy as np
@@ -583,4 +588,156 @@ def test_serving_engine_rows_bit_equal_to_eager(cuda, nms):
             for i, row in enumerate(rows):
                 assert all(np.array_equal(got, leaf[i])
                            for got, leaf in zip(row, want))
+        assert engine.stats()["bucket_builds"] == 3
+
+
+# ------------------------------------------------- int8 kernels (#14 - #16)
+
+QDENSE = [(2, 16, 5, 7, 8, 1), (3, 48, 9, 13, 24, 3), (2, 144, 11, 6, 72, 3),
+          (1, 96, 33, 17, 48, 1), (2, 128, 16, 16, 128, 3),
+          (5, 16, 17, 19, 200, 3)]
+QDW = [(1, 8, 5, 7), (3, 48, 9, 13), (2, 136, 11, 6)]
+
+
+def _q_operands(shape, wshape, cout, gen):
+    q = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                      dtype=torch.int8).contiguous(
+                          memory_format=torch.channels_last)
+    w = torch.randint(-127, 128, wshape, generator=gen, device="cuda",
+                      dtype=torch.int8)
+    mult = torch.rand((cout,), generator=gen, device="cuda") * 1e-3 + 1e-5
+    bias = torch.randn((cout,), generator=gen, device="cuda")
+    return q, w, mult, bias
+
+
+@pytest.mark.parametrize("case", QDENSE, ids=str)
+def test_qconv_dense_matches_plain(cuda, case):
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    n, cin, h, w, cout, k = case
+    q, wq, mult, bias = _q_operands((n, cin, h, w), (cout, k, k, cin), cout,
+                                    cuda)
+    for dtype in (torch.int32, torch.float32, torch.bfloat16):
+        for act in ("Linear", "ReLU"):
+            if dtype == torch.int32 and act == "ReLU":
+                continue
+            got = qconv.conv_dense(q, wq, mult, bias, dtype, act)
+            want = qconv.conv_dense_reference(q, wq, mult, bias, dtype, act)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", QDW, ids=str)
+def test_qconv_dw_matches_plain(cuda, case):
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    c = case[1]
+    q, wq, mult, bias = _q_operands(case, (9, c), c, cuda)
+    for dtype in (torch.int32, torch.float32, torch.bfloat16):
+        for act in ("Linear", "ReLU"):
+            if dtype == torch.int32 and act == "ReLU":
+                continue
+            got = qconv.conv_dw(q, wq, mult, bias, dtype, act)
+            want = qconv.conv_dw_reference(q, wq, mult, bias, dtype, act)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_act_matches_plain(cuda, dtype):
+    """Random values, ties at .5, +-inf, NaN and saturation; odd element
+    counts (the kernel's tail loop)."""
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    step = torch.tensor(0.25, device="cuda")
+    special = torch.tensor([0.125, -0.125, 0.375, 31.875, -31.875,
+                            float("inf"), float("-inf"), float("nan"),
+                            1e30, -1e30], device="cuda")
+    for shape in ((3, 5, 7, 9), (2, 16, 9, 13)):
+        x = torch.randn(shape, generator=cuda, device="cuda") * 20
+        x.view(-1)[:special.numel()] = special
+        x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+        got = qconv.quantize_act(x, step)
+        torch.cuda.synchronize()
+        assert torch.equal(got, qconv.quantize_act_reference(x, step))
+    flat = qconv.quantize_act(
+        special.view(1, -1, 1, 1).contiguous(
+            memory_format=torch.channels_last), step).view(-1).tolist()
+    assert flat == [0, 0, 2, 127, -127, 127, -127, 0, 127, -127]
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    q, wq, mult, bias = _q_operands((2, 32, 8, 8), (16, 3, 3, 32), 16, cuda)
+    base = torch.zeros(2 * 32 * 8 * 8 + 1, dtype=torch.int8, device="cuda")
+    cases = [
+        lambda: qconv.conv_dense(base[1:].view(2, 8, 8, 32).permute(
+            0, 3, 1, 2), wq, mult, bias, torch.float32),     # misaligned
+        lambda: qconv.conv_dense(q.contiguous(), wq, mult, bias,
+                                 torch.float32),             # NCHW layout
+        lambda: qconv.conv_dense(
+            q[:, :24].contiguous(memory_format=torch.channels_last),
+            wq[..., :24].contiguous(), mult, bias, torch.float32),  # Cin 24
+        lambda: qconv.conv_dense(q, wq, mult[:8], bias[:8],
+                                 torch.float32),             # vectors
+        lambda: qconv.conv_dw(q, torch.zeros((9, 30), dtype=torch.int8,
+                                             device="cuda"),
+                              mult, bias, torch.float32),    # weights
+        lambda: qconv.quantize_act(
+            torch.zeros(17, device="cuda")[1:].view(1, 1, 1, 16),
+            torch.tensor(1.0, device="cuda")),               # misaligned
+        lambda: qconv.quantize_act(
+            torch.zeros((1, 8, 2, 2), device="cuda").contiguous(
+                memory_format=torch.channels_last),
+            torch.tensor(1.0)),                              # step on cpu
+    ]
+    for fn in cases:
+        with pytest.raises(ValueError):
+            fn()
+
+
+def test_int8_serving_rows_bit_equal_to_eager(cuda):
+    """The int8 twin through the serving engine at `--tier throughput`'s
+    architecture (small): each bucket's rows equal the eager int8 predict
+    at that batch size bit for bit; a reload with new weights and scales
+    captures nothing."""
+    from real_time_helmet_detection_tpu_torch.config import Config
+    from real_time_helmet_detection_tpu_torch.evaluate import \
+        load_eval_state
+    from real_time_helmet_detection_tpu_torch.obs.metrics import \
+        MetricsRegistry
+    from real_time_helmet_detection_tpu_torch.ops import quant
+    from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
+    from real_time_helmet_detection_tpu_torch.serving import ServingEngine
+    cfg = Config(imsize=64, variant="ghost", hourglass_inch=32,
+                 stem_width=32, topk=16, infer_dtype="int8", amp=True)
+    model = load_eval_state(cfg)
+    for m in model.modules():  # BN scales below 1: O(1) logits
+        if hasattr(m, "folded"):
+            m.weight.data.fill_(0.4)
+    images = np.random.default_rng(0).integers(0, 256, (4, 64, 64, 3),
+                                               dtype=np.uint8)
+    scales = quant.calibrate_scales(cfg, model.state_dict(), [images],
+                                    dtype=torch.bfloat16,
+                                    normalize="imagenet")
+    predict = make_predict_fn(model, cfg, normalize="imagenet",
+                              quant_scales=scales)
+    with ServingEngine(predict, None, (64, 64, 3), np.uint8,
+                       buckets=(1, 2, 4), max_wait_ms=20.0,
+                       metrics=MetricsRegistry()) as engine:
+        for b in (1, 2, 4):
+            futs = [engine.submit(img) for img in images[:b]]
+            rows = [f.result(timeout=60) for f in futs]
+            assert all(f.bucket == b for f in futs)
+            want = [t.cpu().numpy() for t in predict(images[:b])]
+            for i, row in enumerate(rows):
+                assert all(np.array_equal(got, leaf[i])
+                           for got, leaf in zip(row, want))
+        for m in model.modules():
+            if hasattr(m, "folded"):
+                m.weight.data.fill_(0.3)
+        engine.reload(model.state_dict(), scales=scales)
+        futs = [engine.submit(img) for img in images]
+        rows = [f.result(timeout=60) for f in futs]
+        want = [t.cpu().numpy() for t in predict(images)]
+        for i, row in enumerate(rows):
+            assert all(np.array_equal(got, leaf[i])
+                       for got, leaf in zip(row, want))
         assert engine.stats()["bucket_builds"] == 3

@@ -352,3 +352,135 @@ def test_peak_variant_is_ignored_on_the_cpu():
         assert torch.equal(peak.peak_scores(logits, 2, 3, variant), want)
     assert (peak.launches, peak.vector_launches,
             peak.scalar_launches) == before
+
+
+# ---------------------------------------------- int8 convs (csrc/qconv.cu)
+
+
+def _cuda_constants():
+    """The `constexpr int k... = N;` constants of csrc/qconv.cu."""
+    import os
+    import re
+    with open(os.path.join(_build.CSRC, "qconv.cu")) as f:
+        text = f.read()
+    return {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (k\w+) = (\d+);", text)}
+
+
+def _dense_smem(c, cin):
+    """csrc/qconv.cu `dense_smem`: two stages of kBM + kBN rows, each the
+    stage's K bytes (at most kMaxBK) + kPadB, and the tile's pixel
+    table."""
+    row = min(-(-cin // 32) * 32, c["kMaxBK"]) + c["kPadB"]
+    return 2 * (c["kBM"] + c["kBN"]) * row + 4 * c["kBM"]
+
+
+def test_qconv_dense_geometry_fits_the_block():
+    c = _cuda_constants()
+    # four warps, each two m16 tiles of rows and eight n8 tiles of columns
+    assert c["kQThreads"] // 32 * 2 * 16 == c["kBM"] and 8 * 8 == c["kBN"]
+    # a thread stages one 16-byte column of kRowsPerThread rows: 8
+    # columns x 16 rows of threads cover the widest stage and the tile
+    assert c["kMaxBK"] == 8 * 16
+    assert (c["kQThreads"] // 8) * (c["kBM"] // (c["kQThreads"] // 8)) \
+        == c["kBM"]
+    for cin in (16, 48, 64, 96, 128, 144, 256):
+        assert _dense_smem(c, cin) <= _build.MAX_DYNAMIC_SMEM
+    assert _dense_smem(c, 256) > 48 * 1024  # opted into past the default
+
+
+@pytest.mark.parametrize("n,h,w,cout", [(16, 256, 256, 48), (16, 128, 128,
+                                                              128),
+                                        (3, 9, 13, 24), (5, 17, 19, 200),
+                                        (1, 1, 1, 8)])
+def test_qconv_dense_tiles_cover_every_output_once(n, h, w, cout):
+    """The grid: ceil(Cout / kBN) channel blocks x ceil(N*H*W / kBM)
+    pixel blocks; every block gets whole n8 tiles."""
+    c = _cuda_constants()
+    gx, gy = -(-cout // c["kBN"]), -(-(n * h * w) // c["kBM"])
+    cols = [min(c["kBN"], cout - bx * c["kBN"]) for bx in range(gx)]
+    assert all(0 < x and x % 8 == 0 for x in cols) and sum(cols) == cout
+    rows = [min(c["kBM"], n * h * w - by * c["kBM"]) for by in range(gy)]
+    assert all(r > 0 for r in rows) and sum(rows) == n * h * w
+
+
+@pytest.mark.parametrize("cin,k", [(16, 1), (48, 3), (96, 1), (128, 3),
+                                   (144, 3), (256, 1)])
+def test_qconv_dense_stages_cover_k_once(cin, k):
+    """The stages: each tap x chunks of kMaxBK input channels, each
+    staged to a whole number of 32-byte mma steps."""
+    c = _cuda_constants()
+    for tap in range(k * k):
+        starts = list(range(0, cin, c["kMaxBK"]))
+        widths = [min(c["kMaxBK"], cin - c0) for c0 in starts]
+        staged = [-(-x // 32) * 32 for x in widths]
+        assert sum(widths) == cin
+        assert all(x % 16 == 0 for x in widths)  # Cin % 16 == 0
+        assert all(0 <= s - x < 32 and s <= c["kMaxBK"]
+                   for s, x in zip(staged, widths))
+
+
+def test_qconv_wrappers_refuse_other_geometry_on_the_cpu():
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    q = torch.zeros((1, 16, 4, 4), dtype=torch.int8).contiguous(
+        memory_format=torch.channels_last)
+    v = torch.zeros(8)
+    with pytest.raises(ValueError):  # a 5x5 kernel
+        qconv.conv_dense(q, torch.zeros((8, 5, 5, 16), dtype=torch.int8), v,
+                         v, torch.float32)
+    with pytest.raises(ValueError):  # not channels-last
+        qconv.conv_dense(q.contiguous(), torch.zeros(
+            (8, 1, 1, 16), dtype=torch.int8), v, v, torch.float32)
+    with pytest.raises(NotImplementedError):  # an activation not fused
+        qconv.conv_dense(q, torch.zeros((8, 1, 1, 16), dtype=torch.int8), v,
+                         v, torch.float32, "Mish")
+    with pytest.raises(ValueError):  # depthwise weights of another width
+        qconv.conv_dw(q, torch.zeros((9, 8), dtype=torch.int8), v, v,
+                      torch.float32)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("throughput", dict(tier="throughput")),
+    ("flagship-int8", dict(infer_dtype="int8")),
+    ("depthwise-int8", dict(infer_dtype="int8", variant="depthwise",
+                            hourglass_inch=32)),
+    ("quality-int8", dict(infer_dtype="int8", num_stack=2,
+                          increase_ch=8, stem_width=48))])
+def test_int8_forward_sites_match_the_derivation(name, kw, monkeypatch):
+    """Every int8 conv of a forward of the twin (64x64 input; the sites
+    do not depend on the size) calls the quantizer once and one conv
+    wrapper: as many dense and depthwise calls as chip_smoke.py's
+    `qconv_sites` derives, one fewer conv in all than `bn_sites` has BN
+    sites (the stem stays float), and no BN kernel."""
+    import os
+    import sys
+
+    from real_time_helmet_detection_tpu_torch.config import (Config,
+                                                             apply_tier)
+    from real_time_helmet_detection_tpu_torch.ops import qconv, quant
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    import chip_smoke
+    cfg = apply_tier(Config(device="cpu", imsize=64, **kw))
+    twin = quant.make_quant_model(cfg, mode="int8").eval()
+    calls = {"quant": 0, "dense": 0, "dw": 0, "bn": 0}
+
+    def counting(key, fn):
+        def wrapper(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapper
+    monkeypatch.setattr(qconv, "quantize_act",
+                        counting("quant", qconv.quantize_act))
+    monkeypatch.setattr(qconv, "conv_dense",
+                        counting("dense", qconv.conv_dense))
+    monkeypatch.setattr(qconv, "conv_dw", counting("dw", qconv.conv_dw))
+    monkeypatch.setattr(epilogue, "bn_act", counting("bn", epilogue.bn_act))
+    with torch.inference_mode():
+        twin(torch.zeros((1, 64, 64, 3)))
+    dense, dw = chip_smoke.qconv_sites(cfg)
+    epi, tail = chip_smoke.bn_sites(cfg)
+    assert (calls["dense"], calls["dw"]) == (dense, dw)
+    assert calls["quant"] == dense + dw == len(epi) + len(tail) - 1
+    assert calls["bn"] == 0

@@ -3,11 +3,18 @@
 
 * the six `serve_*` fields have the JAX defaults, and the same bad values
   raise the same errors;
-* `apply_tier` for edge and quality sets the same fields to the same
-  values as JAX `apply_tier`, `tier_of` and `resolve_buckets` agree;
-  `--tier throughput` raises NotImplementedError (int8 is not ported);
+* `apply_tier` for edge, throughput and quality sets the same fields to
+  the same values as JAX `apply_tier`, `tier_of` and `resolve_buckets`
+  agree; the int8 fields (`infer_dtype`, `quant_scales`,
+  `calib_batches`, `calib_percentile`) have the JAX defaults and
+  validation; `--tier throughput` (int8 inference) and `--infer-dtype
+  int8` are refused for training;
 * `--tier edge` and `--tier quality` run eval through the serving engine,
-  with the tier's buckets up to the batch size.
+  with the tier's buckets up to the batch size;
+* `--tier throughput` runs eval through the engine on the int8 twin,
+  calibrating on the first eval batch: the scales artifact within rtol
+  1e-6 of the JAX eval's, the mAP within 1e-3 of it on the same weights,
+  and the demo self-calibrates on its image through the engine.
 """
 
 import dataclasses
@@ -28,10 +35,14 @@ from real_time_helmet_detection_tpu_torch.serving import (ServingEngine,
 SERVE_FIELDS = ("serve_buckets", "serve_max_wait_ms", "serve_depth",
                 "serve_queue", "serve_max_retries", "serve_hang_timeout_ms",
                 "tier")
+INT8_FIELDS = ("infer_dtype", "quant_scales", "calib_batches",
+               "calib_percentile")
 BAD = [("serve_buckets", []), ("serve_buckets", [0, 2]),
        ("serve_buckets", [4, -1]), ("serve_max_wait_ms", -1.0),
        ("serve_depth", 0), ("serve_queue", 0), ("serve_max_retries", -1),
        ("serve_hang_timeout_ms", -0.5), ("tier", "fast")]
+BAD_INT8 = [("infer_dtype", "int4"), ("calib_batches", 0),
+            ("calib_percentile", 0.0), ("calib_percentile", 100.5)]
 
 
 def test_serve_defaults_match_jax():
@@ -55,7 +66,39 @@ def test_serve_validation_matches_jax(field, value):
     assert str(ours.value) == str(theirs.value)
 
 
-@pytest.mark.parametrize("tier", ["edge", "quality"])
+def test_int8_defaults_match_jax():
+    ours, theirs = config.Config(), jax_config.Config()
+    names = {f.name: f.type for f in dataclasses.fields(config.Config)}
+    jax_names = {f.name: f.type for f in dataclasses.fields(
+        jax_config.Config)}
+    for name in INT8_FIELDS:
+        assert getattr(ours, name) == getattr(theirs, name), name
+        assert names[name] == jax_names[name], name
+    cfg = config.parse_args(["--infer-dtype", "int8", "--quant-scales",
+                             "s.json", "--calib-batches", "2",
+                             "--calib-percentile", "99.5"])
+    assert (cfg.infer_dtype, cfg.quant_scales, cfg.calib_batches,
+            cfg.calib_percentile) == ("int8", "s.json", 2, 99.5)
+
+
+@pytest.mark.parametrize("field,value", BAD_INT8,
+                         ids=["%s=%r" % fv for fv in BAD_INT8])
+def test_int8_validation_matches_jax(field, value):
+    with pytest.raises(ValueError) as ours:
+        config.Config(**{field: value})
+    with pytest.raises(ValueError) as theirs:
+        jax_config.Config(**{field: value})
+    assert str(ours.value) == str(theirs.value)
+
+
+def test_int8_refused_for_training():
+    with pytest.raises(NotImplementedError, match="int8"):
+        config.Config(infer_dtype="int8", train_flag=True)
+    with pytest.raises(NotImplementedError, match="int8"):
+        config.parse_args(["--infer-dtype", "int8", "--train-flag"])
+
+
+@pytest.mark.parametrize("tier", ["edge", "quality", "throughput"])
 def test_apply_tier_matches_jax(tier):
     ours = config.apply_tier(config.Config(tier=tier, hourglass_inch=32,
                                            serve_buckets=[8]))
@@ -81,12 +124,15 @@ def test_tier_of_other_architectures_matches_jax():
 
 
 def test_throughput_tier_is_refused():
+    """The throughput tier's int8 inference is eval and demo only: its
+    preset is JAX's, eval takes it, training refuses it."""
     assert config.TIER_PRESETS["throughput"] \
         == jax_config.TIER_PRESETS["throughput"]
+    assert config.apply_tier(config.Config(tier="throughput")).infer_dtype \
+        == "int8"
     with pytest.raises(NotImplementedError, match="int8"):
-        config.Config(tier="throughput")
-    with pytest.raises(NotImplementedError, match="int8"):
-        config.parse_args(["--tier", "throughput"])
+        config.apply_tier(config.parse_args(["--tier", "throughput",
+                                             "--train-flag"]))
 
 
 @pytest.fixture(scope="module")
@@ -126,3 +172,80 @@ def test_cli_tier_evaluates_through_the_engine(voc, tmp_path, capsys,
                for m in model.modules())
     assert not any(getattr(m, "out_channels", None) == 8
                    for m in model.modules())
+
+
+def test_cli_throughput_tier_evaluates_int8_through_the_engine(
+        voc, tmp_path, capsys, monkeypatch):
+    """JAX `evaluate` and the port's CLI at `--tier throughput` on the same
+    fixture and weights (the JAX init through the npz bridge): each
+    calibrates on its first eval batch and predicts with the int8 twin
+    through its engine; the scales within rtol 1e-6, the mAP within
+    1e-3."""
+    import jax
+    import numpy as np
+
+    from real_time_helmet_detection_tpu.evaluate import \
+        evaluate as jax_evaluate
+    from real_time_helmet_detection_tpu.evaluate import \
+        load_eval_state as jax_load_eval_state
+    from real_time_helmet_detection_tpu_torch import convert
+    from real_time_helmet_detection_tpu_torch.ops.quant import load_scales
+    engines = []
+
+    class Recording(ServingEngine):
+        def __init__(self, predict, *args, **kw):
+            super().__init__(predict, *args, **kw)
+            engines.append((self, predict))
+    monkeypatch.setattr(evaluate, "ServingEngine", Recording)
+    common = dict(data=voc, imsize=64, batch_size=4, calib_batches=1,
+                  random_seed=7)
+    jcfg = jax_config.apply_tier(jax_config.Config(
+        tier="throughput", save_path=str(tmp_path / "jax"), num_workers=1,
+        **common))
+    jm = jax_evaluate(jcfg)
+    _, variables = jax_load_eval_state(jcfg)
+    npz = str(tmp_path / "w.npz")
+    convert.save_npz(npz, jax.device_get(variables))
+    out = str(tmp_path / "out")
+    main(["--data", voc, "--imsize", "64", "--batch-size", "4",
+          "--calib-batches", "1", "--tier", "throughput", "--model-load",
+          npz, "--device", "cpu", "--save-path", out])
+    printed = capsys.readouterr().out
+    assert "int8 calibration (1 batches" in printed and ": mAP " in printed
+    (engine, predict), = engines
+    assert predict.int8 and engine.buckets == (4,)
+    assert engine.stats()["completed"] == 3
+    assert len(os.listdir(os.path.join(out, "results", "txt"))) == 3
+    ours = convert.flatten_tree(load_scales(
+        os.path.join(out, "calibration", "quant_scales.json")))
+    theirs = convert.flatten_tree(load_scales(
+        os.path.join(str(tmp_path / "jax"), "calibration",
+                     "quant_scales.json")))
+    assert ours.keys() == theirs.keys()
+    for key in ours:
+        np.testing.assert_allclose(ours[key], theirs[key], rtol=1e-6)
+    served = float(printed.split(": mAP ", 1)[1].split()[0])
+    assert abs(served - jm["map"]) <= 1e-3
+
+
+def test_cli_throughput_tier_demo_self_calibrates(tmp_path, capsys,
+                                                  monkeypatch):
+    import numpy as np
+    from PIL import Image
+    engines = []
+
+    class Recording(ServingEngine):
+        def __init__(self, predict, *args, **kw):
+            super().__init__(predict, *args, **kw)
+            engines.append((self, predict))
+    monkeypatch.setattr(evaluate, "ServingEngine", Recording)
+    img = str(tmp_path / "x.jpg")
+    Image.fromarray(np.random.default_rng(0).integers(
+        0, 256, (72, 96, 3), dtype=np.uint8)).save(img)
+    out = str(tmp_path / "demo")
+    main(["--data", img, "--imsize", "64", "--tier", "throughput",
+          "--device", "cpu", "--save-path", out])
+    (engine, predict), = engines
+    assert predict.int8 and engine.buckets == (1,)
+    assert engine.stats()["completed"] == 1
+    assert os.path.exists(os.path.join(out, "image.png"))
