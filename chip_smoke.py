@@ -124,23 +124,30 @@ version on the card:
    share of a saturated window, peak memory; then `--tier edge` and
    `--tier quality` (bf16, through `apply_tier`): captures, launches, rows,
    images/s at the largest bucket and bucket-1 latency;
-19. qkernels: the int8 kernels (#14 the dense 1x1/3x3 int8 conv, #15
-   the depthwise one, #16 the activation quantizer; no Pallas
+19. qkernels: the int8 kernels (#14 the dense 1x1/3x3 int8 conv on its
+   wgmma kernel and its first, mma.sync one; #15 the depthwise one,
+   tiled and gather; #16 the activation quantizer; no Pallas
    counterpart) against their plain versions at every int8 conv site of
    the throughput tier and the flagship at b16 512^2 (the int32 sums and
-   the f32/bf16 ReLU/Linear outputs bit-equal), at odd shapes, on the
+   the f32/bf16 ReLU/Linear outputs bit-equal, each conv on each of its
+   kernels), at odd shapes (ragged boxes, one image, Cout past one wgmma
+   width, C % 16 != 0) and on views 16 bytes into their storage, on the
    quantizer's ties, +-inf, saturation and NaN (0, JAX-CPU's value), and
    the wrappers' refusals (misaligned, not channels-last, other
    geometry);
 20. qtiming: their time at the throughput tier's largest sites and the
-   flagship's largest 3x3 beside the bound, the plain version and
-   `torch._int_mm` (the library's int32 sums alone);
+   flagship's largest 3x3 and its 3x3 at 128^2, each conv's new kernel
+   and its first one in turns, beside the bound, the plain version,
+   `torch._int_mm` (the library's int32 sums alone) and cuDNN's bf16
+   conv (a float yardstick);
 21. int8: `--infer-dtype int8` predicts at b16 512^2 for the throughput
    tier and the flagship, bf16 and f32: scales calibrated on the card,
-   launches as derived (`qconv_sites`; the peak test once, no BN
-   kernel), logits bit-equal and Detections identical to the plain
-   twin, peak memory, images/s against the float model and the int8 vs
-   float agreement (a record);
+   launches as derived (`qconv_sites`, by kernel: every dense conv on
+   the wgmma kernel, every depthwise one on the tiled kernel; the peak
+   test once, no BN kernel), logits bit-equal and Detections identical
+   to the plain twin, peak memory, images/s against the float model,
+   #14's and #15's device sums per predict against the float model's
+   convolutions, and the int8 vs float agreement (a record);
 22. serve_int8: `--tier throughput` through the engine (buckets 4/8/16)
    with an SLO watchdog: one graph per bucket, replay launches, rows
    bit-equal to eager, a closed loop of 64 clients and open loops at 50%
@@ -306,6 +313,22 @@ def eager_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters=50):
+    """Host time (microseconds) of issuing one fn() call from Python: the
+    wrapper's checks, plan and launch, `iters` calls after a sync, the
+    device queue far from full."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / iters
+
+
 @contextlib.contextmanager
 def swapped(swaps, value=None):
     """Set each (module, name) to its stand-in while the block runs (the
@@ -391,7 +414,11 @@ COUNTERS = {
     "loss_bwd_scalar": ("loss", "bwd_scalar_launches"),
     "quantize_act": ("qconv", "quant_launches"),
     "qconv_dense": ("qconv", "dense_launches"),
+    "qconv_dense_wgmma": ("qconv", "dense_wgmma_launches"),
+    "qconv_dense_mma": ("qconv", "dense_mma_launches"),
     "qconv_dw": ("qconv", "dw_launches"),
+    "qconv_dw_tiled": ("qconv", "dw_tiled_launches"),
+    "qconv_dw_gather": ("qconv", "dw_gather_launches"),
 }
 
 
@@ -466,12 +493,25 @@ def qconv_sites(cfg):
     and two pointwise 1x1, a ghost block two ghost modules of a 1x1 and a
     depthwise 3x3 each, + the 1x1 projection where the width changes; the
     neck conv is a 1x1."""
-    dense = dw = 0
+    dense, dw_channels = qconv_walk(cfg)
+    return dense, len(dw_channels)
+
+
+def qconv_walk(cfg):
+    """(dense int8 convs, the channel count of each depthwise int8 conv)
+    of one forward of cfg's int8 twin (see `qconv_sites`): a depthwise
+    block's depthwise convs take its input and output widths, a ghost
+    module's its half width."""
+    dense = 0
+    dw = []
 
     def residual(cin, cout):
-        nonlocal dense, dw
+        nonlocal dense
         dense += 2 + (cin != cout)
-        dw += 0 if cfg.variant == "residual" else 2
+        if cfg.variant == "depthwise":
+            dw.extend([cin, cout])
+        elif cfg.variant == "ghost":
+            dw.extend([cout // 2] * 2)
 
     def hourglass(n, c):
         m = c + cfg.increase_ch
@@ -501,15 +541,23 @@ def expected_launches(cfg, path, dtype):
     tensors), the peak test once and the loss kernels once each way, each
     on the variant its shape takes. An int8 predict (`cfg.infer_dtype`)
     runs no BN kernel: the quantizer and an int8 conv at each of
-    `qconv_sites`, and the peak test."""
+    `qconv_sites`, each on the kernel its plan takes (`dense_plan`: the
+    wgmma kernel for every shape; `dw_plan`: the tiled kernel for C % 16
+    == 0), and the peak test."""
     import torch
-    from real_time_helmet_detection_tpu_torch.ops import epilogue, loss, peak
+    from real_time_helmet_detection_tpu_torch.ops import (epilogue, loss,
+                                                          peak, qconv)
     epi, tail = bn_sites(cfg)
     vec = sum(epilogue.bn_act_variant(c, dtype) == "vector" for c in epi)
     want = dict.fromkeys(COUNTERS, 0)
     if getattr(cfg, "infer_dtype", "bf16") == "int8":
-        dense, dw = qconv_sites(cfg)
-        want.update(quantize_act=dense + dw, qconv_dense=dense, qconv_dw=dw)
+        dense, dw_channels = qconv_walk(cfg)
+        dw = len(dw_channels)
+        tiled = sum(qconv.dw_plan(1, 1, 1, c).variant == "tiled"
+                    for c in dw_channels)
+        want.update(quantize_act=dense + dw, qconv_dense=dense,
+                    qconv_dense_wgmma=dense, qconv_dw=dw,
+                    qconv_dw_tiled=tiled, qconv_dw_gather=dw - tiled)
     else:
         want.update(bn_act=len(epi), bn_act_vec=vec,
                     bn_act_scalar=len(epi) - vec, bn_add_act=len(tail))
@@ -2403,8 +2451,10 @@ TRACE_KERNELS = (("bn_act_vec_kernel", "bn_act_vec"),
                  ("bn_bwd_dx_kernel", "bn_bwd_dx"),
                  ("loss_fwd_kernel", "loss_fwd"),
                  ("loss_bwd", "loss_bwd"),
-                 ("qconv_dense_kernel", "qconv_dense"),
-                 ("qconv_dw_kernel", "qconv_dw"),
+                 ("qconv_wgmma_kernel", "qconv_dense_wgmma"),
+                 ("qconv_dense_kernel", "qconv_dense_mma"),
+                 ("qconv_dw_tile_kernel", "qconv_dw_tiled"),
+                 ("qconv_dw_kernel", "qconv_dw_gather"),
                  ("quantize_kernel", "quantize_act"))
 
 
@@ -2422,19 +2472,76 @@ def graph_nodes(graph):
     return int(count.value) if err == 0 else None
 
 
+def graph_kernel_nodes(graph):
+    """Kernel nodes of a captured CUDA graph (`cuGraphGetNodes` and
+    `cuGraphNodeGetType` through libcuda), or None where a call fails."""
+    import ctypes
+    try:
+        lib = ctypes.CDLL("libcuda.so.1")
+        raw = ctypes.c_void_p(graph.raw_cuda_graph())
+        count = ctypes.c_size_t(0)
+        if lib.cuGraphGetNodes(raw, None, ctypes.byref(count)):
+            return None
+        nodes = (ctypes.c_void_p * count.value)()
+        if lib.cuGraphGetNodes(raw, nodes, ctypes.byref(count)):
+            return None
+        kind, kernels = ctypes.c_int(0), 0
+        for node in nodes[:count.value]:
+            if lib.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)):
+                return None
+            kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    except (AttributeError, OSError, RuntimeError):
+        return None
+    return kernels
+
+
+def replay_trace(graph):
+    """Device operations by name in one replay of `graph`, from a
+    torch.profiler trace whose schedule replays it once as the
+    profiler's warm-up step (recorded, then discarded) and once as the
+    active step that is counted."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    names = {}
+
+    def ready(prof):
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA:
+                names[ev.key] = names.get(ev.key, 0) + ev.count
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=ready) as prof:
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            prof.step()
+    return names
+
+
 def replay_launches(runner, attempts=3):
     """Our kernels' launches in one replay of a bucket's graph, counted by
-    kernel name in a torch.profiler trace of it, as launch counters
-    (bn_act = vector + scalar, peak_scores = vector + scalar). A trace
-    that holds no device kernel at all missed the replay (the profiler
-    has done so) and is taken again, up to `attempts` times; the counts
-    of a trace that saw the replay are what the caller checks."""
-    for _ in range(attempts):
-        names = {}
-        trace_device_ms(lambda i: runner.graph.replay(), reps=1,
-                        counts=names)
-        if names:
+    kernel name in a torch.profiler trace of it (`replay_trace`), as
+    launch counters (bn_act = vector + scalar, peak_scores = vector +
+    scalar, the int8 convs the sums of their two kernels each). A trace
+    that holds fewer kernels than the graph has kernel nodes
+    (`graph_kernel_nodes`; none at all where that count fails) missed
+    part of the replay (the profiler has done so) and is taken again, up
+    to `attempts` times; the counts of the last trace are what the
+    caller checks."""
+    need = graph_kernel_nodes(runner.graph)
+    for attempt in range(attempts):
+        names = replay_trace(runner.graph)
+        seen = sum(n for name, n in names.items()
+                   if not name.startswith(("Memcpy", "Memset")))
+        if seen >= (need or 1):
             break
+        log("  a replay trace held %d kernels of the graph's %s kernel "
+            "nodes (attempt %d of %d)" % (seen, need, attempt + 1,
+                                          attempts))
     got = {}
     for name, n in names.items():
         hit = next((c for key, c in TRACE_KERNELS if key in name), None)
@@ -2442,6 +2549,10 @@ def replay_launches(runner, attempts=3):
             got[hit] = got.get(hit, 0) + int(round(n))
     got["bn_act"] = got.get("bn_act_vec", 0) + got.get("bn_act_scalar", 0)
     got["peak_scores"] = got.get("peak_vec", 0) + got.get("peak_scalar", 0)
+    got["qconv_dense"] = (got.get("qconv_dense_wgmma", 0)
+                          + got.get("qconv_dense_mma", 0))
+    got["qconv_dw"] = got.get("qconv_dw_tiled", 0) + got.get("qconv_dw_gather",
+                                                            0)
     return got
 
 
@@ -2449,7 +2560,8 @@ def want_replay(cfg, dtype):
     """`expected_launches` of one predict, on the counters a trace can
     tell apart."""
     want = expected_launches(cfg, "predict", dtype)
-    keys = {c for _, c in TRACE_KERNELS} | {"bn_act", "peak_scores"}
+    keys = {c for _, c in TRACE_KERNELS} | {"bn_act", "peak_scores",
+                                            "qconv_dense", "qconv_dw"}
     return {k: want[k] for k in sorted(keys)}
 
 
@@ -2844,13 +2956,15 @@ def int8_sites(cfg):
     return sites
 
 
-def qconv_operands(kind, shape, cout, k, gen):
+def qconv_operands(kind, shape, cout, k, gen, offset=0):
     """Seeded int8 input and weights and float32 (mult, bias) of one int8
-    conv site."""
+    conv site; the input a channels-last view `offset` bytes into its
+    storage where asked."""
     import torch
     n, c, h, w = shape
-    q = channels_last(torch.randint(-127, 128, shape, generator=gen,
-                                    device="cuda", dtype=torch.int8))
+    base = torch.randint(-127, 128, (n * h * w * c + offset,), generator=gen,
+                         device="cuda", dtype=torch.int8)
+    q = base[offset:].view(n, h, w, c).permute(0, 3, 1, 2)
     wshape = (9, c) if kind == "dw" else (cout, k, k, c)
     wq = torch.randint(-127, 128, wshape, generator=gen, device="cuda",
                        dtype=torch.int8)
@@ -2859,30 +2973,43 @@ def qconv_operands(kind, shape, cout, k, gen):
     return q, wq, mult, bias
 
 
-def qconv_case(kind, shape, cout, k, gen, errs, label):
-    """One int8 conv site against its plain version: the int32 sums
-    bit-equal, then the float32 and bfloat16 outputs with ReLU and
-    Linear bit-equal (the plain rescale of the plain sums). Returns the
-    number of comparisons."""
+def qconv_variants(kind, c):
+    """The kernels an int8 conv of `c` input channels can take: the dense
+    conv's wgmma and mma kernels; the depthwise conv's tiled kernel (C %
+    16 == 0) and its gather kernel."""
+    if kind == "dense":
+        return ("wgmma", "mma")
+    return ("tiled", "gather") if c % 16 == 0 else ("gather",)
+
+
+def qconv_case(kind, shape, cout, k, gen, errs, label, offset=0):
+    """One int8 conv site against its plain version on each of its
+    kernels (`qconv_variants`): the int32 sums bit-equal, then the
+    float32 and bfloat16 outputs with ReLU and Linear bit-equal (the
+    plain rescale of the plain sums). Returns the number of
+    comparisons."""
     import torch
     from real_time_helmet_detection_tpu_torch.ops import qconv
-    q, wq, mult, bias = qconv_operands(kind, shape, cout, k, gen)
-    conv = qconv.conv_dw if kind == "dw" else qconv.conv_dense
+    q, wq, mult, bias = qconv_operands(kind, shape, cout, k, gen, offset)
+    conv = qconv.conv_dw_variant if kind == "dw" else qconv.conv_dense_variant
     ref = (qconv.conv_dw_reference if kind == "dw"
            else qconv.conv_dense_reference)
     acc = ref(q, wq, mult, bias, torch.int32, "Linear")
-    errs[(kind, "i32", label)] = compare(
-        "%s int32 %s" % (kind, label),
-        conv(q, wq, mult, bias, torch.int32, "Linear"), acc, "equal")
-    n = 1
-    for dtype in (torch.float32, torch.bfloat16):
-        tag = "f32" if dtype == torch.float32 else "bf16"
-        for act in ("ReLU", "Linear"):
-            want = qconv.rescale_reference(acc, mult, bias, dtype, act)
-            errs[(kind, tag, act, label)] = compare(
-                "%s %s %s %s" % (kind, tag, act, label),
-                conv(q, wq, mult, bias, dtype, act), want, "equal")
-            n += 1
+    n = 0
+    for var in qconv_variants(kind, shape[1]):
+        errs[(kind, "i32", var, label)] = compare(
+            "%s %s int32 %s" % (kind, var, label),
+            conv(q, wq, mult, bias, torch.int32, "Linear", var), acc,
+            "equal")
+        n += 1
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            for act in ("ReLU", "Linear"):
+                want = qconv.rescale_reference(acc, mult, bias, dtype, act)
+                errs[(kind, tag, act, var, label)] = compare(
+                    "%s %s %s %s %s" % (kind, var, tag, act, label),
+                    conv(q, wq, mult, bias, dtype, act, var), want, "equal")
+                n += 1
     return n
 
 
@@ -2895,14 +3022,23 @@ def quant_case(x, step, errs, label):
 
 
 # off the main path: (N, Cin, H, W, Cout, k) for the dense conv: a Cin of
-# 16 and 48 (a half-filled 32-byte K step), 144 (two K stages: 128 + 16),
-# 256, a Cout of 8 and a ragged last block of 64 channels (72, 136, 200),
-# pixel counts that are no multiple of 128, a 1x1 image; (N, C, H, W) for
-# the depthwise conv; odd element counts for the quantizer
+# 16 and 48 (a half-filled K step or chunk), 144 (chunks of 64: 64 + 64 +
+# 16), 256, a Cout of 8 and 24 (wgmma width 32), 72, 136 and 200 (widths
+# 96 and 256, rows past Cout), 264 (two channel blocks), a W and H that
+# are no multiple of the box, one image at 8^2 and 1^2, a 1x1 image;
+# (N, C, H, W) for the depthwise conv: C % 16 != 0 (the gather kernel
+# only), 144 and 80 (channel tiles of 64 and a ragged one), one image at
+# 8^2 and 1^2, W and H no multiple of the tile; odd element counts for
+# the quantizer
 QDENSE_ODD = [(1, 16, 5, 7, 8, 1), (3, 48, 9, 13, 24, 3),
               (2, 144, 11, 6, 72, 3), (1, 256, 3, 3, 136, 1),
-              (2, 32, 1, 1, 8, 3), (5, 16, 17, 19, 200, 3)]
-QDW_ODD = [(1, 8, 5, 7), (3, 24, 9, 13), (2, 136, 11, 6), (1, 8, 1, 1)]
+              (2, 32, 1, 1, 8, 3), (5, 16, 17, 19, 200, 3),
+              (1, 128, 8, 8, 128, 3), (1, 64, 1, 1, 96, 3),
+              (2, 32, 20, 37, 264, 1), (1, 48, 23, 29, 264, 3)]
+QDW_ODD = [(1, 8, 5, 7), (3, 24, 9, 13), (2, 136, 11, 6), (1, 8, 1, 1),
+           (1, 48, 8, 8), (1, 16, 1, 1), (2, 144, 19, 37), (3, 80, 17, 33)]
+# a channels-last view 16 bytes into its storage: (kind, shape, Cout, k)
+QOFFSET = [("dense", (2, 64, 13, 21), 96, 3), ("dw", (2, 48, 13, 21), 48, 3)]
 QUANT_ODD = [(3, 5, 7, 9), (1, 3, 1, 1), (2, 16, 9, 13)]
 # what JAX-CPU's int8 quantizer gives for NaN input (tests/
 # test_torch_quant.py holds the port's plain version to it)
@@ -2943,6 +3079,9 @@ def phase_qkernels(state):
                         ("odd", nb, cin, h, w, cout, k))
     for shape in QDW_ODD:
         n += qconv_case("dw", shape, shape[1], 3, gen, errs, ("odd",) + shape)
+    for kind, shape, cout, k in QOFFSET:
+        n += qconv_case(kind, shape, cout, k, gen, errs,
+                        ("offset 16",) + shape, offset=16)
     for shape in QUANT_ODD:
         for dtype in (torch.float32, torch.bfloat16):
             x = channels_last(rand(shape, dtype, gen, 3.0))
@@ -3002,9 +3141,11 @@ def phase_qkernels(state):
             % [k for k, v in refused.items() if not v])
     state["qkernels"] = dict(n=n, sites=len(all_sites))
     log("qkernels: %d comparisons bit-equal against the plain versions: "
-        "the int32 sums and the f32/bf16 ReLU/Linear outputs at all %d "
-        "int8 conv sites of the throughput tier and the flagship at b16 "
-        "512^2 and at %d odd shapes, the quantizer at every site input, "
+        "the int32 sums and the f32/bf16 ReLU/Linear outputs, on each "
+        "kernel of each conv (dense: wgmma, mma; depthwise: tiled, "
+        "gather), at all %d int8 conv sites of the throughput tier and the "
+        "flagship at b16 512^2, at %d odd shapes and on views 16 bytes "
+        "into their storage, the quantizer at every site input, "
         "odd counts, ties at .5 (half to even), +-inf and +-1e30 (+-127) "
         "and NaN (%d, JAX-CPU's value); refused: %s"
         % (n, len(all_sites), len(QDENSE_ODD) + len(QDW_ODD),
@@ -3026,24 +3167,42 @@ def im2col_int8(q, k):
 
 def qconv_timing(kind, shape, cout, k, gen):
     """Graph-replay ms of one int8 conv site, bf16 out, Linear: the
-    kernel, the plain version, and for a dense conv the library's int32
-    sums alone (`torch._int_mm` on the input rows, an im2col for 3x3,
-    built outside the timing); the bound and what bounds it; whether the
-    library's sums equal the kernel's."""
+    kernel the plan takes and the other one (the first design), in turns
+    (new, old, old, new; each the mean of its two), the plain version,
+    for a dense conv the library's int32 sums alone (`torch._int_mm` on
+    the input rows, an im2col for 3x3, built outside the timing), and as
+    a float yardstick cuDNN's bf16 conv at the same shape; the bound and
+    what bounds it; the host time of issuing each kernel from Python.
+    For a depthwise conv the library is cuDNN's float32 conv of the int8
+    values (groups = C). Fails unless the library's sums equal the
+    kernel's."""
     import torch
+    import torch.nn.functional as F
     from real_time_helmet_detection_tpu_torch.ops import qconv
     q, wq, mult, bias = qconv_operands(kind, shape, cout, k, gen)
     n, c, h, w = shape
     m = n * h * w
+    new, old = qconv_variants(kind, c)
     if kind == "dw":
-        fn = lambda: qconv.conv_dw(q, wq, mult, bias, torch.bfloat16)  # noqa
+        conv = qconv.conv_dw_variant
         ref = lambda: qconv.conv_dw_reference(  # noqa: E731
             q, wq, mult, bias, torch.bfloat16, "Linear")
         ops, peak = 2.0 * m * c * 9, INT32_OPS_PER_S
-        lib_ms, lib_equal = None, None
+        wf = wq.t().reshape(c, 1, 3, 3)
+        groups = c
+        # float32 holds these sums exactly (|sum| <= 9 * 127^2 < 2^24; a
+        # TF32 operand holds an int8 value)
+        x32 = channels_last(q.to(torch.float32))
+        w32 = wf.to(torch.float32).contiguous(
+            memory_format=torch.channels_last)
+        lib = lambda: F.conv2d(x32, w32, padding=1,  # noqa: E731
+                               groups=c)
+        lib_ms = graph_ms(lib)
+        acc = qconv.conv_dw(q, wq, mult, bias, torch.int32)
+        lib_equal = bool(torch.equal(lib().round().to(torch.int32), acc))
+        del x32, w32, acc
     else:
-        fn = lambda: qconv.conv_dense(q, wq, mult, bias,  # noqa: E731
-                                      torch.bfloat16)
+        conv = qconv.conv_dense_variant
         ref = lambda: qconv.conv_dense_reference(  # noqa: E731
             q, wq, mult, bias, torch.bfloat16, "Linear")
         ops, peak = 2.0 * m * c * k * k * cout, INT8_OPS_PER_S
@@ -3056,12 +3215,35 @@ def qconv_timing(kind, shape, cout, k, gen):
             torch._int_mm(rows, w2d.t()),
             acc.permute(0, 2, 3, 1).reshape(m, cout)))
         del rows, acc
+        wf = wq.permute(0, 3, 1, 2)
+        groups = 1
+    require(lib_equal, "%s %s: the library's sums differ from the kernel's"
+            % (kind, shape))
+    xf = channels_last(q.to(torch.bfloat16))
+    wf = wf.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    cudnn_ms = graph_ms(lambda: F.conv2d(xf, wf, padding=k // 2,
+                                         groups=groups))
+    del xf, wf
+    turns = {new: [], old: []}
+    for var in (new, old, old, new):
+        turns[var].append(graph_ms(lambda: conv(  # noqa: B023
+            q, wq, mult, bias, torch.bfloat16, "Linear", var)))
     nbytes = q.numel() + wq.numel() + m * cout * 2
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = ops / peak * 1e3
-    return dict(ms=graph_ms(fn), eager_ms=eager_ms(fn),
+    fn = lambda: conv(q, wq, mult, bias, torch.bfloat16,  # noqa: E731
+                      "Linear", new)
+    host = {new: [], old: []}
+    for var in (new, old, old, new):
+        host[var].append(host_us(lambda: conv(  # noqa: B023
+            q, wq, mult, bias, torch.bfloat16, "Linear", var)))
+    host = {var: sum(v) / 2 for var, v in host.items()}
+    return dict(ms=sum(turns[new]) / 2, old_ms=sum(turns[old]) / 2,
+                turns=turns, variant=new, old_variant=old, host_us=host,
+                eager_ms=eager_ms(fn),
                 plain_ms=graph_ms(ref, calls=2, replays=2),
                 library_ms=lib_ms, library_equal=lib_equal,
+                cudnn_bf16_ms=cudnn_ms,
                 bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations",
                 bytes_ms=by_bytes, ops_ms=by_ops, shape=shape, cout=cout,
@@ -3076,11 +3258,15 @@ def site_bytes_of(site):
 def phase_qtiming(state):
     """The int8 kernels' device time by CUDA graph replay (CUDA events),
     bf16, at the throughput tier's largest sites (by bytes) of each
-    kind, the flagship's largest dense 3x3 site and the quantizer at the
-    throughput tier's largest conv input, beside the bound (the larger of
-    bytes / 3.35 TB/s and operations / the peak of their type), the plain
-    version and, for the dense conv, `torch._int_mm` on the same int8
-    rows (the library's int32 sums alone, no rescale)."""
+    kind, the flagship's largest dense 3x3 site and its 3x3 site at 128^2
+    (8 a predict), and the quantizer at the throughput tier's largest
+    conv input, beside the bound (the larger of bytes / 3.35 TB/s and
+    operations / the peak of their type), the plain version, each conv's
+    first-design kernel in turns with the one its plan takes, the
+    library's int32 sums alone (no rescale: `torch._int_mm` on the same
+    int8 rows for the dense conv, cuDNN's float32 grouped conv of the
+    int8 values for the depthwise one), and cuDNN's bf16 conv (a float
+    yardstick)."""
     import torch
     from real_time_helmet_detection_tpu_torch.ops import qconv
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -3091,8 +3277,11 @@ def phase_qtiming(state):
     dw = max((s for s in tp if s[0] == "dw"), key=site_bytes_of)
     dense3 = max((s for s in fl if s[0] == "dense" and s[3] == 3),
                  key=lambda s: s[1][0] * s[1][2] * s[1][3] * s[1][1] * s[2])
+    dense3_128 = ("dense", (16, dense3[1][1], 128, 128), dense3[2], 3)
+    require(dense3_128 in fl, "the flagship has no 3x3 site at 128^2")
     rows["qconv_dense"] = qconv_timing(*dense, gen)
     rows["qconv_dense_3x3"] = qconv_timing(*dense3, gen)
+    rows["qconv_dense_3x3_128"] = qconv_timing(*dense3_128, gen)
     rows["qconv_dw"] = qconv_timing(*dw, gen)
     shape = max((s[1] for s in tp), key=lambda s: math.prod(s))
     x = channels_last(rand(shape, torch.bfloat16, gen, 2.0))
@@ -3108,16 +3297,30 @@ def phase_qtiming(state):
     del x
     torch.cuda.empty_cache()
     log("qtiming (ms per call, bf16, CUDA graph replay; eager = issued "
-        "from Python; library = torch._int_mm's int32 sums alone):")
+        "from Python; old = the first design's kernel, in turns new, old, "
+        "old, new; host = microseconds of issuing one call from Python, "
+        "in the same turns; library = the int32 sums alone, "
+        "torch._int_mm's (dense) or cuDNN's float32 grouped conv's "
+        "(depthwise); cuDNN bf16 = a float conv of the same shape, a "
+        "yardstick only):")
     for key, r in rows.items():
-        log("  %-16s kernel %.4f (eager %.4f)  plain %.4f  library %s%s  "
-            "bound %.4f (%s)  at %s%s" % (
-                key, r["ms"], r["eager_ms"], r["plain_ms"],
+        log("  %-20s kernel %.4f (eager %.4f)%s  plain %.4f  library %s%s"
+            "%s  bound %.4f (%s, %.0f%% of it)  at %s%s" % (
+                key, r["ms"], r["eager_ms"],
+                "  %s %.4f vs %s %.4f (turns %s; host us %s %.1f, %s %.1f)"
+                % (r["variant"], r["ms"], r["old_variant"], r["old_ms"],
+                   r["turns"], r["variant"], r["host_us"][r["variant"]],
+                   r["old_variant"], r["host_us"][r["old_variant"]])
+                if "old_ms" in r else "",
+                r["plain_ms"],
                 "%.4f" % r["library_ms"] if r["library_ms"] is not None
                 else "none",
                 "" if r["library_equal"] is None else
                 " (sums equal the kernel's: %s)" % r["library_equal"],
-                r["bound_ms"], r["bound_by"], r["shape"],
+                "  cuDNN bf16 %.4f" % r["cudnn_bf16_ms"]
+                if "cudnn_bf16_ms" in r else "",
+                r["bound_ms"], r["bound_by"],
+                100 * r["bound_ms"] / r["ms"], r["shape"],
                 " -> %d, k %d" % (r["cout"], r["k"]) if "cout" in r
                 else ""))
 
@@ -3184,8 +3387,8 @@ def int8_vs_float(dets_q, dets_f, twin, fmodel, images):
 
 
 # kernel-name groups of the int8 and float predicts' device time
-INT8_TRACE = ("quantize_kernel", "qconv_dense_kernel", "qconv_dw_kernel",
-              "peak_kernel")
+INT8_TRACE = ("quantize_kernel", "qconv_wgmma_kernel", "qconv_dense_kernel",
+              "qconv_dw_tile_kernel", "qconv_dw_kernel", "peak_kernel")
 FLOAT_TRACE = ("bn_act_vec_kernel", "bn_add_act_kernel", "peak_kernel")
 
 
@@ -3298,6 +3501,20 @@ def phase_int8(state):
                         ", ".join("%.1f" % v for v in r["float"]),
                         a["heat_max"], a["heat_rel"], a["score_max"],
                         a["score_mean"], *a["strict"], *a["loose"]))
+                g = rec["profile"]["int8"]["groups"]
+                rec["device_sums"] = dict(
+                    dense=g["qconv_wgmma_kernel"] + g["qconv_dense_kernel"],
+                    dw=g["qconv_dw_tile_kernel"] + g["qconv_dw_kernel"],
+                    float_conv=rec["profile"]["float"]["groups"][
+                        "convolution"])
+                log("%s: device ms per b16 predict: #14 (dense int8 convs) "
+                    "%.3f, #15 (depthwise) %.3f; the float model's "
+                    "convolutions %.3f; int8 predict %.3f vs float %.3f"
+                    % (label, rec["device_sums"]["dense"],
+                       rec["device_sums"]["dw"],
+                       rec["device_sums"]["float_conv"],
+                       rec["profile"]["int8"]["busy"],
+                       rec["profile"]["float"]["busy"]))
                 for path, pr in rec["profile"].items():
                     log("%s: %s predict device time (profiler, ms per b16 "
                         "predict) %.3f of an untraced %.3f ms: idle share "
@@ -3938,12 +4155,24 @@ def kernel_rows(state):
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "table_row": row,
             "shape": list(t["shape"])})
+        if kind:  # the first design's kernel, timed in turns with it
+            rows[-1].update(variant=t["variant"], old_variant=t["old_variant"],
+                            old_ms=t["old_ms"], host_us=t["host_us"],
+                            cudnn_bf16_ms=t["cudnn_bf16_ms"],
+                            launches_by_variant={
+                                v: int8["qconv_%s_%s" % (kind, v)]
+                                for v in (t["variant"], t["old_variant"])})
         if name == "qconv_dense":
-            f = qt["qconv_dense_3x3"]
-            rows[-1].update(ms_3x3=f["ms"], bound_ms_3x3=f["bound_ms"],
-                            bound_by_3x3=f["bound_by"],
-                            library_ms_3x3=f["library_ms"],
-                            shape_3x3=list(f["shape"]))
+            for key, tag in (("qconv_dense_3x3", "3x3"),
+                             ("qconv_dense_3x3_128", "3x3_128")):
+                f = qt[key]
+                rows[-1].update({
+                    "ms_" + tag: f["ms"], "old_ms_" + tag: f["old_ms"],
+                    "bound_ms_" + tag: f["bound_ms"],
+                    "bound_by_" + tag: f["bound_by"],
+                    "library_ms_" + tag: f["library_ms"],
+                    "cudnn_bf16_ms_" + tag: f["cudnn_bf16_ms"],
+                    "shape_" + tag: list(f["shape"])})
     return rows
 
 

@@ -72,6 +72,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "helmet_qconv_dense": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _P),
         "helmet_qconv_dw": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "helmet_qconv_wgmma": (_P, _P, _P, _P, _P) + (_I,) * 12 + (_P,),
+        "helmet_qconv_dw_tile": (_P, _P, _P, _P, _P) + (_I,) * 9 + (_P,),
         "helmet_quantize": (_P, _P, _P, _L, _I, _P),
     },
     "loss": {

@@ -5,7 +5,7 @@ real_time_helmet_detection_tpu/models/hourglass.py:228-298 `QuantConv`,
 ops/quant.py:167 `quantize_activations`). The JAX package leaves both to
 XLA (`lax.conv_general_dilated(int8, int8, preferred_element_type=int32)`
 then `acc.astype(dt) * (s_a * s_w).astype(dt) + bias`); the port runs
-them as three hand-written CUDA kernels (`csrc/qconv.cu`):
+them as hand-written CUDA kernels (`csrc/qconv.cu`):
 
 * `quantize_act(x, step)`: `int8(clip(rint(f32(x) / step), -127, 127))`
   of a channels-last f32/bf16 activation, NaN -> 0 (what XLA's float ->
@@ -22,17 +22,38 @@ them as three hand-written CUDA kernels (`csrc/qconv.cu`):
   depthwise conv (groups = C), weights (9, C) (a tap's channels
   contiguous).
 
+Each conv has two kernels, picked by shape:
+
+* dense: "wgmma" (`qconv_wgmma_kernel`), an implicit GEMM on Hopper's
+  `wgmma` fed by TMA, whose tile is a spatial box of WG_ROWS output
+  pixels x all of Cout, the input box loaded once with its halo for all
+  k * k taps, the weights resident in shared memory; `dense_plan` gives
+  its box, wgmma width, stage count and shared memory, and takes it for
+  every shape whose weights fit; "mma" (`qconv_dense_kernel`, the first
+  design on `mma.sync`) for the rest and when asked
+  (`conv_dense_variant`), for timing it;
+* depthwise: "tiled" (`qconv_dw_tile_kernel`), a tile and its halo
+  staged once by TMA, for C % 16 == 0 (TMA's 16-byte strides);
+  "gather" (`qconv_dw_kernel`, nine loads a pixel) for the rest;
+  `dw_plan` picks and sizes the tile.
+
 Every wrapper launches its kernel for CUDA tensors or raises, and runs
 its plain version (`*_reference`) for CPU tensors; there is no fallback
 between them. The plain convs take `F.conv2d` in float64 of the int8
 values, exact for any K here (|sum| < 2^53), then int32. On CUDA the
-wrappers also raise where the kernel does not go: a dense Cin that is no
+wrappers also raise where the kernels do not go: a dense Cin that is no
 multiple of 16, a Cout or depthwise C that is no multiple of 8, or an
 input or weight pointer that is not 16-byte aligned. `quant_launches`,
-`dense_launches` and `dw_launches` count launches.
+`dense_launches` and `dw_launches` count launches; `dense_wgmma_launches`
++ `dense_mma_launches` and `dw_tiled_launches` + `dw_gather_launches`
+split the last two by kernel.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,7 +67,30 @@ _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
 quant_launches = 0
 dense_launches = 0
+dense_wgmma_launches = 0
+dense_mma_launches = 0
 dw_launches = 0
+dw_tiled_launches = 0
+dw_gather_launches = 0
+
+# csrc/qconv.cu's wgmma geometry (kWgRows, kWgBoxW, kWgConsumers,
+# kWgMaxStages, kWgAlign; `wg_planes`, `wg_plane_bytes`, `wg_b_bytes`,
+# `wg_row_bytes`, `wg_smem`)
+WG_ROWS = 128          # output pixels a tile: a box of 8 x bh x bn
+WG_BOX_W = 8           # box width: one 8-row core matrix of wgmma
+WG_CONSUMER_WARPS = 8  # two consumer warpgroups (+ one producer warp)
+WG_MAX_STAGES = 6
+WG_ALIGN = 128         # a TMA destination's alignment
+# the wgmma widths the kernel is built for: legal widths of
+# wgmma.m64nNk32.s32.s8.s8 (8, 16, 24, 32, then multiples of 16 to 256)
+WGMMA_N = (32, 48, 64, 96, 128, 256)
+# shared memory of one H100 SM, and what each resident block reserves
+SMEM_PER_SM = 228 * 1024
+SMEM_RESERVED = 1024
+# csrc/qconv.cu's tiled depthwise geometry (kDwStrip, kDwAlign)
+DW_STRIP = 8
+DW_ALIGN = 128
+DW_TILE_W, DW_TILE_H, DW_MAX_CT = 32, 16, 64
 
 
 def _check_act_input(name: str, x: torch.Tensor, dtypes) -> None:
@@ -163,13 +207,172 @@ def _check_conv(what, q, w, mult, bias, dtype, activation, cout):
                              % (what, name, t.device, q.device))
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class DensePlan:
+    """One dense int8 conv launch: variant "wgmma" (`qconv_wgmma_kernel`)
+    or "mma" (`qconv_dense_kernel`; the other fields describe the wgmma
+    kernel's geometry all the same)."""
+    variant: str
+    box: Tuple[int, int, int]   # (8, bh, bn) output pixels, x fastest
+    planes: int                 # the K chunk: 16-channel planes a tap,
+    #                             Cin rounded up to 32 bytes (no swizzle)
+    n: int                      # wgmma width: output channels a tile
+    stages: int                 # input boxes in the ring
+    smem: int                   # dynamic shared memory, bytes
+
+
+def wg_planes(cin: int) -> int:
+    """csrc/qconv.cu `wg_planes`: 16-channel planes a tap, Cin rounded up
+    to wgmma's 32-byte K step."""
+    return _cdiv(cin, 32) * 2
+
+
+def wg_plane_bytes(bh: int, bn: int, k: int) -> int:
+    """csrc/qconv.cu `wg_plane_bytes`: one plane of the input box with its
+    halo, 16 bytes a pixel, padded to WG_ALIGN."""
+    return _cdiv(bn * (bh + k - 1) * (WG_BOX_W + k - 1) * 16,
+                 WG_ALIGN) * WG_ALIGN
+
+
+def wg_b_bytes(cin: int, k: int, n: int) -> int:
+    """csrc/qconv.cu `wg_b_bytes`: the resident weights, k * k taps x
+    planes x n rows of 16 bytes."""
+    return k * k * wg_planes(cin) * n * 16
+
+
+def wg_row_bytes(out_bytes: int) -> int:
+    """csrc/qconv.cu `wg_row_bytes`: a staging row of 128 bytes of output,
+    padded off the bank period."""
+    return 128 + (16 if out_bytes == 2 else 32)
+
+
+def wg_smem(cin: int, k: int, bh: int, bn: int, n: int, stages: int,
+            out_bytes: int) -> int:
+    """csrc/qconv.cu `wg_smem`: alignment slack, the weights, the ring of
+    input boxes, the consumer warps' 16 staging rows each, the rounded
+    mult and bias (16 bytes a column pair), two mbarriers a stage and two
+    for the weights."""
+    return (WG_ALIGN + wg_b_bytes(cin, k, n)
+            + stages * wg_planes(cin) * wg_plane_bytes(bh, bn, k)
+            + WG_CONSUMER_WARPS * 16 * wg_row_bytes(out_bytes) + n * 8
+            + 16 * stages + 16)
+
+
+@functools.lru_cache(maxsize=1024)
+def dense_plan(n: int, h: int, w: int, cin: int, cout: int, k: int,
+               out_bytes: int = 2, variant: Optional[str] = None
+               ) -> DensePlan:
+    """The launch of a dense k x k int8 conv of an (n, cin, h, w) input to
+    cout channels with `out_bytes` output elements (2: bf16, 4: f32 or
+    int32):
+
+    * the box: 8 x bh x bn output pixels, bh = 16 (8 where H <= 8), bn =
+      128 / (8 * bh) images; its input with a halo of k // 2 is one TMA
+      load a 16-channel plane, read by all k * k taps at shifted offsets;
+      TMA zero-fills what lies past the image (and channels past Cin);
+    * n: the narrowest WGMMA_N >= Cout (or 256, in ceil(Cout / 256)
+      channel blocks); the block's weights stay in shared memory;
+    * stages: as many input boxes (<= WG_MAX_STAGES) as fit two blocks an
+      SM at n <= 96 (the kernel's launch bounds), else one.
+
+    Every shape whose weights and one input box fit a block's shared
+    memory takes "wgmma"; the others, or `variant` "mma", the mma.sync
+    kernel. Cached by shape: an eager launch rebuilds no plan."""
+    if variant not in (None, "wgmma", "mma"):
+        raise ValueError("dense_plan: variant must be None, 'wgmma' or "
+                         "'mma', got %r" % (variant,))
+    bh = 16 if h > 8 else 8
+    bn = WG_ROWS // (WG_BOX_W * bh)
+    planes = wg_planes(cin)
+    wn = next(x for x in WGMMA_N if x >= min(cout, WGMMA_N[-1]))
+    stage = planes * wg_plane_bytes(bh, bn, k)
+    fixed = wg_smem(cin, k, bh, bn, wn, 0, out_bytes)
+
+    def fit(per_sm):
+        budget = min(_build.MAX_DYNAMIC_SMEM,
+                     SMEM_PER_SM // per_sm - SMEM_RESERVED)
+        return min(WG_MAX_STAGES, (budget - fixed) // (stage + 16))
+
+    per_sm = 2 if wn <= 96 and fit(2) >= 2 else 1
+    stages = fit(per_sm)
+    if variant is None:
+        variant = "wgmma" if stages >= 1 else "mma"
+    if variant == "wgmma" and stages < 1:
+        raise ValueError("dense_plan: the weights (%d bytes) and one input "
+                         "box do not fit shared memory"
+                         % wg_b_bytes(cin, k, wn))
+    stages = max(stages, 1)
+    return DensePlan(variant, (WG_BOX_W, bh, bn), planes, wn, stages,
+                     wg_smem(cin, k, bh, bn, wn, stages, out_bytes))
+
+
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """One depthwise int8 conv launch: variant "tiled"
+    (`qconv_dw_tile_kernel`, with its tile) or "gather"
+    (`qconv_dw_kernel`; tile, ct and smem None)."""
+    variant: str
+    tile: Optional[Tuple[int, int]]  # (tw, th) output pixels a block
+    ct: Optional[int]                # channels a block (the box's inner)
+    smem: Optional[int]
+
+
+def dw_box_bytes(tw: int, th: int, ct: int) -> int:
+    """csrc/qconv.cu `dw_box_bytes`: one input box with its halo, padded
+    to DW_ALIGN."""
+    return _cdiv(ct * (tw + 2) * (th + 2), DW_ALIGN) * DW_ALIGN
+
+
+def dw_tile_smem(tw: int, th: int, ct: int) -> int:
+    """csrc/qconv.cu `dw_tile_smem`: alignment slack, two input boxes (the
+    one read, the next one loading), their mbarriers."""
+    return DW_ALIGN + 2 * dw_box_bytes(tw, th, ct) + 16
+
+
+@functools.lru_cache(maxsize=1024)
+def dw_plan(n: int, h: int, w: int, c: int,
+            variant: Optional[str] = None) -> DwPlan:
+    """The launch of a 3 x 3 depthwise int8 conv of an (n, c, h, w)
+    input: "tiled" for C % 16 == 0 (tw = min(32, W), th = 8 for H <= 8
+    else 16, up to DW_MAX_CT channels a block, one block a tile), else
+    "gather"; `variant` forces one (the tiled kernel refuses C % 16).
+    A persistent block walks several tiles. Cached by shape."""
+    if variant not in (None, "tiled", "gather"):
+        raise ValueError("dw_plan: variant must be None, 'tiled' or "
+                         "'gather', got %r" % (variant,))
+    if variant is None:
+        variant = "tiled" if c % 16 == 0 else "gather"
+    if variant == "gather":
+        return DwPlan("gather", None, None, None)
+    if c % 16:
+        raise ValueError("dw_plan: the tiled kernel takes C % 16 == 0, got "
+                         "%d" % c)
+    tw = min(DW_TILE_W, w)
+    th = DW_STRIP if h <= DW_STRIP else DW_TILE_H
+    ct = min(c, DW_MAX_CT)
+    return DwPlan("tiled", (tw, th), ct, dw_tile_smem(tw, th, ct))
+
+
 def conv_dense(q: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
                bias: torch.Tensor, dtype: torch.dtype,
                activation: str = "Linear") -> torch.Tensor:
     """q (N, Cin, H, W) int8 channels-last, w (Cout, k, k, Cin) int8 with
     k in (1, 3), mult/bias (Cout,) float32 -> (N, Cout, H, W)
     channels-last `dtype`."""
-    global dense_launches
+    return conv_dense_variant(q, w, mult, bias, dtype, activation, None)
+
+
+def conv_dense_variant(q: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
+                       bias: torch.Tensor, dtype: torch.dtype,
+                       activation: str, variant: Optional[str]
+                       ) -> torch.Tensor:
+    """`conv_dense` on the kernel `variant` names ("wgmma", "mma"; None:
+    `dense_plan`'s choice)."""
+    global dense_launches, dense_wgmma_launches, dense_mma_launches
     if w.dim() != 4 or w.shape[1] != w.shape[2] or w.shape[1] not in (1, 3) \
             or w.shape[3] != q.shape[1]:
         raise ValueError("conv_dense: weights must be (Cout, k, k, %d) with "
@@ -188,12 +391,25 @@ def conv_dense(q: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
                       memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
-    err = _build.load("qconv").helmet_qconv_dense(
-        q.data_ptr(), w.data_ptr(), mult.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), n, h, wd, cin, cout, w.shape[1], _OUT_CODE[dtype],
-        _ACT_CODE[activation], _build.stream_handle(q.device))
-    _build.check(err, "conv_dense")
+    k = w.shape[1]
+    plan = dense_plan(n, h, wd, cin, cout, k, out.element_size(), variant)
+    lib = _build.load("qconv")
+    ptrs = (q.data_ptr(), w.data_ptr(), mult.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), n, h, wd, cin, cout, k)
+    stream = _build.stream_handle(q.device)
+    if plan.variant == "wgmma":
+        err = lib.helmet_qconv_wgmma(*ptrs, plan.box[1], plan.box[2],
+                                     plan.n, plan.stages, _OUT_CODE[dtype],
+                                     _ACT_CODE[activation], stream)
+    else:
+        err = lib.helmet_qconv_dense(*ptrs, _OUT_CODE[dtype],
+                                     _ACT_CODE[activation], stream)
+    _build.check(err, "conv_dense (%s kernel)" % plan.variant)
     dense_launches += 1
+    if plan.variant == "wgmma":
+        dense_wgmma_launches += 1
+    else:
+        dense_mma_launches += 1
     return out
 
 
@@ -203,7 +419,15 @@ def conv_dw(q: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
     """q (N, C, H, W) int8 channels-last, w (9, C) int8 (3 x 3 taps, row
     major), mult/bias (C,) float32 -> (N, C, H, W) channels-last
     `dtype`."""
-    global dw_launches
+    return conv_dw_variant(q, w, mult, bias, dtype, activation, None)
+
+
+def conv_dw_variant(q: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
+                    bias: torch.Tensor, dtype: torch.dtype, activation: str,
+                    variant: Optional[str]) -> torch.Tensor:
+    """`conv_dw` on the kernel `variant` names ("tiled", "gather"; None:
+    `dw_plan`'s choice)."""
+    global dw_launches, dw_tiled_launches, dw_gather_launches
     c = q.shape[1] if q.dim() == 4 else -1
     if w.shape != (9, c):
         raise ValueError("conv_dw: weights must be (9, %d) (3 x 3 taps), "
@@ -222,10 +446,22 @@ def conv_dw(q: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
                       memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
-    err = _build.load("qconv").helmet_qconv_dw(
-        q.data_ptr(), w.data_ptr(), mult.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), n, h, wd, c, _OUT_CODE[dtype], _ACT_CODE[activation],
-        _build.stream_handle(q.device))
-    _build.check(err, "conv_dw")
+    plan = dw_plan(n, h, wd, c, variant)
+    lib = _build.load("qconv")
+    ptrs = (q.data_ptr(), w.data_ptr(), mult.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), n, h, wd, c)
+    stream = _build.stream_handle(q.device)
+    if plan.variant == "tiled":
+        err = lib.helmet_qconv_dw_tile(*ptrs, *plan.tile, plan.ct,
+                                       _OUT_CODE[dtype],
+                                       _ACT_CODE[activation], stream)
+    else:
+        err = lib.helmet_qconv_dw(*ptrs, _OUT_CODE[dtype],
+                                  _ACT_CODE[activation], stream)
+    _build.check(err, "conv_dw (%s kernel)" % plan.variant)
     dw_launches += 1
+    if plan.variant == "tiled":
+        dw_tiled_launches += 1
+    else:
+        dw_gather_launches += 1
     return out

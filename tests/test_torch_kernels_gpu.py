@@ -18,10 +18,12 @@ of their terms, the error bound of a float32 sum taken in another order;
 where a test says so, the loss's d(out) within rtol 1e-5 + atol 1e-6 *
 max|d(out)|. The int8 kernels (#14 - #16: the dense and depthwise int8
 convs, the activation quantizer) bit-equal to their plain versions, in
-int32, f32 and bf16, at ragged and multi-stage shapes, the quantizer on
-ties, +-inf and NaN; their wrappers' refusals; the int8 twin through the
-serving engine bit-equal to its eager predict, before and after a
-reload.
+int32, f32 and bf16, on each of their kernels (dense: wgmma, mma;
+depthwise: tiled, gather), at ragged and multi-stage shapes, one image,
+Cout past one wgmma width and on views 16 bytes into their storage, the
+quantizer on ties, +-inf and NaN; their wrappers' refusals; the int8
+twin through the serving engine bit-equal to its eager predict, before
+and after a reload.
 """
 
 import numpy as np
@@ -593,16 +595,27 @@ def test_serving_engine_rows_bit_equal_to_eager(cuda, nms):
 
 # ------------------------------------------------- int8 kernels (#14 - #16)
 
-QDENSE = [(2, 16, 5, 7, 8, 1), (3, 48, 9, 13, 24, 3), (2, 144, 11, 6, 72, 3),
-          (1, 96, 33, 17, 48, 1), (2, 128, 16, 16, 128, 3),
-          (5, 16, 17, 19, 200, 3)]
-QDW = [(1, 8, 5, 7), (3, 48, 9, 13), (2, 136, 11, 6)]
+# (N, Cin, H, W, Cout, k, storage offset of the input, bytes): W and H
+# no multiple of the box, one image at 8^2 and 1^2, Cout 8, 24, 200 and
+# 264 (two channel blocks), Cin 16, 48 and 144, a view 16 bytes in
+QDENSE = [(2, 16, 5, 7, 8, 1, 0), (3, 48, 9, 13, 24, 3, 0),
+          (2, 144, 11, 6, 72, 3, 0), (1, 96, 33, 17, 48, 1, 0),
+          (2, 128, 16, 16, 128, 3, 0), (5, 16, 17, 19, 200, 3, 0),
+          (1, 128, 8, 8, 128, 3, 0), (1, 64, 1, 1, 96, 3, 0),
+          (2, 32, 20, 37, 264, 1, 0), (1, 48, 23, 29, 264, 3, 0),
+          (2, 64, 13, 21, 96, 3, 16)]
+# (N, C, H, W, storage offset): C % 16 != 0 (the gather kernel only),
+# channel tiles of 64 and a ragged one, one image at 8^2 and 1^2
+QDW = [(1, 8, 5, 7, 0), (3, 48, 9, 13, 0), (2, 136, 11, 6, 0),
+       (1, 48, 8, 8, 0), (1, 16, 1, 1, 0), (2, 144, 19, 37, 0),
+       (3, 80, 17, 33, 0), (2, 48, 13, 21, 16)]
 
 
-def _q_operands(shape, wshape, cout, gen):
-    q = torch.randint(-127, 128, shape, generator=gen, device="cuda",
-                      dtype=torch.int8).contiguous(
-                          memory_format=torch.channels_last)
+def _q_operands(shape, wshape, cout, gen, offset=0):
+    n, c, h, w = shape
+    base = torch.randint(-127, 128, (n * h * w * c + offset,), generator=gen,
+                         device="cuda", dtype=torch.int8)
+    q = base[offset:].view(n, h, w, c).permute(0, 3, 1, 2)
     w = torch.randint(-127, 128, wshape, generator=gen, device="cuda",
                       dtype=torch.int8)
     mult = torch.rand((cout,), generator=gen, device="cuda") * 1e-3 + 1e-5
@@ -610,32 +623,45 @@ def _q_operands(shape, wshape, cout, gen):
     return q, w, mult, bias
 
 
+@pytest.mark.parametrize("variant", [None, "wgmma", "mma"])
 @pytest.mark.parametrize("case", QDENSE, ids=str)
-def test_qconv_dense_matches_plain(cuda, case):
+def test_qconv_dense_matches_plain(cuda, case, variant):
+    """Each kernel (None: the plan's) bit-equal to the plain version in
+    int32, f32 and bf16; the plan's choice is counted on its kernel."""
     from real_time_helmet_detection_tpu_torch.ops import qconv
-    n, cin, h, w, cout, k = case
+    n, cin, h, w, cout, k, offset = case
     q, wq, mult, bias = _q_operands((n, cin, h, w), (cout, k, k, cin), cout,
-                                    cuda)
+                                    cuda, offset)
+    before = qconv.dense_wgmma_launches
     for dtype in (torch.int32, torch.float32, torch.bfloat16):
         for act in ("Linear", "ReLU"):
             if dtype == torch.int32 and act == "ReLU":
                 continue
-            got = qconv.conv_dense(q, wq, mult, bias, dtype, act)
+            got = qconv.conv_dense_variant(q, wq, mult, bias, dtype, act,
+                                           variant)
             want = qconv.conv_dense_reference(q, wq, mult, bias, dtype, act)
             torch.cuda.synchronize()
             assert got.dtype == want.dtype and torch.equal(got, want)
+    if variant is None:
+        assert qconv.dense_wgmma_launches == before + 5
 
 
+@pytest.mark.parametrize("variant", [None, "tiled", "gather"])
 @pytest.mark.parametrize("case", QDW, ids=str)
-def test_qconv_dw_matches_plain(cuda, case):
+def test_qconv_dw_matches_plain(cuda, case, variant):
     from real_time_helmet_detection_tpu_torch.ops import qconv
-    c = case[1]
-    q, wq, mult, bias = _q_operands(case, (9, c), c, cuda)
+    n, c, h, w, offset = case
+    if variant == "tiled" and c % 16:
+        with pytest.raises(ValueError):
+            qconv.dw_plan(n, h, w, c, variant)
+        return
+    q, wq, mult, bias = _q_operands((n, c, h, w), (9, c), c, cuda, offset)
     for dtype in (torch.int32, torch.float32, torch.bfloat16):
         for act in ("Linear", "ReLU"):
             if dtype == torch.int32 and act == "ReLU":
                 continue
-            got = qconv.conv_dw(q, wq, mult, bias, dtype, act)
+            got = qconv.conv_dw_variant(q, wq, mult, bias, dtype, act,
+                                        variant)
             want = qconv.conv_dw_reference(q, wq, mult, bias, dtype, act)
             torch.cuda.synchronize()
             assert torch.equal(got, want)

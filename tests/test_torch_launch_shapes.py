@@ -357,12 +357,16 @@ def test_peak_variant_is_ignored_on_the_cpu():
 # ---------------------------------------------- int8 convs (csrc/qconv.cu)
 
 
-def _cuda_constants():
-    """The `constexpr int k... = N;` constants of csrc/qconv.cu."""
+def _cuda_constants(kernel="mma"):
+    """The `constexpr int k... = N;` constants of csrc/qconv.cu: those of
+    the mma.sync kernel (the source before the wgmma kernel's section), or
+    of the later kernels (kernel="later")."""
     import os
     import re
     with open(os.path.join(_build.CSRC, "qconv.cu")) as f:
         text = f.read()
+    cut = text.index("constexpr int kWgRows")
+    text = text[:cut] if kernel == "mma" else text[cut:]
     return {m.group(1): int(m.group(2)) for m in re.finditer(
         r"constexpr int (k\w+) = (\d+);", text)}
 
@@ -484,3 +488,265 @@ def test_int8_forward_sites_match_the_derivation(name, kw, monkeypatch):
     assert (calls["dense"], calls["dw"]) == (dense, dw)
     assert calls["quant"] == dense + dw == len(epi) + len(tail) - 1
     assert calls["bn"] == 0
+
+
+# ------------------------------- the wgmma and tiled depthwise kernels' plans
+
+
+def _cuda_formulas():
+    """csrc/qconv.cu's one-line `constexpr int f(int a, ...) { return
+    ...; }` helpers of the later kernels (`wg_smem`, `dw_tile_smem`, ...)
+    as Python callables: C's `/` of these positive ints as `//`, its
+    `c ? a : b` as `a if c else b`, the `k...` constants substituted."""
+    import os
+    import re
+    with open(os.path.join(_build.CSRC, "qconv.cu")) as f:
+        text = f.read()
+    text = text[text.index("constexpr int kWgRows"):]
+    ns = dict(_cuda_constants("later"))
+    for m in re.finditer(r"constexpr int (\w+)\(([^)]*)\)\s*\{\s*return "
+                         r"([^;]*);\s*\}", text):
+        name, args, expr = m.groups()
+        expr = " ".join(expr.split()).replace("/", "//")
+        expr = re.sub(r"\(([^()?]+?) \? ([^():]+?) : ([^()]+?)\)",
+                      r"(\2 if \1 else \3)", expr)
+        assert "?" not in expr, expr
+        params = ", ".join(a.split()[-1] for a in args.split(","))
+        ns[name] = eval("lambda %s: %s" % (params, expr), ns)
+    return ns
+
+
+# (N, H, W, Cin, Cout, k): every int8 site shape of the throughput tier and
+# the flagship at b16 512^2, and ragged ones
+WG_SITES = [(16, s, s, cin, cout, k) for s in (8, 16, 32, 64, 128, 256)
+            for cin, cout, k in ((96, 48, 1), (128, 128, 3))] + [
+    (16, 256, 256, 64, 96, 1), (16, 256, 256, 64, 128, 3),
+    (16, 128, 128, 128, 128, 1), (3, 9, 13, 48, 24, 3),
+    (5, 17, 19, 16, 200, 3), (1, 1, 1, 32, 264, 3), (2, 20, 37, 32, 264, 1),
+    (1, 23, 29, 48, 264, 3), (2, 11, 6, 144, 72, 3)]
+LEGAL_S8_N = (8, 16, 24, 32) + tuple(range(48, 257, 16))
+
+
+def test_qconv_later_kernels_geometry_matches_the_source():
+    """ops/qconv.py mirrors csrc/qconv.cu's constants and, evaluated from
+    the C source, its shared-memory formulas."""
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    c = _cuda_constants("later")
+    assert (c["kWgRows"], c["kWgBoxW"], c["kWgConsumers"] // 32,
+            c["kWgMaxStages"], c["kWgAlign"]) == (
+        qconv.WG_ROWS, qconv.WG_BOX_W, qconv.WG_CONSUMER_WARPS,
+        qconv.WG_MAX_STAGES, qconv.WG_ALIGN)
+    assert c["kWgThreads"] == c["kWgConsumers"] + 32  # + the producer warp
+    assert (c["kDwStrip"], c["kDwAlign"]) == (qconv.DW_STRIP, qconv.DW_ALIGN)
+    assert all(n in LEGAL_S8_N for n in qconv.WGMMA_N)
+    cu = _cuda_formulas()
+    for cin in (16, 48, 64, 96, 128, 144, 256):
+        assert cu["wg_planes"](cin) == qconv.wg_planes(cin)
+        for k in (1, 3):
+            for bh, bn in ((16, 1), (8, 2)):
+                assert cu["wg_plane_bytes"](bh, bn, k) == \
+                    qconv.wg_plane_bytes(bh, bn, k)
+            for n in qconv.WGMMA_N:
+                assert cu["wg_b_bytes"](cin, k, n) == \
+                    qconv.wg_b_bytes(cin, k, n)
+                for stages in range(qconv.WG_MAX_STAGES + 1):
+                    for out_bytes in (2, 4):
+                        args = (cin, k, 16, 1, n, stages, out_bytes)
+                        assert cu["wg_smem"](*args) == qconv.wg_smem(*args)
+    for tw, th, ct in ((32, 16, 64), (1, 8, 16), (13, 16, 48), (32, 8, 144)):
+        assert cu["dw_box_bytes"](tw, th, ct) == qconv.dw_box_bytes(tw, th,
+                                                                    ct)
+        assert cu["dw_tile_smem"](tw, th, ct) == qconv.dw_tile_smem(tw, th,
+                                                                    ct)
+
+
+@pytest.mark.parametrize("site", WG_SITES, ids=str)
+def test_dense_plan_boxes_cover_every_output_once(site):
+    """The tiles' boxes (8 x bh x bn pixels, one channel block each)
+    cover every (image, y, x) of every channel block exactly once, in as
+    many tiles as csrc/qconv.cu's launch counts; the channel blocks cover
+    Cout once."""
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    n, h, w, cin, cout, k = site
+    plan = qconv.dense_plan(n, h, w, cin, cout, k)
+    bw, bh, bn = plan.box
+    assert bw * bh * bn == qconv.WG_ROWS
+    cblocks = -(-cout // plan.n)
+    import numpy as np
+    seen = np.zeros((cblocks, n, h, w), dtype=np.int64)
+    tiles = 0
+    for cb in range(cblocks):
+        for n0 in range(0, n, bn):
+            for y0 in range(0, h, bh):
+                for x0 in range(0, w, bw):
+                    tiles += 1
+                    # the box, clipped to the image as the stores are
+                    seen[cb, n0:n0 + bn, y0:y0 + bh, x0:x0 + bw] += 1
+    # launch_wgmma_n: tiles_x * tiles_y * tiles_n * channel blocks
+    assert tiles == (-(-w // bw)) * (-(-h // bh)) * (-(-n // bn)) * cblocks
+    assert (seen == 1).all()
+    cols = [min(plan.n, cout - cb * plan.n) for cb in range(cblocks)]
+    assert all(c > 0 and c % 8 == 0 for c in cols) and sum(cols) == cout
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("cin", [16, 48, 64, 96, 128, 144, 256])
+def test_dense_plan_k_steps_cover_k_once(cin, k):
+    """A tile's wgmmas (tap, pair of 16-channel planes: 32 bytes of K)
+    cover every (tap, input channel) of k * k * Cin exactly once; what
+    lies past Cin in the last pair is TMA's zero fill."""
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    plan = qconv.dense_plan(2, 16, 16, cin, 64, k)
+    assert plan.planes == _cuda_formulas()["wg_planes"](cin)
+    covered = {}
+    for tap in range(k * k):
+        for kk in range(plan.planes // 2):
+            for ch in range(32 * kk, 32 * kk + 32):
+                covered[(tap, ch)] = covered.get((tap, ch), 0) + 1
+    assert set(covered.values()) == {1}
+    real = {key for key in covered if key[1] < cin}
+    assert real == {(tap, ch) for tap in range(k * k) for ch in range(cin)}
+    assert 0 <= plan.planes * 16 - cin < 32
+
+
+@pytest.mark.parametrize("cout", [8, 24, 48, 96, 128, 200, 256, 264])
+def test_dense_plan_width_is_a_legal_wgmma_n(cout):
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    plan = qconv.dense_plan(1, 16, 16, 64, cout, 3)
+    cblocks = -(-cout // plan.n)
+    assert plan.n in LEGAL_S8_N and plan.n in qconv.WGMMA_N
+    assert plan.n * cblocks >= cout > plan.n * (cblocks - 1)
+    assert plan.n >= min(cout, 256)
+    # the narrowest kernel width that covers it
+    assert all(x < min(cout, 256) for x in qconv.WGMMA_N if x < plan.n)
+
+
+@pytest.mark.parametrize("out_bytes", [2, 4])
+@pytest.mark.parametrize("site", WG_SITES, ids=str)
+def test_dense_plan_fits_shared_memory_and_box_limits(site, out_bytes):
+    """A wgmma plan's shared memory is what csrc/qconv.cu's `wg_smem`
+    (evaluated from the C source) adds up for it and fits what a block
+    may opt into, two blocks an SM at n <= 96 wherever a ring of two
+    stages fits so (the kernel's launch bounds); every TMA box dimension is
+    <= 256, and its inner one 16 bytes (a plane)."""
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    n, h, w, cin, cout, k = site
+    plan = qconv.dense_plan(n, h, w, cin, cout, k, out_bytes)
+    assert plan.variant == "wgmma"
+    assert 1 <= plan.stages <= qconv.WG_MAX_STAGES
+    bw, bh, bn = plan.box
+    cu = _cuda_formulas()
+    assert plan.smem == cu["wg_smem"](cin, k, bh, bn, plan.n, plan.stages,
+                                      out_bytes)
+    assert plan.smem <= _build.MAX_DYNAMIC_SMEM
+    per_block = plan.smem + qconv.SMEM_RESERVED
+    assert per_block <= qconv.SMEM_PER_SM
+    two = cu["wg_smem"](cin, k, bh, bn, plan.n, 2, out_bytes)
+    if plan.n <= 96 and 2 * (two + qconv.SMEM_RESERVED) <= qconv.SMEM_PER_SM:
+        assert 2 * per_block <= qconv.SMEM_PER_SM
+    assert max(16, bw + k - 1, bh + k - 1, bn, plan.n) <= 256
+    assert cu["wg_plane_bytes"](bh, bn, k) % qconv.WG_ALIGN == 0
+
+
+def test_dense_plan_sends_oversized_weights_to_the_mma_kernel():
+    """Weights that do not fit shared memory with one input box (3x3,
+    Cin 256 -> 128: 288 KB) take the mma.sync kernel; asked for, the
+    wgmma kernel is refused; `variant` forces the mma kernel anywhere."""
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    assert qconv.dense_plan(1, 8, 8, 256, 128, 3).variant == "mma"
+    with pytest.raises(ValueError, match="fit"):
+        qconv.dense_plan(1, 8, 8, 256, 128, 3, variant="wgmma")
+    assert qconv.dense_plan(16, 256, 256, 64, 96, 1,
+                            variant="mma").variant == "mma"
+    with pytest.raises(ValueError):
+        qconv.dense_plan(1, 8, 8, 64, 64, 3, variant="tiled")
+
+
+@pytest.mark.parametrize("shape", [(16, 256, 256, 48), (16, 8, 8, 48),
+                                   (3, 9, 13, 48), (2, 19, 37, 144),
+                                   (3, 17, 33, 80), (1, 1, 1, 16)],
+                         ids=str)
+def test_dw_plan_tiles_cover_every_output_once(shape):
+    """The tiled depthwise kernel's tiles (tw x th pixels of ct channels)
+    cover every (image, channel, y, x) once; its two boxes (tile + halo)
+    fit shared memory (csrc/qconv.cu's `dw_tile_smem`, evaluated from the
+    C source) and TMA's 256-element box limit."""
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    n, h, w, c = shape
+    plan = qconv.dw_plan(n, h, w, c)
+    assert plan.variant == "tiled"
+    tw, th = plan.tile
+    assert th % qconv.DW_STRIP == 0 and plan.ct % 16 == 0
+    assert max(plan.ct, tw + 2, th + 2) <= 256
+    assert plan.smem == _cuda_formulas()["dw_tile_smem"](tw, th, plan.ct) \
+        <= _build.MAX_DYNAMIC_SMEM
+    import numpy as np
+    seen = np.zeros((n, c, h, w), dtype=np.int64)
+    tiles = 0
+    for c0 in range(0, c, plan.ct):
+        for i in range(n):
+            for y0 in range(0, h, th):
+                for x0 in range(0, w, tw):
+                    tiles += 1
+                    seen[i, c0:c0 + plan.ct, y0:y0 + th, x0:x0 + tw] += 1
+    # launch_dw_tile: tiles_x * tiles_y * N * channel blocks
+    assert tiles == (-(-w // tw)) * (-(-h // th)) * n * (-(-c // plan.ct))
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("c", [8, 24, 136])
+def test_dw_plan_takes_the_gather_kernel_off_16(c):
+    """TMA needs 16-byte strides: C % 16 != 0 takes the gather kernel, and
+    the tiled one is refused."""
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    assert qconv.dw_plan(2, 9, 13, c).variant == "gather"
+    with pytest.raises(ValueError):
+        qconv.dw_plan(2, 9, 13, c, variant="tiled")
+
+
+@pytest.mark.parametrize("name,kw", [("throughput", dict(tier="throughput")),
+                                     ("flagship-int8",
+                                      dict(infer_dtype="int8"))])
+def test_int8_sites_take_the_wgmma_and_tiled_kernels(name, kw):
+    """Every int8 conv site of the throughput tier and the flagship at b16
+    512^2 (a 64^2 forward's shapes scaled by 8: the architecture is
+    fully convolutional) takes the wgmma kernel (dense) or the tiled one
+    (depthwise), in bf16 and f32; the depthwise sites' channel counts are
+    what chip_smoke.py's `qconv_walk` derives."""
+    import os
+    import sys
+
+    from real_time_helmet_detection_tpu_torch.config import (Config,
+                                                             apply_tier)
+    from real_time_helmet_detection_tpu_torch.models.hourglass import \
+        QuantConv
+    from real_time_helmet_detection_tpu_torch.ops import qconv, quant
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    import chip_smoke
+    cfg = apply_tier(Config(device="cpu", imsize=64, **kw))
+    twin = quant.make_quant_model(cfg, mode="int8").eval()
+    sites = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, _o: sites.append(
+            (mod.depthwise, tuple(args[0].shape), mod.weight.shape[0],
+             mod.k)))
+        for m in twin.modules() if isinstance(m, QuantConv)]
+    with torch.inference_mode():
+        twin(torch.zeros((1, 64, 64, 3)))
+    for hk in hooks:
+        hk.remove()
+    dw_channels = []
+    for depthwise, (_, c, h, w), cout, k in sites:
+        n, h, w = 16, 8 * h, 8 * w
+        if depthwise:
+            dw_channels.append(c)
+            assert qconv.dw_plan(n, h, w, c).variant == "tiled"
+        else:
+            for out_bytes in (2, 4):
+                assert qconv.dense_plan(n, h, w, c, cout, k,
+                                        out_bytes).variant == "wgmma"
+    dense, walk = chip_smoke.qconv_walk(cfg)
+    assert sorted(dw_channels) == sorted(walk)
+    assert len(sites) - len(dw_channels) == dense
