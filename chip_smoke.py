@@ -139,7 +139,9 @@ version on the card:
    flagship's largest 3x3 and its 3x3 at 128^2, each conv's new kernel
    and its first one in turns, beside the bound, the plain version,
    `torch._int_mm` (the library's int32 sums alone) and cuDNN's bf16
-   conv (a float yardstick);
+   conv (a float yardstick); the quantizer beside
+   `torch.quantize_per_tensor` (its library call, on the f32 values; the
+   values where the two differ counted);
 21. int8: `--infer-dtype int8` predicts at b16 512^2 for the throughput
    tier and the flagship, bf16 and f32: scales calibrated on the card,
    launches as derived (`qconv_sites`, by kernel: every dense conv on
@@ -154,15 +156,29 @@ version on the card:
    and 90% of its rate (p50/p99, alerts), a reload of weights and scales
    with no capture, and eval at the tier through the engine against
    eager int8 predicts;
-23. a torch.profiler trace (CUDA activity) of a predict and of a train
+23. export: `export_predict` (the port of ref export.py:60) at 512^2,
+   the uint8 wire: the flagship bf16 with --export-serve at buckets 1
+   and 16, and `--tier throughput` int8, each with one AOTInductor
+   package (batch 1): every reloaded `.pt2` bit-equal to the eager
+   predict at its batch, its launches by kernel name (profiler) and by
+   the counters equal to `expected_launches`; the op library
+   (csrc/torch_ops.cpp) and the C++ runner (cpp/runner.cc) built with
+   g++, the runner run with no Python on each package with a seeded
+   uint8 image file: detections matched both ways against the Python
+   program's, per-frame op calls equal to the derived launches, latency
+   p50/p99 at depth 1 and frames/s at depths 1 and 4 beside the serving
+   engine's bucket-1 latency; export wall, program sizes, compile
+   seconds; the host microseconds of one call of each `helmet` op
+   against the route before the ops;
+24. a torch.profiler trace (CUDA activity) of a predict and of a train
    step: device time by kernel group and the idle share against the
    untraced walls of phases 5 and 11, and the train step's phases by
    CUDA events;
-24. the eval CLI end to end (through the serving engine) on a synthetic
+25. the eval CLI end to end (through the serving engine) on a synthetic
    VOC fixture (32 images at 512^2, batch 16, --amp) to a printed mAP,
    txt files and pickle, the mAP within 1e-3 of eager predicts' over the
    same fixture;
-25. train_cli: `--train-flag` for one epoch on a 32-image 512^2 fixture,
+26. train_cli: `--train-flag` for one epoch on a 32-image 512^2 fixture,
    then the eval CLI on the weights it wrote.
 
 `--phases variants` (or any comma-separated subset; `identity` always
@@ -182,6 +198,7 @@ import glob
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -194,7 +211,8 @@ PHASES = ("identity", "build", "kernels", "timing", "main", "states",
           "train_kernels", "train_timing", "loss_kernels", "loss_timing",
           "train_main", "eval_grad", "eval_timing", "variants",
           "variants_small", "variants_train", "nms", "serve", "qkernels",
-          "qtiming", "int8", "serve_int8", "profile", "cli", "train_cli")
+          "qtiming", "int8", "serve_int8", "export", "profile", "cli",
+          "train_cli")
 
 
 class SmokeFailure(RuntimeError):
@@ -2496,11 +2514,11 @@ def graph_kernel_nodes(graph):
     return kernels
 
 
-def replay_trace(graph):
-    """Device operations by name in one replay of `graph`, from a
-    torch.profiler trace whose schedule replays it once as the
-    profiler's warm-up step (recorded, then discarded) and once as the
-    active step that is counted."""
+def step_trace(run, before_active=None):
+    """Device operations by name in one `run()`, from a torch.profiler
+    trace whose schedule calls it once as the profiler's warm-up step
+    (recorded, then discarded) and once as the active step that is
+    counted; `before_active()` runs just before that second call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -2515,11 +2533,18 @@ def replay_trace(graph):
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                  on_trace_ready=ready) as prof:
-        for _ in range(2):
-            graph.replay()
+        for step in range(2):
+            if step and before_active is not None:
+                before_active()
+            run()
             torch.cuda.synchronize()
             prof.step()
     return names
+
+
+def replay_trace(graph):
+    """Device operations by name in one replay of `graph` (`step_trace`)."""
+    return step_trace(graph.replay)
 
 
 def replay_launches(runner, attempts=3):
@@ -2542,6 +2567,13 @@ def replay_launches(runner, attempts=3):
         log("  a replay trace held %d kernels of the graph's %s kernel "
             "nodes (attempt %d of %d)" % (seen, need, attempt + 1,
                                           attempts))
+    return kernel_counts(names)
+
+
+def kernel_counts(names):
+    """{kernel name in a trace: launches} -> our kernels' launches as
+    launch counters (bn_act = vector + scalar, peak_scores = vector +
+    scalar, the int8 convs the sums of their two kernels each)."""
     got = {}
     for name, n in names.items():
         hit = next((c for key, c in TRACE_KERNELS if key in name), None)
@@ -3287,14 +3319,24 @@ def phase_qtiming(state):
     x = channels_last(rand(shape, torch.bfloat16, gen, 2.0))
     step = torch.tensor(0.02, device="cuda")
     nbytes = x.numel() * 3
+    # the library: torch.quantize_per_tensor, int8(clip(rint(x * (1 /
+    # s)))) into [-128, 127], of the float32 values (it takes no bf16),
+    # converted outside the timing; counted: the values where it differs
+    # from the kernel (its product by 1/s against the kernel's quotient,
+    # its -128)
+    x32 = x.float()
+    lib = lambda: torch.quantize_per_tensor(  # noqa: E731
+        x32, 0.02, 0, torch.qint8)
+    differ = int((lib().int_repr() != qconv.quantize_act(x, step)).sum())
     rows["quantize_act"] = dict(
         ms=graph_ms(lambda: qconv.quantize_act(x, step)),
         eager_ms=eager_ms(lambda: qconv.quantize_act(x, step)),
         plain_ms=graph_ms(lambda: qconv.quantize_act_reference(x, step)),
-        library_ms=None, library_equal=None,
+        library_ms=eager_ms(lib), library_equal=None, library_differ=differ,
+        library_f32_ms=graph_ms(lambda: qconv.quantize_act(x32, step)),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         shape=shape)
-    del x
+    del x, x32
     torch.cuda.empty_cache()
     log("qtiming (ms per call, bf16, CUDA graph replay; eager = issued "
         "from Python; old = the first design's kernel, in turns new, old, "
@@ -3318,7 +3360,12 @@ def phase_qtiming(state):
                 "" if r["library_equal"] is None else
                 " (sums equal the kernel's: %s)" % r["library_equal"],
                 "  cuDNN bf16 %.4f" % r["cudnn_bf16_ms"]
-                if "cudnn_bf16_ms" in r else "",
+                if "cudnn_bf16_ms" in r else
+                "  (library: torch.quantize_per_tensor of the f32 values, "
+                "eager; %d of %d values differ from the kernel's; the "
+                "kernel on those f32 values %.4f)" % (
+                    r["library_differ"], math.prod(r["shape"]),
+                    r["library_f32_ms"]) if "library_differ" in r else "",
                 r["bound_ms"], r["bound_by"],
                 100 * r["bound_ms"] / r["ms"], r["shape"],
                 " -> %d, k %d" % (r["cout"], r["k"]) if "cout" in r
@@ -3667,6 +3714,381 @@ def phase_serve_int8(state):
         "calibration saved (sha256 %s), all %d detections equal to eager "
         "int8 predicts with the saved scales"
         % (changed, e["map"], e["sha256"][:12], e["detections"]))
+
+
+# ------------------------------------------------------------------ export
+
+# the configurations of phase export, at 512^2 with the uint8 wire: the
+# flagship bf16 with --export-serve at buckets 1 and 16, and the
+# throughput tier (int8)
+EXPORT_RUNS = (
+    ("flagship bf16", dict(batch_size=16, imsize=512, amp=True,
+                           export_raw_input=True, export_serve=True,
+                           serve_buckets=[1, 16]), 3),
+    ("throughput int8", dict(tier="throughput", batch_size=16, imsize=512,
+                             amp=True, export_raw_input=True), 4),
+)
+RUNNER_ITERS = 100  # frames of each of the runner's two passes
+RUNNER_DEPTH = 4
+
+
+def program_launches(fn, x, attempts=3):
+    """Our kernels' launches in one call of a reloaded program, counted by
+    kernel name in a torch.profiler trace of it (`step_trace`, as
+    `kernel_counts`), and by the launch counters of the same call. A
+    trace that holds fewer of our kernels than the counters saw launched
+    missed part of the call (the profiler has done so, see
+    `replay_launches`) and is taken again, up to `attempts` times; the
+    counts of the last trace are returned."""
+    kinds = {c for _, c in TRACE_KERNELS}
+    for attempt in range(attempts):
+        names = step_trace(lambda: fn(x), before_active=reset_counts)
+        traced, counted = kernel_counts(names), read_counts()
+        seen = sum(n for k, n in traced.items() if k in kinds)
+        launched = sum(n for k, n in counted.items() if k in kinds)
+        if seen >= launched:
+            break
+        log("  a trace of the program held %d of the %d launches its "
+            "counters saw (attempt %d of %d)" % (seen, launched, attempt + 1,
+                                                 attempts))
+    return traced, counted
+
+
+def runner_rows(dets):
+    """The runner's first-frame detections (per image [x1, y1, x2, y2,
+    class, score]) as the Detections leaves `match_misses` reads."""
+    import numpy as np
+    import torch
+    n = max([len(d) for d in dets] + [1])
+    boxes = np.zeros((len(dets), n, 4), np.float32)
+    classes = np.zeros((len(dets), n), np.int64)
+    scores = np.zeros((len(dets), n), np.float32)
+    valid = np.zeros((len(dets), n), bool)
+    for i, rows in enumerate(dets):
+        for j, r in enumerate(rows):
+            boxes[i, j], classes[i, j], scores[i, j] = r[:4], r[4], r[5]
+            valid[i, j] = True
+    return [torch.from_numpy(a) for a in (boxes, classes, scores, valid)]
+
+
+def op_host_us(state):
+    """Host microseconds of issuing one call of each `helmet` op at a main
+    path site (batch 1, 512^2), in two turns of opposite order: the
+    public wrapper (checks, plan, the op through the dispatcher, the
+    launch), the op called directly, and the route before the ops (the
+    wrappers' code before this change: the same checks, the output, the
+    variant or plan, the library, the stream and a direct `ctypes` call
+    of the C entry)."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.ops import (_build, epilogue,
+                                                          peak, qconv,
+                                                          residual)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = channels_last(rand((1, 128, 128, 128), torch.bfloat16, gen))
+    skip = channels_last(rand((1, 128, 128, 128), torch.bfloat16, gen))
+    a = torch.rand(128, generator=gen, device="cuda") + 0.5
+    b = torch.randn(128, generator=gen, device="cuda")
+    logits = rand((1, 1, 128, 128, 6), torch.float32, gen, 3.0)
+    tiles = peak.tiles(128, 128)[0] * peak.tiles(128, 128)[1]
+    xq = channels_last(rand((1, 96, 256, 256), torch.bfloat16, gen))
+    step = torch.tensor(0.02, device="cuda")
+    q, wq, mult, bias = qconv_operands("dense", (1, 96, 256, 256), 96, 1,
+                                       gen)
+    qd, wd, md, bd = qconv_operands("dw", (1, 48, 256, 256), 48, 3, gen)
+    plan = qconv.dense_plan(1, 256, 256, 96, 96, 1, 2)
+    dw = qconv.dw_plan(1, 256, 256, 48)
+    p = lambda t: t.data_ptr()  # noqa: E731
+    ops = torch.ops.helmet
+    stream = _build.stream_handle
+
+    # the wrappers as they were before the ops: checks, output, variant or
+    # plan, the library, the stream, the C entry through ctypes
+    def old_peak():
+        peak.check_pool_size(3)
+        peak._check(logits, 2)
+        o = torch.empty((1, 1, 2, 128, 128), device="cuda")
+        v = peak.peak_variant(2, 6, 128, p(logits), p(o))
+        _build.check(_build.load("peak").helmet_peak_scores(
+            p(logits), p(o), 1, 2, 128, 128, 6, 1, tiles,
+            int(v == "vector"), stream(logits.device)), "peak")
+        return o
+
+    def old_bn(skip_=None):
+        epilogue.check_activation("ReLU")
+        epilogue.check_layout("x", x)
+        if skip_ is not None:
+            epilogue.check_layout("skip", skip_, like=x)
+        epilogue.check_vectors(x, eff_scale=a, eff_bias=b)
+        epilogue.check_cuda("bn_act", x)
+        o = torch.empty_like(x)
+        if skip_ is not None:
+            err = _build.load("residual").helmet_bn_add_act(
+                p(x), p(a), p(b), p(skip_), p(o), x.numel(), 128, 1, 0,
+                stream(x.device))
+        else:
+            v = epilogue.bn_act_variant(128, x.dtype, p(x), p(o))
+            lib = _build.load("epilogue")
+            entry = (lib.helmet_bn_act_vec if v == "vector"
+                     else lib.helmet_bn_act)
+            err = entry(p(x), p(a), p(b), p(o), x.numel(), 128, 1, 0,
+                        stream(x.device))
+        _build.check(err, "bn")
+        return o
+
+    def aligned(*ts):
+        if any(p(t) % 16 for t in ts):
+            raise ValueError("misaligned")
+
+    def old_quant():
+        qconv._check_act_input("x", xq, (torch.float32, torch.bfloat16))
+        aligned(xq)
+        o = torch.empty(xq.shape, dtype=torch.int8, device="cuda",
+                        memory_format=torch.channels_last)
+        _build.check(_build.load("qconv").helmet_quantize(
+            p(xq), p(step), p(o), xq.numel(), 1, stream(xq.device)), "q")
+        return o
+
+    def old_dense():
+        qconv._check_conv("conv_dense", q, wq, mult, bias, torch.bfloat16,
+                          "Linear", 96)
+        aligned(q, wq)
+        o = torch.empty((1, 96, 256, 256), dtype=torch.bfloat16,
+                        device="cuda", memory_format=torch.channels_last)
+        pl = qconv.dense_plan(1, 256, 256, 96, 96, 1, 2)
+        _build.check(_build.load("qconv").helmet_qconv_wgmma(
+            p(q), p(wq), p(mult), p(bias), p(o), 1, 256, 256, 96, 96, 1,
+            pl.box[1], pl.box[2], pl.n, pl.stages, 1, 2, stream(q.device)),
+            "dense")
+        return o
+
+    def old_dw():
+        qconv._check_conv("conv_dw", qd, wd, md, bd, torch.bfloat16,
+                          "Linear", 48)
+        aligned(qd, wd)
+        o = torch.empty((1, 48, 256, 256), dtype=torch.bfloat16,
+                        device="cuda", memory_format=torch.channels_last)
+        pl = qconv.dw_plan(1, 256, 256, 48)
+        _build.check(_build.load("qconv").helmet_qconv_dw_tile(
+            p(qd), p(wd), p(md), p(bd), p(o), 1, 256, 256, 48, *pl.tile,
+            pl.ct, 1, 2, stream(qd.device)), "dw")
+        return o
+
+    old_bn_act, old_bn_add_act = old_bn, lambda: old_bn(skip)
+    calls = {
+        "peak_scores": (lambda: peak.peak_scores(logits, 2),
+                        lambda: ops.peak_scores.default(logits, 2, 3, tiles,
+                                                        "auto"),
+                        old_peak),
+        "bn_act": (lambda: epilogue.bn_act(x, a, b, "ReLU"),
+                   lambda: ops.bn_act.default(x, a, b, "ReLU", "auto"),
+                   old_bn_act),
+        "bn_add_act": (lambda: residual.bn_add_act(x, a, b, skip, "ReLU"),
+                       lambda: ops.bn_add_act.default(x, a, b, skip, "ReLU"),
+                       old_bn_add_act),
+        "quantize_act": (lambda: qconv.quantize_act(xq, step),
+                         lambda: ops.quantize_act.default(xq, step),
+                         old_quant),
+        "qconv_dense": (
+            lambda: qconv.conv_dense(q, wq, mult, bias, torch.bfloat16),
+            lambda: ops.qconv_dense.default(
+                q, wq, mult, bias, 1, "Linear", plan.variant, plan.box[1],
+                plan.box[2], plan.n, plan.stages), old_dense),
+        "qconv_dw": (
+            lambda: qconv.conv_dw(qd, wd, md, bd, torch.bfloat16),
+            lambda: ops.qconv_dw.default(qd, wd, md, bd, 1, "Linear",
+                                         dw.variant, *dw.tile, dw.ct),
+            old_dw),
+    }
+    out = {}
+    for name, (wrapper, op, old) in calls.items():
+        t = {"wrapper": [], "op": [], "old": []}
+        for order in (("wrapper", "op", "old"), ("old", "op", "wrapper")):
+            for key in order:
+                fn = {"wrapper": wrapper, "op": op, "old": old}[key]
+                t[key].append(host_us(fn, iters=200))
+        out[name] = {k: sum(v) / len(v) for k, v in t.items()}
+    del x, skip, xq, q, qd
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_export(state):
+    """Export end to end (`export.export_predict`, the port of ref
+    export.py:60) at 512^2 with the uint8 wire, for EXPORT_RUNS (seeded
+    weights and BN state): the flagship bf16 with --export-serve at
+    buckets 1 and 16 (one AOTInductor package, batch 1) and the
+    throughput tier's int8 (one package); each reloaded `.pt2`
+    (`load_exported`) bit-equal to the eager predict at its batch, its
+    launches counted by kernel name in a profiler trace (and by the
+    launch counters) equal to `expected_launches`; then the op library
+    and the C++ runner (`_build.build_ops`) and, with no Python, the
+    runner on each package with a seeded uint8 image file: its
+    detections matched both ways against the Python program's on that
+    image (class, IoU >= 0.99, |score difference| <= 1e-3), its per-frame
+    op calls equal to the derived launches, latency p50/p99 at depth 1
+    and frames/s at depths 1 and RUNNER_DEPTH (the serving engine's
+    bucket-1 latency of phase serve beside it); export wall, program
+    sizes, compile seconds; the host microseconds of each op's call
+    against the route before the ops (`op_host_us`)."""
+    import numpy as np
+    import torch
+    from real_time_helmet_detection_tpu_torch.config import (Config,
+                                                             apply_tier)
+    from real_time_helmet_detection_tpu_torch.evaluate import load_eval_state
+    from real_time_helmet_detection_tpu_torch.export import (
+        PROGRAM, RUNNER_PACKAGE, export_predict, load_exported)
+    from real_time_helmet_detection_tpu_torch.ops import _build, quant
+    from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
+    from real_time_helmet_detection_tpu_torch.utils import atomic_write_bytes
+    build = os.path.join(REPO, "build")
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          os.path.join(build, "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(build, "triton"))
+    out = state.setdefault("export", {})
+    t0 = time.perf_counter()
+    out["cxx_s"] = _build.build_ops()
+    out["build_s"] = time.perf_counter() - t0
+    runner = _build.runner_path()
+    from real_time_helmet_detection_tpu_torch.export import \
+        _inductor_configs
+    log("export: op library and runner built in %.1f s (g++ seconds: %s); "
+        "AOTInductor settings %s" % (out["build_s"], out["cxx_s"]
+                                     or "current builds found",
+                                     _inductor_configs()))
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="export-", dir=build)
+    images = np.random.default_rng(12).integers(
+        0, 256, (16, 512, 512, 3), dtype=np.uint8)
+    image_file = os.path.join(root, "image.u8")
+    atomic_write_bytes(image_file, images[0].tobytes())
+    for label, fields, seed in EXPORT_RUNS:
+        cfg = apply_tier(Config(**fields))
+        dtype = torch.bfloat16
+        model = perturb_bn(load_eval_state(cfg), seed=seed)
+        d = os.path.join(root, label.split()[0])
+        t0 = time.perf_counter()
+        program, package = export_predict(cfg, out_dir=d, model=model,
+                                          runner_batches=(1,))
+        rec = dict(export_wall_s=time.perf_counter() - t0)
+        with open(os.path.join(d, "meta.json")) as f:
+            meta = json.load(f)
+        require(package == os.path.join(d, RUNNER_PACKAGE)
+                and meta["runner_package"] == RUNNER_PACKAGE,
+                "%s: no runner package written" % label)
+        scales = (quant.load_scales(os.path.join(d, meta["quant_scales_path"]))
+                  if meta["quant_scales_path"] else None)
+        predict = make_predict_fn(model, cfg, normalize="imagenet",
+                                  quant_scales=scales)
+        want = want_replay(cfg, dtype)
+        programs = {1: program}
+        for b in meta["serve_buckets"]:
+            programs[b] = os.path.join(d, meta["serve_artifacts"]["b%d" % b],
+                                       PROGRAM)
+        require(sorted(programs) == sorted({1, *cfg.serve_buckets})
+                if cfg.export_serve else list(programs) == [1],
+                "%s: programs at batches %s" % (label, sorted(programs)))
+        rec.update(aoti_compile_s=meta["aoti_compile_s"],
+                   export_s=meta["export_s"],
+                   pt2_mb={b: os.path.getsize(p) / 1e6
+                           for b, p in programs.items()},
+                   aoti_mb=os.path.getsize(package) / 1e6, batches={})
+        for b, path in sorted(programs.items()):
+            fn = load_exported(path)
+            x = torch.from_numpy(images[:b]).cuda()
+            got = fn(x)
+            ref = predict(images[:b])
+            same = [torch.equal(g, r) for g, r in zip(got, ref)]
+            require(all(same), "%s b%d: the reloaded program's outputs "
+                    "(boxes, classes, scores, valid) bit-equal to eager: %s"
+                    % (label, b, same))
+            traced, counted = program_launches(fn, x)
+            traced = {k: traced.get(k, 0) for k in want}
+            require(traced == want, "%s b%d: launches by kernel name %s, "
+                    "want %s" % (label, b, traced, want))
+            full = expected_launches(cfg, "predict", dtype)
+            require(counted == full, "%s b%d: launch counters %s, want %s"
+                    % (label, b, counted, full))
+            rec["batches"][b] = dict(launches={k: v for k, v in
+                                               traced.items() if v})
+        # the runner, no Python: the program of batch 1 on image 0
+        proc = subprocess.run(
+            [runner, d, "--image", image_file, "--iters", str(RUNNER_ITERS),
+             "--depth", str(RUNNER_DEPTH)], capture_output=True, text=True,
+            timeout=600)
+        require(proc.returncode == 0, "%s: the runner exited %d:\n%s\n%s"
+                % (label, proc.returncode, proc.stdout[-2000:],
+                   proc.stderr[-4000:]))
+        lines = [json.loads(line) for line in proc.stdout.splitlines()
+                 if line.startswith("{")]
+        dets = next(r for r in lines if "detections" in r)["detections"]
+        stats = next(r for r in lines if "op_calls_per_frame" in r)
+        x1 = torch.from_numpy(images[:1]).cuda()
+        py = load_exported(program)(x1)
+        with torch.inference_mode():  # the same package, loaded here
+            pkg = torch._inductor.aoti_load_package(package)(x1)
+        mine = runner_rows(dets)
+        pairs = {}
+        for tag, a, b in (("runner vs .pt2", mine, py),
+                          ("runner vs package in Python", mine, pkg),
+                          ("package in Python vs .pt2", pkg, py)):
+            n1, miss1 = match_misses(a, b)
+            n2, miss2 = match_misses(b, a)
+            pairs[tag] = (n1 + n2, len(miss1) + len(miss2))
+        log("export %s: detections >= 0.1 checked / without a match, both "
+            "ways: %s" % (label, pairs))
+        n, missed = pairs["runner vs .pt2"]
+        require(not missed and n > 0, "%s: runner vs the Python program: "
+                "%d detections >= 0.1, %d without a match"
+                % (label, n, missed))
+        n1 = n
+        full = expected_launches(cfg, "predict", dtype)
+        calls = stats["op_calls_per_frame"]
+        derived = {k: full[k] for k in calls}
+        require(calls == derived, "%s: the runner's op calls per frame %s, "
+                "want %s" % (label, calls, derived))
+        total = {k: v * stats["frames_total"] for k, v in derived.items()}
+        require(stats["op_calls_total"] == total,
+                "%s: the runner's op calls in all %s, want %s"
+                % (label, stats["op_calls_total"], total))
+        rec["runner"] = dict(matched=n1, pairs=pairs, **{
+            k: stats[k] for k in ("load_ms", "latency_ms_depth1",
+                                  "fps_depth1", "fps_depth", "depth",
+                                  "op_calls_per_frame")})
+        out[label] = rec
+        serve = state.get("serve", {}).get(label, {})
+        log("export %s: export wall %.1f s (trace + save of the b1 program "
+            "%.1f s), AOTInductor compile %.1f s; .pt2 MB %s, package %.1f "
+            "MB; reloaded programs bit-equal to eager at batches %s, "
+            "launches by kernel name %s"
+            % (label, rec["export_wall_s"], rec["export_s"],
+               rec["aoti_compile_s"], {b: round(v, 2) for b, v in
+                                       rec["pt2_mb"].items()},
+               rec["aoti_mb"], sorted(rec["batches"]),
+               rec["batches"][1]["launches"]))
+        r = rec["runner"]
+        log("export %s runner (C++, no Python; package loaded in %.0f ms): "
+            "%d detections >= 0.1 matched both ways with the Python "
+            "program; op calls per frame %s; latency at depth 1 p50 %.3f "
+            "ms, p99 %.3f ms (max %.3f); frames/s %.1f at depth 1, %.1f at "
+            "depth %d%s"
+            % (label, r["load_ms"], r["matched"],
+               {k: v for k, v in r["op_calls_per_frame"].items() if v},
+               r["latency_ms_depth1"]["p50"], r["latency_ms_depth1"]["p99"],
+               r["latency_ms_depth1"]["max"], r["fps_depth1"],
+               r["fps_depth"], r["depth"],
+               "; serving engine bucket 1 (phase serve) p50 %.3f ms, p99 "
+               "%.3f ms" % (serve["p50_ms"], serve["p99_ms"])
+               if "p50_ms" in serve else ""))
+        del model, predict
+        torch.cuda.empty_cache()
+    out["host_us"] = op_host_us(state)
+    log("export: host us of one call (mean of two turns): public wrapper "
+        "/ the op alone / the wrapper before the ops (checks, output, "
+        "ctypes):")
+    for name, t in out["host_us"].items():
+        log("  %-13s %.1f / %.1f / %.1f" % (name, t["wrapper"], t["op"],
+                                             t["old"]))
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def scale_tree(tree, factor):

@@ -1,7 +1,8 @@
 """CLI entry of the PyTorch port: training with `--train-flag`, else eval
 over a VOC split, or a one-image demo when `--data` is an image file
 (ref main.py:25-37; reference main.py:9-17, train.py:23 and
-evaluate.py:245).
+evaluate.py:245); with `--export-flag`, the predict program's export
+(ref main.py:28-31, `export.export_predict`) into `--save-path`.
 
     python -m real_time_helmet_detection_tpu_torch --train-flag --data DIR \\
         [--batch-size 16] [--amp] [--num-stack 1] [--device cpu]
@@ -9,6 +10,9 @@ evaluate.py:245).
         --imsize 512 [--model-load w.npz] [--amp] [--device cpu] \\
         [--tier edge|quality] [--serve-buckets 1 2 4 8 16] \\
         [--serve-max-wait-ms 5] [--serve-depth 2] [--serve-queue 128]
+    python -m real_time_helmet_detection_tpu_torch --export-flag \
+        --imsize 512 [--model-load w.npz] [--export-raw-input] \
+        [--export-serve] [--infer-dtype int8] [--save-path DIR]
 
 Eval and the demo predict through the serving engine (one CUDA graph per
 bucket). `--tier` applies its preset before anything runs. Runs on the
@@ -26,12 +30,16 @@ from .config import apply_tier, parse_args
 
 def main(argv=None) -> None:
     cfg = apply_tier(parse_args(argv))
-    if cfg.data is None:
+    if cfg.data is None and not (cfg.export_flag and not cfg.train_flag):
         raise SystemExit("--data is required (a VOC root or an image file)")
     tic = time.time()
     if cfg.train_flag:
         from .train import train
         train(cfg)
+    elif cfg.export_flag:
+        from .export import export_predict
+        paths = export_predict(cfg)
+        print("exported:", *[p for p in paths if p])
     elif os.path.isfile(cfg.data):
         from .evaluate import demo
         demo(cfg)

@@ -36,6 +36,11 @@ through. `--tier edge|throughput|quality` (ref config.py:59-85 `TIER_PRESETS`,
 :813 `apply_tier`) sets a named architecture + serving bundle, applied by
 the CLI before it dispatches; the tier wins over the individual flags.
 The throughput tier sets `infer_dtype="int8"`.
+
+Export (ref config.py:155-156, :197): `--export-flag` writes the predict
+program (`export.py`) and exits; `--export-raw-input` bakes the uint8
+wire and the normalization into it; `--export-serve` adds one program per
+serve bucket.
 """
 
 from __future__ import annotations
@@ -119,7 +124,11 @@ class Config:
     device_augment: bool = False
     fwd_dtype: str = "bf16"
 
-    # evaluation, demo
+    # evaluation, demo, export
+    export_flag: bool = False     # export the predict program and exit
+    export_raw_input: bool = False  # bake normalization into the export:
+    # the program takes raw [0, 255] uint8 pixels (self-contained
+    # deployment)
     imsize: Optional[int] = None
     topk: int = 100
     conf_th: float = 0.0
@@ -147,6 +156,9 @@ class Config:
     # fills or this long after the oldest queued request arrived
     serve_depth: int = 2          # batches in flight (H2D, replay, D2H)
     serve_queue: int = 128        # admission bound on queued requests
+    export_serve: bool = False    # export additionally writes one program
+    # per serve bucket (out_dir/serving/b<N>/) so the C++ runner can serve
+    # the same bucket set the Python engine does
     serve_max_retries: int = 2    # per-request retries after a failed or
     # hung batch
     serve_hang_timeout_ms: float = 0.0  # fetch watchdog; 0 disables

@@ -205,6 +205,18 @@ cudaError_t launch_vec(const void* x, const void* a, const void* b, void* out,
 
 }  // namespace helmet
 
+// The kernel a launch takes, decided here for every caller (the Python op
+// and the C++ op library alike): 1 (the vector kernel) when C is a
+// multiple of V (8 bf16, 4 f32) with C / V <= 256 and x and out are
+// 16-byte aligned, else 0 (the scalar kernel).
+extern "C" int helmet_bn_act_pick(const void* x, const void* out, int C,
+                                  int dtype) {
+  const int V = dtype == helmet::kBF16 ? 8 : 4;
+  return C > 0 && C % V == 0 && C / V <= helmet::kMaxGroups &&
+         (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) %
+                 16 == 0;
+}
+
 // The scalar kernel: any C, any alignment of the storage type.
 extern "C" int helmet_bn_act(const void* x, const void* a, const void* b,
                              void* out, long long n, int C, int dtype, int act,

@@ -181,6 +181,16 @@ cudaError_t launch_peak(const float* logits, float* out, int images, int C,
 
 }  // namespace helmet
 
+// The variant a launch takes, decided here for every caller (the Python
+// op and the C++ op library alike): 1 (vector) when C == 2, K even, w % 4
+// == 0, logits 8-byte and out 16-byte aligned, else 0 (scalar).
+extern "C" int helmet_peak_pick(const void* logits, const void* out, int C,
+                                int K, int w) {
+  return C == 2 && K % 2 == 0 && w % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(logits) % 8 == 0 &&
+         reinterpret_cast<uintptr_t>(out) % 16 == 0;
+}
+
 // logits (images, h, w, K) f32 contiguous, the C heat channels first; out
 // (images, C, h, w) f32; p = (pool_size - 1) / 2; tiles = images x
 // ceil(h / 16) x ceil(w / 32). vec != 0 takes the vector variant, which

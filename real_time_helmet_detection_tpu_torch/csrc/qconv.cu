@@ -1440,11 +1440,22 @@ cudaError_t launch_dw_tile(const void* x, const void* w, const void* mult,
     return (int)cudaErrorInvalidValue;                                      \
   } while (0)
 
+// Every entry below refuses an int8 input or weight pointer (the
+// quantizer: its input) that is not 16-byte aligned, with
+// cudaErrorMisalignedAddress: the kernels read them by 16-byte loads and
+// TMA. The check is made here, so the Python op and the C++ op library
+// run the same one.
+static inline bool helmet_misaligned(const void* a, const void* b) {
+  return (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) %
+             16 != 0;
+}
+
 extern "C" int helmet_qconv_dense(const void* x, const void* w,
                                   const void* mult, const void* bias,
                                   void* out, int N, int H, int W, int Cin,
                                   int Cout, int ks, int dtype, int act,
                                   void* stream) {
+  if (helmet_misaligned(x, w)) return (int)cudaErrorMisalignedAddress;
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cin % 16 || Cout <= 0 ||
       Cout % 8 || (ks != 1 && ks != 3) || N >= 512 || H >= 2048 ||
       W >= 2048 || (long long)N * H * W >= (1LL << 31) - helmet::kBM)
@@ -1458,6 +1469,7 @@ extern "C" int helmet_qconv_dw(const void* x, const void* w, const void* mult,
                                const void* bias, void* out, int N, int H,
                                int W, int C, int dtype, int act,
                                void* stream) {
+  if (helmet_misaligned(x, w)) return (int)cudaErrorMisalignedAddress;
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 8 ||
       (long long)N * H * W * (C / 8) >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
@@ -1467,6 +1479,7 @@ extern "C" int helmet_qconv_dw(const void* x, const void* w, const void* mult,
 
 extern "C" int helmet_quantize(const void* x, const void* step, void* out,
                                long long n, int dtype, void* stream) {
+  if (helmet_misaligned(x, x)) return (int)cudaErrorMisalignedAddress;
   if (n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = 256;
@@ -1490,6 +1503,7 @@ extern "C" int helmet_qconv_wgmma(const void* x, const void* w,
                                   int Cout, int ks, int bh, int bn, int wn,
                                   int stages, int dtype, int act,
                                   void* stream) {
+  if (helmet_misaligned(x, w)) return (int)cudaErrorMisalignedAddress;
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cin % 16 || Cout <= 0 ||
       Cout % 8 || (ks != 1 && ks != 3) ||
       (long long)N * H * W >= (1LL << 31) || (bh != 8 && bh != 16) ||
@@ -1508,6 +1522,7 @@ extern "C" int helmet_qconv_dw_tile(const void* x, const void* w,
                                     void* out, int N, int H, int W, int C,
                                     int tw, int th, int ct, int dtype,
                                     int act, void* stream) {
+  if (helmet_misaligned(x, w)) return (int)cudaErrorMisalignedAddress;
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 16 || ct <= 0 ||
       ct % 16 || ct > 256 || tw < 1 || tw + 2 > 256 || th < 1 ||
       th % helmet::kDwStrip || th + 2 > 256 ||

@@ -101,10 +101,16 @@ def _channels_last(t: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """`conv` applied with its weight and bias cast to x's dtype."""
+    """`conv` applied with its weight and bias cast to x's dtype, its
+    output channels-last. cuDNN writes a channels-last output for a
+    channels-last input, so eagerly the last step returns the tensor
+    itself; under `torch.export`, whose fake convolutions may report a
+    contiguous output (torch 2.11), it fixes the layout the kernels'
+    wrappers require."""
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    return F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride,
-                    conv.padding, conv.dilation, conv.groups)
+    return _channels_last(F.conv2d(x, conv.weight.to(x.dtype), bias,
+                                   conv.stride, conv.padding, conv.dilation,
+                                   conv.groups))
 
 
 class PReLU(nn.Module):
@@ -201,7 +207,7 @@ def stem_s2d_conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     ks = k8.reshape(f, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
     ks = _channels_last(ks.reshape(f, 4 * c, 4, 4))
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    return F.conv2d(F.pad(xs, (2, 1, 2, 1)), ks, bias)
+    return _channels_last(F.conv2d(F.pad(xs, (2, 1, 2, 1)), ks, bias))
 
 
 class QuantConv(nn.Module):

@@ -22,6 +22,15 @@ C interface, and binds them with `ctypes`:
   build and open it once.
 * Every C entry returns `cudaGetLastError()`; `check()` raises on a
   non-zero code.
+* `build_ops()` builds what an exported program needs to run without
+  Python, with `g++` against the installed torch (include and library
+  paths from `torch.utils.cpp_extension`, torch's C++ ABI, rpaths to
+  torch's libraries and to this directory; no ninja, no cmake): the op
+  library `torch_ops-<hash>.so` (csrc/torch_ops.cpp: the `helmet`
+  operators, linked to the eval path's kernel libraries) and the runner
+  `torch_runner-<hash>` (cpp/runner.cc), both keyed like the kernel
+  libraries. This process never loads the op library (`ops.library`
+  registers the namespace here).
 
 Nothing here imports torch or touches a GPU at import time.
 """
@@ -35,12 +44,22 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, Iterable, Optional
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterable, List, Optional
 
 from ..utils import atomic_write_bytes
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
+OPS_SOURCE = os.path.join(CSRC, "torch_ops.cpp")
+RUNNER_SOURCE = os.path.join(_PKG, "cpp", "runner.cc")
+# the kernel libraries of the eval path, which the op library calls
+OP_KERNELS = ("peak", "epilogue", "residual", "qconv")
+# the C++ compiler of everything an export builds: the op library, the
+# runner and the AOTInductor package's wrapper (which needs OpenMP)
+CXX = "g++"
+CXX_FLAGS = ("-std=c++17", "-O2", "-fPIC")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -56,9 +75,11 @@ MAX_DYNAMIC_SMEM = 227 * 1024
 # source name -> {C entry: argtypes}; every entry returns an int error code
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "peak": {"helmet_peak_scores": (_P, _P, _I, _I, _I, _I, _I, _I, _L, _I,
-                                     _P)},
+                                     _P),
+             "helmet_peak_pick": (_P, _P, _I, _I, _I)},
     "epilogue": {"helmet_bn_act": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
-                 "helmet_bn_act_vec": (_P, _P, _P, _P, _L, _I, _I, _I, _P)},
+                 "helmet_bn_act_vec": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
+                 "helmet_bn_act_pick": (_P, _P, _I, _I)},
     "residual": {"helmet_bn_add_act": (_P, _P, _P, _P, _P, _L, _I, _I, _I,
                                        _P)},
     "bn_train": {
@@ -191,3 +212,119 @@ def stream_handle(device) -> int:
     entries take."""
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# ------------------------------------------- the op library and the runner
+
+
+def _torch_flags() -> Dict[str, object]:
+    """What a C++ build against the installed torch needs: its version,
+    include and library directories, and its C++ ABI."""
+    import torch
+    from torch.utils import cpp_extension
+    return {"version": torch.__version__,
+            "include": list(cpp_extension.include_paths()),
+            "lib": list(cpp_extension.library_paths()),
+            "abi": int(torch._C._GLIBCXX_USE_CXX11_ABI)}
+
+
+def kernel_digests() -> Dict[str, str]:
+    """{kernel library: its digest} of the libraries the op library
+    calls."""
+    return {name: _digest(name) for name in OP_KERNELS}
+
+
+def _cxx_digest(source: str, *extra: str) -> str:
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    flags = _torch_flags()
+    h.update(("%s %d" % (flags["version"], flags["abi"])).encode())
+    for part in extra:
+        h.update(part.encode())
+    with open(source, "rb") as f:
+        h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def ops_digest() -> str:
+    """The op library's digest: its source, the kernel libraries' digests,
+    the torch it is built against and the flags."""
+    return _cxx_digest(OPS_SOURCE, *("%s=%s" % kv
+                                     for kv in kernel_digests().items()))
+
+
+def ops_library_path() -> str:
+    return os.path.join(BUILD_DIR, "torch_ops-%s.so" % ops_digest())
+
+
+def runner_path() -> str:
+    return os.path.join(BUILD_DIR, "torch_runner-%s" % _cxx_digest(
+        RUNNER_SOURCE))
+
+
+def _cxx_commands() -> Dict[str, List[str]]:
+    """{target path: g++ command writing it} of the op library and the
+    runner (each command's output path is the target's; `build_ops`
+    swaps in a temporary one)."""
+    flags = _torch_flags()
+    cuda_include = os.path.join(os.path.dirname(os.path.dirname(
+        nvcc_path())), "include")
+    inc = ["-I" + d for d in flags["include"] + [cuda_include]]
+    torch_libs = ["-L" + d for d in flags["lib"]] \
+        + ["-Wl,-rpath," + d for d in flags["lib"]]
+    cxx = [CXX, *CXX_FLAGS,
+           "-D_GLIBCXX_USE_CXX11_ABI=%d" % flags["abi"], *inc]
+    kernels = kernel_digests()
+    ops = ops_library_path()
+    runner = runner_path()
+    return {
+        ops: cxx + [
+            "-shared", '-DHELMET_OPS_DIGEST="%s"' % ops_digest(),
+            '-DHELMET_KERNEL_DIGESTS="%s"'
+            % ",".join("%s=%s" % kv for kv in kernels.items()),
+            OPS_SOURCE, "-o", ops, "-L" + BUILD_DIR,
+            *("-l:" + os.path.basename(library_path(n)) for n in kernels),
+            *torch_libs, "-lc10", "-lc10_cuda", "-ltorch_cpu",
+            "-Wl,-rpath,$ORIGIN"],
+        runner: cxx + [
+            '-DHELMET_TORCH_VERSION="%s"' % flags["version"],
+            RUNNER_SOURCE, "-o", runner, *torch_libs,
+            "-Wl,--no-as-needed", "-ltorch", "-ltorch_cuda", "-ltorch_cpu",
+            "-lc10", "-lc10_cuda", "-Wl,--as-needed", "-ldl"],
+    }
+
+
+def build_ops() -> Dict[str, float]:
+    """Build the eval path's kernel libraries, then the op library and
+    the runner (two `g++`, started together), each only where it has no
+    current build. Returns {target file name: seconds its g++ took} of
+    what was built."""
+    build(OP_KERNELS)
+    todo = {t: c for t, c in _cxx_commands().items()
+            if not os.path.exists(t)}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+
+    def one(target: str, cmd: List[str]):
+        fd, tmp = tempfile.mkstemp(prefix=os.path.basename(target) + ".",
+                                   suffix=".tmp", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [tmp if part == target else part for part in cmd]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+        secs = time.perf_counter() - t0
+        out = proc.stdout.decode(errors="replace")
+        atomic_write_bytes(target + ".log", out.encode())
+        if proc.returncode != 0:
+            os.remove(tmp)
+            return target, secs, "%s (g++ exit %d):\n%s" % (
+                os.path.basename(target), proc.returncode, out[-8000:])
+        os.chmod(tmp, 0o755)
+        os.replace(tmp, target)
+        return target, secs, None
+
+    with ThreadPoolExecutor(max(1, len(todo))) as pool:
+        results = list(pool.map(lambda kv: one(*kv), todo.items()))
+    failed = [err for _, _, err in results if err]
+    if failed:
+        raise RuntimeError("C++ build failed: " + "\n".join(failed))
+    return {os.path.basename(t): secs for t, secs, _ in results}

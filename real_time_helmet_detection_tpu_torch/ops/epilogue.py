@@ -28,10 +28,12 @@ operand.
   fallback from one to the other.
 * `*_reference` are the plain PyTorch versions: the same f32 arithmetic
   as the kernels, one eager op per step.
-* `bn_act` launches one of two kernels of csrc/epilogue.cu, chosen by
-  `bn_act_variant` from the shape: the 16-byte vector kernel, or the
-  scalar kernel for a channel count or an alignment the vector kernel
-  cannot take. A launch error raises either way.
+* `bn_act` reaches its kernels through the `helmet::bn_act` op
+  (`ops.library`), which launches one of two kernels of csrc/epilogue.cu,
+  chosen at launch by the C entry `helmet_bn_act_pick` (the rule
+  `bn_act_variant` states): the 16-byte vector kernel, or the scalar
+  kernel for a channel count or an alignment the vector kernel cannot
+  take. A launch error raises either way.
 * The module counters (`launches`, `eval_bwd_launches`,
   `stats_launches`, ...) count kernel launches, never plain-version
   calls; `vector_launches` and `scalar_launches` split `launches` by
@@ -164,7 +166,7 @@ def bn_act_reference(x: torch.Tensor, eff_scale: torch.Tensor,
 
 
 def bn_act_variant(channels: int, dtype: torch.dtype, *pointers: int) -> str:
-    """The kernel of csrc/epilogue.cu that `bn_act` launches: "vector"
+    """The kernel `helmet_bn_act_pick` (csrc/epilogue.cu) launches: "vector"
     when the channel count is a multiple of V = 16 bytes / element size (8
     bf16, 4 f32) with C / V <= 256 and every pointer (x's and out's data)
     is 16-byte aligned, else "scalar". A choice by shape, not a fallback on
@@ -179,39 +181,24 @@ def bn_act_variant(channels: int, dtype: torch.dtype, *pointers: int) -> str:
 def bn_act(x: torch.Tensor, eff_scale: torch.Tensor, eff_bias: torch.Tensor,
            activation: str, variant: Optional[str] = None) -> torch.Tensor:
     """`act(x * eff_scale + eff_bias)` per channel, the forward pass of
-    eval and train.
+    eval and train, through the `helmet::bn_act` op (`ops.library`).
 
     x: (N, C, H, W) channels-last, float32 or bfloat16; eff_scale and
     eff_bias: (C,) float32. Returns a new tensor like x. `variant` ("vector"
-    or "scalar") forces a kernel on a CUDA tensor; None takes
-    `bn_act_variant`'s choice. The vector kernel refuses, and this raises
+    or "scalar") forces a kernel on a CUDA tensor; None leaves the choice
+    to the kernel library at launch (`helmet_bn_act_pick`, the rule
+    `bn_act_variant` states). The vector kernel refuses, and this raises
     on, a shape it cannot take."""
-    global launches, vector_launches, scalar_launches
     check_activation(activation)
     check_layout("x", x)
     check_vectors(x, eff_scale=eff_scale, eff_bias=eff_bias)
-    if x.device.type == "cpu":
-        return bn_act_reference(x, eff_scale, eff_bias, activation)
-    check_cuda("bn_act", x)
-    out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
-    if variant is None:
-        variant = bn_act_variant(x.shape[1], x.dtype, x.data_ptr(),
-                                 out.data_ptr())
-    lib = _build.load("epilogue")
-    entry = {"vector": lib.helmet_bn_act_vec,
-             "scalar": lib.helmet_bn_act}[variant]
-    err = entry(x.data_ptr(), eff_scale.data_ptr(), eff_bias.data_ptr(),
-                out.data_ptr(), x.numel(), x.shape[1], _DTYPE_CODE[x.dtype],
-                _ACT_CODE[activation], _build.stream_handle(x.device))
-    _build.check(err, "bn_act (%s kernel)" % variant)
-    launches += 1
-    if variant == "vector":
-        vector_launches += 1
-    else:
-        scalar_launches += 1
-    return out
+    if x.device.type != "cpu":
+        check_cuda("bn_act", x)
+    if variant not in (None, "vector", "scalar"):
+        raise ValueError("variant must be 'vector' or 'scalar', got %r"
+                         % (variant,))
+    return torch.ops.helmet.bn_act.default(x, eff_scale, eff_bias,
+                                           activation, variant or "auto")
 
 
 # ---------------------------------------------------------- eval backward

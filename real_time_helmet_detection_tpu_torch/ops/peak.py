@@ -7,15 +7,18 @@ cells outside the map are -inf, a NaN in the window makes its max NaN),
 0 elsewhere. The peak test runs on sigmoid values, not logits, exactly
 as the JAX decode path does.
 
-* `peak_scores` launches `csrc/peak.cu` for CUDA tensors or raises, and
-  runs the plain version for CPU tensors. `peak_variant` picks the
-  kernel's variant from the shape: "vector" (both heat channels of a
-  cell in one 8-byte load, 16-byte stores) or "scalar".
+* `peak_scores` checks its arguments and calls `helmet::peak_scores`
+  (`ops.library`), which launches `csrc/peak.cu` for CUDA tensors or
+  raises, and runs the plain version for CPU tensors. The kernel's
+  variant, "vector" (both heat channels of a cell in one 8-byte load,
+  16-byte stores) or "scalar", is chosen at launch by the C entry
+  `helmet_peak_pick`; `peak_variant` states the same rule for code that
+  counts launches without a card.
 * `peak_scores_reference` is the plain PyTorch version (sigmoid, then
   `ops.decode.peak_mask`: a stride-1 max pool with implicit -inf
   padding, and equality).
-* `launches` counts kernel launches; `vector_launches` and
-  `scalar_launches` split it by variant.
+* `launches` counts kernel launches (the op's CUDA implementation adds
+  to it); `vector_launches` and `scalar_launches` split it by variant.
 
 Both read the C heat channels straight out of the model's
 (B, S, h, w, C+4) float32 output and write class-major (B, S, C, h, w),
@@ -29,7 +32,6 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
 from .decode import peak_mask
 
 launches = 0
@@ -70,7 +72,7 @@ def tiles(h: int, w: int) -> Tuple[int, int]:
 
 def peak_variant(num_cls: int, k: int, w: int, logits_ptr: int,
                  out_ptr: int) -> str:
-    """The variant of csrc/peak.cu that `peak_scores` launches: "vector"
+    """The variant `helmet_peak_pick` (csrc/peak.cu) launches: "vector"
     when there are two classes, the channel count K is even and the
     logits 8-byte aligned (each cell's heat pair is one 8-byte load), and
     w is a multiple of 4 with the output 16-byte aligned (four outputs in
@@ -102,39 +104,22 @@ def peak_scores_reference(logits: torch.Tensor, num_cls: int,
 
 def peak_scores(logits: torch.Tensor, num_cls: int, pool_size: int = 3,
                 variant: Optional[str] = None) -> torch.Tensor:
-    """Masked sigmoid peak scores, (B, S, h, w, K) f32 -> (B, S, C, h, w).
-    `variant` ("vector" or "scalar") forces a kernel variant on a CUDA
-    tensor; None takes `peak_variant`'s choice. The vector variant
-    refuses, and this raises on, a shape it cannot take."""
-    global launches, vector_launches, scalar_launches
+    """Masked sigmoid peak scores, (B, S, h, w, K) f32 -> (B, S, C, h, w),
+    through the `helmet::peak_scores` op (`ops.library`): the kernel on a
+    CUDA tensor, the plain version on a CPU one. `variant` ("vector" or
+    "scalar") forces a kernel variant on a CUDA tensor; None leaves the
+    choice to the kernel library at launch (`helmet_peak_pick`, the rule
+    `peak_variant` states). The vector variant refuses, and this raises
+    on, a shape it cannot take."""
     check_pool_size(pool_size)
     _check(logits, num_cls)
-    if logits.device.type == "cpu":
-        return peak_scores_reference(logits, num_cls, pool_size)
-    if logits.device.type != "cuda":
+    if logits.device.type not in ("cpu", "cuda"):
         raise ValueError("peak_scores runs on cuda or cpu, got %s"
                          % logits.device)
-    b, s, h, w, k = logits.shape
-    out = torch.empty((b, s, num_cls, h, w), dtype=torch.float32,
-                      device=logits.device)
-    if out.numel() == 0:
-        return out
-    if variant is None:
-        variant = peak_variant(num_cls, k, w, logits.data_ptr(),
-                               out.data_ptr())
-    if variant not in ("vector", "scalar"):
+    if variant not in (None, "vector", "scalar"):
         raise ValueError("variant must be 'vector' or 'scalar', got %r"
                          % (variant,))
+    b, s, h, w, _ = logits.shape
     rows, cols = tiles(h, w)
-    lib = _build.load("peak")
-    err = lib.helmet_peak_scores(logits.data_ptr(), out.data_ptr(), b * s,
-                                 num_cls, h, w, k, (pool_size - 1) // 2,
-                                 b * s * rows * cols, int(variant == "vector"),
-                                 _build.stream_handle(logits.device))
-    _build.check(err, "peak_scores (%s variant)" % variant)
-    launches += 1
-    if variant == "vector":
-        vector_launches += 1
-    else:
-        scalar_launches += 1
-    return out
+    return torch.ops.helmet.peak_scores.default(
+        logits, num_cls, pool_size, b * s * rows * cols, variant or "auto")

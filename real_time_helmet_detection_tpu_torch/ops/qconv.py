@@ -37,13 +37,16 @@ Each conv has two kernels, picked by shape:
   "gather" (`qconv_dw_kernel`, nine loads a pixel) for the rest;
   `dw_plan` picks and sizes the tile.
 
-Every wrapper launches its kernel for CUDA tensors or raises, and runs
-its plain version (`*_reference`) for CPU tensors; there is no fallback
-between them. The plain convs take `F.conv2d` in float64 of the int8
-values, exact for any K here (|sum| < 2^53), then int32. On CUDA the
-wrappers also raise where the kernels do not go: a dense Cin that is no
-multiple of 16, a Cout or depthwise C that is no multiple of 8, or an
-input or weight pointer that is not 16-byte aligned. `quant_launches`,
+Every wrapper checks its arguments, computes its plan, and calls its
+`helmet` op (`ops.library`: `helmet::quantize_act`, `qconv_dense`,
+`qconv_dw`), which launches the kernel for CUDA tensors or raises, and
+runs the plain version (`*_reference`) for CPU tensors; there is no
+fallback between them. The plain convs take `F.conv2d` in float64 of the
+int8 values, exact for any K here (|sum| < 2^53), then int32. On CUDA
+they also raise where the kernels do not go: a dense Cin that is no
+multiple of 16, a Cout or depthwise C that is no multiple of 8 (the
+wrappers), or an input or weight pointer that is not 16-byte aligned
+(the C entries' check, a ValueError here). `quant_launches`,
 `dense_launches` and `dw_launches` count launches; `dense_wgmma_launches`
 + `dense_mma_launches` and `dw_tiled_launches` + `dw_gather_launches`
 split the last two by kernel.
@@ -59,11 +62,12 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .epilogue import _DTYPE_CODE, _channels_last, activate, check_cuda
+from .epilogue import _channels_last, activate, check_cuda
 
 ACTIVATIONS = ("ReLU", "Linear")  # what the conv epilogue fuses
 _ACT_CODE = {"ReLU": 0, "Linear": 2}  # common.cuh Act
 _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+_OUT_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int32: 4}
 
 quant_launches = 0
 dense_launches = 0
@@ -105,13 +109,6 @@ def _check_act_input(name: str, x: torch.Tensor, dtypes) -> None:
                          % (name, x.stride()))
 
 
-def _check_aligned(what: str, **tensors) -> None:
-    for name, t in tensors.items():
-        if t.data_ptr() % 16:
-            raise ValueError("%s: %s is not 16-byte aligned (data_ptr %% 16 "
-                             "= %d)" % (what, name, t.data_ptr() % 16))
-
-
 # ---------------------------------------------------------------- quantizer
 
 
@@ -126,28 +123,17 @@ def quantize_act_reference(x: torch.Tensor, step: torch.Tensor
 
 def quantize_act(x: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
     """x (N, C, H, W) channels-last float32/bfloat16, step a 0-d float32
-    tensor on x's device -> int8 (N, C, H, W) channels-last."""
-    global quant_launches
+    tensor on x's device -> int8 (N, C, H, W) channels-last, through the
+    `helmet::quantize_act` op (`ops.library`)."""
     _check_act_input("x", x, (torch.float32, torch.bfloat16))
     if step.dim() != 0 or step.dtype != torch.float32 \
             or step.device != x.device:
         raise ValueError("step must be a 0-d float32 tensor on %s, got %s "
                          "%s on %s" % (x.device, tuple(step.shape),
                                        step.dtype, step.device))
-    if x.device.type == "cpu":
-        return quantize_act_reference(x, step)
-    check_cuda("quantize_act", x)
-    _check_aligned("quantize_act", x=x)
-    out = torch.empty(x.shape, dtype=torch.int8, device=x.device,
-                      memory_format=torch.channels_last)
-    if x.numel() == 0:
-        return out
-    err = _build.load("qconv").helmet_quantize(
-        x.data_ptr(), step.data_ptr(), out.data_ptr(), x.numel(),
-        _DTYPE_CODE[x.dtype], _build.stream_handle(x.device))
-    _build.check(err, "quantize_act")
-    quant_launches += 1
-    return out
+    if x.device.type != "cpu":
+        check_cuda("quantize_act", x)
+    return torch.ops.helmet.quantize_act.default(x, step)
 
 
 # -------------------------------------------------------------------- convs
@@ -372,45 +358,23 @@ def conv_dense_variant(q: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
                        ) -> torch.Tensor:
     """`conv_dense` on the kernel `variant` names ("wgmma", "mma"; None:
     `dense_plan`'s choice)."""
-    global dense_launches, dense_wgmma_launches, dense_mma_launches
     if w.dim() != 4 or w.shape[1] != w.shape[2] or w.shape[1] not in (1, 3) \
             or w.shape[3] != q.shape[1]:
         raise ValueError("conv_dense: weights must be (Cout, k, k, %d) with "
                          "k 1 or 3, got %s" % (q.shape[1], tuple(w.shape)))
     cout = w.shape[0]
     _check_conv("conv_dense", q, w, mult, bias, dtype, activation, cout)
-    if q.device.type == "cpu":
-        return conv_dense_reference(q, w, mult, bias, dtype, activation)
-    check_cuda("conv_dense", q)
     n, cin, h, wd = q.shape
-    if cin % 16 or cout % 8:
-        raise ValueError("conv_dense: the kernel takes Cin % 16 == 0 and "
-                         "Cout % 8 == 0, got %d -> %d" % (cin, cout))
-    _check_aligned("conv_dense", q=q, w=w)
-    out = torch.empty((n, cout, h, wd), dtype=dtype, device=q.device,
-                      memory_format=torch.channels_last)
-    if out.numel() == 0:
-        return out
-    k = w.shape[1]
-    plan = dense_plan(n, h, wd, cin, cout, k, out.element_size(), variant)
-    lib = _build.load("qconv")
-    ptrs = (q.data_ptr(), w.data_ptr(), mult.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), n, h, wd, cin, cout, k)
-    stream = _build.stream_handle(q.device)
-    if plan.variant == "wgmma":
-        err = lib.helmet_qconv_wgmma(*ptrs, plan.box[1], plan.box[2],
-                                     plan.n, plan.stages, _OUT_CODE[dtype],
-                                     _ACT_CODE[activation], stream)
-    else:
-        err = lib.helmet_qconv_dense(*ptrs, _OUT_CODE[dtype],
-                                     _ACT_CODE[activation], stream)
-    _build.check(err, "conv_dense (%s kernel)" % plan.variant)
-    dense_launches += 1
-    if plan.variant == "wgmma":
-        dense_wgmma_launches += 1
-    else:
-        dense_mma_launches += 1
-    return out
+    if q.device.type != "cpu":
+        check_cuda("conv_dense", q)
+        if cin % 16 or cout % 8:
+            raise ValueError("conv_dense: the kernel takes Cin % 16 == 0 and "
+                             "Cout % 8 == 0, got %d -> %d" % (cin, cout))
+    plan = dense_plan(n, h, wd, cin, cout, w.shape[1], _OUT_BYTES[dtype],
+                      variant)
+    return torch.ops.helmet.qconv_dense.default(
+        q, w, mult, bias, _OUT_CODE[dtype], activation, plan.variant,
+        plan.box[1], plan.box[2], plan.n, plan.stages)
 
 
 def conv_dw(q: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
@@ -427,41 +391,20 @@ def conv_dw_variant(q: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
                     variant: Optional[str]) -> torch.Tensor:
     """`conv_dw` on the kernel `variant` names ("tiled", "gather"; None:
     `dw_plan`'s choice)."""
-    global dw_launches, dw_tiled_launches, dw_gather_launches
     c = q.shape[1] if q.dim() == 4 else -1
     if w.shape != (9, c):
         raise ValueError("conv_dw: weights must be (9, %d) (3 x 3 taps), "
                          "got %s" % (c, tuple(w.shape)))
     _check_conv("conv_dw", q, w, mult, bias, dtype, activation, c)
-    if q.device.type == "cpu":
-        return conv_dw_reference(q, w, mult, bias, dtype, activation)
-    check_cuda("conv_dw", q)
     n, _, h, wd = q.shape
-    if c % 8 or n * h * wd * (c // 8) >= 2 ** 31:
-        raise ValueError("conv_dw: the kernel takes C % 8 == 0 and fewer "
-                         "than 2^31 8-channel groups, got %s"
-                         % (tuple(q.shape),))
-    _check_aligned("conv_dw", q=q, w=w)
-    out = torch.empty(q.shape, dtype=dtype, device=q.device,
-                      memory_format=torch.channels_last)
-    if out.numel() == 0:
-        return out
+    if q.device.type != "cpu":
+        check_cuda("conv_dw", q)
+        if c % 8 or n * h * wd * (c // 8) >= 2 ** 31:
+            raise ValueError("conv_dw: the kernel takes C % 8 == 0 and fewer "
+                             "than 2^31 8-channel groups, got %s"
+                             % (tuple(q.shape),))
     plan = dw_plan(n, h, wd, c, variant)
-    lib = _build.load("qconv")
-    ptrs = (q.data_ptr(), w.data_ptr(), mult.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), n, h, wd, c)
-    stream = _build.stream_handle(q.device)
-    if plan.variant == "tiled":
-        err = lib.helmet_qconv_dw_tile(*ptrs, *plan.tile, plan.ct,
-                                       _OUT_CODE[dtype],
-                                       _ACT_CODE[activation], stream)
-    else:
-        err = lib.helmet_qconv_dw(*ptrs, _OUT_CODE[dtype],
-                                  _ACT_CODE[activation], stream)
-    _build.check(err, "conv_dw (%s kernel)" % plan.variant)
-    dw_launches += 1
-    if plan.variant == "tiled":
-        dw_tiled_launches += 1
-    else:
-        dw_gather_launches += 1
-    return out
+    tw, th = plan.tile or (0, 0)
+    return torch.ops.helmet.qconv_dw.default(
+        q, w, mult, bias, _OUT_CODE[dtype], activation, plan.variant, tw, th,
+        plan.ct or 0)

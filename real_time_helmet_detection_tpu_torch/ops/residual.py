@@ -20,9 +20,10 @@ through the add, whose skip gradient is ds = dz. Its backward passes are
 the skip variants of the `csrc/bn_train.cu` kernels (ref residual.py:112
 `_bwd_add_sums_kernel`, :121 `_bwd_add_dx_kernel`).
 
-* `bn_add_act`, `bn_add_eval_bwd`, `bn_add_bwd_sums` and `bn_add_bwd_dx`
-  launch their CUDA kernels for CUDA tensors or raise, and run the plain
-  versions for CPU tensors — no fallback between them.
+* `bn_add_act` (through the `helmet::bn_add_act` op, `ops.library`),
+  `bn_add_eval_bwd`, `bn_add_bwd_sums` and `bn_add_bwd_dx` launch their
+  CUDA kernels for CUDA tensors or raise, and run the plain versions for
+  CPU tensors — no fallback between them.
 * `bn_add_act_reference` is the plain PyTorch version of the tail,
   summed in the TPU kernel's order: ((y * a) + b) + skip.
 * `launches`, `eval_bwd_launches`, `bwd_sums_launches`,
@@ -38,8 +39,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
-from .epilogue import (_ACT_CODE, _DTYPE_CODE, BNEval, BNTrain, EvalPasses,
+from .epilogue import (BNEval, BNTrain, EvalPasses,
                        Passes, _check_bwd, activate, bn_bwd_dx_reference,
                        bn_bwd_sums_reference, check_activation, check_cuda,
                        check_layout, check_vectors, eval_bwd_reference,
@@ -65,30 +65,19 @@ def bn_add_act_reference(y: torch.Tensor, eff_scale: torch.Tensor,
 def bn_add_act(y: torch.Tensor, eff_scale: torch.Tensor,
                eff_bias: torch.Tensor, skip: torch.Tensor,
                activation: str) -> torch.Tensor:
-    """Residual tail, the forward pass of eval and train.
+    """Residual tail, the forward pass of eval and train, through the
+    `helmet::bn_add_act` op (`ops.library`).
 
     y, skip: (N, C, H, W) channels-last, same shape, dtype (float32 or
     bfloat16) and device; eff_scale, eff_bias: (C,) float32."""
-    global launches
     check_activation(activation)
     check_layout("y", y)
     check_layout("skip", skip, like=y)
     check_vectors(y, eff_scale=eff_scale, eff_bias=eff_bias)
-    if y.device.type == "cpu":
-        return bn_add_act_reference(y, eff_scale, eff_bias, skip, activation)
-    check_cuda("bn_add_act", y)
-    out = torch.empty_like(y)
-    if y.numel() == 0:
-        return out
-    lib = _build.load("residual")
-    err = lib.helmet_bn_add_act(y.data_ptr(), eff_scale.data_ptr(),
-                                eff_bias.data_ptr(), skip.data_ptr(),
-                                out.data_ptr(), y.numel(), y.shape[1],
-                                _DTYPE_CODE[y.dtype], _ACT_CODE[activation],
-                                _build.stream_handle(y.device))
-    _build.check(err, "bn_add_act")
-    launches += 1
-    return out
+    if y.device.type != "cpu":
+        check_cuda("bn_add_act", y)
+    return torch.ops.helmet.bn_add_act.default(y, eff_scale, eff_bias,
+                                               skip, activation)
 
 
 def bn_add_eval_bwd_reference(y, a, b, skip, g, activation):

@@ -9,7 +9,8 @@
   graftlint's AST rules (so `test_repo_ast_layer_clean_vs_baseline`
   stays green).
 * The package is found by the repo's setuptools configuration, with its
-  CUDA sources as package data.
+  CUDA sources, its op library's and its runner's C++ sources as
+  package data.
 """
 
 import ast
@@ -69,7 +70,8 @@ def test_port_files_exist():
                  PKG + "/ops/residual.py", PKG + "/models/hourglass.py",
                  PKG + "/train.py", PKG + "/optim.py", PKG + "/ops/loss.py",
                  PKG + "/ops/encode.py", PKG + "/data/augment.py",
-                 PKG + "/data/pipeline.py"):
+                 PKG + "/data/pipeline.py", PKG + "/ops/library.py",
+                 PKG + "/export.py"):
         assert must in names
 
 
@@ -133,6 +135,7 @@ def test_package_found_with_its_cuda_sources():
     with open(os.path.join(REPO, "pyproject.toml")) as f:
         text = f.read()
     assert "csrc/*.cu" in text and "csrc/*.cuh" in text
+    assert "csrc/*.cpp" in text and "cpp/*.cc" in text
 
 
 def test_atomic_writes_land_whole_or_not_at_all(tmp_path):

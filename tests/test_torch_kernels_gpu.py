@@ -767,3 +767,96 @@ def test_int8_serving_rows_bit_equal_to_eager(cuda):
             assert all(np.array_equal(got, leaf[i])
                        for got, leaf in zip(row, want))
         assert engine.stats()["bucket_builds"] == 3
+
+
+def _helmet_cases(gen):
+    """op -> (its arguments, its plain version, a direct call of its C
+    entry into a given output), at small shapes on the card, each on the
+    kernel its shape and alignment take."""
+    from real_time_helmet_detection_tpu_torch.ops import _build, qconv
+    stream = torch.cuda.current_stream().cuda_stream
+    x = _x((2, 64, 9, 13), torch.bfloat16, gen)
+    skip = _x((2, 64, 9, 13), torch.bfloat16, gen)
+    a = torch.rand(64, generator=gen, device="cuda") + 0.5
+    b = torch.randn(64, generator=gen, device="cuda")
+    logits = torch.randn((2, 1, 37, 44, 6), generator=gen, device="cuda") * 3
+    tiles = 2 * peak.tiles(37, 44)[0] * peak.tiles(37, 44)[1]
+    step = torch.tensor(0.05, device="cuda")
+    q, wq, mult, bias = _q_operands((2, 64, 13, 21), (96, 3, 3, 64), 96, gen)
+    qd, wd, md, bd = _q_operands((2, 48, 13, 21), (9, 48), 48, gen)
+    plan = qconv.dense_plan(2, 13, 21, 64, 96, 3, 2)
+    dw = qconv.dw_plan(2, 13, 21, 48)
+    p = lambda t: t.data_ptr()  # noqa: E731
+    return {
+        "peak_scores": (
+            (logits, 2, 3, tiles, "auto"),
+            lambda: peak.peak_scores_reference(logits, 2, 3),
+            lambda o: _build.load("peak").helmet_peak_scores(
+                p(logits), p(o), 2, 2, 37, 44, 6, 1, tiles, 1, stream)),
+        "bn_act": (
+            (x, a, b, "ReLU", "auto"),
+            lambda: epilogue.bn_act_reference(x, a, b, "ReLU"),
+            lambda o: _build.load("epilogue").helmet_bn_act_vec(
+                p(x), p(a), p(b), p(o), x.numel(), 64, 1, 0, stream)),
+        "bn_add_act": (
+            (x, a, b, skip, "Linear"),
+            lambda: residual.bn_add_act_reference(x, a, b, skip, "Linear"),
+            lambda o: _build.load("residual").helmet_bn_add_act(
+                p(x), p(a), p(b), p(skip), p(o), x.numel(), 64, 1, 2,
+                stream)),
+        "quantize_act": (
+            (x, step),
+            lambda: qconv.quantize_act_reference(x, step),
+            lambda o: _build.load("qconv").helmet_quantize(
+                p(x), p(step), p(o), x.numel(), 1, stream)),
+        "qconv_dense": (
+            (q, wq, mult, bias, 1, "ReLU", plan.variant, plan.box[1],
+             plan.box[2], plan.n, plan.stages),
+            lambda: qconv.conv_dense_reference(q, wq, mult, bias,
+                                               torch.bfloat16, "ReLU"),
+            lambda o: _build.load("qconv").helmet_qconv_wgmma(
+                p(q), p(wq), p(mult), p(bias), p(o), 2, 13, 21, 64, 96, 3,
+                plan.box[1], plan.box[2], plan.n, plan.stages, 1, 0,
+                stream)),
+        "qconv_dw": (
+            (qd, wd, md, bd, 1, "Linear", dw.variant, *dw.tile, dw.ct),
+            lambda: qconv.conv_dw_reference(qd, wd, md, bd, torch.bfloat16,
+                                            "Linear"),
+            lambda o: _build.load("qconv").helmet_qconv_dw_tile(
+                p(qd), p(wd), p(md), p(bd), p(o), 2, 13, 21, 48, *dw.tile,
+                dw.ct, 1, 2, stream)),
+    }
+
+
+@pytest.mark.parametrize("name", ["peak_scores", "bn_act", "bn_add_act",
+                                  "quantize_act", "qconv_dense", "qconv_dw"])
+def test_helmet_op_matches_plain_and_its_c_entry(cuda, name):
+    """Each `helmet` op's CUDA implementation, called through
+    `torch.ops.helmet`, bit-equal to its plain version and to a direct
+    `ctypes` call of its C entry (the route of the wrappers before the
+    ops)."""
+    args, plain, direct = _helmet_cases(cuda)[name]
+    got = getattr(torch.ops.helmet, name)(*args)
+    out = torch.empty_like(got)
+    assert direct(out) == 0
+    torch.cuda.synchronize()
+    want = plain()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(out, got)
+
+
+def test_c_variant_picks_follow_the_python_rules(cuda):
+    """`helmet_peak_pick` and `helmet_bn_act_pick`, the launch-time choices
+    of both op registrations, agree with `peak.peak_variant` and
+    `epilogue.bn_act_variant` on aligned and misaligned pointers."""
+    from real_time_helmet_detection_tpu_torch.ops import _build
+    pk, ep = _build.load("peak"), _build.load("epilogue")
+    for num_cls, k, w in ((2, 6, 44), (2, 6, 43), (3, 7, 44), (2, 5, 8)):
+        for lp, op in ((256, 512), (260, 512), (256, 520), (264, 528)):
+            want = peak.peak_variant(num_cls, k, w, lp, op) == "vector"
+            assert pk.helmet_peak_pick(lp, op, num_cls, k, w) == want
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for c in (4, 6, 8, 64, 1024, 2048, 2056):
+            for xp, op in ((256, 512), (258, 512), (256, 520)):
+                want = epilogue.bn_act_variant(c, dtype, xp, op) == "vector"
+                assert ep.helmet_bn_act_pick(xp, op, c, code) == want
