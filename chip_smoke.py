@@ -74,6 +74,23 @@ version on the card:
    the step with float64 BN sums, the loss over 20 steps on one batch,
    images/s over alternating ~2 s windows, peak memory; then one f32
    step;
+11b. accum: gradient accumulation at the flagship's width, b16 512^2
+   --amp: one `--grad-accum 2` step through the kernels against the
+   plain versions (train_main's bf16 rule) and its launches, twice one
+   step's derived counts; three `--sub-divisions 2` host steps of an
+   epoch of 3 through `train_epoch` (no update, an update, the epoch-end
+   flush); one `--grad-accum 2` step against two `--sub-divisions 2`
+   steps on its halves (SGD, f32, parameters rel L2 1e-5); train images/s
+   and peak memory of grad-accum 1 and 2 in alternating windows;
+11c. ddp: DistributedDataParallel on the one card: world 1 over NCCL,
+   the flagship --amp step bit-equal to the unwrapped step and launching
+   one step's counts; world 2 over gloo (two processes of this script,
+   `--ddp-worker`, both on cuda:0, 8 images each, f32) against the
+   single-process 16-image step (loss rel 1e-5, the update rel L2 5e-3,
+   running statistics bit-equal across the ranks and rel L2 1e-5, the
+   launches of one step at b8 per rank); the eval CLI at world 2 against
+   one process on 32 images (the same mAP, rank 0's detections, the txt
+   files and the pickle from rank 0 alone);
 12. eval_grad: the eval-mode BN backward kernels against their plain
    versions at every BN site shape, f32 and bf16, every activation (dx
    and ds bit-equal for ReLU/Linear, Mish as in 3, partials within 1e-5
@@ -179,7 +196,9 @@ version on the card:
    txt files and pickle, the mAP within 1e-3 of eager predicts' over the
    same fixture;
 26. train_cli: `--train-flag` for one epoch on a 32-image 512^2 fixture,
-   then the eval CLI on the weights it wrote.
+   then the eval CLI on the weights it wrote; then one epoch with
+   `--grad-accum 2 --sub-divisions 2` on 128 images (8 steps, 4
+   updates), whose loss must fall.
 
 `--phases variants` (or any comma-separated subset; `identity` always
 runs) runs phases alone. Any failure exits non-zero. Each phase prints
@@ -209,10 +228,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PHASES = ("identity", "build", "kernels", "timing", "main", "states",
           "train_kernels", "train_timing", "loss_kernels", "loss_timing",
-          "train_main", "eval_grad", "eval_timing", "variants",
-          "variants_small", "variants_train", "nms", "serve", "qkernels",
-          "qtiming", "int8", "serve_int8", "export", "profile", "cli",
-          "train_cli")
+          "train_main", "accum", "ddp", "eval_grad", "eval_timing",
+          "variants", "variants_small", "variants_train", "nms", "serve",
+          "qkernels", "qtiming", "int8", "serve_int8", "export", "profile",
+          "cli", "train_cli")
 
 
 class SmokeFailure(RuntimeError):
@@ -1887,33 +1906,44 @@ def check_train_step(model, model32, arrs, cfg, cfg32):
     return e
 
 
-def train_throughput(step, arrs, windows=5, window_s=2.0):
-    """Train images/s of the kernel path and the plain-version path in
-    `windows` alternating windows of about `window_s` s each."""
+def alternating_rates(steps, arrs, windows=3, window_s=1.0):
+    """Train images/s of each named step function in `windows`
+    alternating windows of about `window_s` s each."""
     import statistics
     import torch
-    count = [0]
+    counts = {name: 0 for name in steps}
 
-    def one_window(n):
+    def one_window(name, n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            step(count[0], *arrs)
-            count[0] += 1
+            steps[name](counts[name], *arrs)
+            counts[name] += 1
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    n = max(5, int(window_s / (one_window(3) / 3)))
-    rates = {"kernels": [], "plain": []}
+    sizes = {name: max(5, int(window_s / (one_window(name, 3) / 3)))
+             for name in steps}
+    rates = {name: [] for name in steps}
     batch = arrs[0].shape[0]
     for _ in range(windows):
-        rates["kernels"].append(batch * n / one_window(n))
-        with plain_kernels():
-            rates["plain"].append(batch * n / one_window(n))
-    return {path: dict(ips=r, median_ips=statistics.median(r),
+        for name in steps:
+            rates[name].append(batch * sizes[name]
+                               / one_window(name, sizes[name]))
+    return {name: dict(ips=r, median_ips=statistics.median(r),
                        ms_per_step=1e3 * batch / statistics.median(r),
-                       steps_per_window=n)
-            for path, r in rates.items()}
+                       steps_per_window=sizes[name])
+            for name, r in rates.items()}
+
+
+def train_throughput(step, arrs, windows=5, window_s=2.0):
+    """Train images/s of the kernel path and the plain-version path in
+    `windows` alternating windows of about `window_s` s each."""
+    def plain(count, *a):
+        with plain_kernels():
+            return step(count, *a)
+    return alternating_rates({"kernels": step, "plain": plain}, arrs,
+                             windows, window_s)
 
 
 def phase_train_main(state):
@@ -1998,6 +2028,450 @@ def phase_train_main(state):
             state["train_main"]["f32"]["peak_gb"]))
     del model, opt, step, arrs
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------- accumulation and DDP phases
+
+
+def accum_backward(model, arrs, cfg):
+    """(loss, summed gradients, buffers) of one host step of cfg's
+    accumulation (`--grad-accum` micro-batches) without the update; the
+    gradients are cleared after."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.train import make_train_step
+    opt = torch.optim.SGD(model.parameters(), lr=0.0)  # zero_grad only
+    step = make_train_step(model, opt, lambda count: 0.0, cfg)
+    losses = step(0, *arrs, update=False)
+    torch.cuda.synchronize()
+    out = (float(losses["total"]),
+           {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+           {n: t.detach().clone() for n, t in model.named_buffers()})
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def check_accum_step(model, model32, arrs, cfg, cfg32):
+    """The bf16 `--grad-accum 2` step through the kernels against the same
+    step through the plain versions, under train_main's bf16 rule (loss
+    rel 1e-3; summed gradient and running statistics no further from the
+    f32 plain step than 1.5x the bf16 plain path), cudnn.deterministic;
+    the models' buffers are restored after."""
+    import torch
+    buffers = {n: t.detach().clone() for n, t in model.named_buffers()}
+    torch.backends.cudnn.deterministic = True
+    try:
+        lk, gk, bk = accum_backward(model, arrs, cfg)
+        model.load_state_dict(buffers, strict=False)
+        with plain_kernels():
+            lp, gp, bp = accum_backward(model, arrs, cfg)
+            model.load_state_dict(buffers, strict=False)
+            lp32, gp32, bp32 = accum_backward(model32, arrs, cfg32)
+            model32.load_state_dict(buffers, strict=False)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        model.load_state_dict(buffers, strict=False)
+    e = dict(loss=abs(lk - lp) / abs(lp),
+             grad_vs_f32=(rel_l2(gk, gp32), rel_l2(gp, gp32)),
+             stats_vs_f32=(rel_l2(bk, bp32), rel_l2(bp, bp32)))
+    log("accum: --grad-accum 2 bf16 step kernels vs plain: loss %.6f vs "
+        "%.6f, rel err %.3g (tol %g); against the f32 plain step: summed "
+        "gradient kernels %.3g, plain %.3g, running statistics kernels "
+        "%.3g, plain %.3g (kernels at most %gx plain)" % (
+            lk, lp, e["loss"], STEP_TOL["bf16_loss"], *e["grad_vs_f32"],
+            *e["stats_vs_f32"], STEP_TOL["bf16_ratio"]))
+    ratio = STEP_TOL["bf16_ratio"]
+    require(e["loss"] <= STEP_TOL["bf16_loss"]
+            and e["grad_vs_f32"][0] <= ratio * e["grad_vs_f32"][1]
+            and e["stats_vs_f32"][0] <= ratio * e["stats_vs_f32"][1],
+            "--grad-accum 2 step kernels further from the f32 step than "
+            "the plain versions")
+    return e
+
+
+class RepeatLoader:
+    """`n` copies of one host batch, as `train_epoch` reads a loader."""
+
+    def __init__(self, arrays, n):
+        self.arrays, self.n = arrays, n
+
+    def set_epoch(self, epoch):
+        pass
+
+    def __len__(self):
+        return self.n
+
+    def __iter__(self):
+        from real_time_helmet_detection_tpu_torch.data.pipeline import Batch
+        for _ in range(self.n):
+            yield Batch(*self.arrays, infos=[])
+
+
+def params_of(model):
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def moved(a, b):
+    """Does any tensor of name -> tensor dict `a` differ from b's?"""
+    import torch
+    return any(not torch.equal(a[n], b[n]) for n in a)
+
+
+def phase_accum(state):
+    """Gradient accumulation at the flagship's width, b16 512^2 --amp:
+    one `--grad-accum 2` step through the kernels against the plain
+    versions (train_main's bf16 rule) and its launches (twice one step's
+    derived counts); three `--sub-divisions 2` host steps of an epoch of 3
+    through `train_epoch` (no update after step 1, one after step 2, the
+    flush at step 3); one `--grad-accum 2` step against two `--sub-
+    divisions 2` steps on its halves under SGD in f32 (parameters rel L2
+    1e-5, cudnn.deterministic); train images/s and peak memory of
+    grad-accum 1 and 2 in alternating windows."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.config import Config
+    from real_time_helmet_detection_tpu_torch.ops.loss import LossLog
+    from real_time_helmet_detection_tpu_torch.train import train_epoch
+    cfg = Config(batch_size=16, amp=True, grad_accum=2)
+    model, opt, step = make_trainer(cfg)
+    arrs = train_batch()
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    saved_opt = opt.state_dict()
+    step(0, *arrs)  # warm-up on a throwaway copy of the weights
+    torch.cuda.synchronize()
+    model.load_state_dict(saved)
+    opt.load_state_dict(saved_opt)
+    cfg32 = Config(batch_size=16, grad_accum=2)
+    model32 = make_trainer(cfg32)[0]
+    model32.load_state_dict(model.state_dict())
+    errs = check_accum_step(model, model32, arrs, cfg, cfg32)
+    del model32
+    reset_counts()
+    step(0, *arrs)  # THE --grad-accum 2 run the counts read
+    torch.cuda.synchronize()
+    counts = read_counts()
+    one = expected_launches(Config(batch_size=16, imsize=512, amp=True),
+                            "train", torch.bfloat16)
+    want = {k: 2 * v for k, v in one.items()}
+    require(counts == want, "launches per --grad-accum 2 step %s, want "
+            "twice one step's %s" % (counts, one))
+    state.setdefault("launches", {})["accum"] = counts
+
+    # --sub-divisions 2 over an epoch of 3 host steps
+    cfg_sd = Config(batch_size=16, amp=True, sub_divisions=2)
+    model_sd, _, step_sd = make_trainer(cfg_sd)
+    snaps = [params_of(model_sd)]
+
+    def recording(count, *a, update):
+        out = step_sd(count, *a, update=update)
+        torch.cuda.synchronize()
+        snaps.append(params_of(model_sd))
+        return out
+
+    host = [a.cpu().numpy() for a in arrs]
+    updates = train_epoch(cfg_sd, 0, RepeatLoader(host, 3), recording,
+                          arrs[0].device, LossLog(), 0, chief=False)
+    moves = [moved(a, b) for a, b in zip(snaps, snaps[1:])]
+    require(moves == [False, True, True] and updates == 2,
+            "--sub-divisions 2 over 3 steps: parameters moved %s, %d "
+            "updates; want [False, True, True], 2" % (moves, updates))
+    del model_sd, step_sd, snaps
+
+    # grad-accum 2 on a batch == sub-divisions 2 on its halves (SGD, f32)
+    cfg_a = Config(batch_size=16, grad_accum=2, optim="SGD", lr=1e-2)
+    cfg_b = Config(batch_size=8, sub_divisions=2, optim="SGD", lr=1e-2)
+    model_a, _, step_a = make_trainer(cfg_a)
+    model_b, _, step_b = make_trainer(cfg_b)
+    torch.backends.cudnn.deterministic = True
+    try:
+        step_a(0, *arrs)
+        step_b(0, *(a[:8] for a in arrs), update=False)
+        step_b(0, *(a[8:] for a in arrs), update=True)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    pa, pb = params_of(model_a), params_of(model_b)
+    equiv = rel_l2(pa, pb)
+    bit_equal = not moved(pa, pb)
+    require(equiv <= 1e-5, "--grad-accum 2 vs --sub-divisions 2 on its "
+            "halves (SGD, f32): parameters rel L2 %.3g > 1e-5" % equiv)
+    del model_a, model_b, step_a, step_b
+
+    # images/s and peak memory, grad-accum 1 against 2
+    cfg1 = Config(batch_size=16, amp=True)
+    model1, _, step1 = make_trainer(cfg1)
+    steps = {"grad_accum_1": step1, "grad_accum_2": step}
+    peaks = {}
+    for name, fn in steps.items():
+        fn(100, *arrs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn(101, *arrs)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+    rates = alternating_rates(steps, arrs)
+    state["accum"] = dict(errs=errs, counts=counts, equiv=equiv,
+                          bit_equal=bit_equal, rates=rates, peak_gb=peaks)
+    log("accum: launches per --grad-accum 2 step %s (twice the derived "
+        "one-step counts); --sub-divisions 2 over an epoch of 3: "
+        "parameters moved after each step %s, %d updates; --grad-accum 2 "
+        "vs --sub-divisions 2 on its halves (SGD, f32): parameters rel L2 "
+        "%.3g (bit-equal %s)" % (counts, moves, updates, equiv, bit_equal))
+    for name, r in rates.items():
+        log("accum: train step b16 512^2 --amp %s: median %.1f img/s "
+            "(%.2f ms per step), min %.1f, max %.1f over %d windows: %s; "
+            "peak memory %.2f GB" % (
+                name, r["median_ips"], r["ms_per_step"], min(r["ips"]),
+                max(r["ips"]), len(r["ips"]),
+                ", ".join("%.1f" % v for v in r["ips"]), peaks[name]))
+    del model, opt, step, model1, step1, steps, arrs
+    torch.cuda.empty_cache()
+
+
+DDP_LR = 1e-2  # SGD in the world-2 check: the update is -lr * gradient
+DDP_TIMEOUT_S = 300
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(cmds, what, timeout=DDP_TIMEOUT_S):
+    """Start every command at once; each must exit 0 within `timeout`
+    s (together); none outlives the call. Returns their outputs."""
+    procs = [subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        require(False, "%s: a rank did not finish in %d s" % (what, timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, "%s: rank %d exit %d:\n%s" % (
+            what, rank, p.returncode, "\n".join(out.splitlines()[-15:])))
+    return outs
+
+
+def ddp_step_result(model, losses, counts, ms):
+    """What phase ddp compares of one step, on the host."""
+    return dict(loss=float(losses["total"]), counts=counts, ms=ms,
+                params={n: p.detach().cpu() for n, p in
+                        model.named_parameters()},
+                buffers={n: t.detach().cpu() for n, t in
+                         model.named_buffers()})
+
+
+def timed_step(model, opt, step, arrs):
+    """One warm-up step on a throwaway copy of the state, then THE step:
+    (losses, launch counts, ms)."""
+    import torch
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    saved_opt = opt.state_dict()
+    step(0, *arrs)
+    torch.cuda.synchronize()
+    model.load_state_dict(saved)
+    opt.load_state_dict(saved_opt)
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = step(0, *arrs)
+    torch.cuda.synchronize()
+    return losses, read_counts(), 1e3 * (time.perf_counter() - t0)
+
+
+def ddp_worker(rank, world, port, out_dir):
+    """One rank of phase ddp's world-2 step: the f32 flagship (SGD) under
+    DistributedDataParallel over gloo on cuda:0, its 8 rows of the
+    16-image batch; writes `rank<r>.pt`."""
+    import torch
+    from real_time_helmet_detection_tpu_torch import parallel
+    from real_time_helmet_detection_tpu_torch.config import Config
+    from real_time_helmet_detection_tpu_torch.optim import make_lr_schedule
+    from real_time_helmet_detection_tpu_torch.train import make_train_step
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config(batch_size=16, optim="SGD", lr=DDP_LR, world_size=world,
+                 rank=rank, dist_url="tcp://localhost:%d" % port,
+                 dist_backend="gloo")
+    dev = parallel.init_distributed(cfg)
+    parallel.barrier_synced_build(dev)
+    model, opt, _ = make_trainer(cfg)
+    net = torch.nn.parallel.DistributedDataParallel(
+        model, device_ids=[dev], broadcast_buffers=False)
+    step = make_train_step(model, opt, make_lr_schedule(cfg, 1000), cfg,
+                           net=net)
+    b = parallel.local_batch_size(cfg)
+    arrs = [a[rank * b:(rank + 1) * b].contiguous() for a in train_batch()]
+    losses, counts, ms = timed_step(model, opt, step, arrs)
+    total = parallel.all_reduce_sum_(losses["total"].clone()) / world
+    out = ddp_step_result(model, {"total": total}, counts, ms)
+    parallel.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, "rank%d.pt" % rank))
+
+
+def phase_ddp(state):
+    """Data parallelism on the one card. (a) World 1 over NCCL: the
+    DDP-wrapped flagship --amp step at b16 512^2 against the unwrapped
+    step on the same batch (cudnn.deterministic): bit-equal, launches as
+    one step's. (b) World 2 over gloo, two processes on cuda:0 with 8
+    images each, f32, SGD: against the single-process 16-image step, the
+    loss rel 1e-5, the update (the gradient) within train_main's f32 rel
+    L2 5e-3, the running statistics bit-equal across the ranks and rel L2
+    1e-5 against the single step, launches per rank as one step's at b8.
+    (c) The eval CLI at world 2 (gloo, one card) on a 32-image fixture:
+    rank 0's mAP and pickle against the single-process CLI's, the txt
+    files and the pickle from rank 0 alone."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from real_time_helmet_detection_tpu_torch.config import Config
+    from real_time_helmet_detection_tpu_torch.data.synthetic import \
+        make_synthetic_voc
+    from real_time_helmet_detection_tpu_torch.optim import make_lr_schedule
+    from real_time_helmet_detection_tpu_torch.train import make_train_step
+    arrs = train_batch()
+    # (a) world 1, NCCL
+    cfg = Config(batch_size=16, amp=True)
+    dist.init_process_group("nccl", init_method="tcp://localhost:%d"
+                            % free_port(), world_size=1, rank=0)
+    torch.backends.cudnn.deterministic = True
+    try:
+        model, opt, step = make_trainer(cfg)
+        model_d, opt_d, _ = make_trainer(cfg)
+        net = torch.nn.parallel.DistributedDataParallel(
+            model_d, device_ids=[0], broadcast_buffers=False)
+        step_d = make_train_step(model_d, opt_d,
+                                 make_lr_schedule(cfg, 1000), cfg, net=net)
+        plain = ddp_step_result(model, *timed_step(model, opt, step, arrs))
+        wrapped = ddp_step_result(model_d,
+                                  *timed_step(model_d, opt_d, step_d, arrs))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+    bit_equal = plain["loss"] == wrapped["loss"] and not moved(
+        plain["params"], wrapped["params"]) and not moved(
+        plain["buffers"], wrapped["buffers"])
+    one = expected_launches(Config(batch_size=16, imsize=512, amp=True),
+                            "train", torch.bfloat16)
+    rel_p = rel_l2(wrapped["params"], plain["params"])
+    require(wrapped["counts"] == one, "launches of the DDP step %s, want "
+            "%s" % (wrapped["counts"], one))
+    require(bit_equal or rel_p <= 1e-6, "DDP world 1 (NCCL) vs the "
+            "unwrapped step: parameters rel L2 %.3g" % rel_p)
+    log("ddp (a) world 1, NCCL, flagship --amp b16 512^2: DDP step "
+        "bit-equal to the unwrapped step %s (loss %.7f vs %.7f, "
+        "parameters rel L2 %.3g); %.2f vs %.2f ms (one step each, "
+        "cudnn.deterministic); launches as one step's" % (
+            bit_equal, wrapped["loss"], plain["loss"], rel_p,
+            wrapped["ms"], plain["ms"]))
+    del model, opt, step, model_d, opt_d, step_d, net
+    torch.cuda.empty_cache()
+
+    # (b) world 2, gloo, both ranks on cuda:0, f32
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as tmp:
+        port = free_port()
+        run_ranks([[sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                    "--ddp-worker", str(rank), "2", str(port), tmp]
+                   for rank in range(2)], "ddp world 2 step")
+        ranks = [torch.load(os.path.join(tmp, "rank%d.pt" % r),
+                            weights_only=False) for r in range(2)]
+    cfg1 = Config(batch_size=16, optim="SGD", lr=DDP_LR)
+    model, opt, step = make_trainer(cfg1)
+    p0 = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    single = ddp_step_result(model, *timed_step(model, opt, step, arrs))
+    del model, opt, step
+    r0, r1 = ranks
+    delta = lambda r: {n: r["params"][n] - p0[n] for n in p0}
+    e = dict(loss=abs(r0["loss"] - single["loss"]) / abs(single["loss"]),
+             update=rel_l2(delta(r0), delta(single)),
+             stats=rel_l2(r0["buffers"], single["buffers"]))
+    same_ranks = r0["loss"] == r1["loss"] and not moved(
+        r0["params"], r1["params"]) and not moved(r0["buffers"],
+                                                  r1["buffers"])
+    per_rank = expected_launches(Config(batch_size=8, imsize=512), "train",
+                                 torch.float32)
+    log("ddp (b) world 2, gloo on one card, f32 b8 a rank: loss %.7f vs "
+        "the single 16-image step's %.7f, rel err %.3g (tol 1e-5); update "
+        "rel L2 %.3g (tol %g); running statistics rel L2 %.3g (tol 1e-5); "
+        "ranks bit-equal %s; step %.1f / %.1f ms a rank (first timed step "
+        "after one warm-up) against %.1f ms single" % (
+            r0["loss"], single["loss"], e["loss"], e["update"],
+            STEP_TOL["f32_grad"], e["stats"], same_ranks, r0["ms"],
+            r1["ms"], single["ms"]))
+    require(e["loss"] <= 1e-5 and e["update"] <= STEP_TOL["f32_grad"]
+            and e["stats"] <= 1e-5, "ddp world 2 vs the single step "
+            "beyond tolerance: %s" % e)
+    require(not moved(r0["buffers"], r1["buffers"]),
+            "running statistics differ between the ranks")
+    require(r0["counts"] == per_rank and r1["counts"] == per_rank,
+            "launches per rank %s / %s, want %s"
+            % (r0["counts"], r1["counts"], per_rank))
+
+    # (c) eval CLI at world 2 on one card
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_eval_") as tmp:
+        root = make_synthetic_voc(os.path.join(tmp, "voc"), num_train=0,
+                                  num_test=32, imsize=(512, 512), seed=0)
+        base = [sys.executable, "-m", "real_time_helmet_detection_tpu_torch",
+                "--data", root, "--imsize", "512", "--batch-size", "16",
+                "--amp", "--serve-max-wait-ms", "50"]
+        t0 = time.time()
+        (single_out,) = run_ranks([base + ["--save-path",
+                                           os.path.join(tmp, "single")]],
+                                  "eval CLI, one process")
+        t1 = time.time()
+        port = free_port()
+        outs = run_ranks([base + [
+            "--world-size", "2", "--rank", str(r), "--dist-url",
+            "tcp://localhost:%d" % port, "--dist-backend", "gloo",
+            "--save-path", os.path.join(tmp, "rank%d" % r)]
+            for r in range(2)], "eval CLI, world 2")
+        t2 = time.time()
+        maps = [[l.split(": mAP ", 1)[1] for l in out.splitlines()
+                 if ": mAP " in l] for out in (single_out, *outs)]
+        files = {}
+        for name in ("single", "rank0", "rank1"):
+            d = os.path.join(tmp, name)
+            pk = os.path.join(d, "prediction_results.pickle")
+            got = None
+            if os.path.exists(pk):
+                with open(pk, "rb") as f:
+                    got = pickle.load(f)
+            files[name] = (len(glob.glob(os.path.join(
+                d, "results", "txt", "*.txt"))), got)
+    require(len(maps[0]) == 1 and maps[1] == maps[0] and maps[2] == [],
+            "eval mAP lines: single %s, rank 0 %s, rank 1 %s" % tuple(maps))
+    require(files["rank0"][0] == 32 and files["rank1"] == (0, None)
+            and files["single"][0] == 32, "eval files: txt single %d, rank "
+            "0 %d, rank 1 %d, rank 1 pickle %s" % (
+                files["single"][0], files["rank0"][0], files["rank1"][0],
+                files["rank1"][1] is not None))
+    want, got = files["single"][1], files["rank0"][1]
+    require(got is not None and sorted(got) == sorted(want),
+            "rank 0's pickle does not hold the split's images")
+    same = all(all(np.array_equal(got[k][f], want[k][f])
+                   for f in ("box", "cls", "score")) for k in want)
+    require(all(len(got[k]["score"]) == len(want[k]["score"])
+                for k in want), "rank 0's pickle: detection counts differ")
+    state["ddp"] = dict(bit_equal=bit_equal, world2=e, same_ranks=same_ranks,
+                        ms=(r0["ms"], r1["ms"], single["ms"]),
+                        eval_map=maps[0][0], eval_same=same,
+                        eval_s=(t1 - t0, t2 - t1))
+    log("ddp (c) eval CLI on 32 images, b16 512^2 --amp: one process %s "
+        "(%.1f s); world 2 over gloo on one card: rank 0 %s (%.1f s), rank "
+        "1 no mAP line, no txt, no pickle; rank 0's 32 txt files and "
+        "pickle, its detections bit-equal to the single process's %s" % (
+            maps[0][0], t1 - t0, maps[1][0], t2 - t1, same))
 
 
 # ------------------------------------------------------- variant phases
@@ -4326,6 +4800,33 @@ def phase_train_cli(state):
                 shown = maps[0].split(": ", 1)[1]
             log("train_cli %s: python %s (%.1f s) -> %s" % (
                 what, " ".join(cmd[1:]).replace(tmp, "<tmp>"), secs, shown))
+        # gradient accumulation through the CLI: one epoch of 8 host steps
+        # on 128 images, 4 updates of 2 x 2 micro-batches of 8
+        root = make_synthetic_voc(os.path.join(tmp, "voc128"),
+                                  num_train=128, num_test=0,
+                                  imsize=(512, 512), seed=1)
+        cmd = [sys.executable, "-m", "real_time_helmet_detection_tpu_torch",
+               "--train-flag", "--data", root, "--batch-size", "16", "--amp",
+               "--grad-accum", "2", "--sub-divisions", "2", "--end-epoch",
+               "1", "--print-interval", "1", "--save-path",
+               os.path.join(tmp, "w_accum")]
+        t0 = time.time()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=600)
+        secs = time.time() - t0
+        tail = "\n".join((proc.stdout + proc.stderr).splitlines()[-12:])
+        require(proc.returncode == 0, "train CLI --grad-accum 2 "
+                "--sub-divisions 2 exit %d:\n%s" % (proc.returncode, tail))
+        totals = [float(l.split("total: ")[1].split()[0])
+                  for l in proc.stdout.splitlines() if " iter " in l]
+        require(len(totals) == 8 and sum(totals[-2:]) < sum(totals[:2]),
+                "train CLI --grad-accum 2 --sub-divisions 2: the loss does "
+                "not fall over 8 steps: %s\n%s" % (totals, tail))
+        state["train_cli_accum"] = dict(totals=totals, seconds=secs)
+        log("train_cli accum: python %s (%.1f s): 8 steps, 4 updates, "
+            "total loss per step %s" % (
+                " ".join(cmd[1:]).replace(tmp, "<tmp>"), secs,
+                " ".join("%.2f" % v for v in totals)))
 
 
 def phase_profile(state):
@@ -4477,8 +4978,9 @@ def kernel_rows(state):
     plain and library time at the largest site (bf16, ReLU; the loss at
     the flagship's f32 output), the comparison's max abs error there,
     and the launches of the kernel's main path — predict for the eval
-    forward kernels, one train step for the train kernels and the loss,
-    one eval-mode backward for the eval backward kernels; then the int8
+    forward kernels, one train step for the train kernels and the loss
+    (and one `--grad-accum 2` step beside), one eval-mode backward for
+    the eval backward kernels; then the int8
     kernels #14 - #16 (no Pallas counterpart) at the throughput tier's
     largest sites, launches from its bf16 int8 predict."""
     errs, timing = state["errs"], state["timing"]
@@ -4538,6 +5040,8 @@ def kernel_rows(state):
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t.get("bound_by", "bytes"),
             "library_ms": t["library_ms"], "table_row": row})
+        if counts is train:  # the same kernels under --grad-accum 2
+            rows[-1]["launches_grad_accum_2"] = launches["accum"][name]
         if "composition_ms" in t:
             rows[-1]["composition_ms"] = t["composition_ms"]
             rows[-1]["launches_eval_grad"] = eval_grad[name]
@@ -4603,6 +5107,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of %s (default: all)"
                     % ",".join(PHASES))
+    ap.add_argument("--ddp-worker", nargs=4, default=None,
+                    metavar=("RANK", "WORLD", "PORT", "DIR"),
+                    help="run one rank of phase ddp's world-2 step")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     try:
@@ -4623,6 +5130,10 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.ddp_worker:
+        rank, world, port, out_dir = args.ddp_worker
+        ddp_worker(int(rank), int(world), int(port), out_dir)
+        return 0
     state = {}
     t_all = time.time()
     for name in PHASES:

@@ -14,6 +14,21 @@ evaluate.py:245); with `--export-flag`, the predict program's export
         --imsize 512 [--model-load w.npz] [--export-raw-input] \
         [--export-serve] [--infer-dtype int8] [--save-path DIR]
 
+Training takes `--grad-accum k` (k micro-batches a step, one update) and
+`--sub-divisions k` (one update every k steps). Train and eval run on N
+cards as N processes, one per card (the reference's convention), each
+started with its rank; `--batch-size` is the global batch:
+
+    python -m real_time_helmet_detection_tpu_torch --train-flag --data DIR \
+        --batch-size 16 --amp --world-size N --rank R \
+        --dist-url tcp://HOST:PORT        # R = 0 .. N-1, one per card
+    python -m real_time_helmet_detection_tpu_torch --data DIR --imsize 512 \
+        --model-load w.npz --world-size N --rank R --dist-url tcp://HOST:PORT
+
+Rank R runs on cuda:(R % cards) over NCCL; `--device cpu` runs the ranks
+on the CPU over gloo (`--dist-backend gloo` also puts several ranks on
+one card). Rank 0 prints and writes the checkpoints and eval files.
+
 Eval and the demo predict through the serving engine (one CUDA graph per
 bucket). `--tier` applies its preset before anything runs. Runs on the
 CUDA card unless `--device cpu` is given; without a card the default

@@ -14,10 +14,9 @@ Max|Avg|Conv|SPP|None`, `--neck-pool None|SPP`, `--stem-s2d`), and every
 raise `NotImplementedError` instead of running something else: any other
 activation, pool, neck pool or variant and `--num-stack` < 1 where the
 model is built (models/hourglass.py); any other `--nms`; and the train
-options below whose value differs from the plain step
-(`--sub-divisions`, `--grad-accum`, `--remat`, `--param-policy`,
-`--ema-decay`, `--sentinel`, `--distill`, `--device-augment`,
-`--fwd-dtype`). The JAX flags that only choose
+options below whose value differs from the plain step (`--remat`,
+`--param-policy`, `--ema-decay`, `--sentinel`, `--distill`,
+`--device-augment`, `--fwd-dtype`). The JAX flags that only choose
 between a kernel and its XLA composition (`--use-pallas`, `--epilogue`,
 `--block-fuse`, `--loss-kernel`) have no field: the port has one path —
 the kernels, the fused loss among them (the JAX package's TPU default,
@@ -36,6 +35,19 @@ through. `--tier edge|throughput|quality` (ref config.py:59-85 `TIER_PRESETS`,
 :813 `apply_tier`) sets a named architecture + serving bundle, applied by
 the CLI before it dispatches; the tier wins over the individual flags.
 The throughput tier sets `infer_dtype="int8"`.
+
+Gradient accumulation (ref config.py:98-111, :498-512): `--grad-accum k`
+splits each step's batch into k micro-batches and makes one optimizer
+update on the sum of their gradients; `--sub-divisions k` makes one
+update every k host steps (and at an epoch's last step), on the sum of
+theirs. The two compose.
+
+Data parallelism (ref config.py:93-94, :149-152): one process per card,
+`--world-size N --rank R --dist-url tcp://host:port`; `--dist-backend`
+keeps JAX's default "xla", which here names the device's own backend
+(NCCL on cuda, gloo on the CPU), and also takes `nccl` or `gloo`.
+`--num-devices` takes 0 or 1 (a process drives one card) and
+`--spatial` only 1 (halo-split images need more than one card).
 
 Export (ref config.py:155-156, :197): `--export-flag` writes the predict
 program (`export.py`) and exits; `--export-raw-input` bakes the uint8
@@ -74,12 +86,19 @@ class Config:
     # device
     device: str = "cuda"          # torch device; "cpu" runs the kernels'
     # plain versions (tests). cuda without a card raises.
+    num_devices: int = 0          # cards of this process: 0 or 1 (one
+    # process per card; more cards = more processes, --world-size)
+    spatial: int = 1              # spatial split of the maps: only 1
     random_seed: int = 777
 
     # train
     train_flag: bool = False
     data: Optional[str] = None
-    batch_size: int = 16
+    batch_size: int = 16          # the global batch, over every rank
+    sub_divisions: int = 1        # one update every k host steps (ref
+    # train.py:124), on the summed gradients
+    grad_accum: int = 1           # k equal micro-batches in one step,
+    # one update on the summed gradients; must divide --batch-size
     start_epoch: int = 0
     end_epoch: int = 100
     num_workers: int = 8          # host data-pipeline worker threads
@@ -114,8 +133,6 @@ class Config:
 
     # train options of the JAX package that the port has not built: any
     # value but the default raises (see __post_init__)
-    sub_divisions: int = 1
-    grad_accum: int = 1
     remat: str = "none"
     param_policy: str = "fp32"
     ema_decay: float = 0.0
@@ -123,6 +140,13 @@ class Config:
     distill: Optional[str] = None
     device_augment: bool = False
     fwd_dtype: str = "bf16"
+
+    # distributed: one process per card (the reference's convention)
+    world_size: int = 1           # number of processes
+    rank: int = 0                 # this process's index
+    dist_backend: str = "xla"     # "xla" = the device's own backend
+    # (nccl on cuda, gloo on the cpu); or "nccl" / "gloo"
+    dist_url: str = "tcp://localhost:29500"  # rank 0's rendezvous store
 
     # evaluation, demo, export
     export_flag: bool = False     # export the predict program and exit
@@ -190,8 +214,14 @@ class Config:
                     % (flag, value, ", ".join(map(str, allowed))))
 
         only("nms", self.nms, ("nms", "soft-nms", "maxpool"))
-        only("sub-divisions", self.sub_divisions, (1,))
-        only("grad-accum", self.grad_accum, (1,))
+        # JAX's refusal of the pair first (ref config.py:498-503): the
+        # policy alone is not ported either
+        if self.param_policy == "bf16-compute" and self.sub_divisions > 1:
+            raise ValueError(
+                "--param-policy bf16-compute is incompatible with "
+                "--sub-divisions > 1: optax.MultiSteps would "
+                "accumulate micro-gradients in bf16 — keep the fp32 "
+                "policy for accumulation runs")
         only("remat", self.remat, ("none",))
         only("param-policy", self.param_policy, ("fp32",))
         only("ema-decay", self.ema_decay, (0.0,))
@@ -200,6 +230,34 @@ class Config:
         only("device-augment", self.device_augment, (False,))
         only("fwd-dtype", self.fwd_dtype, ("bf16",))
         only("optim", self.optim.lower(), ("adam", "adamw", "sgd"))
+        if self.sub_divisions < 1:
+            raise ValueError("--sub-divisions must be >= 1, got %d"
+                             % self.sub_divisions)
+        if self.grad_accum < 1:
+            raise ValueError("--grad-accum must be >= 1, got %d"
+                             % self.grad_accum)
+        if self.grad_accum > 1 and self.batch_size % self.grad_accum:
+            raise ValueError(
+                "--grad-accum %d must divide --batch-size %d (equal "
+                "fixed-shape micro-batches under jit)"
+                % (self.grad_accum, self.batch_size))
+        if self.num_devices not in (0, 1):
+            raise ValueError(
+                "--num-devices %d: a process of the port drives one card; "
+                "run one process per card with --world-size N --rank R "
+                "--dist-url tcp://host:port" % self.num_devices)
+        if self.spatial != 1:
+            raise NotImplementedError(
+                "--spatial %d is not ported: halo-split images need more "
+                "than one card per process (only --spatial 1)"
+                % self.spatial)
+        if self.world_size < 1 or not 0 <= self.rank < self.world_size:
+            raise ValueError("--rank must be in [0, --world-size), got "
+                             "rank %d of %d" % (self.rank, self.world_size))
+        if self.dist_backend not in ("xla", "nccl", "gloo"):
+            raise ValueError("--dist-backend must be xla (the device's "
+                             "own: nccl on cuda, gloo on the cpu), nccl or "
+                             "gloo, got %r" % (self.dist_backend,))
         if self.tier and self.tier not in TIER_PRESETS:
             raise ValueError("--tier must be '' or one of %s, got %r"
                              % (sorted(TIER_PRESETS), self.tier))
@@ -273,6 +331,11 @@ def build_parser() -> argparse.ArgumentParser:
             parser.add_argument(flag, type=str, default=default)
         else:
             parser.add_argument(flag, type=type(default), default=default)
+    # reference-compat aliases (ref config.py:636-640)
+    parser.add_argument("--multiscale_flag", dest="multiscale_flag",
+                        action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--scale_factor", dest="scale_factor", type=int,
+                        help=argparse.SUPPRESS)
     return parser
 
 

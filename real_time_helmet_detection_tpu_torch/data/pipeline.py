@@ -2,7 +2,7 @@
 
 A copy of the host path of ref real_time_helmet_detection_tpu/data/
 pipeline.py (reference data.py:93-125 `collate_fn` and the DataLoader of
-reference train.py:54-55), on one card:
+reference train.py:54-55), one process per card:
 
 * `seed_augmentor_for_batch` (ref pipeline.py:70): every batch's
   augmentation is a pure function of (seed, epoch, batch index), so one
@@ -12,7 +12,7 @@ reference train.py:54-55), on one card:
   batch's shared size over at most `max_boxes` boxes per image,
   normalization and stacking — channels-last numpy;
 * `epoch_indices` (ref pipeline.py:206): the (seed, epoch)-keyed
-  permutation;
+  permutation and a rank's wrap-padded shard of it;
 * `BatchLoader` (ref pipeline.py:225): worker threads decode and augment
   ahead of the consumer through a bounded queue; `drop_last` keeps the
   batch size fixed;
@@ -100,25 +100,34 @@ def collate(samples: Sequence, augmentor, pretrained: str = "imagenet",
                  infos=list(infos))
 
 
-def epoch_indices(n: int, seed: int, epoch: int,
-                  shuffle: bool = True) -> np.ndarray:
-    """The (seed, epoch)-keyed permutation of range(n)."""
+def epoch_indices(n: int, seed: int, epoch: int, shuffle: bool = True,
+                  rank: int = 0, world_size: int = 1) -> np.ndarray:
+    """The (seed, epoch)-keyed permutation of range(n), wrap-padded to a
+    multiple of `world_size` so every rank gets as many samples, and this
+    rank's shard `idx[rank::world_size]` (the DistributedSampler
+    contract, ref pipeline.py:206)."""
     idx = np.arange(n)
     if shuffle:
         idx = np.random.default_rng(seed + epoch).permutation(idx)
-    return idx
+    total = -(-len(idx) // world_size) * world_size
+    if total > len(idx) and len(idx) > 0:
+        idx = np.concatenate([idx, idx[:total - len(idx)]])
+    return idx[rank::world_size]
 
 
 class BatchLoader:
-    """Shuffled, prefetching batch iterator (ref pipeline.py:225): worker
-    threads decode, augment and encode up to `prefetch` batches ahead."""
+    """Sharded, shuffled, prefetching batch iterator (ref pipeline.py:225):
+    this rank's `epoch_indices` shard in batches of `batch_size` (the
+    rank's share of the global batch); worker threads decode, augment and
+    encode up to `prefetch` batches ahead. Batch i of every rank draws
+    its augmentation from the same (seed, epoch, i)."""
 
     def __init__(self, dataset, augmentor, batch_size: int,
                  pretrained: str = "imagenet", num_cls: int = 2,
                  normalized_coord: bool = False, scale_factor: int = 4,
                  max_boxes: int = 128, shuffle: bool = True,
-                 drop_last: bool = True, seed: int = 777,
-                 num_workers: int = 4, prefetch: int = 2):
+                 drop_last: bool = True, rank: int = 0, world_size: int = 1,
+                 seed: int = 777, num_workers: int = 4, prefetch: int = 2):
         self.dataset = dataset
         self.augmentor = augmentor
         self.batch_size = batch_size
@@ -127,6 +136,7 @@ class BatchLoader:
                        scale_factor=scale_factor, max_boxes=max_boxes)
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.rank, self.world_size = rank, world_size
         self.seed = seed
         self.epoch = 0
         self.num_workers = max(1, num_workers)
@@ -135,8 +145,13 @@ class BatchLoader:
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
+    def _indices(self) -> np.ndarray:
+        return epoch_indices(len(self.dataset), self.seed, self.epoch,
+                             shuffle=self.shuffle, rank=self.rank,
+                             world_size=self.world_size)
+
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self._indices())
         return (n // self.batch_size if self.drop_last
                 else -(-n // self.batch_size))
 
@@ -148,8 +163,7 @@ class BatchLoader:
 
     def __iter__(self) -> Iterator[Batch]:
         epoch = self.epoch
-        idx = epoch_indices(len(self.dataset), self.seed, epoch,
-                            shuffle=self.shuffle)
+        idx = self._indices()
         chunks = [idx[i * self.batch_size:(i + 1) * self.batch_size]
                   for i in range(len(self))]
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)

@@ -3,7 +3,7 @@
 Port of ref real_time_helmet_detection_tpu/evaluate.py:121 `evaluate`
 and :453 `demo` (reference evaluate.py:15-97, 245-290), through the
 serving engine as the JAX package's are (ref evaluate.py:236-300,
-:474-477), without its mesh or multi-host paths:
+:474-477):
 
 * `load_eval_state` builds the model and fills it from an npz of the
   flax variable tree (`convert.py`), or seeds fresh weights from a
@@ -15,14 +15,24 @@ serving engine as the JAX package's are (ref evaluate.py:236-300,
   its VOC XML (ref evaluate.py:209-234), writes per-image txt files and
   `prediction_results.pickle`, and scores the VOC mAP;
 * `demo` serves one image through bucket (1,) with no wait and saves
-  the overlay as `image.png`.
+  the overlay as `image.png`;
+* with `--world-size N` (ref evaluate.py:139-192, :339
+  `_score_multihost`), each rank scores its `epoch_indices` shard of the
+  split (wrap-padded, unshuffled) through its own engine on its own card,
+  the ranks gather fixed-shape blocks (64-byte ids, (M, num_stack * topk)
+  boxes, classes and scores, a count; M = ceil(n / N)), wrap duplicates
+  are dropped, and every rank scores the whole split in its order, the
+  same mAP; rank 0 alone writes the txt files and the pickle. The one-
+  process multi-card sharding of ref evaluate.py:246-249 is not ported.
 
 `--infer-dtype int8` (ref evaluate.py:69-118, :182-194, :460-470) serves
 the int8 twin: its activation scales come from `--quant-scales`, or from
 a calibration pass over the first `--calib-batches` eval batches (raw
 uint8, a short last batch padded to `--batch-size`, normalized on the
 device) that is saved to `<save_path>/calibration/quant_scales.json`
-with its sha256 printed; the demo calibrates on its own image.
+with its sha256 printed (every rank of a multi-process eval calibrates
+on the split's first batches, and rank 0 saves); the demo calibrates on
+its own image.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import io
 import math
 import os
 import time
+import xml.etree.ElementTree as ET
 from collections import deque
 from typing import Dict, Tuple
 
@@ -40,11 +51,14 @@ import torch
 from .config import Config
 from .convert import load_into, load_npz
 from .data.eval_loader import eval_batches
-from .data.voc import CLASS2COLOR, INDEX2CLASS, VOCDataset, boxes_from_voc_dict
+from .data.pipeline import epoch_indices
+from .data.voc import (CLASS2COLOR, INDEX2CLASS, VOCDataset,
+                       boxes_from_voc_dict, parse_voc_xml)
 from .metrics import compute_map, write_detection_txt
 from .models.hourglass import PReLU, build_model, cast_convs
 from .obs.spans import maybe_tracer
 from .ops.quant import calibrate_scales, load_scales, save_scales
+from .parallel import all_gather_arrays, init_distributed
 from .predict import make_predict_fn, resolve_device
 from .serving import ServingEngine, resolve_buckets
 from .utils import (AverageMeter, atomic_write_bytes, draw_box, imload,
@@ -123,6 +137,8 @@ def eval_quant_scales(cfg: Config, model: torch.nn.Module, dataset,
     scales = calibrate_scales(cfg, model.state_dict(), batches(),
                               dtype=model.dtype, normalize=cfg.pretrained,
                               percentile=cfg.calib_percentile, device=device)
+    if cfg.rank != 0:
+        return scales
     path = os.path.join(cfg.save_path, "calibration", "quant_scales.json")
     digest = save_scales(path, scales, meta={
         "calib_batches": cfg.calib_batches,
@@ -152,12 +168,40 @@ def serve_engine(cfg: Config, predict, imsize: int, image_dtype,
                         if cfg.serve_hang_timeout_ms > 0 else None))
 
 
+class _Shard:
+    """The images `indices` of a dataset, in that order."""
+
+    def __init__(self, dataset, indices):
+        self.dataset, self.indices = dataset, indices
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def __getitem__(self, i: int):
+        return self.dataset[int(self.indices[i])]
+
+
+ID_BYTES = 64  # an image id's slot in the gathered blocks
+
+
 def evaluate(cfg: Config) -> Dict:
-    """Test-split evaluation (≡ ref evaluate.py:15-97) + in-repo mAP.
-    Returns `compute_map`'s dict plus host timing."""
-    dev = resolve_device(cfg.device)
+    """Test-split evaluation (≡ ref evaluate.py:15-97) + in-repo mAP, on
+    every rank of a `--world-size` run. Returns `compute_map`'s dict plus
+    host timing."""
+    dev = init_distributed(cfg)
+    rank, world = cfg.rank, cfg.world_size
     model = load_eval_state(cfg, dev)
     dataset = VOCDataset(cfg.data, image_set="test")
+    if world > 1:
+        # the same ids on every rank: a refusal here is symmetric, before
+        # any collective (ref evaluate.py:361-370)
+        for image_id in dataset.ids:
+            if len(image_id.encode()) > ID_BYTES:
+                raise ValueError(
+                    "image id %r exceeds the %d-byte multi-host gather "
+                    "slot" % (image_id, ID_BYTES))
+        print("%s: multi-host eval rank %d/%d (split sharded by rank)"
+              % (timestamp(), rank, world), flush=True)
     imsize = int(cfg.imsize or 512)
     scales = None
     if cfg.infer_dtype == "int8":
@@ -174,7 +218,9 @@ def evaluate(cfg: Config) -> Dict:
     # own threads); "consume": the wait for the rows + the host's box
     # rescale and txt writes
     meters = {k: AverageMeter() for k in ("data", "submit", "consume")}
-    n_batches = -(-len(dataset) // cfg.batch_size)
+    shard = dataset if world == 1 else _Shard(dataset, epoch_indices(
+        len(dataset), 0, 0, shuffle=False, rank=rank, world_size=world))
+    n_batches = -(-len(shard) // cfg.batch_size)
     seen = 0
 
     def consume_row(row, info):
@@ -190,7 +236,8 @@ def evaluate(cfg: Config) -> Dict:
             np.float32)
         classes, scores = row.classes[keep], row.scores[keep]
         results[image_id] = {"box": boxes, "cls": classes, "score": scores}
-        write_detection_txt(txt_dir, image_id, boxes, classes, scores)
+        if world == 1:
+            write_detection_txt(txt_dir, image_id, boxes, classes, scores)
         gt_boxes[image_id], gt_labels[image_id] = boxes_from_voc_dict(info)
 
     def consume_batch(futs, infos):
@@ -207,7 +254,7 @@ def evaluate(cfg: Config) -> Dict:
     with serve_engine(cfg, predict, imsize, np.uint8, buckets,
                       cfg.serve_max_wait_ms) as engine:
         tic = time.time()
-        for i, batch in enumerate(eval_batches(dataset, imsize,
+        for i, batch in enumerate(eval_batches(shard, imsize,
                                                cfg.batch_size)):
             meters["data"].update(time.time() - tic)
             t0 = time.time()
@@ -229,20 +276,76 @@ def evaluate(cfg: Config) -> Dict:
         while pending:
             consume_batch(*pending.popleft())
 
-    save_pickle(os.path.join(cfg.save_path, "prediction_results.pickle"),
-                results)
+    if world > 1:
+        results, gt_boxes, gt_labels = _gather_results(cfg, dataset,
+                                                       results)
+        if rank == 0:
+            for k, v in results.items():
+                write_detection_txt(txt_dir, k, v["box"], v["cls"],
+                                    v["score"])
+    if rank == 0:
+        save_pickle(os.path.join(cfg.save_path,
+                                 "prediction_results.pickle"), results)
     m = compute_map(gt_boxes, gt_labels,
                     {k: v["box"] for k, v in results.items()},
                     {k: v["cls"] for k, v in results.items()},
                     {k: v["score"] for k, v in results.items()},
                     num_cls=cfg.num_cls)
-    names = {c: INDEX2CLASS.get(c, str(c)) for c in m["ap"]}
-    print("%s: mAP %.4f (%s)" % (
-        timestamp(), m["map"],
-        ", ".join("%s %.4f" % (names[c], ap) for c, ap in m["ap"].items())),
-        flush=True)
+    if rank == 0:
+        names = {c: INDEX2CLASS.get(c, str(c)) for c in m["ap"]}
+        print("%s: mAP %.4f (%s)" % (
+            timestamp(), m["map"], ", ".join(
+                "%s %.4f" % (names[c], ap) for c, ap in m["ap"].items())),
+            flush=True)
     m["timing"] = {k: v.avg for k, v in meters.items()}
     return m
+
+
+def _gather_results(cfg: Config, dataset, results: Dict):
+    """Every rank's detections, gathered as fixed-shape blocks (ref
+    evaluate.py:339 `_score_multihost`), as (results, gt_boxes,
+    gt_labels) over the whole split in its order, identical on every
+    rank; wrap-padded duplicates keep their first copy."""
+    world = cfg.world_size
+    d = cfg.num_stack * cfg.topk
+    m = -(-len(dataset) // world)
+    ids = np.zeros((m, ID_BYTES), np.uint8)
+    boxes = np.zeros((m, d, 4), np.float32)
+    classes = np.zeros((m, d), np.int32)
+    scores = np.zeros((m, d), np.float32)
+    nval = np.zeros((m,), np.int32)
+    for i, (image_id, r) in enumerate(results.items()):
+        enc = image_id.encode()
+        ids[i, :len(enc)] = np.frombuffer(enc, np.uint8)
+        n = min(len(r["box"]), d)
+        boxes[i, :n], classes[i, :n] = r["box"][:n], r["cls"][:n]
+        scores[i, :n], nval[i] = r["score"][:n], n
+    g_ids, g_boxes, g_classes, g_scores, g_nval = all_gather_arrays(
+        (ids, boxes, classes, scores, nval))
+    found = {}
+    for p in range(world):
+        for i in range(m):
+            image_id = bytes(g_ids[p, i]).rstrip(b"\0").decode()
+            if image_id and image_id not in found:
+                n = int(g_nval[p, i])
+                found[image_id] = {"box": g_boxes[p, i, :n],
+                                   "cls": g_classes[p, i, :n],
+                                   "score": g_scores[p, i, :n]}
+    id2ann = dict(zip(dataset.ids, dataset.annotations))
+    missing = sorted(set(found) - set(id2ann))
+    if missing:
+        # a fallback id (an XML with no <filename>) names no annotation
+        raise ValueError("multi-host eval cannot resolve image ids %s to "
+                         "annotation files (images must carry real "
+                         "<filename> tags)" % missing[:5])
+    out, gt_boxes, gt_labels = {}, {}, {}
+    for image_id in dataset.ids:
+        if image_id in found:
+            out[image_id] = found[image_id]
+            voc = parse_voc_xml(ET.parse(id2ann[image_id]).getroot())
+            gt_boxes[image_id], gt_labels[image_id] = \
+                boxes_from_voc_dict(voc)
+    return out, gt_boxes, gt_labels
 
 
 def demo(cfg: Config) -> Dict:

@@ -54,6 +54,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
+from ..parallel import distributed
 
 ACTIVATIONS = ("ReLU", "Mish", "Linear")
 _ACT_CODE = {"ReLU": 0, "Mish": 1, "Linear": 2}
@@ -492,14 +493,26 @@ class BNTrain(torch.autograd.Function):
     sqrt(r2)*(S2 - mean*S1), dbeta = S1, k2 = a*(S2 - mean*S1)*r2/N,
     k1 = a*S1/N - k2*mean; the dx pass writes a*dz - k2*x - k1 (and
     ds = dz). (mean, var) feed only the running statistics and are not
-    differentiable."""
+    differentiable.
+
+    In a process group of world W > 1 (ref models/hourglass.py: JAX's
+    GSPMD step takes the moments of the global batch), the forward sums
+    (s, ss) and the backward's (S1, S2) are summed over the ranks, one
+    (2C,) all-reduce each, and N is the global count; dgamma and dbeta
+    stay this rank's, and DistributedDataParallel averages them. The
+    running statistics come out equal on every rank."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, skip, eps, passes):
         s_part, ss_part = bn_stats(x)
         count = x.numel() // x.shape[1]
-        mean = s_part.sum(0) / count
-        var = torch.clamp_min(ss_part.sum(0) / count - mean * mean, 0.0)
+        s, ss = s_part.sum(0), ss_part.sum(0)
+        world = distributed.world_size()
+        if world > 1:  # the global batch's moments, as JAX's GSPMD step
+            s, ss = distributed.all_reduce_sum_(torch.cat([s, ss])).chunk(2)
+            count *= world
+        mean = s / count
+        var = torch.clamp_min(ss / count - mean * mean, 0.0)
         a = gamma * torch.rsqrt(var + eps)
         out = passes.forward(x, a, beta - mean * a, skip)
         ctx.save_for_backward(x, gamma, beta, skip, mean, var)
@@ -519,10 +532,19 @@ class BNTrain(torch.autograd.Function):
         s1_part, s2_part = ctx.passes.sums(x, a, b, g, skip)
         s1, s2 = s1_part.sum(0), s2_part.sum(0)
         ctr = s2 - mean * s1
+        dgamma, dbeta = sr2 * ctr, s1
+        world = distributed.world_size()
+        if world > 1:
+            # k1, k2 take the global sums; dgamma and dbeta stay this
+            # rank's, which DDP averages (SyncBatchNorm's convention)
+            s1, s2 = distributed.all_reduce_sum_(
+                torch.cat([s1, s2])).chunk(2)
+            ctr = s2 - mean * s1
+            count *= world
         k2 = a * ctr * r2 / count
         k1 = a * s1 / count - k2 * mean
         dx, ds = ctx.passes.dx(x, a, b, g, k1, k2, skip)
-        return dx, sr2 * ctr, s1, ds, None, None
+        return dx, dgamma, dbeta, ds, None, None
 
 
 def bn_act_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,

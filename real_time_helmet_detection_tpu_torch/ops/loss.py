@@ -27,7 +27,8 @@ loss.py:9-69) and of the fused loss, ref ops/pallas/loss.py:290
 
 Reductions match the JAX package exactly: per-sample sums over
 (H, W, C), a mean over the batch, and normalization by the global
-positive count `clip(sum(mask), 1, 1e30)`. Arrays are channels-last,
+positive count `clip(sum(mask), 1, 1e30)` (summed over the ranks of a
+process group first). Arrays are channels-last,
 as the model's output (B, S, H, W, C+4) and the encoded targets are.
 """
 
@@ -39,6 +40,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 
 from . import _build
+from ..parallel import distributed
 from .epilogue import _DTYPE_CODE, _ELEMENT_BYTES, _VEC_BYTES, check_cuda
 
 EPS = 1e-7            # focal eps, ref ops/pallas/loss.py:47
@@ -54,7 +56,10 @@ bwd_scalar_launches = 0
 
 
 def _num_pos(mask: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(mask.sum(), 1.0, 1e30)
+    """clip(sum(mask), 1, 1e30) over the global batch: in a process group
+    of world > 1 the sum is all-reduced before the clamp, as JAX's GSPMD
+    step clamps the global sum (ref ops/pallas/loss.py:311)."""
+    return torch.clamp(distributed.all_reduce_sum_(mask.sum()), 1.0, 1e30)
 
 
 def focal_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor,

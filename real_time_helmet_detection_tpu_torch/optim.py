@@ -16,8 +16,15 @@ milestones [50, 90], gamma 0.1):
   float32 as optax rounds them — `torch.optim.Adam` takes them in double,
   which moves the first updates by ~1e-5 relative.
 
-Gradient accumulation (`--sub-divisions`) and the fp32-master wrapper of
-`--param-policy bf16-compute` are not ported (config.py refuses them).
+Gradient accumulation (ref optim.py:112-190): the update applies the
+SUM of the accumulated micro-gradients (`p.grad` accumulates across
+backward calls and is zeroed only after an update: the reference's
+accumulate-without-dividing, ref train.py:128-136, which JAX gets from
+`optax.MultiSteps` over `scale(k)`); an epoch's trailing partial window
+is flushed with the partial sum (ref optim.py:150 `make_accum_flush`);
+the schedule and Adam's bias-correction count advance per update only,
+so `make_lr_schedule` takes `updates_per_epoch`. The fp32-master wrapper
+of `--param-policy bf16-compute` is not ported (config.py refuses it).
 """
 
 from __future__ import annotations
@@ -28,8 +35,16 @@ import numpy as np
 import torch
 
 
+def updates_per_epoch(cfg, steps_per_epoch: int) -> int:
+    """Optimizer updates in an epoch of `steps_per_epoch` host steps
+    (ref optim.py:112 `_updates_per_epoch`): ceil(steps / sub_divisions),
+    the epoch-end flush making the last one of a partial window."""
+    return max(1, -(-steps_per_epoch // max(1, cfg.sub_divisions)))
+
+
 def make_lr_schedule(cfg, steps_per_epoch: int) -> Callable[[int], float]:
-    """MultiStepLR as a function of the update count."""
+    """MultiStepLR as a function of the update count; `steps_per_epoch`
+    counts updates (`updates_per_epoch`), as optax's count does."""
     boundaries = {int(m) * steps_per_epoch: cfg.lr_gamma
                   for m in cfg.lr_milestone if int(m) > 0}
 

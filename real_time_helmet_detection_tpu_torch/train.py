@@ -21,14 +21,39 @@ one card:
   package's naming): `checkpoint.pt` = {state_dict, optimizer, epoch,
   step, loss_log} and `weights.npz`, the flax-shaped tree the eval CLI
   loads (`--model-load .../weights.npz`), both written atomically.
+  `step` counts optimizer updates.
+
+Gradient accumulation (ref train.py:359 `_make_accum_step_body`, :582
+`make_state_accum_flush`; reference train.py:124-139): `--grad-accum k`
+runs k micro-batches, rows [j B/k, (j+1) B/k), forward and backward in
+one step, their gradients summed in `p.grad` (f32: the parameters stay
+f32 under --amp), the running statistics updated k times in turn, then
+one update; it reports the micro-batches' mean losses. `--sub-divisions
+k` updates on every k-th host step and on an epoch's last, so a partial
+window is flushed with its partial sum (the reference's `iteration ==
+len(dataloader)`). Both feed the optimizer the sum, and they compose.
+
+Data parallelism (ref train.py:1705-1731, :1778-1787): with
+`--world-size N` each rank joins the process group on its own card
+(`parallel.init_distributed`), builds the kernel libraries before the
+first collective (`barrier_synced_build`), reads its shard of every
+epoch in batches of `--batch-size / N`, and trains a
+DistributedDataParallel wrapper of the model (`broadcast_buffers=False`:
+the BN hooks keep the running statistics equal), whose gradient
+all-reduce runs once per update (`no_sync` elsewhere). The BN passes and
+the loss reduce over the global batch (`ops/epilogue.py`,
+`ops/loss.py`), so a step computes what JAX's global-batch step does.
+Only rank 0 prints and writes checkpoints; the losses it logs are the
+global ones, one all-reduce per `--print-interval` flush.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import os
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -38,8 +63,10 @@ from .data.pipeline import Batch, BatchLoader, load_dataset
 from .evaluate import init_weights
 from .models.hourglass import build_model
 from .ops.loss import LossLog, fused_detection_loss
-from .optim import build_optimizer, make_lr_schedule, set_lr
-from .predict import resolve_device
+from .optim import (build_optimizer, make_lr_schedule, set_lr,
+                    updates_per_epoch)
+from .parallel import (all_reduce_sum_, barrier_synced_build,
+                       init_distributed, local_batch_size, world_size)
 from .utils import AverageMeter, atomic_write_bytes, timestamp
 
 CHECKPOINT = "checkpoint.pt"
@@ -63,19 +90,46 @@ def loss_fn(model: torch.nn.Module, images, gt_heat, gt_off, gt_wh, mask,
 
 def make_train_step(model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer,
-                    schedule: Callable[[int], float], cfg: Config):
-    """`step(count, images, heat, off, wh, mask) -> losses`: fwd + bwd +
-    one optimizer update at `schedule(count)` (ref train.py:442, :308).
-    The losses dict holds detached device scalars."""
+                    schedule: Callable[[int], float], cfg: Config,
+                    net: Optional[torch.nn.Module] = None):
+    """`step(count, images, heat, off, wh, mask, update=True) -> losses`:
+    forward + backward of `--grad-accum` k micro-batches, their gradients
+    summed into `p.grad` (zeroed first when the step opens an update
+    window); with `update`, one optimizer update at `schedule(count)`,
+    which closes the window (ref train.py:359, :442, :308). The forward
+    goes through `net` (default `model`): a DistributedDataParallel
+    wrapper all-reduces the gradients on the update's last micro-batch
+    only. The losses dict holds detached device scalars, the
+    micro-batches' mean."""
+    net = model if net is None else net
+    k = cfg.grad_accum
+    no_sync = getattr(net, "no_sync", None)
+    window_open = [False]  # gradients of this update window in p.grad
 
-    def step(count: int, images, gt_heat, gt_off, gt_wh, mask):
-        set_lr(optimizer, schedule(count))
-        optimizer.zero_grad(set_to_none=True)
-        total, losses = loss_fn(model, images, gt_heat, gt_off, gt_wh, mask,
-                                cfg)
-        total.backward()
-        optimizer.step()
-        return {k: v.detach() for k, v in losses.items()}
+    def step(count: int, images, gt_heat, gt_off, gt_wh, mask,
+             update: bool = True):
+        if not window_open[0]:
+            optimizer.zero_grad(set_to_none=True)
+            window_open[0] = True
+        arrays = (images, gt_heat, gt_off, gt_wh, mask)
+        rows = images.shape[0] // k
+        micro = []
+        for j in range(k):
+            part = arrays if k == 1 else tuple(
+                a[j * rows:(j + 1) * rows] for a in arrays)
+            syncs = no_sync is None or (update and j == k - 1)
+            with contextlib.nullcontext() if syncs else no_sync():
+                total, losses = loss_fn(net, *part, cfg)
+                total.backward()
+            micro.append(losses)
+        if update:
+            set_lr(optimizer, schedule(count))
+            optimizer.step()
+            window_open[0] = False
+        if k == 1:
+            return {n: v.detach() for n, v in micro[0].items()}
+        return {n: torch.stack([m[n].detach() for m in micro]).mean()
+                for n in micro[0]}
 
     return step
 
@@ -93,19 +147,24 @@ def stage(batch: Batch, device: torch.device):
 
 def train_epoch(cfg: Config, epoch: int, loader: BatchLoader, step,
                 device: torch.device, loss_log: LossLog,
-                count: int) -> int:
+                count: int, chief: bool = True) -> int:
     """One epoch of the hot loop (ref train.py:1508); returns the update
-    count after it."""
+    count after it. Under `--sub-divisions k` a step updates on every
+    k-th batch and on the epoch's last."""
     loader.set_epoch(epoch)
     meters = {k: AverageMeter() for k in ("data", "step")}
     pending = []
+    n, k = len(loader), cfg.sub_divisions
 
     def flush_losses():
-        # one device -> host copy for the whole interval
+        # one device -> host copy (and, across ranks, one all-reduce) for
+        # the whole interval
         if pending:
-            rows = torch.stack([torch.stack([p[k] for k in LossLog.KEYS])
-                                for p in pending]).cpu().tolist()
-            for row in rows:
+            rows = torch.stack([torch.stack([p[key] for key in LossLog.KEYS])
+                                for p in pending])
+            if world_size() > 1:
+                rows = all_reduce_sum_(rows) / world_size()
+            for row in rows.cpu().tolist():
                 loss_log.append(dict(zip(LossLog.KEYS, row)))
             pending.clear()
 
@@ -113,14 +172,15 @@ def train_epoch(cfg: Config, epoch: int, loader: BatchLoader, step,
     for i, batch in enumerate(loader):
         data_t = time.time() - tic
         meters["data"].update(data_t)
-        pending.append(step(count, *stage(batch, device)))
-        count += 1
+        update = (i + 1) % k == 0 or i == n - 1
+        pending.append(step(count, *stage(batch, device), update=update))
+        count += update
         if i % cfg.print_interval == 0:
             flush_losses()
         meters["step"].update(time.time() - tic - data_t)
-        if i % cfg.print_interval == 0:
+        if i % cfg.print_interval == 0 and chief:
             print("%s: epoch %d iter %d/%d, %s | data %.3fs step %.3fs"
-                  % (timestamp(), epoch, i, len(loader),
+                  % (timestamp(), epoch, i, n,
                      loss_log.get_log(length=cfg.print_interval),
                      meters["data"].avg, meters["step"].avg), flush=True)
         tic = time.time()
@@ -158,20 +218,25 @@ def load_checkpoint(path: str) -> Dict:
 
 
 def train(cfg: Config) -> Dict:
-    """Full training run (ref train.py:1698). Returns {"model",
-    "optimizer", "loss_log", "step"} after the last epoch."""
-    dev = resolve_device(cfg.device)
+    """Full training run (ref train.py:1698), on every rank of a
+    `--world-size` run. Returns {"model", "optimizer", "loss_log",
+    "step"} after the last epoch."""
+    dev = init_distributed(cfg)
+    chief = cfg.rank == 0
     if dev.type == "cuda":
         # fp32 means fp32: cuDNN would otherwise run f32 convs in TF32
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+    if cfg.world_size > 1:
+        barrier_synced_build(dev)
     dataset, augmentor = load_dataset(cfg)
     loader = BatchLoader(
-        dataset, augmentor, batch_size=cfg.batch_size,
+        dataset, augmentor, batch_size=local_batch_size(cfg),
         pretrained=cfg.pretrained, num_cls=cfg.num_cls,
         normalized_coord=cfg.normalized_coord,
         scale_factor=cfg.scale_factor, max_boxes=cfg.max_boxes,
-        shuffle=True, drop_last=True, seed=cfg.random_seed,
+        shuffle=True, drop_last=True, rank=cfg.rank,
+        world_size=cfg.world_size, seed=cfg.random_seed,
         num_workers=cfg.num_workers)
     steps_per_epoch = max(1, len(loader))
     model = build_model(cfg, dtype=torch.bfloat16 if cfg.amp else None)
@@ -183,6 +248,11 @@ def train(cfg: Config) -> Dict:
         resume = load_checkpoint(cfg.model_load)
         model.load_state_dict(resume["state_dict"])
     model.to(dev).train()
+    net = model
+    if cfg.world_size > 1:
+        net = torch.nn.parallel.DistributedDataParallel(
+            model, device_ids=[dev] if dev.type == "cuda" else None,
+            broadcast_buffers=False)
     optimizer = build_optimizer(cfg, model.parameters())
     loss_log, count, start_epoch = LossLog(), 0, cfg.start_epoch
     if resume is not None:
@@ -190,19 +260,24 @@ def train(cfg: Config) -> Dict:
         loss_log = LossLog(resume["loss_log"])
         count = int(resume["step"])
         start_epoch = cfg.start_epoch or int(resume["epoch"]) + 1
-        print("%s: resumed from %s (epoch %d)"
-              % (timestamp(), cfg.model_load, resume["epoch"]), flush=True)
-    step = make_train_step(model, optimizer,
-                           make_lr_schedule(cfg, steps_per_epoch), cfg)
-    print("%s: model built, %d params, device %s, %d steps per epoch"
-          % (timestamp(), sum(p.numel() for p in model.parameters()), dev,
-             steps_per_epoch), flush=True)
+        if chief:
+            print("%s: resumed from %s (epoch %d)"
+                  % (timestamp(), cfg.model_load, resume["epoch"]),
+                  flush=True)
+    schedule = make_lr_schedule(cfg, updates_per_epoch(cfg, steps_per_epoch))
+    step = make_train_step(model, optimizer, schedule, cfg, net=net)
+    if chief:
+        print("%s: model built, %d params, device %s, rank 0 of %d, %d "
+              "steps per epoch" % (
+                  timestamp(), sum(p.numel() for p in model.parameters()),
+                  dev, cfg.world_size, steps_per_epoch), flush=True)
     for epoch in range(start_epoch, cfg.end_epoch):
-        count = train_epoch(cfg, epoch, loader, step, dev, loss_log, count)
-        path = save_checkpoint(cfg.save_path, epoch, count, model,
-                               optimizer, loss_log)
-        print("%s: epoch %d checkpoint -> %s"
-              % (timestamp(), epoch, path), flush=True)
+        count = train_epoch(cfg, epoch, loader, step, dev, loss_log, count,
+                            chief=chief)
+        if chief:
+            path = save_checkpoint(cfg.save_path, epoch, count, model,
+                                   optimizer, loss_log)
+            print("%s: epoch %d checkpoint -> %s"
+                  % (timestamp(), epoch, path), flush=True)
     return {"model": model, "optimizer": optimizer, "loss_log": loss_log,
             "step": count}
-
