@@ -33,6 +33,12 @@ Eval and the demo predict through the serving engine (one CUDA graph per
 bucket). `--tier` applies its preset before anything runs. Runs on the
 CUDA card unless `--device cpu` is given; without a card the default
 raises rather than running on the CPU.
+
+Every run writes its config snapshot (`argument.json`, `argument.txt`)
+into `--save-path` (rank 0 of a multi-process run). `--model-load` of an
+eval, demo or export takes a `.npz`, a checkpoint dir (`check_point_N`)
+or a save dir (its newest complete checkpoint), and the architecture of
+the snapshot beside that checkpoint (`config.get_config`).
 """
 
 from __future__ import annotations
@@ -40,13 +46,17 @@ from __future__ import annotations
 import os
 import time
 
-from .config import apply_tier, parse_args
+from .config import get_config, save_config
 
 
 def main(argv=None) -> None:
-    cfg = apply_tier(parse_args(argv))
+    cfg = get_config(argv)
     if cfg.data is None and not (cfg.export_flag and not cfg.train_flag):
         raise SystemExit("--data is required (a VOC root or an image file)")
+    from .predict import resolve_device
+    resolve_device(cfg.device)  # a missing card raises before any write
+    if cfg.rank == 0:
+        save_config(cfg, cfg.save_path)
     tic = time.time()
     if cfg.train_flag:
         from .train import train

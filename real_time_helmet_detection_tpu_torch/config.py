@@ -49,6 +49,13 @@ keeps JAX's default "xla", which here names the device's own backend
 `--num-devices` takes 0 or 1 (a process drives one card) and
 `--spatial` only 1 (halo-split images need more than one card).
 
+Config snapshots (ref config.py:853-913): the CLI writes
+`argument.json`/`argument.txt` into `--save-path` (`save_config`; JAX's
+keys, so either package reads the other's); eval, the demo and export
+with `--model-load` resolve a save dir to its newest complete
+checkpoint (`resolve_model_load`) and take `ARCHITECTURE_FIELDS` from
+the snapshot beside it (`get_config`).
+
 Export (ref config.py:155-156, :197): `--export-flag` writes the predict
 program (`export.py`) and exits; `--export-raw-input` bakes the uint8
 wire and the normalization into it; `--export-serve` adds one program per
@@ -59,8 +66,20 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
+import re
 from dataclasses import dataclass, field
 from typing import List, Optional
+
+# The architecture fields an eval takes from the checkpoint's snapshot
+# (ref config.py:45-49)
+ARCHITECTURE_FIELDS = (
+    "scale_factor", "num_cls", "pretrained", "normalized_coord",
+    "num_stack", "hourglass_inch", "increase_ch", "activation", "pool",
+    "neck_activation", "neck_pool", "variant", "stem_width",
+)
+
 
 # Latency-tier presets, the JAX package's (ref config.py:68-85): each
 # overrides the listed fields. Each tier's serve_buckets is its own
@@ -158,8 +177,9 @@ class Config:
     conf_th: float = 0.0
     nms_th: float = 0.5
     pool_size: int = 3
-    model_load: Optional[str] = None  # npz of the flax variable tree, or
-    # (train) a port checkpoint to resume
+    model_load: Optional[str] = None  # npz of the flax variable tree, a
+    # port checkpoint dir (check_point_N) or a save dir (its newest
+    # complete checkpoint); train resumes from a checkpoint
     nms: str = "nms"              # nms | soft-nms | maxpool
     fontsize: int = 10
     infer_dtype: str = "bf16"     # eval/demo numeric path: "bf16" = the
@@ -342,6 +362,104 @@ def build_parser() -> argparse.ArgumentParser:
 def parse_args(argv=None) -> Config:
     ns = vars(build_parser().parse_args(argv))
     return Config(**{f.name: ns[f.name] for f in dataclasses.fields(Config)})
+
+
+def save_config(cfg: Config, save_path: str) -> None:
+    """Write `argument.txt` and `argument.json` into `save_path` (ref
+    config.py:853): the fields by name, sorted, atomically."""
+    from .utils import atomic_write_bytes, save_json
+    os.makedirs(save_path, exist_ok=True)
+    d = dataclasses.asdict(cfg)
+    txt = "".join("%s: %s\n" % (k, v) for k, v in sorted(d.items()))
+    atomic_write_bytes(os.path.join(save_path, "argument.txt"), txt.encode())
+    save_json(os.path.join(save_path, "argument.json"), d, indent=2,
+              sort_keys=True)
+
+
+def load_config(path: str) -> Config:
+    """A JSON snapshot of either package back into a Config; keys the
+    port has no field for are ignored (ref config.py:866)."""
+    with open(path) as f:
+        d = json.load(f)
+    names = {f.name for f in dataclasses.fields(Config)}
+    return Config(**{k: v for k, v in d.items() if k in names})
+
+
+def update_config_for_eval(cfg: Config, loaded: Config) -> Config:
+    """`cfg` with the architecture fields of the training-time snapshot
+    (ref config.py:874)."""
+    return dataclasses.replace(
+        cfg, **{k: getattr(loaded, k) for k in ARCHITECTURE_FIELDS})
+
+
+# a port checkpoint dir and the files that make it complete (train.py
+# writes both atomically, checkpoint.pt first)
+_CKPT_RE = re.compile(r"^check_point_(\d+)$")
+CHECKPOINT_FILES = ("checkpoint.pt", "weights.npz")
+
+
+def checkpoint_complete(path: str) -> bool:
+    """Does the dir hold a finished port checkpoint (both files)?"""
+    return os.path.isdir(path) and all(
+        os.path.isfile(os.path.join(path, f)) for f in CHECKPOINT_FILES)
+
+
+def find_latest_checkpoint(save_path: str) -> Optional[str]:
+    """The newest complete `check_point_N` under `save_path`, or None
+    (ref train.py:874); incomplete dirs are skipped with a line."""
+    try:
+        entries = os.listdir(save_path)
+    except OSError:
+        return None
+    numbered = sorted(((int(m.group(1)), name) for name in entries
+                       for m in [_CKPT_RE.match(name)] if m), reverse=True)
+    for _, name in numbered:
+        path = os.path.join(save_path, name)
+        if checkpoint_complete(path):
+            return path
+        print("skipping incomplete checkpoint %s" % path, flush=True)
+    return None
+
+
+def resolve_model_load(path: Optional[str]) -> Optional[str]:
+    """A save dir (holding check_point_N dirs, not one itself) -> its
+    newest complete checkpoint; anything else unchanged, so a later
+    error names the path given (ref train.py:900)."""
+    if not path or not os.path.isdir(path):
+        return path
+    if _CKPT_RE.match(os.path.basename(os.path.normpath(path))) \
+            or checkpoint_complete(path):
+        return path
+    latest = find_latest_checkpoint(path)
+    if latest:
+        print("--model-load %s is a save dir; using its newest complete "
+              "checkpoint %s" % (path, latest), flush=True)
+        return latest
+    return path
+
+
+def snapshot_beside(path: str) -> Optional[str]:
+    """The `argument.json` of the save dir holding checkpoint `path`, if
+    there is one (ref config.py:907)."""
+    snap = os.path.join(os.path.dirname(os.path.normpath(
+        os.path.abspath(path))), "argument.json")
+    return snap if os.path.exists(snap) else None
+
+
+def get_config(argv=None) -> Config:
+    """The CLI's config (ref config.py:880 `get_config`): parse, apply
+    the tier, and for an eval, demo or export with `--model-load`,
+    resolve a save dir to its newest complete checkpoint and take the
+    architecture from the snapshot beside it. The snapshot of the
+    result is written by the CLI (`save_config`)."""
+    cfg = apply_tier(parse_args(argv))
+    if not cfg.train_flag and cfg.model_load:
+        cfg = dataclasses.replace(
+            cfg, model_load=resolve_model_load(cfg.model_load))
+        snap = snapshot_beside(cfg.model_load)
+        if snap is not None:
+            cfg = update_config_for_eval(cfg, load_config(snap))
+    return cfg
 
 
 def apply_tier(cfg: Config) -> Config:

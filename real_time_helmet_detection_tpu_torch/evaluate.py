@@ -6,8 +6,8 @@ serving engine as the JAX package's are (ref evaluate.py:236-300,
 :474-477):
 
 * `load_eval_state` builds the model and fills it from an npz of the
-  flax variable tree (`convert.py`), or seeds fresh weights from a
-  `torch.Generator`;
+  flax variable tree (`convert.py`) or a port checkpoint dir (its
+  `weights.npz`), or seeds fresh weights from a `torch.Generator`;
 * `evaluate` submits every test image to a `ServingEngine` (buckets: the
   `--serve-buckets` up to the batch size, and the batch size; depth
   `--serve-depth`), consumes the head of its pending batches while later
@@ -85,23 +85,44 @@ def init_weights(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     return model
 
 
+def weights_file(path: str, ema: bool = False) -> str:
+    """The npz `--model-load path` names: the path itself, or a port
+    checkpoint dir's `weights.npz` (`ema.npz` with `ema`, which raises
+    without one, as JAX's restore does, rather than evaluating the raw
+    weights)."""
+    if ema and path.endswith(".npz"):
+        raise ValueError(
+            "--ema-eval takes a port checkpoint dir (its ema.npz): %r is "
+            "an .npz, evaluated as it is without --ema-eval (convert a JAX "
+            "checkpoint's EMA with `scripts/orbax_to_npz.py --ema`)" % path)
+    if path.endswith(".npz"):
+        return path
+    if os.path.isfile(os.path.join(path, "weights.npz")):
+        if not ema:
+            return os.path.join(path, "weights.npz")
+        if not os.path.isfile(os.path.join(path, "ema.npz")):
+            raise ValueError(
+                "--ema-eval: checkpoint %s has no EMA weights (trained "
+                "without --ema-decay)" % path)
+        return os.path.join(path, "ema.npz")
+    raise ValueError(
+        "--model-load must be an .npz of the flax variable tree "
+        "(convert.save_npz), a port checkpoint dir or a save dir holding "
+        "one; an orbax checkpoint of the JAX package needs jax to read: "
+        "convert it first with `python scripts/orbax_to_npz.py CKPT_DIR "
+        "OUT.npz`: %r" % path)
+
+
 def load_eval_state(cfg: Config, device=None) -> torch.nn.Module:
     """The eval model on its device (≡ ref evaluate.py:42-60): weights from
-    `cfg.model_load` (npz) or seeded from `cfg.random_seed`; under --amp
-    the conv weights are cast to bf16 once, except for --infer-dtype int8,
-    whose twin folds the float32 weights."""
+    `cfg.model_load` (`weights_file`) or seeded from `cfg.random_seed`;
+    under --amp the conv weights are cast to bf16 once, except for
+    --infer-dtype int8, whose twin folds the float32 weights."""
     dev = resolve_device(cfg.device if device is None else device)
     dtype = torch.bfloat16 if cfg.amp else None
     model = build_model(cfg, dtype=dtype)
     if cfg.model_load:
-        if not cfg.model_load.endswith(".npz"):
-            raise ValueError(
-                "--model-load must be an .npz of the flax variable tree "
-                "(convert.save_npz); an orbax checkpoint of the JAX package "
-                "needs jax to read: convert it first with `python "
-                "scripts/orbax_to_npz.py CKPT_DIR OUT.npz`: %r"
-                % cfg.model_load)
-        load_into(model, load_npz(cfg.model_load))
+        load_into(model, load_npz(weights_file(cfg.model_load)))
     else:
         init_weights(model, cfg.random_seed)
     model = model.to(dev).eval()

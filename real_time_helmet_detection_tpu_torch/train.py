@@ -57,7 +57,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from .config import Config
+from .config import Config, resolve_model_load
 from .convert import load_into, load_npz, save_npz, state_dict_to_flax
 from .data.pipeline import Batch, BatchLoader, load_dataset
 from .evaluate import init_weights
@@ -245,7 +245,7 @@ def train(cfg: Config) -> Dict:
     if cfg.model_load and cfg.model_load.endswith(".npz"):
         load_into(model, load_npz(cfg.model_load))
     elif cfg.model_load:
-        resume = load_checkpoint(cfg.model_load)
+        resume = load_checkpoint(resolve_model_load(cfg.model_load))
         model.load_state_dict(resume["state_dict"])
     model.to(dev).train()
     net = model

@@ -488,7 +488,8 @@ def test_variant_train_step_launch_sites(monkeypatch, name):
 def test_cli_train_then_eval_on_cpu(tmp_path, capsys):
     """`--train-flag --device cpu` for 2 epochs on a synthetic fixture:
     the loss falls (the last epoch's mean total below the first's), one
-    checkpoint per epoch, and the eval CLI loads the written weights to a
+    checkpoint per epoch beside the config snapshot (`argument.json`,
+    `argument.txt`), and the eval CLI loads the written weights to a
     printed mAP; resuming from the checkpoint continues at epoch 2."""
     voc = make_synthetic_voc(str(tmp_path / "voc"), num_train=8,
                              num_test=2, seed=0)
@@ -503,7 +504,8 @@ def test_cli_train_then_eval_on_cpu(tmp_path, capsys):
     totals = ckpt["loss_log"]["total"]
     assert ckpt["epoch"] == 1 and ckpt["step"] == len(totals) == 8
     assert np.mean(totals[4:]) < np.mean(totals[:4])
-    assert sorted(os.listdir(out)) == ["check_point_1", "check_point_2"]
+    assert sorted(os.listdir(out)) == ["argument.json", "argument.txt",
+                                       "check_point_1", "check_point_2"]
     capsys.readouterr()
     main(common + ["--imsize", "64", "--batch-size", "2", "--model-load",
                    os.path.join(out, "check_point_2", "weights.npz"),
