@@ -91,6 +91,23 @@ version on the card:
    launches of one step at b8 per rank); the eval CLI at world 2 against
    one process on 32 images (the same mAP, rank 0's detections, the txt
    files and the pickle from rank 0 alone);
+11d. train_extras: the train-step extras at b16 512^2: `--fwd-dtype
+   int8` (the flagship --amp step with #16 and #14 at its 35 STE sites,
+   all on wgmma, against the plain versions by train_main's bf16 rule;
+   the edge architecture's step with #15; launches as `ste_walk`
+   derives; img/s and peak memory against --fwd-dtype bf16),
+   `--param-policy bf16-compute` (bf16 parameters of f32 masters, no
+   per-call weight cast, one SGD step's loss rel 1e-3 and update rel L2
+   2e-2 against the fp32 policy, img/s and peak memory against it),
+   `--remat stacks|full` (f32, cudnn.deterministic: loss, gradients and
+   running statistics bit-equal to none, launches with the recompute,
+   peak memory and ms a step at --amp), the EMA (3 steps equal to the
+   host recurrence; a checkpoint through the eval CLI with --ema-eval
+   to the EMA npz's detections), `--sentinel` (a NaN batch keeps every
+   state tensor bit-identical with no host sync more than the plain
+   step's, a finite spike is skipped, the backoff ladder), `--distill`
+   (a 2-stack flagship teacher the phase writes, an edge-architecture
+   student: the teacher's #2/#8 launches, the loss falls over 8 steps);
 12. eval_grad: the eval-mode BN backward kernels against their plain
    versions at every BN site shape, f32 and bf16, every activation (dx
    and ds bit-equal for ReLU/Linear, Mish as in 3, partials within 1e-5
@@ -204,7 +221,8 @@ version on the card:
 runs) runs phases alone. Any failure exits non-zero. Each phase prints
 its wall time. The last
 three lines are the card's name and power limit, one JSON object of
-per-kernel numbers (all 13 TPU kernels and the int8 kernels #14-#16), and
+per-kernel numbers (all 13 TPU kernels and the int8 kernels #14-#16, these
+with their launches in an int8 train step beside), and
 {"ok": true, "device": {...}}.
 """
 
@@ -228,7 +246,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PHASES = ("identity", "build", "kernels", "timing", "main", "states",
           "train_kernels", "train_timing", "loss_kernels", "loss_timing",
-          "train_main", "accum", "ddp", "eval_grad", "eval_timing",
+          "train_main", "accum", "ddp", "train_extras", "eval_grad",
+          "eval_timing",
           "variants", "variants_small", "variants_train", "nms", "serve",
           "qkernels", "qtiming", "int8", "serve_int8", "export", "profile",
           "cli", "train_cli")
@@ -479,14 +498,19 @@ SMALL_CONFIGS = {
     "mish": dict(activation="Mish"), "nms-maxpool": dict(nms="maxpool"),
 }
 
-def bn_sites(cfg):
+PARTS = ("pre", "stacks", "necks")  # the stem + PreLayer, the hourglass
+# stacks, each stack's neck
+
+
+def bn_sites(cfg, parts=PARTS):
     """(channel counts of the epilogue sites, channel counts of the fused
     residual-tail sites) of one forward of cfg's model, derived from the
     architecture (ref models/hourglass.py:564-863): a BN'd conv is an
     epilogue site, except the tail conv of a residual or depthwise block
     whose post-add activation the kernels take (hourglass.py:650-654),
     which is a tail site; a ghost module is two BN'd convs of half the
-    width; the PreLayer's and the neck's blocks are ReLU."""
+    width; the PreLayer's and the neck's blocks are ReLU. `parts` picks
+    the parts of the model counted (`--remat stacks` reruns "stacks")."""
     from real_time_helmet_detection_tpu_torch.ops.epilogue import \
         ACTIVATIONS as KERNEL_ACTIVATIONS
     epi, tail = [], []
@@ -512,13 +536,16 @@ def bn_sites(cfg):
         residual(m, c, cfg.activation)
 
     width, mid = cfg.hourglass_inch, cfg.stem_width or 128
-    epi.append(64)  # the stem conv
-    for cin, cout in ((64, mid), (mid, mid), (mid, width)):
-        residual(cin, cout, "ReLU")
+    if "pre" in parts:
+        epi.append(64)  # the stem conv
+        for cin, cout in ((64, mid), (mid, mid), (mid, width)):
+            residual(cin, cout, "ReLU")
     for _ in range(cfg.num_stack):
-        hourglass(4, width)
-        epi.append(width)  # the neck conv
-        residual(width, width, "ReLU")
+        if "stacks" in parts:
+            hourglass(4, width)
+        if "necks" in parts:
+            epi.append(width)  # the neck conv
+            residual(width, width, "ReLU")
     return epi, tail
 
 
@@ -534,11 +561,12 @@ def qconv_sites(cfg):
     return dense, len(dw_channels)
 
 
-def qconv_walk(cfg):
+def qconv_walk(cfg, parts=PARTS, neck_conv=True):
     """(dense int8 convs, the channel count of each depthwise int8 conv)
     of one forward of cfg's int8 twin (see `qconv_sites`): a depthwise
     block's depthwise convs take its input and output widths, a ghost
-    module's its half width."""
+    module's its half width. `parts` as in `bn_sites`; `neck_conv` False
+    leaves out the neck's 1x1 conv (it has a bias: no STE site)."""
     dense = 0
     dw = []
 
@@ -561,13 +589,38 @@ def qconv_walk(cfg):
         residual(m, c)
 
     width, mid = cfg.hourglass_inch, cfg.stem_width or 128
-    for cin, cout in ((64, mid), (mid, mid), (mid, width)):
-        residual(cin, cout)
+    if "pre" in parts:
+        for cin, cout in ((64, mid), (mid, mid), (mid, width)):
+            residual(cin, cout)
     for _ in range(cfg.num_stack):
-        hourglass(4, width)
-        dense += 1  # the neck conv
-        residual(width, width)
+        if "stacks" in parts:
+            hourglass(4, width)
+        if "necks" in parts:
+            dense += neck_conv
+            residual(width, width)
     return dense, dw
+
+
+def ste_walk(cfg, parts=PARTS):
+    """(dense STE convs, the channel count of each depthwise STE conv) of
+    one `--fwd-dtype int8` train forward of cfg's model: every BN'd,
+    bias-free conv but the stem (ref models/hourglass.py:516-535), i.e.
+    `qconv_walk`'s sites less each neck's 1x1 conv."""
+    return qconv_walk(cfg, parts, neck_conv=False)
+
+
+def int8_launches(dense, dw_channels):
+    """The quantizer and int8 conv counters of `dense` dense convs and a
+    depthwise conv at each of `dw_channels`, each on the kernel its plan
+    takes (`dense_plan`: the wgmma kernel for every shape; `dw_plan`: the
+    tiled kernel for C % 16 == 0)."""
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    dw = len(dw_channels)
+    tiled = sum(qconv.dw_plan(1, 1, 1, c).variant == "tiled"
+                for c in dw_channels)
+    return dict(quantize_act=dense + dw, qconv_dense=dense,
+                qconv_dense_wgmma=dense, qconv_dw=dw,
+                qconv_dw_tiled=tiled, qconv_dw_gather=dw - tiled)
 
 
 def expected_launches(cfg, path, dtype):
@@ -583,18 +636,12 @@ def expected_launches(cfg, path, dtype):
     == 0), and the peak test."""
     import torch
     from real_time_helmet_detection_tpu_torch.ops import (epilogue, loss,
-                                                          peak, qconv)
+                                                          peak)
     epi, tail = bn_sites(cfg)
     vec = sum(epilogue.bn_act_variant(c, dtype) == "vector" for c in epi)
     want = dict.fromkeys(COUNTERS, 0)
     if getattr(cfg, "infer_dtype", "bf16") == "int8":
-        dense, dw_channels = qconv_walk(cfg)
-        dw = len(dw_channels)
-        tiled = sum(qconv.dw_plan(1, 1, 1, c).variant == "tiled"
-                    for c in dw_channels)
-        want.update(quantize_act=dense + dw, qconv_dense=dense,
-                    qconv_dense_wgmma=dense, qconv_dw=dw,
-                    qconv_dw_tiled=tiled, qconv_dw_gather=dw - tiled)
+        want.update(int8_launches(*qconv_walk(cfg)))
     else:
         want.update(bn_act=len(epi), bn_act_vec=vec,
                     bn_act_scalar=len(epi) - vec, bn_add_act=len(tail))
@@ -612,6 +659,23 @@ def expected_launches(cfg, path, dtype):
         want.update(bn_stats=len(epi) + len(tail), bn_bwd_sums=len(epi),
                     bn_bwd_dx=len(epi), bn_add_bwd_sums=len(tail),
                     bn_add_bwd_dx=len(tail))
+        if getattr(cfg, "fwd_dtype", "bf16") == "int8":
+            want.update(int8_launches(*ste_walk(cfg)))
+        # the forward launches a recompute reruns (`--remat`)
+        again = {"stacks": ("stacks",), "full": PARTS}.get(
+            getattr(cfg, "remat", "none"), ())
+        if again:
+            r_epi, r_tail = bn_sites(cfg, again)
+            r_vec = sum(epilogue.bn_act_variant(c, dtype) == "vector"
+                        for c in r_epi)
+            extra = dict(bn_act=len(r_epi), bn_act_vec=r_vec,
+                         bn_act_scalar=len(r_epi) - r_vec,
+                         bn_add_act=len(r_tail),
+                         bn_stats=len(r_epi) + len(r_tail))
+            if getattr(cfg, "fwd_dtype", "bf16") == "int8":
+                extra.update(int8_launches(*ste_walk(cfg, again)))
+            for key, n in extra.items():
+                want[key] += n
     else:
         want.update(bn_eval_bwd=len(epi), bn_add_eval_bwd=len(tail))
     return want
@@ -1734,19 +1798,8 @@ def phase_eval_timing(state):
 def make_trainer(cfg, seed=0):
     """The flagship model with seeded weights on the card in train mode,
     its optimizer and the port's train step."""
-    import torch
-    from real_time_helmet_detection_tpu_torch.evaluate import init_weights
-    from real_time_helmet_detection_tpu_torch.models.hourglass import \
-        build_model
-    from real_time_helmet_detection_tpu_torch.optim import (
-        build_optimizer, make_lr_schedule)
-    from real_time_helmet_detection_tpu_torch.train import make_train_step
-    dtype = torch.bfloat16 if cfg.amp else None
-    model = init_weights(build_model(cfg, dtype=dtype), seed)
-    model = model.cuda().train()
-    opt = build_optimizer(cfg, model.parameters())
-    return model, opt, make_train_step(model, opt,
-                                       make_lr_schedule(cfg, 1000), cfg)
+    model, opt, _, step = extras_trainer(cfg, seed)
+    return model, opt, step
 
 
 def train_batch(batch=16, imsize=512):
@@ -2472,6 +2525,533 @@ def phase_ddp(state):
         "1 no mAP line, no txt, no pickle; rank 0's 32 txt files and "
         "pickle, its detections bit-equal to the single process's %s" % (
             maps[0][0], t1 - t0, maps[1][0], t2 - t1, same))
+
+
+# ----------------------------------------------------- train-extras phase
+
+
+def extras_trainer(cfg, seed=0, monitor=None, **kw):
+    """cfg's model with seeded weights on the card in train mode, its
+    optimizer (`init_train_state`: the bf16 policy's masters, the EMA)
+    and the port's train step with `kw` (a distiller); under
+    `cfg.sentinel` with a `Sentinel` (as `step.sentinel`) and the loss
+    scale of `monitor`."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.evaluate import init_weights
+    from real_time_helmet_detection_tpu_torch.models.hourglass import \
+        build_model
+    from real_time_helmet_detection_tpu_torch.optim import make_lr_schedule
+    from real_time_helmet_detection_tpu_torch.train import (
+        Sentinel, init_train_state, make_train_step)
+    dtype = torch.bfloat16 if cfg.amp else None
+    model = init_weights(build_model(cfg, dtype=dtype), seed)
+    opt, ema = init_train_state(cfg, model, "cuda")
+    sentinel = Sentinel(cfg, model, opt, ema, "cuda") if cfg.sentinel \
+        else None
+    step = make_train_step(
+        model, opt, make_lr_schedule(cfg, 1000), cfg, ema=ema,
+        sentinel=sentinel,
+        loss_scale=monitor.scale_value if monitor else None, **kw)
+    step.sentinel = sentinel
+    return model, opt, ema, step
+
+
+def peak_gb(step, arrs, count=0):
+    """Peak device memory (GB) of one step."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(count, *arrs)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def launches_of(step, arrs, count=0):
+    """The launch counters of one step."""
+    import torch
+    reset_counts()
+    out = step(count, *arrs)
+    torch.cuda.synchronize()
+    return read_counts(), out
+
+
+def syncs_in(fn):
+    """(host syncs warned inside fn, fn's result): CUDA's sync debug mode."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            out = fn()
+            torch.cuda.set_sync_debug_mode(0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught), out
+
+
+def check_int8_step(model, model32, arrs, cfg, cfg32):
+    """The --fwd-dtype int8 step through the kernels against the plain
+    versions by train_main's bf16 rule: the bf16 loss within rel 1e-3,
+    the bf16 gradient and statistics no further from the f32 plain step
+    than 1.5x the plain path's (the f32 kernels-vs-plain errors are
+    logged: an int8 code that flips on a last-bit BN difference moves
+    every later quantization step, so the f32 rule does not apply)."""
+    (lk, gk, bk), (lp, gp, bp) = kernels_and_plain(model, arrs, cfg)
+    (lk32, gk32, bk32), (lp32, gp32, bp32) = kernels_and_plain(
+        model32, arrs, cfg32)
+    e = dict(bf16_loss=abs(lk - lp) / abs(lp),
+             bf16_grad_vs_f32=(rel_l2(gk, gp32), rel_l2(gp, gp32)),
+             bf16_stats_vs_f32=(rel_l2(bk, bp32), rel_l2(bp, bp32)),
+             f32_loss=abs(lk32 - lp32) / abs(lp32),
+             f32_grad=rel_l2(gk32, gp32), f32_stats=rel_l2(bk32, bp32))
+    log("train_extras int8 kernels vs plain: bf16 loss %.6f vs %.6f rel %.3g "
+        "(tol %g); from the f32 plain step: gradient kernels %.3g plain "
+        "%.3g, statistics kernels %.3g plain %.3g (kernels at most %gx); "
+        "f32 kernels vs plain: loss rel %.3g, gradient %.3g, statistics "
+        "%.3g" % (lk, lp, e["bf16_loss"], STEP_TOL["bf16_loss"],
+                  *e["bf16_grad_vs_f32"], *e["bf16_stats_vs_f32"],
+                  STEP_TOL["bf16_ratio"], e["f32_loss"], e["f32_grad"],
+                  e["f32_stats"]))
+    ratio = STEP_TOL["bf16_ratio"]
+    require(e["bf16_loss"] <= STEP_TOL["bf16_loss"]
+            and e["bf16_grad_vs_f32"][0] <= ratio * e["bf16_grad_vs_f32"][1]
+            and e["bf16_stats_vs_f32"][0]
+            <= ratio * e["bf16_stats_vs_f32"][1],
+            "int8 bf16 train step kernels further from the f32 step than "
+            "the plain versions")
+    return e
+
+
+def extras_int8(state, arrs):
+    """--fwd-dtype int8, flagship b16 512^2 --amp: the step through the
+    kernels against the plain versions (train_main's bf16 rule), launches
+    as derived (#16 and #14 at every STE site, all on wgmma), the edge
+    architecture's step (#15 in training), img/s and peak memory against
+    --fwd-dtype bf16 in alternating windows."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.config import Config
+    cfg = Config(batch_size=16, imsize=512, amp=True, fwd_dtype="int8")
+    cfg32 = dataclasses.replace(cfg, amp=False)
+    model, _, _, step = extras_trainer(cfg)
+    model32 = extras_trainer(cfg32)[0]
+    model32.load_state_dict(model.state_dict())
+    step(0, *arrs)  # warm-up (cuDNN plans, allocator); weights restored
+    model.load_state_dict(model32.state_dict())
+    errs = check_int8_step(model, model32, arrs, cfg, cfg32)
+    del model32
+    counts, losses = launches_of(step, arrs)
+    want = expected_launches(cfg, "train", torch.bfloat16)
+    require(counts == want, "--fwd-dtype int8 launches per step %s, want %s"
+            % (counts, want))
+    dense, dw = ste_walk(cfg)
+    require(counts["qconv_dense_wgmma"] == dense == 35 and not dw,
+            "int8 train: %d dense sites on wgmma of %d" % (
+                counts["qconv_dense_wgmma"], dense))
+    out = dict(errs=errs, launches=counts, loss=float(losses["total"]))
+    bf = dataclasses.replace(cfg, fwd_dtype="bf16")
+    _, _, _, step_bf = extras_trainer(bf)
+    step_bf(0, *arrs)
+    out["rates"] = alternating_rates({"int8": step, "bf16": step_bf}, arrs)
+    out["peak_gb"] = {"int8": peak_gb(step, arrs), "bf16": peak_gb(step_bf,
+                                                                  arrs)}
+    del model, step, step_bf
+    torch.cuda.empty_cache()
+    edge = Config(batch_size=16, imsize=512, amp=True, fwd_dtype="int8",
+                  **VARIANT_CONFIGS["edge-arch"])
+    _, _, _, step_e = extras_trainer(edge)
+    step_e(0, *arrs)
+    counts_e, losses_e = launches_of(step_e, arrs, 1)
+    want_e = expected_launches(edge, "train", torch.bfloat16)
+    require(counts_e == want_e and counts_e["qconv_dw"] > 0
+            and math.isfinite(float(losses_e["total"])),
+            "edge-arch --fwd-dtype int8 launches %s, want %s (loss %s)"
+            % (counts_e, want_e, float(losses_e["total"])))
+    out["launches_edge"] = counts_e
+    del step_e
+    torch.cuda.empty_cache()
+    log("train_extras int8: launches a flagship step %s (#16 %d, #14 %d on "
+        "wgmma), edge-arch %s (#15 %d: %d tiled)" % (
+            {k: v for k, v in counts.items() if v}, counts["quantize_act"],
+            counts["qconv_dense_wgmma"], {k: v for k, v in counts_e.items()
+                                          if v}, counts_e["qconv_dw"],
+            counts_e["qconv_dw_tiled"]))
+    for name, r in out["rates"].items():
+        log("train_extras int8: --fwd-dtype %s b16 512^2 --amp: median %.1f "
+            "img/s (%.2f ms a step), min %.1f max %.1f; peak %.2f GB" % (
+                name, r["median_ips"], r["ms_per_step"], min(r["ips"]),
+                max(r["ips"]), out["peak_gb"][name]))
+    return out
+
+
+def weight_casts(model, arrs, cfg):
+    """aten._to_copy calls on tensors of a conv weight's shape in one
+    forward (a TorchDispatchMode; torch.profiler here disturbed the later
+    phases' CUDA traces): the fp32 policy's per-call weight casts."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from real_time_helmet_detection_tpu_torch.train import loss_fn
+    shapes = {tuple(p.shape) for p in model.parameters() if p.dim() == 4}
+    count = [0]
+
+    class Casts(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten._to_copy.default \
+                    and tuple(args[0].shape) in shapes:
+                count[0] += 1
+            return func(*args, **(kwargs or {}))
+
+    with torch.no_grad(), Casts():
+        loss_fn(model, *arrs, cfg)
+    torch.cuda.synchronize()
+    return count[0]
+
+
+def extras_policy(state, arrs):
+    """--param-policy bf16-compute, flagship b16 512^2 --amp: parameters
+    bf16, masters f32, no per-call weight cast (the fp32 policy casts each
+    conv weight once a forward); one SGD
+    step's loss (rtol 1e-3) and update (relative L2 2e-2, the JAX
+    package's documented rtol for the policy's gradients) against the
+    fp32 policy's; img/s and peak memory against it, Adam."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.config import Config
+    out = {}
+    sgd = {}
+    for pol in ("fp32", "bf16-compute"):
+        cfg = Config(batch_size=16, imsize=512, amp=True, param_policy=pol,
+                     optim="SGD", lr=1e-3)
+        model, opt, _, step = extras_trainer(cfg)
+        p0 = [m.detach().float().clone() for m in (
+            opt.masters if pol != "fp32" else model.parameters())]
+        torch.backends.cudnn.deterministic = True
+        try:
+            loss = float(step(0, *arrs)["total"])
+        finally:
+            torch.backends.cudnn.deterministic = False
+        now = opt.masters if pol != "fp32" else list(model.parameters())
+        sgd[pol] = (loss, torch.cat([(m.detach().float() - a).flatten()
+                                     for m, a in zip(now, p0)]))
+        if pol != "fp32":
+            require({p.dtype for p in model.parameters()} == {torch.bfloat16}
+                    and {m.dtype for m in opt.masters} == {torch.float32}
+                    and all(torch.equal(p, m.bfloat16()) for p, m in
+                            zip(model.parameters(), opt.masters)),
+                    "bf16-compute: parameters bf16 of the f32 masters")
+        del model, opt, step
+    loss_rel = abs(sgd["bf16-compute"][0] - sgd["fp32"][0]) / abs(
+        sgd["fp32"][0])
+    upd = float((sgd["bf16-compute"][1] - sgd["fp32"][1]).norm()
+                / sgd["fp32"][1].norm())
+    require(loss_rel <= 1e-3 and upd <= 2e-2, "bf16-compute vs fp32 "
+            "policy: loss rel %.3g (tol 1e-3), update rel L2 %.3g (tol "
+            "2e-2)" % (loss_rel, upd))
+    steps, casts, peaks, models = {}, {}, {}, {}
+    for pol in ("fp32", "bf16-compute"):
+        cfg = Config(batch_size=16, imsize=512, amp=True, param_policy=pol)
+        models[pol], _, _, steps[pol] = extras_trainer(cfg)
+        steps[pol](0, *arrs)
+        peaks[pol] = peak_gb(steps[pol], arrs)
+    rates = alternating_rates(steps, arrs)
+    for pol, model in models.items():
+        casts[pol] = weight_casts(model, arrs, dataclasses.replace(
+            cfg, param_policy=pol))
+    n_weights = sum(p.dim() == 4 for p in model.parameters())
+    del models, model
+    require(casts["bf16-compute"] == 0 and casts["fp32"] == n_weights,
+            "weight-shaped casts a forward: bf16-compute %d (want 0), the "
+            "fp32 policy %d (want one for each of the %d conv weights)"
+            % (casts["bf16-compute"], casts["fp32"], n_weights))
+    out.update(loss_rel=loss_rel, update_rel_l2=upd, casts=casts,
+               peak_gb=peaks, rates=rates)
+    del steps
+    torch.cuda.empty_cache()
+    log("train_extras bf16-compute: one SGD step vs the fp32 policy: loss "
+        "rel %.3g, update rel L2 %.3g; conv-weight casts a forward %d (fp32 "
+        "policy %d)" % (loss_rel, upd, casts["bf16-compute"], casts["fp32"]))
+    for name, r in out["rates"].items():
+        log("train_extras bf16-compute: --param-policy %s: median %.1f img/s "
+            "(%.2f ms a step), min %.1f max %.1f; peak %.2f GB" % (
+                name, r["median_ips"], r["ms_per_step"], min(r["ips"]),
+                max(r["ips"]), peaks[name]))
+    return out
+
+
+def grads_and_stats(model, arrs, cfg):
+    import torch
+    from real_time_helmet_detection_tpu_torch.train import loss_fn
+    model.zero_grad(set_to_none=True)
+    total, _ = loss_fn(model, *arrs, cfg)
+    total.backward()
+    torch.cuda.synchronize()
+    return (total.detach().clone(),
+            [p.grad.clone() for p in model.parameters()],
+            [b.clone() for b in model.buffers()])
+
+
+def extras_remat(state, arrs):
+    """--remat stacks and full: f32 (TF32 off, cudnn.deterministic), the
+    loss, the gradients and the running statistics bit-equal to --remat
+    none from the same weights (so the statistics moved once); launches
+    as derived, the recompute included; peak memory of each at --amp."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.config import Config
+    from real_time_helmet_detection_tpu_torch.evaluate import init_weights
+    from real_time_helmet_detection_tpu_torch.models.hourglass import \
+        build_model
+    out = dict(peak_gb={}, launches={})
+    torch.backends.cudnn.deterministic = True
+    try:
+        base = init_weights(build_model(Config(batch_size=16)), 3).state_dict()
+        runs = {}
+        for mode in ("none", "none", "stacks", "full"):
+            cfg = Config(batch_size=16, imsize=512, remat=mode)
+            model = build_model(cfg).cuda().train()
+            model.load_state_dict(base)
+            reset_counts()
+            run = grads_and_stats(model, arrs, cfg)
+            counts = read_counts()
+            want = expected_launches(cfg, "train", torch.float32)
+            require(counts == want, "--remat %s launches %s, want %s"
+                    % (mode, counts, want))
+            out["launches"][mode] = counts
+            if mode in runs:
+                require(all(torch.equal(a, b) for a, b in zip(
+                    [run[0]] + run[1] + run[2],
+                    [runs[mode][0]] + runs[mode][1] + runs[mode][2])),
+                    "two --remat none steps differ: the step is not "
+                    "deterministic")
+            runs[mode] = run
+            del model
+        l0, g0, b0 = runs["none"]
+        for mode in ("stacks", "full"):
+            l1, g1, b1 = runs[mode]
+            same = (torch.equal(l0, l1)
+                    and all(torch.equal(a, b) for a, b in zip(g0, g1))
+                    and all(torch.equal(a, b) for a, b in zip(b0, b1)))
+            require(same, "--remat %s not bit-equal to none (loss %s vs %s)"
+                    % (mode, float(l1), float(l0)))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del runs
+    torch.cuda.empty_cache()
+    # peak memory and ms a step at --amp: the flagship (1 stack) and the
+    # quality architecture (2 stacks: one stack's activations at a time)
+    for arch, stacks in (("flagship", 1), ("quality-arch", 2)):
+        steps = {}
+        for mode in ("none", "stacks", "full"):
+            cfg = Config(batch_size=16, imsize=512, amp=True, remat=mode,
+                         num_stack=stacks)
+            _, _, _, steps[mode] = extras_trainer(cfg)
+            steps[mode](0, *arrs)
+            out["peak_gb"]["%s %s" % (arch, mode)] = peak_gb(steps[mode],
+                                                             arrs)
+        rates = alternating_rates(steps, arrs, windows=2)
+        for mode, r in rates.items():
+            out.setdefault("ms", {})["%s %s" % (arch, mode)] = \
+                r["ms_per_step"]
+        del steps
+        torch.cuda.empty_cache()
+    log("train_extras remat: f32 loss, gradients, statistics bit-equal to "
+        "none (stacks, full); launches #4 %s; --amp peak GB %s; ms a step "
+        "%s" % ({m: c["bn_stats"] for m, c in out["launches"].items()},
+                {m: round(v, 3) for m, v in out["peak_gb"].items()},
+                {m: round(v, 2) for m, v in out["ms"].items()}))
+    return out
+
+
+def extras_ema(state, arrs):
+    """EMA (decay 0.9), flagship --amp: after 3 steps equal to the host
+    recurrence e = d e + (1 - d) p (float32, each product rounded); a
+    checkpoint of it, its snapshot beside, through the eval CLI with
+    --ema-eval (the serving engine) to the mAP and detections of the
+    EMA weights loaded as an npz."""
+    import pickle
+
+    import numpy as np
+    import torch
+    from real_time_helmet_detection_tpu_torch.__main__ import main
+    from real_time_helmet_detection_tpu_torch.config import (Config,
+                                                             save_config)
+    from real_time_helmet_detection_tpu_torch.data.synthetic import \
+        make_synthetic_voc
+    from real_time_helmet_detection_tpu_torch.ops.loss import LossLog
+    from real_time_helmet_detection_tpu_torch.train import save_checkpoint
+    d = 0.9
+    cfg = Config(batch_size=16, imsize=512, amp=True, ema_decay=d)
+    model, opt, ema, step = extras_trainer(cfg)
+    host = [p.detach().cpu().numpy().copy() for p in model.parameters()]
+    for i in range(3):
+        step(i, *arrs)
+        p = [t.detach().cpu().numpy() for t in model.parameters()]
+        host = [np.float32(d) * e + np.float32(1 - d) * q
+                for e, q in zip(host, p)]
+    err = max(float(np.abs(t.cpu().numpy() - e).max())
+              for t, e in zip(ema.tensors, host))
+    require(err == 0.0, "EMA after 3 steps vs the host recurrence: max abs "
+            "%.3g" % err)
+    out = dict(ema_max_abs_err=err)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ema_") as tmp:
+        save = os.path.join(tmp, "save")
+        save_config(cfg, save)
+        ckpt = save_checkpoint(save, 0, 3, model, opt, LossLog(), ema)
+        voc = make_synthetic_voc(os.path.join(tmp, "voc"), num_train=0,
+                                 num_test=8, imsize=(512, 512), seed=2)
+        res = {}
+        for tag, extra in (("ema-eval", ["--model-load", save,
+                                         "--ema-eval"]),
+                           ("npz", ["--model-load",
+                                    os.path.join(ckpt, "ema.npz")])):
+            outdir = os.path.join(tmp, tag)
+            t0 = time.time()
+            main(["--data", voc, "--imsize", "512", "--batch-size", "8",
+                  "--amp", "--serve-buckets", "8", "--serve-max-wait-ms",
+                  "50", "--save-path", outdir] + extra)
+            with open(os.path.join(outdir, "prediction_results.pickle"),
+                      "rb") as f:
+                res[tag] = (pickle.load(f), time.time() - t0)
+        a, b = res["ema-eval"][0], res["npz"][0]
+        same = sorted(a) == sorted(b) and all(
+            all(np.array_equal(x, y) for x, y in zip(
+                (a[k]["box"], a[k]["cls"], a[k]["score"]),
+                (b[k]["box"], b[k]["cls"], b[k]["score"]))) for k in b)
+        require(same, "--ema-eval detections differ from the EMA npz's")
+        out["eval_s"] = res["ema-eval"][1]
+    del model, opt, ema, step
+    torch.cuda.empty_cache()
+    log("train_extras ema: 3 steps, EMA vs host recurrence max abs %.3g; "
+        "eval CLI --ema-eval on the checkpoint (8 images, %.1f s) equal to "
+        "the EMA npz's detections" % (err, out["eval_s"]))
+    return out
+
+
+def extras_sentinel(state, arrs):
+    """--sentinel, flagship --amp with an EMA: a NaN batch leaves every
+    state tensor bit-identical and adds no host sync to the step (CUDA's
+    sync debug mode, against the plain step); a finite spike above
+    --sentinel-spike is skipped; the monitor's ladder over fetched flags
+    (two windows with a skip halve the scale, a clean one doubles it)."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.config import Config
+    from real_time_helmet_detection_tpu_torch.train import SentinelMonitor
+    cfg = Config(batch_size=16, imsize=512, amp=True, sentinel=True,
+                 ema_decay=0.99)
+    plain_cfg = dataclasses.replace(cfg, sentinel=False)
+    _, _, _, plain = extras_trainer(plain_cfg)
+    plain(0, *arrs)
+    plain_syncs, _ = syncs_in(lambda: plain(1, *arrs))
+    monitor = SentinelMonitor(cfg)
+    _, _, _, step = extras_trainer(cfg, monitor=monitor)
+    step(0, *arrs)  # a clean step: moments, counts and the EMA move
+    before = [t.clone() for t in step.sentinel.tensors()]
+    nan = [torch.full_like(arrs[0], float("nan"))] + list(arrs[1:])
+    syncs, losses = syncs_in(lambda: step(1, *nan))
+    torch.cuda.synchronize()
+    kept = all(torch.equal(a, b) for a, b in zip(before,
+                                                  step.sentinel.tensors()))
+    require(float(losses["sentinel_bad"]) == 1.0 and kept,
+            "a NaN batch: skipped %s, every state tensor kept %s"
+            % (float(losses["sentinel_bad"]), kept))
+    require(syncs <= plain_syncs, "the sentinel step syncs %d times, the "
+            "plain step %d" % (syncs, plain_syncs))
+    _, _, _, spike = extras_trainer(dataclasses.replace(
+        cfg, sentinel_spike=1e-3), monitor=monitor)
+    before = [t.clone() for t in spike.sentinel.tensors()]
+    sp = spike(0, *arrs)
+    kept_spike = all(torch.equal(a, b) for a, b in zip(
+        before, spike.sentinel.tensors()))
+    require(float(sp["sentinel_bad"]) == 1.0 and kept_spike
+            and math.isfinite(float(sp["total"])),
+            "a spike (|g| %.4g > 1e-3) not skipped" % float(
+                sp["sentinel_grad_norm"]))
+    ladder = []
+    for window in ([1.0, 0.0], [1.0], [0.0, 0.0]):
+        monitor.observe([{"sentinel_bad": f} for f in window])
+        ladder.append(monitor.scale)
+    require(ladder == [0.5, 0.25, 0.5], "backoff ladder %s" % ladder)
+    del step, spike, plain
+    torch.cuda.empty_cache()
+    out = dict(syncs=syncs, plain_syncs=plain_syncs, ladder=ladder,
+               spike_grad_norm=float(sp["sentinel_grad_norm"]))
+    log("train_extras sentinel: NaN batch skipped, every state tensor "
+        "bit-identical; host syncs in the step %d (plain step %d); a finite "
+        "spike (|g| %.4g > 1e-3) skipped; ladder %s" % (
+            syncs, plain_syncs, out["spike_grad_norm"], ladder))
+    return out
+
+
+def extras_distill(state, arrs):
+    """--distill: a teacher checkpoint the phase writes (the flagship with
+    2 stacks, seeded, its snapshot beside), an edge-architecture student
+    at b16 512^2 --amp: the teacher's eval kernels (#2, #8) launched as
+    its predict derives on top of the student's train launches; the loss
+    falls over 8 steps on one batch."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.config import (Config,
+                                                             save_config)
+    from real_time_helmet_detection_tpu_torch.evaluate import init_weights
+    from real_time_helmet_detection_tpu_torch.models.hourglass import \
+        build_model
+    from real_time_helmet_detection_tpu_torch.ops.loss import LossLog
+    from real_time_helmet_detection_tpu_torch.optim import build_optimizer
+    from real_time_helmet_detection_tpu_torch.train import (make_distiller,
+                                                            save_checkpoint)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_teacher_") as tmp:
+        tcfg = Config(num_stack=2, imsize=512, batch_size=16)
+        teacher = perturb_bn(init_weights(build_model(tcfg), 5), 5)
+        save_config(tcfg, tmp)
+        save_checkpoint(tmp, 0, 0, teacher, build_optimizer(
+            tcfg, teacher.parameters()), LossLog())
+        cfg = Config(batch_size=16, imsize=512, amp=True, distill=tmp,
+                     distill_alpha=0.5, **VARIANT_CONFIGS["edge-arch"])
+        distiller = make_distiller(cfg, "cuda")
+    require(distiller.model.num_stack == 2, "teacher architecture not from "
+            "its snapshot")
+    _, _, _, step = extras_trainer(cfg, distiller=distiller)
+    step(0, *arrs)
+    counts, losses = launches_of(step, arrs, 1)
+    want = expected_launches(cfg, "train", torch.bfloat16)
+    teach = expected_launches(dataclasses.replace(tcfg, amp=True),
+                              "predict", torch.bfloat16)
+    for k in ("bn_act", "bn_act_vec", "bn_act_scalar", "bn_add_act"):
+        want[k] += teach[k]
+    require(counts == want, "--distill launches %s, want the student's "
+            "train step + the teacher's predict %s" % (counts, want))
+    totals = [float(step(i + 2, *arrs)["total"]) for i in range(8)]
+    require(all(map(math.isfinite, totals)) and totals[-1] < totals[0],
+            "--distill loss does not fall over 8 steps: %s" % totals)
+    del step, distiller
+    torch.cuda.empty_cache()
+    out = dict(launches=counts, teacher_launches={
+        k: teach[k] for k in ("bn_act", "bn_add_act")}, losses=totals,
+        distill=float(losses["distill"]))
+    log("train_extras distill: edge-arch student, 2-stack flagship teacher: "
+        "#2/#5 %d (teacher %d), #8 %d (teacher %d) a step; soft loss %.4f; "
+        "total over 8 steps %s" % (
+            counts["bn_act"], teach["bn_act"], counts["bn_add_act"],
+            teach["bn_add_act"], out["distill"],
+            " ".join("%.3f" % v for v in totals)))
+    return out
+
+
+def phase_train_extras(state):
+    """The train-step extras at the flagship's width, b16 512^2 (the
+    port's synthetic_target_batch): --fwd-dtype int8 (#14-#16 in
+    training), --param-policy bf16-compute, --remat stacks|full, the EMA
+    and --ema-eval, --sentinel, --distill (see each extras_* helper)."""
+    import torch
+    arrs = train_batch()
+    out = {}
+    for name, fn in (("int8", extras_int8), ("remat", extras_remat),
+                     ("ema", extras_ema), ("sentinel", extras_sentinel),
+                     ("distill", extras_distill), ("policy", extras_policy)):
+        t0 = time.time()
+        out[name] = fn(state, arrs)
+        log("train_extras %s: %.1f s" % (name, time.time() - t0))
+    state["train_extras"] = out
+    state.setdefault("launches", {})["train_int8"] = out["int8"]["launches"]
+    del arrs
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------- variant phases
@@ -5058,6 +5638,9 @@ def kernel_rows(state):
                             scalar_ms=t["scalar_ms"])
         if name == "peak_scores":  # the bytes the logits' layout forces
             rows[-1]["forced_bound_ms"] = t["forced_ms"]
+        if row in (2, 8):  # the --distill teacher's eval forward
+            rows[-1]["launches_distill_teacher"] = state["train_extras"][
+                "distill"]["teacher_launches"][name]
     # the int8 kernels, which have no Pallas counterpart: their main path
     # is the throughput tier's bf16 int8 predict
     qt, qe = state["qtiming"], state["qerrs"]
@@ -5081,6 +5664,11 @@ def kernel_rows(state):
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "table_row": row,
             "shape": list(t["shape"])})
+        # training: one --fwd-dtype int8 step, flagship and edge-arch
+        extras = state["train_extras"]["int8"]
+        rows[-1].update(
+            launches_train_int8=extras["launches"][name],
+            launches_train_int8_edge=extras["launches_edge"][name])
         if kind:  # the first design's kernel, timed in turns with it
             rows[-1].update(variant=t["variant"], old_variant=t["old_variant"],
                             old_ms=t["old_ms"], host_us=t["host_us"],

@@ -13,10 +13,8 @@ Max|Avg|Conv|SPP|None`, `--neck-pool None|SPP`, `--stem-s2d`), and every
 `--nms` mode (nms|soft-nms|maxpool). Values the port has not built yet
 raise `NotImplementedError` instead of running something else: any other
 activation, pool, neck pool or variant and `--num-stack` < 1 where the
-model is built (models/hourglass.py); any other `--nms`; and the train
-options below whose value differs from the plain step (`--remat`,
-`--param-policy`, `--ema-decay`, `--sentinel`, `--distill`,
-`--device-augment`, `--fwd-dtype`). The JAX flags that only choose
+model is built (models/hourglass.py); any other `--nms`; and
+`--device-augment`. The JAX flags that only choose
 between a kernel and its XLA composition (`--use-pallas`, `--epilogue`,
 `--block-fuse`, `--loss-kernel`) have no field: the port has one path —
 the kernels, the fused loss among them (the JAX package's TPU default,
@@ -49,6 +47,29 @@ keeps JAX's default "xla", which here names the device's own backend
 `--num-devices` takes 0 or 1 (a process drives one card) and
 `--spatial` only 1 (halo-split images need more than one card).
 
+The train-step extras (ref config.py:319-440, validation :470-503,
+:527-529, :587-598), with JAX's values and checks:
+
+* `--fwd-dtype int8`: the train forward of every BN'd, bias-free conv
+  but the stem runs int8 (the quantizer and the int8 conv kernels of
+  `ops/qconv.py`) with a straight-through float backward
+  (`ops/quant.py` `ste_conv`);
+* `--param-policy bf16-compute` (needs `--amp`, refused with
+  `--sub-divisions` > 1): bf16 parameters, an fp32 master in the
+  optimizer (`optim.MasterOptimizer`);
+* `--remat none|stacks|full` (the old boolean form too): recompute each
+  hourglass stack, or the whole forward, in backward;
+* `--ema-decay d`: an exponential moving average of the parameters,
+  kept in the checkpoint; `--ema-eval` evaluates it;
+* `--sentinel` (+ `--sentinel-spike/-backoff/-divergence/-rollbacks`):
+  a step with a non-finite loss or gradient norm, or a gradient norm
+  above the spike, leaves the whole train state as it was; the loss
+  scale backs off; sustained skips roll back to the last checkpoint.
+  The port refuses it with `--sub-divisions` > 1 (a skip would have to
+  move the host's update window);
+* `--distill CKPT --distill-alpha a`: a teacher's soft targets join the
+  loss.
+
 Config snapshots (ref config.py:853-913): the CLI writes
 `argument.json`/`argument.txt` into `--save-path` (`save_config`; JAX's
 keys, so either package reads the other's); eval, the demo and export
@@ -79,7 +100,6 @@ ARCHITECTURE_FIELDS = (
     "num_stack", "hourglass_inch", "increase_ch", "activation", "pool",
     "neck_activation", "neck_pool", "variant", "stem_width",
 )
-
 
 # Latency-tier presets, the JAX package's (ref config.py:68-85): each
 # overrides the listed fields. Each tier's serve_buckets is its own
@@ -127,6 +147,8 @@ class Config:
     # precision: bf16 activations (conv weights cast at each call),
     # float32 parameters, BN statistics and output
     amp: bool = False
+    param_policy: str = "fp32"    # "bf16-compute" (needs --amp): bf16
+    # parameters, the fp32 master inside the optimizer, no per-call casts
 
     # augmentation
     crop_percent: List[float] = field(default_factory=lambda: [0.0, 0.1])
@@ -150,15 +172,24 @@ class Config:
     lr_gamma: float = 0.1
     max_boxes: int = 128          # per-image GT padding for encode
 
-    # train options of the JAX package that the port has not built: any
-    # value but the default raises (see __post_init__)
-    remat: str = "none"
-    param_policy: str = "fp32"
-    ema_decay: float = 0.0
-    sentinel: bool = False
-    distill: Optional[str] = None
+    # train-step extras (ref config.py:319-440)
+    remat: str = "none"           # none | stacks | full: recompute each
+    # hourglass stack / the whole forward in backward
+    fwd_dtype: str = "bf16"       # bf16 | int8: the train forward of the
+    # eligible convs in int8, straight-through float backward
+    ema_decay: float = 0.0        # > 0: an EMA of the parameters
+    ema_eval: bool = False        # eval/demo/export with the EMA weights
+    sentinel: bool = False        # skip non-finite / spiking steps
+    sentinel_spike: float = 0.0   # gradient-norm spike threshold; 0 = off
+    sentinel_backoff: float = 0.5  # loss-scale factor after a window
+    # with skipped steps (floor 1/1024; doubled back after a clean one)
+    sentinel_divergence: int = 3  # consecutive skips that roll back
+    sentinel_rollbacks: int = 2   # rollbacks a run may take
+    distill: Optional[str] = None  # teacher checkpoint (dir, save dir or
+    # npz); its architecture from the snapshot beside it
+    distill_alpha: float = 0.5    # weight of the soft losses
+    # not ported: any value but the default raises (see __post_init__)
     device_augment: bool = False
-    fwd_dtype: str = "bf16"
 
     # distributed: one process per card (the reference's convention)
     world_size: int = 1           # number of processes
@@ -234,21 +265,52 @@ class Config:
                     % (flag, value, ", ".join(map(str, allowed))))
 
         only("nms", self.nms, ("nms", "soft-nms", "maxpool"))
-        # JAX's refusal of the pair first (ref config.py:498-503): the
-        # policy alone is not ported either
-        if self.param_policy == "bf16-compute" and self.sub_divisions > 1:
-            raise ValueError(
-                "--param-policy bf16-compute is incompatible with "
-                "--sub-divisions > 1: optax.MultiSteps would "
-                "accumulate micro-gradients in bf16 — keep the fp32 "
-                "policy for accumulation runs")
-        only("remat", self.remat, ("none",))
-        only("param-policy", self.param_policy, ("fp32",))
-        only("ema-decay", self.ema_decay, (0.0,))
-        only("sentinel", self.sentinel, (False,))
-        only("distill", self.distill, (None,))
+        # the boolean form of --remat (ref config.py:470-476)
+        if isinstance(self.remat, bool):
+            self.remat = "stacks" if self.remat else "none"
+        if self.remat not in ("none", "stacks", "full"):
+            raise ValueError("--remat must be one of none|stacks|full, "
+                             "got %r" % (self.remat,))
+        if self.fwd_dtype not in ("bf16", "int8"):
+            raise ValueError("--fwd-dtype must be 'bf16' or 'int8', "
+                             "got %r" % (self.fwd_dtype,))
+        if self.param_policy not in ("fp32", "bf16-compute"):
+            raise ValueError("--param-policy must be 'fp32' or "
+                             "'bf16-compute', got %r" % (self.param_policy,))
+        if self.param_policy == "bf16-compute":
+            if not self.amp:
+                raise ValueError(
+                    "--param-policy bf16-compute requires --amp: without "
+                    "the bf16 compute policy the once-cast params would "
+                    "silently change the compute dtype itself")
+            if self.sub_divisions > 1:
+                raise ValueError(
+                    "--param-policy bf16-compute is incompatible with "
+                    "--sub-divisions > 1: optax.MultiSteps would "
+                    "accumulate micro-gradients in bf16 — keep the fp32 "
+                    "policy for accumulation runs")
+        if not self.distill_alpha > 0:
+            raise ValueError("--distill-alpha must be > 0, got %r"
+                             % (self.distill_alpha,))
+        if self.sentinel_spike < 0:
+            raise ValueError("--sentinel-spike must be >= 0, got %r"
+                             % (self.sentinel_spike,))
+        if not 0.0 < self.sentinel_backoff <= 1.0:
+            raise ValueError("--sentinel-backoff must be in (0, 1], got %r"
+                             % (self.sentinel_backoff,))
+        if self.sentinel_divergence < 1:
+            raise ValueError("--sentinel-divergence must be >= 1, got %d"
+                             % self.sentinel_divergence)
+        if self.sentinel_rollbacks < 0:
+            raise ValueError("--sentinel-rollbacks must be >= 0, got %d"
+                             % self.sentinel_rollbacks)
+        if self.sentinel and self.sub_divisions > 1:
+            raise NotImplementedError(
+                "--sentinel with --sub-divisions > 1 is not ported: a "
+                "skipped step would move the update window, which the "
+                "port sets on the host ahead of the verdict; use "
+                "--grad-accum")
         only("device-augment", self.device_augment, (False,))
-        only("fwd-dtype", self.fwd_dtype, ("bf16",))
         only("optim", self.optim.lower(), ("adam", "adamw", "sgd"))
         if self.sub_divisions < 1:
             raise ValueError("--sub-divisions must be >= 1, got %d"

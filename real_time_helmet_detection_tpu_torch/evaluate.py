@@ -7,7 +7,9 @@ serving engine as the JAX package's are (ref evaluate.py:236-300,
 
 * `load_eval_state` builds the model and fills it from an npz of the
   flax variable tree (`convert.py`) or a port checkpoint dir (its
-  `weights.npz`), or seeds fresh weights from a `torch.Generator`;
+  `weights.npz`; with `--ema-eval` its `ema.npz`, ref train.py:1031
+  `restore_variables(prefer_ema)`), or seeds fresh weights from a
+  `torch.Generator`;
 * `evaluate` submits every test image to a `ServingEngine` (buckets: the
   `--serve-buckets` up to the batch size, and the batch size; depth
   `--serve-depth`), consumes the head of its pending batches while later
@@ -122,7 +124,8 @@ def load_eval_state(cfg: Config, device=None) -> torch.nn.Module:
     dtype = torch.bfloat16 if cfg.amp else None
     model = build_model(cfg, dtype=dtype)
     if cfg.model_load:
-        load_into(model, load_npz(weights_file(cfg.model_load)))
+        load_into(model, load_npz(weights_file(cfg.model_load,
+                                               cfg.ema_eval)))
     else:
         init_weights(model, cfg.random_seed)
     model = model.to(dev).eval()

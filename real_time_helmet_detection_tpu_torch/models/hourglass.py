@@ -70,17 +70,32 @@ option of JAX `build_model` (:967), and its inference-compression twins
 * Quirks kept from the JAX model: the Neck conv has a bias before its BN
   (hourglass.py:859); the PReLU slope is one scalar initialised at 0.25
   (hourglass.py:119-122), not torch's per-channel default.
+* Train-step extras: `fwd_dtype="int8"` (ref hourglass.py:300-330
+  `STEConv`, eligibility :516-535) runs every BN'd, bias-free, unfolded
+  conv but the stem through `ops.quant.ste_conv` in train mode (the
+  int8 kernels forward, the float conv's backward); `Conv_0` stays an
+  `nn.Conv2d`, so checkpoints interchange and eval binds the float conv.
+  `remat="stacks"` recomputes each `Hourglass` stack in backward,
+  `"full"` the whole forward (ref hourglass.py:938-945, train.py:263-268),
+  through a non-reentrant `torch.utils.checkpoint` that reruns the whole
+  forward (no early stop); a BatchNorm in the recompute leaves its
+  running statistics alone, so they move once per step, as flax's do.
+  Under `--param-policy bf16-compute` the parameters are bf16
+  (`cast_params`): the BN kernels take gamma and beta cast to float32.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
-from ..ops import epilogue, qconv, residual
+from ..ops import epilogue, qconv, quant, residual
 
 ACTIVATIONS = ("ReLU", "LReLU", "PReLU", "Linear", "Mish", "Sigmoid", "CELU")
 FUSED_ACTIVATIONS = epilogue.ACTIVATIONS  # what the BN kernels compute
@@ -88,6 +103,36 @@ POOLS = ("Max", "Avg", "Conv", "SPP", "None")
 NECK_POOLS = ("None", "SPP")
 VARIANTS = ("residual", "depthwise", "ghost")
 QUANT_MODES = ("off", "calibrate", "int8")
+REMAT = ("none", "stacks", "full")
+
+_recompute = threading.local()  # set while a checkpoint recomputes
+
+
+def recomputing() -> bool:
+    """Is this thread rerunning a forward for a checkpoint's backward?"""
+    return getattr(_recompute, "active", False)
+
+
+@contextlib.contextmanager
+def _recompute_scope():
+    _recompute.active = True
+    try:
+        yield
+    finally:
+        _recompute.active = False
+
+
+def _contexts():
+    return contextlib.nullcontext(), _recompute_scope()
+
+
+def remat(fn, *args):
+    """`fn(*args)` whose activations are recomputed in backward: a
+    non-reentrant checkpoint that reruns all of `fn` (no early stop),
+    the rerun marked so that BatchNorm keeps its running statistics."""
+    with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, context_fn=_contexts)
 
 
 def _check(kind: str, value: str, allowed) -> None:
@@ -167,8 +212,9 @@ class BatchNorm(nn.Module):
 
     def folded(self):
         """(eff_scale, eff_bias), both (C,) float32."""
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        return scale, self.bias - self.running_mean * scale
+        scale = self.weight.float() * torch.rsqrt(self.running_var
+                                                  + self.eps)
+        return scale, self.bias.float() - self.running_mean * scale
 
     def forward(self, y: torch.Tensor, activation: str,
                 skip: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -180,12 +226,18 @@ class BatchNorm(nn.Module):
             if skip is None:
                 return epilogue.bn_act_eval(y, a, b, activation)
             return residual.bn_add_act_eval(y, a, b, skip, activation)
+        # the kernels take float32 (C,) vectors: bf16 parameters
+        # (--param-policy bf16-compute) are cast here, their gradients
+        # cast back (ref ops/pallas/epilogue.py:473-474)
+        gamma, beta = self.weight.float(), self.bias.float()
         if skip is None:
             out, mean, var = epilogue.bn_act_train(
-                y, self.weight, self.bias, activation, self.eps)
+                y, gamma, beta, activation, self.eps)
         else:
             out, mean, var = residual.bn_add_act_train(
-                y, self.weight, self.bias, skip, activation, self.eps)
+                y, gamma, beta, skip, activation, self.eps)
+        if recomputing():  # the first forward updated them
+            return out
         m = self.momentum
         with torch.no_grad():
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
@@ -310,14 +362,18 @@ class Convolution(nn.Module):
     Twins: with `fold_bn` a BN'd conv has no BatchNorm and a bias (the
     fold), and its activation follows in plain PyTorch; with `quant_mode`
     calibrate/int8 (fold required) and `quantize` (the stem opts out) its
-    body is a `QuantConv`, whose int8 epilogue fuses ReLU/Linear."""
+    body is a `QuantConv`, whose int8 epilogue fuses ReLU/Linear.
+
+    `fwd_dtype="int8"`: a BN'd, bias-free, unfolded conv with `quantize`
+    (`self.ste`) computes its train-mode forward with `quant.ste_conv`
+    (ref hourglass.py:516-535); eval keeps the float conv."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, use_bias: bool = True, bn: bool = False,
                  activation: str = "ReLU", groups: int = 1,
                  stem_s2d: bool = False, fold_bn: bool = False,
                  quant_mode: str = "off", quantize: bool = True,
-                 calib_percentile: float = 100.0):
+                 calib_percentile: float = 100.0, fwd_dtype: str = "bf16"):
         super().__init__()
         _check("activation", activation, ACTIVATIONS)
         if not bn and activation != "Linear":
@@ -344,6 +400,11 @@ class Convolution(nn.Module):
         self.fold = fold
         self.s2d = stem_s2d
         self.activation = activation
+        self.ste = (fwd_dtype == "int8" and self.bn and quantize
+                    and not use_bias)
+        if self.ste and stride != 1:
+            raise NotImplementedError("the int8 train forward has stride "
+                                      "1 convs, got stride %d" % stride)
         if self.bn:
             self.BatchNorm_0 = BatchNorm(out_ch)
         if bn and activation not in FUSED_ACTIVATIONS:
@@ -360,7 +421,10 @@ class Convolution(nn.Module):
             fuse = self.activation in qconv.ACTIVATIONS
             y = self.Conv_0(x, self.activation if fuse else "Linear")
             return y if fuse else self._activate(y)
-        if self.s2d and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
+        if self.ste and self.training:
+            y = quant.ste_conv(x, self.Conv_0.weight.to(x.dtype),
+                               self.Conv_0.groups)
+        elif self.s2d and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
             y = stem_s2d_conv(x, self.Conv_0)
         else:
             y = conv2d(x, self.Conv_0)
@@ -637,20 +701,25 @@ class StackedHourglass(nn.Module):
 
     `dtype` is the compute dtype (None = float32; bfloat16 under --amp,
     with float32 parameters cast at each conv call). `twin`: the
-    Convolution keywords `fold_bn`, `quant_mode`, `calib_percentile`."""
+    Convolution keywords `fold_bn`, `quant_mode`, `calib_percentile`
+    and `fwd_dtype`. `remat` ("none" | "stacks" | "full") applies in
+    train mode with gradients on."""
 
     def __init__(self, num_stack: int = 1, in_ch: int = 128, out_ch: int = 6,
                  increase_ch: int = 0, activation: str = "ReLU",
                  pool: str = "Max", neck_activation: str = "ReLU",
                  neck_pool: str = "None", variant: str = "residual",
                  stem_width: int = 0, stem_s2d: bool = False,
-                 dtype: Optional[torch.dtype] = None, **twin):
+                 dtype: Optional[torch.dtype] = None, remat: str = "none",
+                 **twin):
         super().__init__()
         if num_stack < 1:
             raise NotImplementedError("num_stack must be >= 1, got %d"
                                       % num_stack)
+        _check("remat", remat, REMAT)
         self.num_stack = num_stack
         self.dtype = dtype
+        self.remat = remat
         self.PreLayer_0 = PreLayer(stem_width or 128, in_ch, activation,
                                    pool, variant, stem_s2d, **twin)
         for i in range(num_stack):
@@ -669,6 +738,13 @@ class StackedHourglass(nn.Module):
                                     bn=False, activation="Linear"))
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
+        on = self.training and torch.is_grad_enabled()
+        if on and self.remat == "full":
+            return remat(self._forward, images, False)
+        return self._forward(images, on and self.remat == "stacks")
+
+    def _forward(self, images: torch.Tensor, remat_stacks: bool
+                 ) -> torch.Tensor:
         # (B, H, W, 3) -> NCHW view, already channels-last in memory
         x = images.permute(0, 3, 1, 2)
         if self.dtype is not None:
@@ -676,7 +752,8 @@ class StackedHourglass(nn.Module):
         x = self.PreLayer_0(_channels_last(x))
         predictions = []
         for i in range(self.num_stack):
-            hg = getattr(self, "Hourglass_%d" % i)(x)
+            stack = getattr(self, "Hourglass_%d" % i)
+            hg = remat(stack, x) if remat_stacks else stack(x)
             feature = getattr(self, "Neck_%d" % i)(hg)
             prediction = getattr(self, "Head_%d" % i)(feature)
             predictions.append(prediction.permute(0, 2, 3, 1))
@@ -698,6 +775,16 @@ def cast_convs(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     return model
 
 
+def cast_params(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Every float parameter in `dtype`, in place (its memory format
+    kept); buffers (the BN statistics) stay float32 — the parameters of
+    `--param-policy bf16-compute` (ref train.py:103-128)."""
+    for p in model.parameters():
+        if p.is_floating_point():
+            p.data = p.data.to(dtype)
+    return model
+
+
 def build_model(cfg, dtype: Optional[torch.dtype] = None,
                 fold_bn: bool = False, quant_mode: str = "off",
                 calib_percentile: float = 100.0) -> StackedHourglass:
@@ -705,7 +792,8 @@ def build_model(cfg, dtype: Optional[torch.dtype] = None,
     (ref models/hourglass.py:967 `build_model`), conv weights in
     channels-last memory format. `fold_bn` / `quant_mode` build the
     inference twins (see the module docstring); quantization needs the
-    fold, as in JAX."""
+    fold, as in JAX. `cfg.fwd_dtype` and `cfg.remat` (when present) set
+    the train forward's int8 convs and recompute."""
     if quant_mode not in QUANT_MODES:
         raise ValueError("quant_mode must be one of %s, got %r"
                          % (QUANT_MODES, quant_mode))
@@ -716,11 +804,14 @@ def build_model(cfg, dtype: Optional[torch.dtype] = None,
     if fold_bn:
         twin = dict(fold_bn=True, quant_mode=quant_mode,
                     calib_percentile=calib_percentile)
+    elif getattr(cfg, "fwd_dtype", "bf16") == "int8":
+        twin = dict(fwd_dtype="int8")
     model = StackedHourglass(
         num_stack=cfg.num_stack, in_ch=cfg.hourglass_inch,
         out_ch=cfg.num_cls + 4, increase_ch=cfg.increase_ch,
         activation=cfg.activation, pool=cfg.pool,
         neck_activation=cfg.neck_activation, neck_pool=cfg.neck_pool,
         variant=cfg.variant, stem_width=cfg.stem_width,
-        stem_s2d=cfg.stem_s2d, dtype=dtype, **twin)
+        stem_s2d=cfg.stem_s2d, dtype=dtype,
+        remat=getattr(cfg, "remat", "none"), **twin)
     return model.to(memory_format=torch.channels_last)

@@ -32,6 +32,14 @@ Port of ref real_time_helmet_detection_tpu/ops/quant.py:84
   of either package loads into the other unchanged.
 * `load_twin` puts a float checkpoint (flax tree or state dict of the
   BN'd model) into a twin in place: fold, load, requantize.
+* `ste_conv` (ref ops/quant.py:184 `make_ste_conv`) is the conv of
+  `--fwd-dtype int8` training: its forward quantizes the input against
+  its own abs-max (one MAX all-reduce per call across the ranks of a
+  process group) with the quantizer kernel (#16), the compute-dtype
+  weight per output channel, and runs the int8 conv kernel, dense (#14)
+  or depthwise (#15), rescaled as JAX does, `dt(acc) * dt(s_a * s_w)`;
+  its backward is the float conv's (`aten.convolution_backward`, the
+  kernels autograd of `F.conv2d` runs), a straight-through estimator.
 """
 
 from __future__ import annotations
@@ -157,6 +165,63 @@ def abs_percentile(x: torch.Tensor, percentile: float) -> torch.Tensor:
     v_lo = torch.kthvalue(flat, int(lo) + 1).values
     v_hi = torch.kthvalue(flat, int(hi) + 1).values
     return v_lo * w_lo.to(flat.device) + v_hi * w_hi.to(flat.device)
+
+
+# ---------------------------------------------------------------------------
+# int8-forward training (--fwd-dtype int8)
+
+
+def ste_forward(x: torch.Tensor, weight: torch.Tensor, groups: int
+                ) -> torch.Tensor:
+    """The int8 forward of a stride-1 conv with padding k // 2: x
+    (N, C, H, W) channels-last f32/bf16, weight (Cout, C / groups, k, k)
+    in x's dtype -> (N, Cout, H, W) in x's dtype, no bias. The step is
+    max(abs-max of x over the global batch, 1e-8) / 127, on the device."""
+    from . import qconv
+    from ..parallel import distributed
+    absmax = x.detach().abs().amax().float()
+    if distributed.world_size() > 1:
+        torch.distributed.all_reduce(absmax, op=torch.distributed.ReduceOp.MAX)
+    step = act_step(absmax)
+    q = qconv.quantize_act(x.contiguous(memory_format=torch.channels_last),
+                           step)
+    wq, w_scale = quantize_weights(weight)
+    mult = step * w_scale
+    zero = torch.zeros_like(mult)
+    cout = wq.shape[0]
+    if groups > 1:
+        return qconv.conv_dw(q, wq.reshape(cout, -1).t().contiguous(), mult,
+                             zero, x.dtype, "Linear")
+    return qconv.conv_dense(q, wq.permute(0, 2, 3, 1).contiguous(), mult,
+                            zero, x.dtype, "Linear")
+
+
+class STEConv(torch.autograd.Function):
+    """(x, weight) -> the int8 forward (`ste_forward`); backward: the
+    float conv's VJP at the same geometry (ref ops/quant.py:240-250)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, groups):
+        ctx.save_for_backward(x, weight)
+        ctx.groups = groups
+        return ste_forward(x, weight, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        p = weight.shape[-1] // 2
+        gx, gw, _ = torch.ops.aten.convolution_backward(
+            g, x, weight, None, [1, 1], [p, p], [1, 1], False, [0, 0],
+            ctx.groups, [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                         False])
+        return gx, gw, None
+
+
+def ste_conv(x: torch.Tensor, weight: torch.Tensor,
+             groups: int) -> torch.Tensor:
+    """A stride-1 conv with padding k // 2 whose forward runs int8 and
+    whose gradient is the float conv's."""
+    return STEConv.apply(x, weight, groups)
 
 
 # ---------------------------------------------------------------------------

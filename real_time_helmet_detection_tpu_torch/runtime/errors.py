@@ -14,3 +14,10 @@ from __future__ import annotations
 
 class InjectedBackendError(RuntimeError):
     """Synthetic transient backend failure raised by a ChaosInjector."""
+
+
+class TrainingDivergenceError(RuntimeError):
+    """Sustained numeric divergence seen by the train sentinel: at least
+    `--sentinel-divergence` consecutive skipped steps (ref
+    runtime/errors.py:45). The device is healthy, the numerics are not;
+    `train` answers it with a rollback to its last checkpoint."""

@@ -39,10 +39,6 @@ NOT_PORTED = {
     "--ckpt-interval", "--keep-ckpt", "--async-ckpt", "--no-async-ckpt",
     "--auto-resume", "--resume-backoff-s", "--async-eval",
     "--no-async-eval", "--prewarm", "--no-prewarm", "--hang-warn-seconds",
-    # train extras
-    "--ema-eval", "--no-ema-eval", "--sentinel", "--sentinel-spike",
-    "--sentinel-backoff", "--sentinel-divergence", "--sentinel-rollbacks",
-    "--distill", "--distill-alpha",
     # observability
     "--telemetry", "--no-telemetry", "--span-log", "--fault-inject",
     # cascade and streams

@@ -16,6 +16,7 @@ another architecture could not be evaluated without restating it. Now
   checkpoint dir reads its `weights.npz`; an `.npz` works as before.
 """
 
+import dataclasses
 import os
 import pickle
 import shutil
@@ -27,14 +28,17 @@ from real_time_helmet_detection_tpu.config import Config as JaxConfig
 from real_time_helmet_detection_tpu.config import get_config as jax_get_config
 from real_time_helmet_detection_tpu.config import \
     load_config as jax_load_config
+from real_time_helmet_detection_tpu.config import parse_args as jax_parse
 from real_time_helmet_detection_tpu.config import \
     save_config as jax_save_config
 from real_time_helmet_detection_tpu_torch import evaluate as evaluate_mod
 from real_time_helmet_detection_tpu_torch.__main__ import main
 from real_time_helmet_detection_tpu_torch.config import (
-    ARCHITECTURE_FIELDS, get_config, load_config)
+    ARCHITECTURE_FIELDS, Config, get_config, load_config, parse_args)
 from real_time_helmet_detection_tpu_torch.data.synthetic import \
     make_synthetic_voc
+
+from test_torch_train import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = ["--hourglass-inch", "16", "--stem-width", "16", "--variant", "ghost",
         "--num-stack", "2", "--neck-pool", "SPP"]
@@ -133,3 +137,54 @@ def test_only_rank_zero_writes_the_snapshot(trained, tmp_path, monkeypatch):
             (rank == 0)
     txt = open(os.path.join(tmp_path, "r0", "argument.txt")).read()
     assert "world_size: 2\n" in txt and "rank: 0\n" in txt
+
+
+# ------------------------------------------------ the train-extras flags
+
+EXTRAS = [
+    ["--remat", "stacks"], ["--remat", "full"], ["--remat", "none"],
+    ["--fwd-dtype", "int8"], ["--amp", "--param-policy", "bf16-compute"],
+    ["--ema-decay", "0.99", "--ema-eval"], ["--no-ema-eval"],
+    ["--sentinel", "--sentinel-spike", "50", "--sentinel-backoff", "0.25",
+     "--sentinel-divergence", "5", "--sentinel-rollbacks", "1"],
+    ["--distill", "t", "--distill-alpha", "0.3"],
+    ["--amp", "--param-policy", "bf16-compute", "--grad-accum", "2",
+     "--batch-size", "4"],
+]
+
+
+@pytest.mark.parametrize("argv", EXTRAS, ids=lambda a: " ".join(a))
+def test_extras_parse_like_jax(argv):
+    port, jax_cfg = parse_args(argv), jax_parse(argv)
+    for f in ("remat", "fwd_dtype", "param_policy", "ema_decay", "ema_eval",
+              "sentinel", "sentinel_spike", "sentinel_backoff",
+              "sentinel_divergence", "sentinel_rollbacks", "distill",
+              "distill_alpha", "amp", "grad_accum"):
+        assert getattr(port, f) == getattr(jax_cfg, f), f
+
+
+BAD = [
+    dict(remat="some"), dict(fwd_dtype="int4"), dict(param_policy="fp16"),
+    dict(param_policy="bf16-compute"),
+    dict(param_policy="bf16-compute", amp=True, sub_divisions=2),
+    dict(distill_alpha=0.0), dict(sentinel_spike=-1.0),
+    dict(sentinel_backoff=0.0), dict(sentinel_backoff=1.5),
+    dict(sentinel_divergence=0), dict(sentinel_rollbacks=-1),
+]
+
+
+@pytest.mark.parametrize("kw", BAD, ids=lambda k: ",".join(
+    "%s=%s" % i for i in sorted(k.items())))
+def test_extras_refused_like_jax(kw):
+    with pytest.raises(ValueError) as jax_err:
+        JaxConfig(**kw)
+    with pytest.raises(ValueError) as port_err:
+        Config(**kw)
+    assert str(port_err.value) == str(jax_err.value)
+
+
+def test_remat_bool_compatibility():
+    for value, want in ((True, "stacks"), (False, "none")):
+        assert Config(remat=value).remat == JaxConfig(remat=value).remat \
+            == want
+    assert dataclasses.replace(Config(), remat=True).remat == "stacks"

@@ -25,6 +25,10 @@ when the test ends:
 * the same with `--grad-accum 2`: micro-batch j of the world holds slice
   j of every rank's local batch, so JAX gets the rows [r0 s0, r1 s0,
   r0 s1, r1 s1];
+* `--fwd-dtype int8 --sentinel --ema-decay 0.99`: the STE sites'
+  global abs-max, one skip verdict on both ranks for a NaN batch on one
+  of them, the EMA, against the single process and JAX's global step
+  (see `check_extras`);
 * `epoch_indices`' wrap-padded shards against JAX's (in process);
 * the `DEADLINE_EXCEEDED:` barrier error when a rank never arrives;
 * eval at world 2: the mAP of every rank equal to the single-process
@@ -135,6 +139,64 @@ def port_step(cfg, init_path, local_rows, net_wrap):
     return float(total), state
 
 
+EXTRAS = dict(fwd_dtype="int8", sentinel=True, ema_decay=0.99)
+
+
+def port_extras(cfg, init_path, local_rows, net_wrap, poison):
+    """Two steps of the port's `--fwd-dtype int8 --sentinel --ema-decay
+    0.99` path: a clean one, recording each STE site's quantization step,
+    then one whose `poison` rows are NaN images. Returns the global loss
+    and the state (parameters, statistics, EMA) after step 1, the steps,
+    both verdicts and whether step 2 left every state tensor as it was."""
+    from real_time_helmet_detection_tpu_torch import convert
+    from real_time_helmet_detection_tpu_torch.data.synthetic import \
+        synthetic_target_batch
+    from real_time_helmet_detection_tpu_torch.models.hourglass import \
+        build_model
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    from real_time_helmet_detection_tpu_torch.optim import make_lr_schedule
+    from real_time_helmet_detection_tpu_torch.parallel import (
+        all_reduce_sum_, world_size)
+    from real_time_helmet_detection_tpu_torch.train import (
+        Sentinel, init_train_state, make_train_step)
+    model = build_model(cfg)
+    convert.load_into(model, convert.load_npz(init_path))
+    opt, ema = init_train_state(cfg, model, "cpu")
+    net = net_wrap(model)
+    sentinel = Sentinel(cfg, model, opt, ema, "cpu")
+    step = make_train_step(model, opt, make_lr_schedule(cfg, 10), cfg,
+                           net=net, ema=ema, sentinel=sentinel)
+    arrs = [a[local_rows] for a in synthetic_target_batch(BATCH, IMSIZE,
+                                                          seed=5)]
+    steps, local, real = [], [], qconv.quantize_act
+
+    def recording(x, step_):
+        steps.append(float(step_))
+        local.append(float(x.abs().amax()))
+        return real(x, step_)
+    qconv.quantize_act = recording
+    try:
+        losses = step(0, *map(torch.from_numpy, arrs))
+    finally:
+        qconv.quantize_act = real
+    total = float(all_reduce_sum_(losses["total"].clone()) / world_size())
+    state = convert.flatten_tree(convert.state_dict_to_flax(
+        model.state_dict()))
+    state.update({"ema/" + k: v for k, v in convert.flatten_tree(
+        convert.state_dict_to_flax(ema.model_state(model))["params"]).items()})
+    before = [t.clone() for t in sentinel.tensors()]
+    bad_arrs = list(arrs)
+    if poison is not None and poison is not False:
+        rows = slice(None) if poison is True else poison
+        bad_arrs[0] = bad_arrs[0].copy()
+        bad_arrs[0][rows] = np.nan
+    losses2 = step(1, *map(torch.from_numpy, bad_arrs))
+    kept = all(torch.equal(a, b) for a, b in zip(before, sentinel.tensors()))
+    return dict(loss=total, state=state, steps=steps, local=local,
+                bad=(float(losses["sentinel_bad"]),
+                     float(losses2["sentinel_bad"])), kept=kept)
+
+
 def worker(mode, rank, world, port, out_dir):
     torch.set_num_threads(1)
     from real_time_helmet_detection_tpu_torch import parallel
@@ -149,6 +211,15 @@ def worker(mode, rank, world, port, out_dir):
             slice(rank * b, (rank + 1) * b),
             lambda m: torch.nn.parallel.DistributedDataParallel(
                 m, broadcast_buffers=False))
+    elif mode == "extras":
+        cfg = worker_cfg(rank, world, port, **EXTRAS)
+        parallel.init_distributed(cfg)
+        b = parallel.local_batch_size(cfg)
+        result.update(port_extras(
+            cfg, os.path.join(out_dir, "init.npz"),
+            slice(rank * b, (rank + 1) * b),
+            lambda m: torch.nn.parallel.DistributedDataParallel(
+                m, broadcast_buffers=False), poison=rank == 1))
     elif mode == "barrier":
         cfg = worker_cfg(rank, world, port)
         parallel.init_distributed(cfg)
@@ -227,7 +298,7 @@ def jax_step(params, stats, rows, grad_accum):
         {"params": state.params, "batch_stats": state.batch_stats}))
 
 
-@pytest.mark.parametrize("mode", ["step", "accum"])
+@pytest.mark.parametrize("mode", ["step", "accum", "extras"])
 def test_two_process_step_matches_single_and_jax(tmp_path, jax_init, mode):
     """One step at world 2 against itself across ranks, the port's
     single-process step and JAX's (see the module docstring)."""
@@ -239,6 +310,8 @@ def test_two_process_step_matches_single_and_jax(tmp_path, jax_init, mode):
     init_path, params_tree, stats = jax_init
     shutil.copy(init_path, tmp_path / "init.npz")
     r0, r1 = run_world(tmp_path, mode)
+    if mode == "extras":
+        return check_extras(r0, r1, init_path, params_tree, stats)
     assert r0["loss"] == r1["loss"]
     assert sorted(r0["state"]) == sorted(r1["state"])
     for k in r0["state"]:
@@ -273,6 +346,98 @@ def test_two_process_step_matches_single_and_jax(tmp_path, jax_init, mode):
     err = rel_l2(vec(r0["state"], p0), vec(jstate, p0))
     print("%s: update rel L2 port vs JAX %.3g" % (mode, err))
     assert err <= GRAD_REL_L2, err
+
+
+def check_extras(r0, r1, init_path, params_tree, stats):
+    """`--fwd-dtype int8 --sentinel --ema-decay 0.99` at world 2: each
+    STE site quantizes with the abs-max of the global batch (on both
+    ranks max(rank 0's, rank 1's abs-max) / 127; the first site's step
+    equals the single process's, the later ones within rtol 5e-2: the BN
+    sums' order moves their inputs by ulps, and a code that flips moves
+    every later input, observed 2.1e-2); a NaN batch on
+    rank 1 alone is skipped by both ranks, whose whole state stays as it
+    was; the ranks bit-equal, EMA included; against the single process
+    and JAX's global sentinel step (loss_scale 1), the loss rtol 1e-2
+    (a 1e-6 change of the images moves the int8 loss up to 4e-3) and
+    the update and the EMA's movement relative L2 1.0 at most — the int8
+    path's own sensitivity (tests/test_torch_fwd_int8.py: a 1e-6 change
+    of the images moves the gradient ~50%), so this only refuses a
+    missing or flipped update (observed 0.35 against the single process,
+    0.44 against JAX); the EMA is d p0 + (1 - d) p1 of each side's own
+    parameters (rtol 1e-6)."""
+    import jax
+    import jax.numpy as jnp
+
+    from real_time_helmet_detection_tpu import optim as jax_optim
+    from real_time_helmet_detection_tpu.config import Config as JaxConfig
+    from real_time_helmet_detection_tpu.models import \
+        build_model as jax_build
+    from real_time_helmet_detection_tpu.train import (TrainState,
+                                                      make_train_step_body)
+    from real_time_helmet_detection_tpu_torch import convert
+    from real_time_helmet_detection_tpu_torch.config import Config
+    from real_time_helmet_detection_tpu_torch.data.synthetic import \
+        synthetic_target_batch
+    assert r0["bad"] == r1["bad"] == (0.0, 1.0)
+    assert r0["kept"] and r1["kept"]
+    cfg = Config(device="cpu", num_stack=1, hourglass_inch=16,
+                 batch_size=BATCH, optim="SGD", lr=LR, **EXTRAS)
+    from test_torch_predict import chip_smoke
+    dense, dw = chip_smoke.ste_walk(cfg)
+    assert r0["steps"] == r1["steps"] and len(r0["steps"]) == dense + len(dw)
+    assert r0["loss"] == r1["loss"]
+    for k in r0["state"]:
+        np.testing.assert_array_equal(r0["state"][k], r1["state"][k],
+                                      err_msg=k)
+    single = port_extras(cfg, init_path, slice(None), lambda m: m,
+                         poison=slice(2, 4))
+    assert single["bad"] == (0.0, 1.0) and single["kept"]
+    from real_time_helmet_detection_tpu_torch.ops.quant import act_step
+    for i, step_ in enumerate(r0["steps"]):  # the global abs-max
+        assert step_ == float(act_step(torch.tensor(max(
+            r0["local"][i], r1["local"][i])))), i
+    assert r0["steps"][0] == single["steps"][0]
+    np.testing.assert_allclose(r0["steps"], single["steps"], rtol=5e-2)
+    jcfg = JaxConfig(num_stack=1, hourglass_inch=16, num_cls=2,
+                     batch_size=BATCH, optim="SGD", lr=LR, **EXTRAS,
+                     **FUSED)
+    tx = jax_optim.build_optimizer(jcfg, 10)
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=params_tree,
+                       batch_stats=stats, opt_state=tx.init(params_tree),
+                       ema_params=jax.tree.map(jnp.copy, params_tree))
+    body = jax.jit(make_train_step_body(jax_build(jcfg), tx, jcfg))
+    arrs = synthetic_target_batch(BATCH, IMSIZE, seed=5)
+    state, jl = body(state, *map(jnp.asarray, arrs), jnp.float32(1.0))
+    assert float(jl["sentinel_bad"]) == 0.0
+    jstate = convert.flatten_tree(jax.device_get(
+        {"params": state.params, "batch_stats": state.batch_stats}))
+    jstate.update({"ema/" + k: v for k, v in convert.flatten_tree(
+        jax.device_get(state.ema_params)).items()})
+    p0 = convert.flatten_tree({"params": jax.device_get(params_tree)})
+    names = sorted(n for n in p0)
+    d = EXTRAS["ema_decay"]
+    for side in (r0["state"], single["state"], jstate):
+        for n in names:
+            e = "ema/" + n[len("params/"):]
+            np.testing.assert_allclose(
+                side[e], np.float32(d) * p0[n] + np.float32(1 - d) * side[n],
+                rtol=1e-6, atol=1e-9, err_msg=e)
+
+    def moved(side, prefix=""):
+        return np.concatenate([
+            (np.asarray(side[prefix + (n if not prefix else
+                                       n[len("params/"):])], np.float64)
+             - p0[n]).ravel() for n in names])
+    for other, what in ((single, "single"), ({"state": jstate,
+                                              "loss": float(jl["total"])},
+                                             "JAX")):
+        np.testing.assert_allclose(r0["loss"], other["loss"], rtol=1e-2,
+                                   err_msg=what)
+        for prefix in ("", "ema/"):
+            a, b = moved(r0["state"], prefix), moved(other["state"], prefix)
+            err = np.linalg.norm(a - b) / np.linalg.norm(b)
+            print("extras: %s %supdate rel L2 %.3g" % (what, prefix, err))
+            assert err < 1.0, (what, prefix, err)
 
 
 def test_epoch_indices_shards_match_jax():

@@ -286,8 +286,22 @@ def test_model_rejects_unported_architecture(change, error):
 @pytest.mark.parametrize("field,value", [
     ("fwd_dtype", "int8"), ("remat", "stacks")])
 def test_config_rejects_unported_paths(field, value):
-    with pytest.raises(NotImplementedError):
-        Config(**{field: value})
+    """Both paths are ported now (they were refused before): the config
+    takes the value and the model builds it — the int8 train forward at
+    every BN'd, bias-free conv but the stem, the per-stack recompute —
+    with the state dict of the plain model."""
+    cfg = Config(device="cpu", **{field: value})
+    assert getattr(cfg, field) == value
+    model = build_model(cfg)
+    plain = build_model(Config(device="cpu"))
+    assert list(model.state_dict()) == list(plain.state_dict())
+    if field == "fwd_dtype":
+        from real_time_helmet_detection_tpu_torch.models.hourglass import \
+            Convolution
+        ste = [m.ste for m in model.modules() if isinstance(m, Convolution)]
+        assert sum(ste) == 35 and not model.PreLayer_0.Convolution_0.ste
+    else:
+        assert model.remat == "stacks" and plain.remat == "none"
 
 
 @pytest.mark.parametrize("flag", [

@@ -89,6 +89,19 @@ FUSED_LOSS = dict(FUSED, loss_kernel="fused")
 SLICE_IMSIZE = 128
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread for torch during each test: the suite runs
+    several pytest workers on the CPU's cores, and torch's default of a
+    thread per core in each of them oversubscribes the cores (a CLI test
+    of small ops ran 30x slower so). The test files of the train path
+    import this fixture."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def to_port(a: np.ndarray) -> torch.Tensor:
     """NHWC numpy -> NCHW channels-last float32 tensor."""
     return torch.from_numpy(np.ascontiguousarray(a)).permute(0, 3, 1, 2)
@@ -533,16 +546,26 @@ def test_cli_train_default_device_refuses_cpu_only_box(tmp_path):
     "--param-policy=bf16-compute", "--ema-decay=0.99", "--sentinel",
     "--distill=t", "--device-augment", "--fwd-dtype=int8"])
 def test_unported_train_options_raise(flag):
-    """The train options the port has not built raise; the two that
-    gradient accumulation ported (`--sub-divisions`, `--grad-accum`) keep
-    their cases here and now parse to their value."""
+    """The train options the port has not built raise: of these only
+    `--device-augment` now. The ported ones keep their cases here and
+    parse to their value (`--param-policy bf16-compute` with the `--amp`
+    it requires, as in JAX)."""
     argv = ["--train-flag", "--data", "x", "--device", "cpu", flag]
-    if flag in ("--sub-divisions=2", "--grad-accum=2"):
-        name, value = flag[2:].replace("-", "_").split("=")
-        assert getattr(parse_args(argv), name) == int(value)
+    if flag == "--device-augment":
+        with pytest.raises(NotImplementedError):
+            parse_args(argv)
         return
-    with pytest.raises(NotImplementedError):
-        parse_args(argv)
+    if flag == "--param-policy=bf16-compute":
+        argv.append("--amp")
+    name, _, value = flag[2:].partition("=")
+    name = name.replace("-", "_")
+    cfg = parse_args(argv)
+    if not value:
+        assert getattr(cfg, name) is True
+        return
+    want = {"int": int, "float": float}.get(
+        type(getattr(Config(), name)).__name__, str)(value)
+    assert getattr(cfg, name) == want
 
 
 def test_cli_refuses_loss_kernel_flag(capsys):
