@@ -1795,11 +1795,30 @@ def phase_eval_timing(state):
                                  r["plain_ms"], r["bound_ms"], r["bound_by"]))
 
 
-def make_trainer(cfg, seed=0):
-    """The flagship model with seeded weights on the card in train mode,
-    its optimizer and the port's train step."""
-    model, opt, _, step = extras_trainer(cfg, seed)
-    return model, opt, step
+def extras_trainer(cfg, seed=0, monitor=None, **kw):
+    """cfg's model with seeded weights on the card in train mode, its
+    optimizer (`init_train_state`: the bf16 policy's masters, the EMA)
+    and the port's train step with `kw` (a distiller); under
+    `cfg.sentinel` with a `Sentinel` (as `step.sentinel`) and the loss
+    scale of `monitor`."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.evaluate import init_weights
+    from real_time_helmet_detection_tpu_torch.models.hourglass import \
+        build_model
+    from real_time_helmet_detection_tpu_torch.optim import make_lr_schedule
+    from real_time_helmet_detection_tpu_torch.train import (
+        Sentinel, init_train_state, make_train_step)
+    dtype = torch.bfloat16 if cfg.amp else None
+    model = init_weights(build_model(cfg, dtype=dtype), seed)
+    opt, ema = init_train_state(cfg, model, "cuda")
+    sentinel = Sentinel(cfg, model, opt, ema, "cuda") if cfg.sentinel \
+        else None
+    step = make_train_step(
+        model, opt, make_lr_schedule(cfg, 1000), cfg, ema=ema,
+        sentinel=sentinel,
+        loss_scale=monitor.scale_value if monitor else None, **kw)
+    step.sentinel = sentinel
+    return model, opt, ema, step
 
 
 def train_batch(batch=16, imsize=512):
@@ -2009,7 +2028,7 @@ def phase_train_main(state):
     import torch
     from real_time_helmet_detection_tpu_torch.config import Config
     cfg = Config(batch_size=16, amp=True)
-    model, opt, step = make_trainer(cfg)
+    model, opt, _, step = extras_trainer(cfg)
     arrs = train_batch()
     # warm-up on a throwaway copy of the weights: cuDNN plans, allocator
     saved = {k: v.clone() for k, v in model.state_dict().items()}
@@ -2019,7 +2038,7 @@ def phase_train_main(state):
     model.load_state_dict(saved)
     opt.load_state_dict(saved_opt)
     cfg32 = Config(batch_size=16)
-    model32, opt32, step32 = make_trainer(cfg32)
+    model32, opt32, _, step32 = extras_trainer(cfg32)
     model32.load_state_dict(model.state_dict())
     errs = check_train_step(model, model32, arrs, cfg, cfg32)
     reset_counts()
@@ -2184,7 +2203,7 @@ def phase_accum(state):
     from real_time_helmet_detection_tpu_torch.ops.loss import LossLog
     from real_time_helmet_detection_tpu_torch.train import train_epoch
     cfg = Config(batch_size=16, amp=True, grad_accum=2)
-    model, opt, step = make_trainer(cfg)
+    model, opt, _, step = extras_trainer(cfg)
     arrs = train_batch()
     saved = {k: v.clone() for k, v in model.state_dict().items()}
     saved_opt = opt.state_dict()
@@ -2193,7 +2212,7 @@ def phase_accum(state):
     model.load_state_dict(saved)
     opt.load_state_dict(saved_opt)
     cfg32 = Config(batch_size=16, grad_accum=2)
-    model32 = make_trainer(cfg32)[0]
+    model32 = extras_trainer(cfg32)[0]
     model32.load_state_dict(model.state_dict())
     errs = check_accum_step(model, model32, arrs, cfg, cfg32)
     del model32
@@ -2210,7 +2229,7 @@ def phase_accum(state):
 
     # --sub-divisions 2 over an epoch of 3 host steps
     cfg_sd = Config(batch_size=16, amp=True, sub_divisions=2)
-    model_sd, _, step_sd = make_trainer(cfg_sd)
+    model_sd, _, _, step_sd = extras_trainer(cfg_sd)
     snaps = [params_of(model_sd)]
 
     def recording(count, *a, update):
@@ -2231,8 +2250,8 @@ def phase_accum(state):
     # grad-accum 2 on a batch == sub-divisions 2 on its halves (SGD, f32)
     cfg_a = Config(batch_size=16, grad_accum=2, optim="SGD", lr=1e-2)
     cfg_b = Config(batch_size=8, sub_divisions=2, optim="SGD", lr=1e-2)
-    model_a, _, step_a = make_trainer(cfg_a)
-    model_b, _, step_b = make_trainer(cfg_b)
+    model_a, _, _, step_a = extras_trainer(cfg_a)
+    model_b, _, _, step_b = extras_trainer(cfg_b)
     torch.backends.cudnn.deterministic = True
     try:
         step_a(0, *arrs)
@@ -2250,7 +2269,7 @@ def phase_accum(state):
 
     # images/s and peak memory, grad-accum 1 against 2
     cfg1 = Config(batch_size=16, amp=True)
-    model1, _, step1 = make_trainer(cfg1)
+    model1, _, _, step1 = extras_trainer(cfg1)
     steps = {"grad_accum_1": step1, "grad_accum_2": step}
     peaks = {}
     for name, fn in steps.items():
@@ -2357,7 +2376,7 @@ def ddp_worker(rank, world, port, out_dir):
                  dist_backend="gloo")
     dev = parallel.init_distributed(cfg)
     parallel.barrier_synced_build(dev)
-    model, opt, _ = make_trainer(cfg)
+    model, opt, _, _ = extras_trainer(cfg)
     net = torch.nn.parallel.DistributedDataParallel(
         model, device_ids=[dev], broadcast_buffers=False)
     step = make_train_step(model, opt, make_lr_schedule(cfg, 1000), cfg,
@@ -2400,8 +2419,8 @@ def phase_ddp(state):
                             % free_port(), world_size=1, rank=0)
     torch.backends.cudnn.deterministic = True
     try:
-        model, opt, step = make_trainer(cfg)
-        model_d, opt_d, _ = make_trainer(cfg)
+        model, opt, _, step = extras_trainer(cfg)
+        model_d, opt_d, _, _ = extras_trainer(cfg)
         net = torch.nn.parallel.DistributedDataParallel(
             model_d, device_ids=[0], broadcast_buffers=False)
         step_d = make_train_step(model_d, opt_d,
@@ -2440,7 +2459,7 @@ def phase_ddp(state):
         ranks = [torch.load(os.path.join(tmp, "rank%d.pt" % r),
                             weights_only=False) for r in range(2)]
     cfg1 = Config(batch_size=16, optim="SGD", lr=DDP_LR)
-    model, opt, step = make_trainer(cfg1)
+    model, opt, _, step = extras_trainer(cfg1)
     p0 = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
     single = ddp_step_result(model, *timed_step(model, opt, step, arrs))
     del model, opt, step
@@ -2530,32 +2549,6 @@ def phase_ddp(state):
 # ----------------------------------------------------- train-extras phase
 
 
-def extras_trainer(cfg, seed=0, monitor=None, **kw):
-    """cfg's model with seeded weights on the card in train mode, its
-    optimizer (`init_train_state`: the bf16 policy's masters, the EMA)
-    and the port's train step with `kw` (a distiller); under
-    `cfg.sentinel` with a `Sentinel` (as `step.sentinel`) and the loss
-    scale of `monitor`."""
-    import torch
-    from real_time_helmet_detection_tpu_torch.evaluate import init_weights
-    from real_time_helmet_detection_tpu_torch.models.hourglass import \
-        build_model
-    from real_time_helmet_detection_tpu_torch.optim import make_lr_schedule
-    from real_time_helmet_detection_tpu_torch.train import (
-        Sentinel, init_train_state, make_train_step)
-    dtype = torch.bfloat16 if cfg.amp else None
-    model = init_weights(build_model(cfg, dtype=dtype), seed)
-    opt, ema = init_train_state(cfg, model, "cuda")
-    sentinel = Sentinel(cfg, model, opt, ema, "cuda") if cfg.sentinel \
-        else None
-    step = make_train_step(
-        model, opt, make_lr_schedule(cfg, 1000), cfg, ema=ema,
-        sentinel=sentinel,
-        loss_scale=monitor.scale_value if monitor else None, **kw)
-    step.sentinel = sentinel
-    return model, opt, ema, step
-
-
 def peak_gb(step, arrs, count=0):
     """Peak device memory (GB) of one step."""
     import torch
@@ -2590,7 +2583,42 @@ def syncs_in(fn):
     return sum("synchroniz" in str(w.message) for w in caught), out
 
 
-def check_int8_step(model, model32, arrs, cfg, cfg32):
+def ste_sites_checked(step, arrs, errs):
+    """Run one train step with each int8 kernel wrapper (#16, #14, #15)
+    held bit-equal to its plain version on the very operands the step
+    gives it (its activations, abs-max step, weight codes and scales);
+    returns {(kind, input shape, out channels, k): calls} of its STE
+    convs, kind dense | dw. `errs` gets each comparison's max abs error
+    by site."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    sites = {}
+
+    def checked(name, real, ref):
+        def wrapper(q, w, *args):
+            got = real(q, w, *args)
+            if name == "quantize_act":
+                key = ("quantize_act", tuple(q.shape), str(q.dtype))
+            else:
+                kind = "dw" if name == "conv_dw" else "dense"
+                key = (kind, tuple(q.shape)) + (
+                    (w.shape[1], 3) if kind == "dw" else tuple(w.shape[:2]))
+                sites[key] = sites.get(key, 0) + 1
+            err = compare("%s %s" % (name, key), got, ref(q, w, *args),
+                          "equal")
+            errs[key] = max(errs.get(key, 0.0), err)
+            return got
+        return wrapper
+
+    with swapped([(qconv, name, checked(name, getattr(qconv, name),
+                                        getattr(qconv, name + "_reference")))
+                  for name in ("quantize_act", "conv_dense", "conv_dw")]):
+        step(0, *arrs)
+    torch.cuda.synchronize()
+    return sites
+
+
+def check_int8_step(model, model32, arrs, cfg, cfg32, label):
     """The --fwd-dtype int8 step through the kernels against the plain
     versions by train_main's bf16 rule: the bf16 loss within rel 1e-3,
     the bf16 gradient and statistics no further from the f32 plain step
@@ -2605,11 +2633,11 @@ def check_int8_step(model, model32, arrs, cfg, cfg32):
              bf16_stats_vs_f32=(rel_l2(bk, bp32), rel_l2(bp, bp32)),
              f32_loss=abs(lk32 - lp32) / abs(lp32),
              f32_grad=rel_l2(gk32, gp32), f32_stats=rel_l2(bk32, bp32))
-    log("train_extras int8 kernels vs plain: bf16 loss %.6f vs %.6f rel %.3g "
-        "(tol %g); from the f32 plain step: gradient kernels %.3g plain "
+    log("train_extras int8 %s kernels vs plain: bf16 loss %.6f vs %.6f rel "
+        "%.3g (tol %g); from the f32 plain step: gradient kernels %.3g plain "
         "%.3g, statistics kernels %.3g plain %.3g (kernels at most %gx); "
         "f32 kernels vs plain: loss rel %.3g, gradient %.3g, statistics "
-        "%.3g" % (lk, lp, e["bf16_loss"], STEP_TOL["bf16_loss"],
+        "%.3g" % (label, lk, lp, e["bf16_loss"], STEP_TOL["bf16_loss"],
                   *e["bf16_grad_vs_f32"], *e["bf16_stats_vs_f32"],
                   STEP_TOL["bf16_ratio"], e["f32_loss"], e["f32_grad"],
                   e["f32_stats"]))
@@ -2618,58 +2646,93 @@ def check_int8_step(model, model32, arrs, cfg, cfg32):
             and e["bf16_grad_vs_f32"][0] <= ratio * e["bf16_grad_vs_f32"][1]
             and e["bf16_stats_vs_f32"][0]
             <= ratio * e["bf16_stats_vs_f32"][1],
-            "int8 bf16 train step kernels further from the f32 step than "
-            "the plain versions")
+            "int8 %s bf16 train step kernels further from the f32 step "
+            "than the plain versions" % label)
     return e
 
 
-def extras_int8(state, arrs):
-    """--fwd-dtype int8, flagship b16 512^2 --amp: the step through the
-    kernels against the plain versions (train_main's bf16 rule), launches
-    as derived (#16 and #14 at every STE site, all on wgmma), the edge
-    architecture's step (#15 in training), img/s and peak memory against
-    --fwd-dtype bf16 in alternating windows."""
+def int8_trainer_checked(cfg, arrs, label):
+    """cfg's --fwd-dtype int8 model and step on the card, checked: one
+    step with every int8 kernel bit-equal to its plain version on its own
+    operands (`ste_sites_checked`), each STE site's shape then on every
+    kernel of its conv against the plain version on seeded operands
+    (`qconv_case`), and the step through the kernels against the plain
+    versions with an f32 twin (`check_int8_step`); the weights are the
+    seeded ones again after. Returns (model, step, STE sites, errors)."""
     import torch
-    from real_time_helmet_detection_tpu_torch.config import Config
-    cfg = Config(batch_size=16, imsize=512, amp=True, fwd_dtype="int8")
     cfg32 = dataclasses.replace(cfg, amp=False)
     model, _, _, step = extras_trainer(cfg)
     model32 = extras_trainer(cfg32)[0]
     model32.load_state_dict(model.state_dict())
-    step(0, *arrs)  # warm-up (cuDNN plans, allocator); weights restored
+    op_errs = {}
+    sites = ste_sites_checked(step, arrs, op_errs)  # also the warm-up
     model.load_state_dict(model32.state_dict())
-    errs = check_int8_step(model, model32, arrs, cfg, cfg32)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    case_errs = {}
+    n = sum(qconv_case(kind, shape, cout, k, gen, case_errs,
+                       ("ste", kind, shape, cout, k))
+            for kind, shape, cout, k in sorted(sites))
+    errs = check_int8_step(model, model32, arrs, cfg, cfg32, label)
+    errs.update(ops=len(op_errs), ops_max_abs_err=max(op_errs.values()),
+                sites=len(sites), cases=n)
+    log("train_extras int8 %s: %d STE conv shapes (%d calls); #16/#14/#15 "
+        "bit-equal to the plain versions on the step's own operands at %d "
+        "(kernel, shape) keys, and on every kernel of each shape's conv on "
+        "seeded operands (%d comparisons)" % (
+            label, len(sites), sum(sites.values()), len(op_errs), n))
     del model32
-    counts, losses = launches_of(step, arrs)
-    want = expected_launches(cfg, "train", torch.bfloat16)
-    require(counts == want, "--fwd-dtype int8 launches per step %s, want %s"
-            % (counts, want))
-    dense, dw = ste_walk(cfg)
-    require(counts["qconv_dense_wgmma"] == dense == 35 and not dw,
-            "int8 train: %d dense sites on wgmma of %d" % (
-                counts["qconv_dense_wgmma"], dense))
-    out = dict(errs=errs, launches=counts, loss=float(losses["total"]))
-    bf = dataclasses.replace(cfg, fwd_dtype="bf16")
-    _, _, _, step_bf = extras_trainer(bf)
-    step_bf(0, *arrs)
-    out["rates"] = alternating_rates({"int8": step, "bf16": step_bf}, arrs)
-    out["peak_gb"] = {"int8": peak_gb(step, arrs), "bf16": peak_gb(step_bf,
-                                                                  arrs)}
-    del model, step, step_bf
-    torch.cuda.empty_cache()
-    edge = Config(batch_size=16, imsize=512, amp=True, fwd_dtype="int8",
-                  **VARIANT_CONFIGS["edge-arch"])
-    _, _, _, step_e = extras_trainer(edge)
-    step_e(0, *arrs)
-    counts_e, losses_e = launches_of(step_e, arrs, 1)
-    want_e = expected_launches(edge, "train", torch.bfloat16)
-    require(counts_e == want_e and counts_e["qconv_dw"] > 0
-            and math.isfinite(float(losses_e["total"])),
-            "edge-arch --fwd-dtype int8 launches %s, want %s (loss %s)"
-            % (counts_e, want_e, float(losses_e["total"])))
-    out["launches_edge"] = counts_e
-    del step_e
-    torch.cuda.empty_cache()
+    return model, step, sites, errs
+
+
+def extras_int8(state, arrs):
+    """--fwd-dtype int8 b16 512^2 --amp, on the flagship and on the edge
+    architecture (ghost: #15 in training): each checked by
+    `int8_trainer_checked` (#14-#16 bit-equal to the plain versions at
+    the step's STE sites, the step through the kernels against the plain
+    versions by train_main's bf16 rule), its launches as derived (#16 at
+    every STE site, #14 on wgmma), the recorded STE sites those of
+    `ste_walk`; the flagship's img/s and peak memory against --fwd-dtype
+    bf16 in alternating windows."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.config import Config
+    out = dict(errs={}, launches={}, sites={})
+    flagship = Config(batch_size=16, imsize=512, amp=True, fwd_dtype="int8")
+    edge = dataclasses.replace(flagship, **VARIANT_CONFIGS["edge-arch"])
+    for label, cfg in (("flagship", flagship), ("edge-arch", edge)):
+        model, step, sites, out["errs"][label] = int8_trainer_checked(
+            cfg, arrs, label)
+        counts, losses = launches_of(step, arrs)
+        want = expected_launches(cfg, "train", torch.bfloat16)
+        dense, dw = ste_walk(cfg)
+        calls = {kind: sum(n for key, n in sites.items() if key[0] == kind)
+                 for kind in ("dense", "dw")}
+        require(counts == want and math.isfinite(float(losses["total"]))
+                and counts["qconv_dense_wgmma"] == dense == calls["dense"]
+                and len(dw) == calls["dw"] == counts["qconv_dw"],
+                "%s --fwd-dtype int8 launches per step %s, want %s; STE "
+                "calls %s, ste_walk %d dense, %d depthwise (loss %s)" % (
+                    label, counts, want, calls, dense, len(dw),
+                    float(losses["total"])))
+        out["launches"][label], out["sites"][label] = counts, len(sites)
+        if label == "flagship":
+            require(dense == 35 and not dw, "flagship: %d dense, %d "
+                    "depthwise STE sites, want 35 and 0" % (dense, len(dw)))
+            out["loss"] = float(losses["total"])
+            _, _, _, step_bf = extras_trainer(dataclasses.replace(
+                cfg, fwd_dtype="bf16"))
+            step_bf(0, *arrs)
+            out["rates"] = alternating_rates({"int8": step, "bf16": step_bf},
+                                             arrs)
+            out["peak_gb"] = {"int8": peak_gb(step, arrs),
+                              "bf16": peak_gb(step_bf, arrs)}
+            del step_bf
+        else:
+            require(counts["qconv_dw"] > 0, "edge-arch: no #15 launch")
+        del model, step
+        torch.cuda.empty_cache()
+    launches = out["launches"]
+    counts = out["launches"] = launches["flagship"]
+    counts_e = out["launches_edge"] = launches["edge-arch"]
     log("train_extras int8: launches a flagship step %s (#16 %d, #14 %d on "
         "wgmma), edge-arch %s (#15 %d: %d tiled)" % (
             {k: v for k, v in counts.items() if v}, counts["quantize_act"],
@@ -3339,7 +3402,7 @@ def phase_variants_train(state):
     for name in ("edge-arch", "depthwise-128"):
         label = "variants_train %s" % name
         cfg = variant_cfg(name, batch_size=16, imsize=512, amp=True)
-        model, opt, step = make_trainer(cfg)
+        model, opt, _, step = extras_trainer(cfg)
         saved = {k: v.clone() for k, v in model.state_dict().items()}
         saved_opt = opt.state_dict()
         step(0, *arrs)  # warm-up on a throwaway copy of the weights
@@ -3347,7 +3410,7 @@ def phase_variants_train(state):
         model.load_state_dict(saved)
         opt.load_state_dict(saved_opt)
         cfg32 = variant_cfg(name, batch_size=16, imsize=512)
-        model32, _, _ = make_trainer(cfg32)
+        model32 = extras_trainer(cfg32)[0]
         model32.load_state_dict(model.state_dict())
         log("%s: the step against its plain-version twin:" % label)
         errs = check_train_step(model, model32, arrs, cfg, cfg32)
@@ -5289,7 +5352,7 @@ def profile_train(state):
         fused_detection_loss
     from real_time_helmet_detection_tpu_torch.optim import set_lr
     cfg = Config(batch_size=16, amp=True)
-    model, opt, step = make_trainer(cfg)
+    model, opt, _, step = extras_trainer(cfg)
     arrs = train_batch()
     for i in range(2):
         step(i, *arrs)

@@ -439,12 +439,15 @@ def save_config(cfg: Config, save_path: str) -> None:
 
 
 def load_config(path: str) -> Config:
-    """A JSON snapshot of either package back into a Config; keys the
-    port has no field for are ignored (ref config.py:866)."""
+    """The `ARCHITECTURE_FIELDS` of a JSON snapshot of either package on
+    a default Config (ref config.py:866): what eval, the demo, export and
+    a distillation teacher take from it. The train and runtime fields are
+    left out, so a JAX run's options the port refuses (`--device-augment`,
+    `--num-devices`, `--spatial`) do not stop its checkpoint loading."""
     with open(path) as f:
         d = json.load(f)
-    names = {f.name for f in dataclasses.fields(Config)}
-    return Config(**{k: v for k, v in d.items() if k in names})
+    return dataclasses.replace(
+        Config(), **{k: d[k] for k in ARCHITECTURE_FIELDS if k in d})
 
 
 def update_config_for_eval(cfg: Config, loaded: Config) -> Config:

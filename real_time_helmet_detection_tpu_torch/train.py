@@ -410,16 +410,10 @@ def make_train_step(model: torch.nn.Module, optimizer,
             grads = [m.grad for m in optimizer.masters] if master else \
                 [p.grad for p in model.parameters() if p.grad is not None]
             bad, norm = sentinel.verdict(out["total"], grads, scale)
-            set_lr(optimizer, schedule(sentinel.count))
-            optimizer.step()
-            sentinel.count += 1
-            if ema is not None:
-                ema.update()
-            sentinel.restore(bad, snapshot)
-            window[0] = 0
+            # the schedule counts the updates taken: a skip delays it
+            count = sentinel.count
             out.update(sentinel_bad=bad.float(), sentinel_grad_norm=norm,
                        sentinel_scale=torch.full_like(norm, scale))
-            return out
         if update:
             if ema is not None and window[0] < cfg.sub_divisions:
                 # an epoch-end update of a partial window: JAX's host step
@@ -428,8 +422,12 @@ def make_train_step(model: torch.nn.Module, optimizer,
             set_lr(optimizer, schedule(count))
             optimizer.step()
             window[0] = 0
+            if sentinel is not None:
+                sentinel.count += 1
         if ema is not None:
             ema.update()
+        if sentinel is not None:
+            sentinel.restore(bad, snapshot)
         return out
 
     return step

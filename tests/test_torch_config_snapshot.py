@@ -126,6 +126,39 @@ def test_snapshots_cross_packages(trained, tmp_path):
         assert getattr(back, f) == getattr(jcfg, f), f
 
 
+def test_jax_snapshot_with_unported_train_options(trained, tmp_path,
+                                                  capsys):
+    """A JAX run's snapshot with train and runtime options the port
+    refuses (device augmentation, 4 devices, a spatial mesh) still gives
+    the architecture, and an eval of a checkpoint beside it runs."""
+    voc, save = trained
+    jcfg = JaxConfig(device_augment=True, num_devices=4, spatial=2,
+                     **{f: getattr(load_config(os.path.join(
+                         save, "argument.json")), f)
+                        for f in ARCHITECTURE_FIELDS})
+    jsave = str(tmp_path / "jax_save")
+    jax_save_config(jcfg, jsave)
+    snap = os.path.join(jsave, "argument.json")
+    back, want = load_config(snap), jax_load_config(snap)
+    assert (want.device_augment, want.num_devices, want.spatial) == \
+        (True, 4, 2)
+    for f in ARCHITECTURE_FIELDS:
+        assert getattr(back, f) == getattr(want, f), f
+    shutil.copytree(os.path.join(save, "check_point_1"),
+                    os.path.join(jsave, "check_point_1"))
+    common = ["--data", voc, "--device", "cpu", "--imsize", "64",
+              "--batch-size", "3"]
+    cfg = get_config(common + ["--model-load", jsave])
+    assert (cfg.num_stack, cfg.variant, cfg.neck_pool) == (2, "ghost", "SPP")
+    assert not cfg.device_augment
+    got = eval_map(common + ["--model-load", jsave, "--save-path",
+                             str(tmp_path / "eval")], capsys)
+    ref = eval_map(common + ["--model-load", os.path.join(
+        save, "check_point_1"), "--save-path", str(tmp_path / "port")],
+        capsys)
+    assert got == ref
+
+
 def test_only_rank_zero_writes_the_snapshot(trained, tmp_path, monkeypatch):
     voc, _ = trained
     monkeypatch.setattr(evaluate_mod, "evaluate", lambda cfg: None)

@@ -29,6 +29,10 @@ when the test ends:
   global abs-max, one skip verdict on both ranks for a NaN batch on one
   of them, the EMA, against the single process and JAX's global step
   (see `check_extras`);
+* `--sentinel --ema-decay 0.99` in f32: the same skip, and the clean
+  step's update and EMA against the single process and JAX's global
+  sentinel step at the bounds of the plain step above (see
+  `check_sentinel`);
 * `epoch_indices`' wrap-padded shards against JAX's (in process);
 * the `DEADLINE_EXCEEDED:` barrier error when a rank never arrives;
 * eval at world 2: the mAP of every rank equal to the single-process
@@ -140,6 +144,7 @@ def port_step(cfg, init_path, local_rows, net_wrap):
 
 
 EXTRAS = dict(fwd_dtype="int8", sentinel=True, ema_decay=0.99)
+SENTINEL = dict(sentinel=True, ema_decay=0.99)
 
 
 def port_extras(cfg, init_path, local_rows, net_wrap, poison):
@@ -211,8 +216,9 @@ def worker(mode, rank, world, port, out_dir):
             slice(rank * b, (rank + 1) * b),
             lambda m: torch.nn.parallel.DistributedDataParallel(
                 m, broadcast_buffers=False))
-    elif mode == "extras":
-        cfg = worker_cfg(rank, world, port, **EXTRAS)
+    elif mode in ("extras", "sentinel"):
+        cfg = worker_cfg(rank, world, port,
+                         **(EXTRAS if mode == "extras" else SENTINEL))
         parallel.init_distributed(cfg)
         b = parallel.local_batch_size(cfg)
         result.update(port_extras(
@@ -298,7 +304,73 @@ def jax_step(params, stats, rows, grad_accum):
         {"params": state.params, "batch_stats": state.batch_stats}))
 
 
-@pytest.mark.parametrize("mode", ["step", "accum", "extras"])
+def jax_sentinel_step(params, stats, extras):
+    """JAX's single-process `--sentinel` step (loss scale 1) with
+    `extras` on the global batch: (loss, {flax path: array}, the EMA's
+    included under "ema/")."""
+    import jax
+    import jax.numpy as jnp
+
+    from real_time_helmet_detection_tpu import optim as jax_optim
+    from real_time_helmet_detection_tpu.config import Config as JaxConfig
+    from real_time_helmet_detection_tpu.models import \
+        build_model as jax_build
+    from real_time_helmet_detection_tpu.train import (TrainState,
+                                                      make_train_step_body)
+    from real_time_helmet_detection_tpu_torch import convert
+    from real_time_helmet_detection_tpu_torch.data.synthetic import \
+        synthetic_target_batch
+    jcfg = JaxConfig(num_stack=1, hourglass_inch=16, num_cls=2,
+                     batch_size=BATCH, optim="SGD", lr=LR, **extras,
+                     **FUSED)
+    tx = jax_optim.build_optimizer(jcfg, 10)
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                       batch_stats=stats, opt_state=tx.init(params),
+                       ema_params=jax.tree.map(jnp.copy, params))
+    body = jax.jit(make_train_step_body(jax_build(jcfg), tx, jcfg))
+    arrs = synthetic_target_batch(BATCH, IMSIZE, seed=5)
+    state, jl = body(state, *map(jnp.asarray, arrs), jnp.float32(1.0))
+    assert float(jl["sentinel_bad"]) == 0.0
+    jstate = convert.flatten_tree(jax.device_get(
+        {"params": state.params, "batch_stats": state.batch_stats}))
+    jstate.update({"ema/" + k: v for k, v in convert.flatten_tree(
+        jax.device_get(state.ema_params)).items()})
+    return float(jl["total"]), jstate
+
+
+def check_skip_and_ranks(r0, r1):
+    """The clean step taken and the NaN step on rank 1 skipped by both
+    ranks, each keeping its whole state; the ranks bit-equal."""
+    assert r0["bad"] == r1["bad"] == (0.0, 1.0)
+    assert r0["kept"] and r1["kept"]
+    assert r0["loss"] == r1["loss"]
+    assert sorted(r0["state"]) == sorted(r1["state"])
+    for k in r0["state"]:
+        np.testing.assert_array_equal(r0["state"][k], r1["state"][k],
+                                      err_msg=k)
+
+
+def check_ema_recurrence(sides, p0, names):
+    """The EMA after one update is d p0 + (1 - d) p1 of each side's own
+    parameters (rtol 1e-6)."""
+    d = SENTINEL["ema_decay"]
+    for side in sides:
+        for n in names:
+            e = "ema/" + n[len("params/"):]
+            np.testing.assert_allclose(
+                side[e], np.float32(d) * p0[n] + np.float32(1 - d) * side[n],
+                rtol=1e-6, atol=1e-9, err_msg=e)
+
+
+def moved(side, p0, names, prefix=""):
+    """What the parameters (or, with prefix "ema/", the EMA) moved by
+    in the step, as one float64 vector."""
+    return np.concatenate([
+        (np.asarray(side[prefix + (n if not prefix else n[len("params/"):])],
+                    np.float64) - p0[n]).ravel() for n in names])
+
+
+@pytest.mark.parametrize("mode", ["step", "accum", "extras", "sentinel"])
 def test_two_process_step_matches_single_and_jax(tmp_path, jax_init, mode):
     """One step at world 2 against itself across ranks, the port's
     single-process step and JAX's (see the module docstring)."""
@@ -312,6 +384,8 @@ def test_two_process_step_matches_single_and_jax(tmp_path, jax_init, mode):
     r0, r1 = run_world(tmp_path, mode)
     if mode == "extras":
         return check_extras(r0, r1, init_path, params_tree, stats)
+    if mode == "sentinel":
+        return check_sentinel(r0, r1, init_path, params_tree, stats)
     assert r0["loss"] == r1["loss"]
     assert sorted(r0["state"]) == sorted(r1["state"])
     for k in r0["state"]:
@@ -356,39 +430,27 @@ def check_extras(r0, r1, init_path, params_tree, stats):
     sums' order moves their inputs by ulps, and a code that flips moves
     every later input, observed 2.1e-2); a NaN batch on
     rank 1 alone is skipped by both ranks, whose whole state stays as it
-    was; the ranks bit-equal, EMA included; against the single process
-    and JAX's global sentinel step (loss_scale 1), the loss rtol 1e-2
-    (a 1e-6 change of the images moves the int8 loss up to 4e-3) and
-    the update and the EMA's movement relative L2 1.0 at most — the int8
-    path's own sensitivity (tests/test_torch_fwd_int8.py: a 1e-6 change
-    of the images moves the gradient ~50%), so this only refuses a
-    missing or flipped update (observed 0.35 against the single process,
-    0.44 against JAX); the EMA is d p0 + (1 - d) p1 of each side's own
-    parameters (rtol 1e-6)."""
+    was; the ranks bit-equal, EMA included; the EMA is d p0 + (1 - d) p1
+    of each side's own parameters (rtol 1e-6); against the single
+    process and JAX's global sentinel step (loss_scale 1), the loss rtol
+    1e-2 (a 1e-6 change of the images moves the int8 loss up to 4e-3)
+    and the update and the EMA's movement relative L2 under 1.0 — the
+    int8 path's own sensitivity (tests/test_torch_fwd_int8.py: a 1e-6
+    change of the images moves the gradient ~50%), so this only refuses
+    a missing or flipped update (observed 0.35 against the single
+    process, 0.44 against JAX). The sentinel and the EMA under DDP are
+    held to the single process and JAX at the plain step's bounds by the
+    f32 case, `check_sentinel`."""
     import jax
-    import jax.numpy as jnp
 
-    from real_time_helmet_detection_tpu import optim as jax_optim
-    from real_time_helmet_detection_tpu.config import Config as JaxConfig
-    from real_time_helmet_detection_tpu.models import \
-        build_model as jax_build
-    from real_time_helmet_detection_tpu.train import (TrainState,
-                                                      make_train_step_body)
     from real_time_helmet_detection_tpu_torch import convert
     from real_time_helmet_detection_tpu_torch.config import Config
-    from real_time_helmet_detection_tpu_torch.data.synthetic import \
-        synthetic_target_batch
-    assert r0["bad"] == r1["bad"] == (0.0, 1.0)
-    assert r0["kept"] and r1["kept"]
+    check_skip_and_ranks(r0, r1)
     cfg = Config(device="cpu", num_stack=1, hourglass_inch=16,
                  batch_size=BATCH, optim="SGD", lr=LR, **EXTRAS)
     from test_torch_predict import chip_smoke
     dense, dw = chip_smoke.ste_walk(cfg)
     assert r0["steps"] == r1["steps"] and len(r0["steps"]) == dense + len(dw)
-    assert r0["loss"] == r1["loss"]
-    for k in r0["state"]:
-        np.testing.assert_array_equal(r0["state"][k], r1["state"][k],
-                                      err_msg=k)
     single = port_extras(cfg, init_path, slice(None), lambda m: m,
                          poison=slice(2, 4))
     assert single["bad"] == (0.0, 1.0) and single["kept"]
@@ -398,46 +460,67 @@ def check_extras(r0, r1, init_path, params_tree, stats):
             r0["local"][i], r1["local"][i])))), i
     assert r0["steps"][0] == single["steps"][0]
     np.testing.assert_allclose(r0["steps"], single["steps"], rtol=5e-2)
-    jcfg = JaxConfig(num_stack=1, hourglass_inch=16, num_cls=2,
-                     batch_size=BATCH, optim="SGD", lr=LR, **EXTRAS,
-                     **FUSED)
-    tx = jax_optim.build_optimizer(jcfg, 10)
-    state = TrainState(step=jnp.zeros((), jnp.int32), params=params_tree,
-                       batch_stats=stats, opt_state=tx.init(params_tree),
-                       ema_params=jax.tree.map(jnp.copy, params_tree))
-    body = jax.jit(make_train_step_body(jax_build(jcfg), tx, jcfg))
-    arrs = synthetic_target_batch(BATCH, IMSIZE, seed=5)
-    state, jl = body(state, *map(jnp.asarray, arrs), jnp.float32(1.0))
-    assert float(jl["sentinel_bad"]) == 0.0
-    jstate = convert.flatten_tree(jax.device_get(
-        {"params": state.params, "batch_stats": state.batch_stats}))
-    jstate.update({"ema/" + k: v for k, v in convert.flatten_tree(
-        jax.device_get(state.ema_params)).items()})
+    jloss, jstate = jax_sentinel_step(params_tree, stats, EXTRAS)
     p0 = convert.flatten_tree({"params": jax.device_get(params_tree)})
-    names = sorted(n for n in p0)
-    d = EXTRAS["ema_decay"]
-    for side in (r0["state"], single["state"], jstate):
-        for n in names:
-            e = "ema/" + n[len("params/"):]
-            np.testing.assert_allclose(
-                side[e], np.float32(d) * p0[n] + np.float32(1 - d) * side[n],
-                rtol=1e-6, atol=1e-9, err_msg=e)
-
-    def moved(side, prefix=""):
-        return np.concatenate([
-            (np.asarray(side[prefix + (n if not prefix else
-                                       n[len("params/"):])], np.float64)
-             - p0[n]).ravel() for n in names])
-    for other, what in ((single, "single"), ({"state": jstate,
-                                              "loss": float(jl["total"])},
-                                             "JAX")):
+    names = sorted(p0)
+    check_ema_recurrence((r0["state"], single["state"], jstate), p0, names)
+    for other, what in ((single, "single"),
+                        ({"state": jstate, "loss": jloss}, "JAX")):
         np.testing.assert_allclose(r0["loss"], other["loss"], rtol=1e-2,
                                    err_msg=what)
         for prefix in ("", "ema/"):
-            a, b = moved(r0["state"], prefix), moved(other["state"], prefix)
+            a = moved(r0["state"], p0, names, prefix)
+            b = moved(other["state"], p0, names, prefix)
             err = np.linalg.norm(a - b) / np.linalg.norm(b)
             print("extras: %s %supdate rel L2 %.3g" % (what, prefix, err))
             assert err < 1.0, (what, prefix, err)
+
+
+def check_sentinel(r0, r1, init_path, params_tree, stats):
+    """`--sentinel --ema-decay 0.99` at world 2 in f32: the NaN batch on
+    rank 1 skipped by both ranks with their whole state kept, the ranks
+    bit-equal; the clean step against the port's single process on the
+    global batch (loss rtol 1e-5, every element of the parameters,
+    statistics and EMA within SAME_PORT) and against JAX's global
+    sentinel step at the plain step's bounds: loss rel 1e-4, parameters
+    and EMA relative L2 1e-4, the update and the EMA's movement relative
+    L2 GRAD_REL_L2, the running statistics within STATS, and the EMA the
+    recurrence of each side's own parameters (rtol 1e-6)."""
+    import jax
+
+    from real_time_helmet_detection_tpu_torch import convert
+    from real_time_helmet_detection_tpu_torch.config import Config
+    check_skip_and_ranks(r0, r1)
+    assert r0["steps"] == []  # no STE site in f32
+    cfg = Config(device="cpu", num_stack=1, hourglass_inch=16,
+                 batch_size=BATCH, optim="SGD", lr=LR, **SENTINEL)
+    single = port_extras(cfg, init_path, slice(None), lambda m: m,
+                         poison=slice(2, 4))
+    assert single["bad"] == (0.0, 1.0) and single["kept"]
+    np.testing.assert_allclose(r0["loss"], single["loss"], rtol=1e-5)
+    assert sorted(r0["state"]) == sorted(single["state"])
+    for name in single["state"]:
+        np.testing.assert_allclose(r0["state"][name], single["state"][name],
+                                   err_msg=name, **SAME_PORT)
+    jloss, jstate = jax_sentinel_step(params_tree, stats, SENTINEL)
+    np.testing.assert_allclose(r0["loss"], jloss, rtol=1e-4)
+    assert sorted(jstate) == sorted(r0["state"])
+    p0 = convert.flatten_tree({"params": jax.device_get(params_tree)})
+    names = sorted(p0)
+    check_ema_recurrence((r0["state"], single["state"], jstate), p0, names)
+    for name in sorted(n for n in jstate if n.startswith("batch_stats/")):
+        np.testing.assert_allclose(r0["state"][name], jstate[name],
+                                   err_msg=name, **STATS)
+    zero = {n: np.zeros_like(p0[n]) for n in names}
+    for prefix in ("", "ema/"):
+        a = moved(r0["state"], p0, names, prefix)
+        b = moved(jstate, p0, names, prefix)
+        err = np.linalg.norm(a - b) / np.linalg.norm(b)
+        print("sentinel: JAX %supdate rel L2 %.3g" % (prefix, err))
+        assert err <= GRAD_REL_L2, (prefix, err)
+        err = rel_l2(moved(r0["state"], zero, names, prefix),
+                     moved(jstate, zero, names, prefix))
+        assert err <= 1e-4, (prefix, err)
 
 
 def test_epoch_indices_shards_match_jax():
