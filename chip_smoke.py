@@ -108,6 +108,29 @@ version on the card:
    step's, a finite spike is skipped, the backoff ladder), `--distill`
    (a 2-stack flagship teacher the phase writes, an edge-architecture
    student: the teacher's #2/#8 launches, the loss falls over 8 steps);
+11e. train_runtime: the training runtime at the flagship's width, b16
+   512^2 --amp, max_boxes 128, on a 160-image 512^2 fixture: the device
+   augmentation and encoder (`--device-augment`) on the card against the
+   CPU on one draw (boxes, validity and mask identical, the image within
+   one grey level, the maps 1e-6); the `--device-augment` and
+   `--cache-device` steps launching one step's derived counts, an f32
+   device-augmented step against the plain kernels by train_main's rule,
+   20 cached steps whose loss falls; `--telemetry`'s norms against the
+   state (rel 1e-5) and its host syncs a step against the plain step's;
+   images/s and data wait a step of the thread loader, `--loader
+   process`, `--device-prefetch 2`, `--device-augment` and
+   `--cache-device` (an epoch of 10 steps after a warm-up epoch), the H2D
+   bytes a step and the cache's bytes an image; an `--async-ckpt`
+   checkpoint bit-equal to a sync one and the loop's stall at the
+   boundary of each; `--keep-ckpt 1 --ckpt-interval 2` leaving its one
+   dir; `--fault-inject 1:1 --auto-resume 1` (with `--loader process
+   --device-prefetch 2 --span-log`) against a clean run under
+   cudnn.deterministic (bit-equal, or within train_main's f32 gradient
+   rule, which the log says) and the span log's JAX names;
+   `--async-eval`'s subprocess mAP against `evaluate` within 1e-3 and
+   the train images/s beside it; `--prewarm` leaving the state
+   bit-identical, each bucket's first step cold and after it; a NaN
+   batch dropped and counted by the process loader's quarantine;
 12. eval_grad: the eval-mode BN backward kernels against their plain
    versions at every BN site shape, f32 and bf16, every activation (dx
    and ds bit-equal for ReLU/Linear, Mish as in 3, partials within 1e-5
@@ -213,7 +236,8 @@ version on the card:
    txt files and pickle, the mAP within 1e-3 of eager predicts' over the
    same fixture;
 26. train_cli: `--train-flag` for one epoch on a 32-image 512^2 fixture,
-   then the eval CLI on the weights it wrote; then one epoch with
+   then the eval CLI on the weights it wrote; one epoch with
+   `--device-augment --cache-device --prewarm`; then one epoch with
    `--grad-accum 2 --sub-divisions 2` on 128 images (8 steps, 4
    updates), whose loss must fall.
 
@@ -246,7 +270,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PHASES = ("identity", "build", "kernels", "timing", "main", "states",
           "train_kernels", "train_timing", "loss_kernels", "loss_timing",
-          "train_main", "accum", "ddp", "train_extras", "eval_grad",
+          "train_main", "accum", "ddp", "train_extras", "train_runtime",
+          "eval_grad",
           "eval_timing",
           "variants", "variants_small", "variants_train", "nms", "serve",
           "qkernels", "qtiming", "int8", "serve_int8", "export", "profile",
@@ -2580,7 +2605,11 @@ def syncs_in(fn):
             torch.cuda.set_sync_debug_mode(0)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return sum("synchroniz" in str(w.message) for w in caught), out
+    # the mode's one-time notice ("... does not yet detect all
+    # synchronizing operations") is not a sync
+    return sum("synchroniz" in str(w.message)
+               and "prototype feature" not in str(w.message)
+               for w in caught), out
 
 
 def ste_sites_checked(step, arrs, errs):
@@ -5443,6 +5472,26 @@ def phase_train_cli(state):
                 shown = maps[0].split(": ", 1)[1]
             log("train_cli %s: python %s (%.1f s) -> %s" % (
                 what, " ".join(cmd[1:]).replace(tmp, "<tmp>"), secs, shown))
+        # the fused input path through the CLI
+        cmd = train_cmd[:-1] + [os.path.join(out, "fused"),
+                                "--device-augment", "--cache-device",
+                                "--prewarm"]
+        t0 = time.time()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=600)
+        secs = time.time() - t0
+        tail = "\n".join((proc.stdout + proc.stderr).splitlines()[-12:])
+        iters = [ln for ln in proc.stdout.splitlines() if " iter " in ln]
+        require(proc.returncode == 0 and len(iters) == 2
+                and "prewarmed bucket 512" in proc.stdout
+                and os.path.exists(os.path.join(out, "fused", "check_point_1",
+                                                "weights.npz")),
+                "train CLI --device-augment --cache-device --prewarm exit "
+                "%d, %d iteration lines:\n%s" % (proc.returncode,
+                                                 len(iters), tail))
+        log("train_cli fused: python %s (%.1f s) -> %s" % (
+            " ".join(cmd[1:]).replace(tmp, "<tmp>"), secs,
+            iters[-1].split(", ", 1)[1]))
         # gradient accumulation through the CLI: one epoch of 8 host steps
         # on 128 images, 4 updates of 2 x 2 micro-batches of 8
         root = make_synthetic_voc(os.path.join(tmp, "voc128"),
@@ -5470,6 +5519,477 @@ def phase_train_cli(state):
             "total loss per step %s" % (
                 " ".join(cmd[1:]).replace(tmp, "<tmp>"), secs,
                 " ".join("%.2f" % v for v in totals)))
+
+
+# ----------------------------------------------- the training runtime phase
+
+RUNTIME_IMAGES = 160  # the input-path fixture: 10 steps of b16 an epoch
+
+
+def runtime_cfg(root, save, **kw):
+    """The flagship --amp train config of phase train_runtime on `root`."""
+    from real_time_helmet_detection_tpu_torch.config import Config
+    base = dict(train_flag=True, data=root, batch_size=16, amp=True,
+                num_stack=1, print_interval=1000, save_path=save,
+                hang_warn_seconds=0.0, num_workers=8)
+    base.update(kw)
+    return Config(**base)
+
+
+class PoisonAugmentor:
+    """TestAugmentor(512) whose batch 1 carries NaN float canvases (the
+    per-batch reseed names the batch), for the process loader's
+    quarantine; module level so that its spawned workers can load it."""
+
+    def __init__(self, size):
+        from real_time_helmet_detection_tpu_torch.data.augment import \
+            TestAugmentor
+        self.inner = TestAugmentor(size)
+        self.imsize = size
+        self.rng = None
+
+    def __call__(self, images, boxes, labels):
+        import numpy as np
+        images, boxes, labels = self.inner(images, boxes, labels)
+        ent = self.rng.bit_generator.seed_seq.entropy if self.rng else ()
+        if tuple(ent)[2:3] == (1,):
+            images = [np.full(im.shape, np.nan, np.float32) for im in images]
+        return images, boxes, labels
+
+
+def runtime_trainer(cfg, dev="cuda"):
+    """(model, optimizer, ema, step, Trainer) of cfg, seeded weights."""
+    from real_time_helmet_detection_tpu_torch.ops.loss import LossLog
+    from real_time_helmet_detection_tpu_torch.train import Trainer
+    model, opt, ema, step = extras_trainer(cfg)
+    return model, opt, ema, step, Trainer(model, opt, ema, None, LossLog(),
+                                          0, dev)
+
+
+def state_equal(a, b):
+    """Are two Trainer snapshots bit-identical?"""
+    import torch
+    for part in ("model",):
+        if any(not torch.equal(a[part][k], b[part][k]) for k in a[part]):
+            return False
+    sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+    return all(torch.equal(sa[k][n], sb[k][n]) for k in sa for n in sa[k])
+
+
+def epoch_rate(cfg, loader, runner, epoch):
+    """One epoch of `train_epoch` through `runner`: (images/s, mean data
+    wait per step in ms, steps), the wall closed by a synchronize."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.obs.metrics import \
+        default_registry
+    from real_time_helmet_detection_tpu_torch.ops.loss import LossLog
+    from real_time_helmet_detection_tpu_torch.train import train_epoch
+    wait = default_registry().histogram("train.loader_wait_ms")
+    w0 = wait.snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_epoch(cfg, epoch, loader, None, torch.device("cuda"), LossLog(),
+                0, chief=False, runner=runner,
+                epoch_base_step=epoch * len(loader))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    w1 = wait.snapshot()
+    steps = w1["count"] - w0["count"]
+    return (cfg.batch_size * steps / secs,
+            (w1["total"] - w0["total"]) / max(1, steps), steps)
+
+
+def staged_bytes(arrays):
+    return sum(t.numel() * t.element_size() for t in arrays)
+
+
+def runtime_augment_check(cfg, cache):
+    """One b16 batch through `augment_encode_batch` on the card and on the
+    CPU with the same parameters: the images by the warp's rule (equal
+    where both floors agree), boxes and validity identical, the maps
+    within their tolerance."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.data import augment_device as ad
+    idx = torch.arange(16, device="cuda")
+    raw = [t.index_select(0, idx) for t in (cache.images, cache.boxes,
+                                            cache.labels, cache.valid)]
+    params = ad.sample_params(ad.step_generator(cfg.random_seed + 2, 0), 16)
+    got = ad.augment_encode_batch(params, *raw, target=512)
+    torch.cuda.synchronize()
+    want = ad.augment_encode_batch(params, *[t.cpu() for t in raw],
+                                   target=512)
+    got = [t.cpu() for t in got]
+    require(torch.equal(got[5], want[5]) and torch.equal(got[6], want[6]),
+            "device augment: boxes or validity differ from the CPU's")
+    img_err = float((got[0] - want[0]).abs().max())
+    errs = {"image": img_err}
+    for i, name in ((1, "heat"), (2, "offset"), (3, "size")):
+        errs[name] = float((got[i] - want[i]).abs().max())
+    mask_equal = torch.equal(got[4], want[4])
+    require(img_err <= 1.0 and errs["heat"] <= 1e-6
+            and errs["offset"] <= 1e-6 and errs["size"] <= 1e-6
+            and mask_equal,
+            "device augment card vs CPU beyond tolerance: %s, mask equal %s"
+            % (errs, mask_equal))
+    log("train_runtime augment: b16 512^2 card vs CPU on one draw: boxes "
+        "and validity identical, mask identical, max abs image %.3g (rule: "
+        "equal where the floors agree, <= 1 grey level), heat %.3g, offset "
+        "%.3g, size %.3g (tol 1e-6); %d valid boxes" % (
+            img_err, errs["heat"], errs["offset"], errs["size"],
+            int(got[6].sum())))
+    return errs
+
+
+def phase_train_runtime(state):
+    """The training runtime at the flagship's width (residual, 1 stack,
+    128 ch), b16 512^2 --amp, max_boxes 128, on a seeded 512^2 synthetic
+    fixture: the device augmentation and encoder against the CPU; the
+    --device-augment and --cache-device steps' launches, an f32
+    device-augmented step against the plain kernels (train_main's rule)
+    and 20 steps whose loss falls; images/s and data wait per step of
+    five input paths; async against sync checkpoints and the boundary
+    stall; retention; auto-resume against a clean run; --async-eval; the
+    prewarm; telemetry norms and host syncs; the process loader's
+    quarantine; the span log's names."""
+    import dataclasses
+    import pickle
+    import statistics
+    import numpy as np
+    import torch
+    from real_time_helmet_detection_tpu_torch.config import Config
+    from real_time_helmet_detection_tpu_torch.data.augment import \
+        TestAugmentor
+    from real_time_helmet_detection_tpu_torch.data.pipeline import (
+        BatchLoader, DeviceDatasetCache, load_dataset)
+    from real_time_helmet_detection_tpu_torch.data.shm_pool import \
+        ProcessBatchLoader
+    from real_time_helmet_detection_tpu_torch.data.synthetic import \
+        make_synthetic_voc
+    from real_time_helmet_detection_tpu_torch.data.voc import VOCDataset
+    from real_time_helmet_detection_tpu_torch.obs.spans import read_spans
+    from real_time_helmet_detection_tpu_torch.obs.telemetry import \
+        NORM_KEYS
+    from real_time_helmet_detection_tpu_torch.train import (
+        AsyncEvaluator, CheckpointWriter, load_checkpoint, make_step_runner,
+        pick_target, stage, stage_raw, train)
+    out = state.setdefault("train_runtime", {})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_runtime_")
+    try:
+        t0 = time.time()
+        root = make_synthetic_voc(os.path.join(tmp, "voc"),
+                                  num_train=RUNTIME_IMAGES, num_test=16,
+                                  imsize=(512, 512), seed=0)
+        log("train_runtime: fixture of %d + 16 images at 512^2 in %.1f s"
+            % (RUNTIME_IMAGES, time.time() - t0))
+        dataset = VOCDataset(root)
+        cfg = runtime_cfg(root, tmp, device_augment=True, cache_device=True)
+        cache = DeviceDatasetCache(dataset, TestAugmentor(512), 16,
+                                   max_boxes=128, seed=cfg.random_seed,
+                                   device="cuda")
+        out["augment_errs"] = runtime_augment_check(cfg, cache)
+
+        # the fused steps: launches, the f32 step against the plain
+        # kernels, the loss over 20 steps
+        model, opt, ema, step, trainer = runtime_trainer(cfg)
+        want = expected_launches(Config(batch_size=16, imsize=512,
+                                        amp=True), "train", torch.bfloat16)
+        fused = make_step_runner(dataclasses.replace(cfg, cache_device=False),
+                                 step, torch.device("cuda"))
+        cached = make_step_runner(cfg, step, torch.device("cuda"),
+                                  cache=cache)
+        host_batch = next(iter(BatchLoader(
+            dataset, TestAugmentor(512), 16, max_boxes=128, raw=True,
+            num_workers=8)))
+        idx = next(iter(cache))
+        for runner, batch in ((fused, host_batch), (cached, idx)):
+            runner(batch, 0, 0, True)  # warm-up
+        saved = trainer.snapshot()
+        launches = {}
+        for name, runner, batch in (("device_augment", fused, host_batch),
+                                    ("cache_device", cached, idx)):
+            reset_counts()
+            runner(batch, 1, 1, True)  # THE path run the counts read
+            torch.cuda.synchronize()
+            launches[name] = read_counts()
+            require(launches[name] == want, "launches per %s step %s, want "
+                    "%s" % (name, launches[name], want))
+        state.setdefault("launches", {}).update(
+            {"train_" + k: v for k, v in launches.items()})
+        trainer.restore_snapshot(saved)
+        from real_time_helmet_detection_tpu_torch.data import \
+            augment_device as ad
+        params = ad.sample_params(ad.step_generator(cfg.random_seed + 2, 3),
+                                  16)
+        mean, std = ad.normalizer(cfg.pretrained, "cuda")
+        with torch.no_grad():
+            img, heat, off, wh, mask, _, _ = ad.augment_encode_batch(
+                params, *stage_raw(host_batch, torch.device("cuda")),
+                target=512)
+        arrs = [ad.normalize_device(img, mean, std), heat, off, wh, mask]
+        cfg32 = Config(batch_size=16)
+        model32 = extras_trainer(cfg32)[0]
+        model32.load_state_dict(model.state_dict())
+        out["step_errs"] = check_train_step(model, model32, arrs,
+                                            Config(batch_size=16, amp=True),
+                                            cfg32)
+        del model32
+        losses = [float(cached(idx, 100 + i, i, True)["total"])
+                  for i in range(20)]
+        require(all(map(math.isfinite, losses))
+                and statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
+                "--cache-device: the loss does not fall over 20 steps: %s"
+                % losses)
+        out["losses"] = losses
+        log("train_runtime steps: --device-augment and --cache-device "
+            "launch %s per step (as derived); loss over 20 cached steps "
+            "%.3f -> %.3f" % (want, losses[0], losses[-1]))
+
+        # telemetry: norms against the state, host syncs per step
+        tcfg = dataclasses.replace(cfg, telemetry=True)
+        tmodel, topt, _, tstep, _ = runtime_trainer(tcfg)
+        host = next(iter(BatchLoader(dataset, load_dataset(cfg)[1], 16,
+                                     max_boxes=128, num_workers=8)))
+        harrs = stage(host, torch.device("cuda"))
+        for i in range(2):  # warm-up: the allocator's blocks, plans
+            tstep(i, *harrs)
+            step(i, *harrs)
+        torch.cuda.synchronize()
+        before = [p.detach().clone() for p in tmodel.parameters()]
+        tel_syncs, tl = syncs_in(lambda: tstep(2, *harrs))
+        after = [p.detach() for p in tmodel.parameters()]
+        norm = lambda ts: float(torch.sqrt(sum(  # noqa: E731
+            (t.double() ** 2).sum() for t in ts)))
+        recomputed = {"grad_norm": norm([p.grad for p in
+                                         tmodel.parameters()]),
+                      "update_norm": norm([a.double() - b.double()
+                                           for a, b in zip(after, before)]),
+                      "param_norm": norm(after)}
+        tel_errs = {k: abs(float(tl[k]) / recomputed[k] - 1)
+                    for k in NORM_KEYS}
+        plain_syncs, _ = syncs_in(lambda: step(2, *harrs))
+        require(all(v <= 1e-5 for v in tel_errs.values())
+                and tel_syncs <= plain_syncs,
+                "telemetry: norms off by %s (tol rel 1e-5) or %d host syncs "
+                "a step against %d without" % (tel_errs, tel_syncs,
+                                                plain_syncs))
+        out["telemetry"] = dict(rel_errs=tel_errs, syncs=tel_syncs,
+                                plain_syncs=plain_syncs)
+        log("train_runtime telemetry: norms vs the state rel %s; host syncs "
+            "a step %d with --telemetry, %d without" % (
+                {k: "%.2g" % v for k, v in tel_errs.items()}, tel_syncs,
+                plain_syncs))
+        del tmodel, topt, tstep
+
+        # input paths: images/s and data wait per step, epoch 1 of each
+        # after a warm-up epoch 0 (10 steps of b16 each)
+        aug = load_dataset(cfg)[1]
+        hcfg = dataclasses.replace(cfg, device_augment=False,
+                                   cache_device=False)
+        paths = {}
+        kw = dict(max_boxes=128, seed=cfg.random_seed, num_workers=8)
+        proc = ProcessBatchLoader(dataset, aug, 16, **kw)
+        specs = (
+            ("thread", hcfg, BatchLoader(dataset, aug, 16, **kw),
+             make_step_runner(hcfg, step, torch.device("cuda"))),
+            ("process", dataclasses.replace(hcfg, loader="process"), proc,
+             make_step_runner(hcfg, step, torch.device("cuda"))),
+            ("thread+prefetch2", dataclasses.replace(hcfg, device_prefetch=2),
+             BatchLoader(dataset, aug, 16, **kw),
+             make_step_runner(hcfg, step, torch.device("cuda"))),
+            ("device_augment", dataclasses.replace(cfg, cache_device=False),
+             BatchLoader(dataset, TestAugmentor(512), 16, raw=True, **kw),
+             fused),
+            ("device_augment+cache_device", cfg, cache, cached))
+        try:
+            for name, pcfg, loader, runner in specs:
+                epoch_rate(pcfg, loader, runner, 0)
+                ips, wait_ms, steps = epoch_rate(pcfg, loader, runner, 1)
+                require(steps >= 8, "%s: %d steps" % (name, steps))
+                paths[name] = dict(ips=ips, wait_ms=wait_ms, steps=steps)
+        finally:
+            proc.close()
+        h2d = {"host": staged_bytes(stage(host, torch.device("cuda"))),
+               "raw": staged_bytes(stage_raw(host_batch,
+                                             torch.device("cuda"))),
+               "cache": 16 * 8 + 16 * 19 * 4}
+        out.update(paths=paths, h2d_bytes=h2d,
+                   cache_bytes_per_image=cache.nbytes / len(dataset))
+        for name, r in paths.items():
+            log("train_runtime input %s: %.1f img/s, data wait %.2f ms a "
+                "step over %d steps (b16 512^2 --amp)" % (
+                    name, r["ips"], r["wait_ms"], r["steps"]))
+        log("train_runtime input: H2D bytes a step host %d, raw %d, cached "
+            "%d (indices + augmentation parameters); the cache holds %.0f "
+            "bytes an image on the card" % (
+                h2d["host"], h2d["raw"], h2d["cache"],
+                out["cache_bytes_per_image"]))
+
+        # checkpoints: async bit-equal to sync; the boundary stall
+        stalls = {"sync": [], "async": []}
+        for i in range(2):
+            for mode in ("sync", "async") if i % 2 == 0 else ("async",
+                                                              "sync"):
+                writer = CheckpointWriter(async_save=mode == "async")
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                writer.save(os.path.join(tmp, "ck_" + mode), i, 7, model,
+                            opt, trainer.loss_log, ema)
+                stalls[mode].append(time.perf_counter() - t1)
+                writer.finalize()
+        a = load_checkpoint(os.path.join(tmp, "ck_async", "check_point_2"))
+        s = load_checkpoint(os.path.join(tmp, "ck_sync", "check_point_2"))
+        same = all(torch.equal(a["state_dict"][k], s["state_dict"][k])
+                   for k in s["state_dict"])
+        same &= all(torch.equal(a["optimizer"]["state"][k][n], v)
+                    for k, st in s["optimizer"]["state"].items()
+                    for n, v in st.items())
+        require(same, "the async checkpoint's tensors differ from the sync "
+                "one's")
+        out["ckpt_stall_s"] = {k: statistics.median(v)
+                               for k, v in stalls.items()}
+        log("train_runtime checkpoint: async tensors bit-equal to sync; "
+            "loop stall at the boundary sync %.3f s, async %.3f s (median "
+            "of 2, flagship state)" % (out["ckpt_stall_s"]["sync"],
+                                       out["ckpt_stall_s"]["async"]))
+        del model, opt, ema, step, trainer, fused, cached
+        torch.cuda.empty_cache()
+
+        # retention, auto-resume and the span log through train() on a
+        # 32-image fixture (2 steps an epoch)
+        small = make_synthetic_voc(os.path.join(tmp, "voc32"), num_train=32,
+                                   num_test=16, imsize=(512, 512), seed=1)
+        ret = os.path.join(tmp, "ret")
+        train(runtime_cfg(small, ret, end_epoch=5, keep_ckpt=1,
+                          ckpt_interval=2, num_workers=4))
+        left = sorted(d for d in os.listdir(ret) if d.startswith("check"))
+        require(left == ["check_point_5"], "--keep-ckpt 1 --ckpt-interval 2 "
+                "left %s" % left)
+        torch.backends.cudnn.deterministic = True
+        try:
+            clean = train(runtime_cfg(small, os.path.join(tmp, "clean"),
+                                      end_epoch=2, num_workers=4))
+            spans = os.path.join(tmp, "spans.jsonl")
+            faulty = train(runtime_cfg(
+                small, os.path.join(tmp, "faulty"), end_epoch=2,
+                num_workers=4, fault_inject="1:1", auto_resume=1,
+                resume_backoff_s=0.0, loader="process", device_prefetch=2,
+                span_log=spans))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        cs, fs = clean["model"].state_dict(), faulty["model"].state_dict()
+        diffs = [k for k in cs if not torch.equal(cs[k], fs[k])]
+        if diffs:
+            wrong = max(float((cs[k].double() - fs[k].double()).norm()
+                              / max(float(cs[k].double().norm()), 1e-30))
+                        for k in diffs)
+            require(wrong <= STEP_TOL["f32_grad"], "auto-resume run off the "
+                    "clean run by rel %.3g" % wrong)
+            out["auto_resume"] = "within rel %.3g (%d tensors differ)" % (
+                wrong, len(diffs))
+        else:
+            out["auto_resume"] = "bit-equal"
+        names = {r.get("name") for r in read_spans(spans)}
+        require({"loader-wait", "h2d", "step", "fetch", "checkpoint",
+                 "recover:auto-resume"} <= names, "span log names %s"
+                % sorted(n for n in names if n))
+        log("train_runtime recovery: --fault-inject 1:1 --auto-resume 1 "
+            "(--loader process --device-prefetch 2 --span-log) against a "
+            "clean run under cudnn.deterministic: %s; retention left %s; "
+            "span names %s" % (out["auto_resume"], left,
+                               sorted(n for n in names if n)))
+        del clean, faulty
+        torch.cuda.empty_cache()
+
+        # --async-eval: the subprocess's mAP against evaluate's, and the
+        # training rate while it runs
+        from real_time_helmet_detection_tpu_torch.evaluate import evaluate
+        ckpt = os.path.join(ret, "check_point_5")
+        ecfg = runtime_cfg(small, os.path.join(tmp, "ev"), async_eval=True,
+                           imsize=512)
+        evaluator = AsyncEvaluator(ecfg)
+        evaluator.submit(4, ckpt)
+        model, opt, ema, step, trainer = runtime_trainer(cfg)
+        cached = make_step_runner(cfg, step, torch.device("cuda"),
+                                  cache=cache)
+        n, t1 = 0, time.perf_counter()
+        while evaluator.running() and time.perf_counter() - t1 < 60:
+            cached(idx, n, n, True)
+            n += 1
+            if n % 10 == 0:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        during = 16 * n / (time.perf_counter() - t1)
+        evaluator.finalize()
+        rec = evaluator.completed[-1]
+        require(rec["ok"], "--async-eval subprocess failed: see %s"
+                % os.path.join(tmp, "ev"))
+        want_map = evaluate(dataclasses.replace(
+            ecfg, train_flag=False, async_eval=False, model_load=ckpt,
+            save_path=os.path.join(tmp, "ev_inproc")))["map"]
+        require(abs(rec["map"] - want_map) <= 1e-3, "--async-eval mAP %.4f, "
+                "evaluate %.4f" % (rec["map"], want_map))
+        # a checkpoint of 10 steps scores ~0: hold the detections too
+        dets = []
+        for d in (os.path.join(tmp, "ev", "eval_async", "e4"),
+                  os.path.join(tmp, "ev_inproc")):
+            with open(os.path.join(d, "prediction_results.pickle"),
+                      "rb") as f:
+                dets.append(pickle.load(f))
+        require(sorted(dets[0]) == sorted(dets[1]) and all(
+            np.array_equal(np.asarray(dets[0][k][f]), np.asarray(dets[1][k][f]))
+            for k in dets[1] for f in ("box", "cls", "score")),
+            "--async-eval detections differ from evaluate's")
+        n_dets = sum(len(np.asarray(v["score"])) for v in dets[1].values())
+        out["async_eval"] = dict(map=rec["map"], want=want_map,
+                                 train_ips_during=during, steps=n)
+        log("train_runtime --async-eval: subprocess mAP %.4f vs evaluate "
+            "%.4f, its %d detections identical; %d cached train steps ran "
+            "beside it at %.1f img/s" % (rec["map"], want_map, n_dets, n,
+                                         during))
+
+        # --prewarm: state bit-identical; each bucket's first step cold
+        # (the prewarm's own step of it, on zeros) and the first real step
+        # after the prewarm (buckets no earlier phase ran)
+        mcfg = dataclasses.replace(cfg, multiscale_flag=True)
+        first_step = {}
+        for i in range(400):
+            first_step.setdefault(pick_target(mcfg, i), i)
+        model, opt, ema, step, trainer = runtime_trainer(mcfg)
+        runner = make_step_runner(mcfg, step, torch.device("cuda"),
+                                  cache=cache)
+        before = trainer.snapshot()
+        cold = runner.prewarm(trainer)
+        require(state_equal(before, trainer.snapshot()),
+                "--prewarm changed the train state")
+        warm = {}
+        for b in sorted(cold):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            float(runner(idx, first_step[b], 0, True)["total"])
+            warm[b] = time.perf_counter() - t1
+        out["prewarm"] = dict(cold_first_step_s=cold, after_prewarm_s=warm)
+        log("train_runtime --prewarm: state bit-identical; each bucket's "
+            "first step cold (inside the prewarm) %s s, the first real step "
+            "after it %s s" % ({b: round(v, 3) for b, v in cold.items()},
+                               {b: round(v, 3) for b, v in warm.items()}))
+
+        # the quarantine under --loader process --sentinel
+        qproc = ProcessBatchLoader(dataset, PoisonAugmentor(512), 16,
+                                   max_boxes=128, seed=cfg.random_seed,
+                                   num_workers=4, quarantine=True)
+        try:
+            got = list(qproc)
+        finally:
+            qproc.close()
+        require(qproc.quarantined == 1 and len(got) == RUNTIME_IMAGES // 16
+                - 1, "quarantine: %d dropped, %d batches" % (
+                    qproc.quarantined, len(got)))
+        log("train_runtime quarantine: a NaN batch dropped and counted (%d "
+            "of %d)" % (qproc.quarantined, RUNTIME_IMAGES // 16))
+        del model, opt, ema, step, trainer, runner, cache
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_profile(state):
@@ -5683,8 +6203,11 @@ def kernel_rows(state):
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t.get("bound_by", "bytes"),
             "library_ms": t["library_ms"], "table_row": row})
-        if counts is train:  # the same kernels under --grad-accum 2
+        if counts is train:  # the same kernels under --grad-accum 2 and
+            # on the fused input paths of phase train_runtime
             rows[-1]["launches_grad_accum_2"] = launches["accum"][name]
+            for path in ("device_augment", "cache_device"):
+                rows[-1]["launches_" + path] = launches["train_" + path][name]
         if "composition_ms" in t:
             rows[-1]["composition_ms"] = t["composition_ms"]
             rows[-1]["launches_eval_grad"] = eval_grad[name]

@@ -13,8 +13,8 @@ Max|Avg|Conv|SPP|None`, `--neck-pool None|SPP`, `--stem-s2d`), and every
 `--nms` mode (nms|soft-nms|maxpool). Values the port has not built yet
 raise `NotImplementedError` instead of running something else: any other
 activation, pool, neck pool or variant and `--num-stack` < 1 where the
-model is built (models/hourglass.py); any other `--nms`; and
-`--device-augment`. The JAX flags that only choose
+model is built (models/hourglass.py); and any other `--nms`. The JAX
+flags that only choose
 between a kernel and its XLA composition (`--use-pallas`, `--epilogue`,
 `--block-fuse`, `--loss-kernel`) have no field: the port has one path —
 the kernels, the fused loss among them (the JAX package's TPU default,
@@ -69,6 +69,29 @@ The train-step extras (ref config.py:319-440, validation :470-503,
   move the host's update window);
 * `--distill CKPT --distill-alpha a`: a teacher's soft targets join the
   loss.
+
+The training runtime (ref config.py:119-130, :255-258, :322-330,
+:382-416, :443-455, the refusals of ref config.py:513-517 and
+train.py:1733-1757, :1845-1857), with JAX's names, defaults and checks:
+
+* input: `--loader thread|process` (`data/shm_pool.py`),
+  `--device-prefetch N` (stage N batches ahead on a side stream),
+  `--device-augment` (augment and encode on the card;
+  `data/augment_device.py`), `--cache-device` (the dataset on the card;
+  needs `--device-augment`), `--prewarm` (run each multiscale bucket's
+  step once before the first epoch);
+* checkpoints and recovery: `--ckpt-interval N`, `--keep-ckpt N`,
+  `--async-ckpt`, `--auto-resume N`, `--resume-backoff-s s`,
+  `--async-eval`, `--hang-warn-seconds s`, `--fault-inject EPOCH:ITER`;
+* observability: `--telemetry` (gradient/update/parameter norms in the
+  losses), `--span-log PATH` (the flight recorder; else $OBS_SPAN_LOG).
+
+Refused as JAX refuses them: `--grad-accum` > 1 with `--device-augment`
+(always); in a training run `--cache-device` without `--device-augment`,
+`--async-eval` with `--async-ckpt` or without a dataset root,
+`--auto-resume` with `--async-ckpt`, and `--async-ckpt`, `--auto-resume`
+or `--cache-device` with `--world-size` > 1 (JAX refuses them for more
+than one process).
 
 Config snapshots (ref config.py:853-913): the CLI writes
 `argument.json`/`argument.txt` into `--save-path` (`save_config`; JAX's
@@ -140,7 +163,12 @@ class Config:
     # one update on the summed gradients; must divide --batch-size
     start_epoch: int = 0
     end_epoch: int = 100
-    num_workers: int = 8          # host data-pipeline worker threads
+    num_workers: int = 8          # host data-pipeline workers (threads
+    # or processes, per --loader)
+    loader: str = "thread"        # thread | process (data/shm_pool.py:
+    # spawned workers, shared-memory batches, bit-identical)
+    device_prefetch: int = 0      # stage the next N batches' copies to
+    # the card on a side stream while the step runs (0 disables)
     save_path: str = "./WEIGHTS/"
     print_interval: int = 100
 
@@ -188,8 +216,33 @@ class Config:
     distill: Optional[str] = None  # teacher checkpoint (dir, save dir or
     # npz); its architecture from the snapshot beside it
     distill_alpha: float = 0.5    # weight of the soft losses
-    # not ported: any value but the default raises (see __post_init__)
-    device_augment: bool = False
+
+    # the training runtime (ref config.py:255-258, :322-330, :382-455)
+    device_augment: bool = False  # augment + encode on the card, inside
+    # the step (data/augment_device.py); the host only decodes and resizes
+    cache_device: bool = False    # the whole dataset's canvases on the
+    # card; each step gathers its batch by index (needs --device-augment)
+    prewarm: bool = False         # run every multiscale bucket's step once
+    # on zeros before epoch 0 (cuDNN plans, allocator); state unchanged
+    ckpt_interval: int = 1        # checkpoint every N epochs (and the last)
+    keep_ckpt: int = 0            # keep only this run's newest N
+    # checkpoints (0 keeps all)
+    async_ckpt: bool = False      # snapshot on the card, write from a
+    # thread while the next epoch trains (at most one save in flight)
+    hang_warn_seconds: float = 300.0  # watchdog: warn when no step
+    # completes for this long (0 disables)
+    async_eval: bool = False      # evaluate each checkpoint in one
+    # background subprocess on the training device (skipped when busy)
+    auto_resume: int = 0          # on a transient backend failure, back
+    # off, probe the card, restore this run's newest checkpoint and go on,
+    # up to N times (0 disables)
+    resume_backoff_s: float = 15.0  # attempt k sleeps min(300, k * this)
+    fault_inject: str = ""        # "EPOCH:ITER": raise one synthetic
+    # transient backend error there (exercises --auto-resume)
+    telemetry: bool = False       # gradient/update/parameter norms in each
+    # step's losses, fetched with them
+    span_log: str = ""            # flight-recorder span log (JSONL); "" =
+    # $OBS_SPAN_LOG when set, else off
 
     # distributed: one process per card (the reference's convention)
     world_size: int = 1           # number of processes
@@ -310,7 +363,7 @@ class Config:
                 "skipped step would move the update window, which the "
                 "port sets on the host ahead of the verdict; use "
                 "--grad-accum")
-        only("device-augment", self.device_augment, (False,))
+        self._check_runtime()
         only("optim", self.optim.lower(), ("adam", "adamw", "sgd"))
         if self.sub_divisions < 1:
             raise ValueError("--sub-divisions must be >= 1, got %d"
@@ -390,6 +443,49 @@ class Config:
         if len(self.multiscale) != 3 or self.multiscale[2] <= 0:
             raise ValueError("--multiscale takes MIN MAX STEP with STEP > 0, "
                              "got %r" % (self.multiscale,))
+
+
+    def _check_runtime(self) -> None:
+        """The training runtime's values and JAX's refusals of its
+        combinations (ref config.py:513-517, :599-604; train.py:1733-1757,
+        :1845-1857)."""
+        if self.loader not in ("thread", "process"):
+            raise ValueError("--loader must be 'thread' or 'process', got %r"
+                             % self.loader)
+        if self.device_prefetch < 0:
+            raise ValueError("--device-prefetch must be >= 0, got %d"
+                             % self.device_prefetch)
+        if self.grad_accum > 1 and self.device_augment:
+            raise ValueError(
+                "--grad-accum > 1 is host-input-path only: the fused "
+                "--device-augment step augments per batch and has no "
+                "micro-batch scan")
+        if not self.train_flag:  # the rest JAX refuses when it trains
+            return
+        if self.cache_device and not self.device_augment:
+            raise ValueError("--cache-device requires --device-augment "
+                             "(augmentation must run on-device; the cache "
+                             "holds un-augmented canvases)")
+        if self.async_eval and self.async_ckpt:
+            raise ValueError("--async-eval requires synchronous "
+                             "checkpoints (drop --async-ckpt)")
+        if self.async_eval and not (self.data
+                                    and os.path.isdir(str(self.data))):
+            raise ValueError("--async-eval needs --data pointing at a "
+                             "dataset root (the eval subprocess scores "
+                             "the test split)")
+        if self.auto_resume and self.async_ckpt:
+            raise ValueError("--auto-resume requires synchronous "
+                             "checkpoints (drop --async-ckpt)")
+        if self.world_size > 1:
+            for flag, on in (("--async-ckpt", self.async_ckpt),
+                             ("--auto-resume", self.auto_resume),
+                             ("--cache-device", self.cache_device)):
+                if on:
+                    raise ValueError(
+                        "%s is single-process only (--world-size %d): "
+                        "restart a multi-process run with --model-load "
+                        "instead" % (flag, self.world_size))
 
 
 def build_parser() -> argparse.ArgumentParser:

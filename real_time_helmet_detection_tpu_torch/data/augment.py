@@ -1,7 +1,8 @@
 """Training augmentation with joint image/box transforms.
 
 A copy of ref real_time_helmet_detection_tpu/data/augment.py:86
-`TrainAugmentor` and its helpers `transform_boxes`, `apply_affine_image`
+`TrainAugmentor`, :153 `TestAugmentor` (the deterministic square resize
+the `--device-augment` paths load with) and their helpers `transform_boxes`, `apply_affine_image`
 and `filter_boxes` (reference data.py:127-161): color multiply, centered
 affine (scale + translate), crop-and-keep-size, horizontal flip p=0.5 and
 the final square resize, composed into one 3x3 matrix per image that is
@@ -137,3 +138,26 @@ class TrainAugmentor:
             out_boxes.append(bxs)
             out_labels.append(lbs)
         return out_imgs, out_boxes, out_labels
+
+
+class TestAugmentor:
+    """Deterministic square resize (ref augment.py:153; reference
+    data.py:163-170): each image to (imsize, imsize) by PIL bilinear, its
+    boxes scaled with it, labels unchanged."""
+
+    __test__ = False  # not a pytest class despite the name
+
+    def __init__(self, imsize: int):
+        self.imsize = int(imsize)
+
+    def __call__(self, images: List[np.ndarray], boxes: List[np.ndarray],
+                 labels: List[np.ndarray]):
+        t = self.imsize
+        out_imgs, out_boxes = [], []
+        for img, bxs in zip(images, boxes):
+            h, w = img.shape[:2]
+            m = _scaling(t / w, t / h)
+            pil = Image.fromarray(img).resize((t, t), Image.BILINEAR)
+            out_imgs.append(np.asarray(pil))
+            out_boxes.append(transform_boxes(bxs, m))
+        return out_imgs, out_boxes, list(labels)

@@ -1,7 +1,8 @@
-"""Flight recorder of the port's serving engine: trace contexts, spans,
-live metrics and the SLO watchdog (the JAX package's `obs/trace.py`,
-`obs/spans.py`, `obs/metrics.py` and `obs/slo.py`, copied as far as the
-engine uses them; stdlib only)."""
+"""Flight recorder of the port's serving engine and train loop: trace
+contexts, spans, live metrics, the SLO watchdog and the step telemetry
+(the JAX package's `obs/trace.py`, `obs/spans.py`, `obs/metrics.py`,
+`obs/slo.py` and `obs/telemetry.py`, copied as far as the port uses
+them; stdlib only but the telemetry, which imports torch)."""
 
 from .metrics import (Counter, Gauge, Histogram,  # noqa: F401
                       MetricsRegistry, MetricsWriter, default_registry,

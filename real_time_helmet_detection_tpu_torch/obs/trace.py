@@ -1,7 +1,8 @@
 """Trace contexts: per-request causality for the span log.
 
 Port of ref real_time_helmet_detection_tpu/obs/trace.py:55-163
-(`TraceContext`, `new_root`, `links_of`, `reset_ids`), stdlib only.
+(`TraceContext`, `new_root`, `step_context`, `links_of`, `reset_ids`),
+stdlib only.
 
 * Ids come from a per-process counter under a per-process prefix (the
   pid, or `reset_ids(seed)` for tests and replay), so the same traffic
@@ -101,6 +102,17 @@ def new_root() -> TraceContext:
     """Mint a request root (the standalone `ServingEngine.submit`)."""
     t = _IDS.next_id()
     return TraceContext(t, _IDS.next_id(), None)
+
+
+def step_context(step: int, epoch: int = 0, rank: int = 0,
+                 run: Optional[str] = None) -> TraceContext:
+    """A train step's context: the trace id from (run, epoch, step)
+    alone, so every rank's span log joins the same per-step trace; the
+    span id is rank-scoped. `run` defaults to $OBS_TRACE_RUN, else
+    "train" (ref obs/trace.py:148)."""
+    run = run or os.environ.get("OBS_TRACE_RUN") or "train"
+    trace_id = "step-%s-e%d-i%06d" % (run, int(epoch), int(step))
+    return TraceContext(trace_id, "%s.r%d" % (trace_id, int(rank)), None)
 
 
 def links_of(contexts: List[Optional[TraceContext]]) -> List[Dict]:

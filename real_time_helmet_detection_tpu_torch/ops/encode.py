@@ -3,7 +3,10 @@
 A copy of the numpy half of the JAX package's ops/encode.py (ref
 encode.py:35-120: `gaussian_radius`, `_prepare_boxes`, `encode_boxes`,
 `encode_boxes_batch`; reference transform.py:4-70 `box2hm`): channels-last
-maps (H, W, C), every box's Gaussian in one broadcast.
+maps (H, W, C), every box's Gaussian in one broadcast; and the device
+encoder of `--device-augment`, `encode_boxes_device` (ref encode.py:121
+`encode_boxes_jax`), plain PyTorch on any device, batched over images
+with `max_boxes` padding and a validity mask.
 
 Semantics (the JAX package's, verified there against the reference):
   - center index = floor(box_center / scale_factor), clipped to the map
@@ -14,7 +17,10 @@ Semantics (the JAX package's, verified there against the reference):
     sigma = r/3, support window clipped to |dx|,|dy| <= int(r)
   - overlapping Gaussians of the same class merge with `max`
   - for coincident centers, the last box in the list wins the
-    offset/size/mask scatter
+    offset/size/mask scatter (on the device: the largest valid box
+    index of each cell, a `scatter_reduce` with `amax` and a gather,
+    since an `index_put_` of duplicate indices has no defined winner on
+    CUDA)
 """
 
 from __future__ import annotations
@@ -99,3 +105,70 @@ def encode_boxes_batch(boxes_list, labels_list, imsize,
     outs = [encode_boxes(b, lb, imsize, scale_factor, num_cls, normalized)
             for b, lb in zip(boxes_list, labels_list)]
     return tuple(np.stack(x) for x in zip(*outs))
+
+
+def encode_boxes_device(boxes, labels, valid, *, height: int, width: int,
+                        scale_factor: int = 4, num_cls: int = 2,
+                        normalized: bool = False):
+    """The GT encoder of the fused input path (ref encode.py:121
+    `encode_boxes_jax`, vmapped over the batch): boxes (B, N, 4) xyxy at
+    image scale, labels (B, N) int, valid (B, N) bool, all on one device;
+    height/width the map size. Returns channels-last float32 maps heat
+    (B, H, W, num_cls), offset (B, H, W, 2), size (B, H, W, 2), mask
+    (B, H, W, 1) on that device, with JAX's float32 arithmetic in its
+    order; no host read."""
+    import torch
+    bsz, n = labels.shape
+    dev = boxes.device
+    if n == 0:  # no boxes: background everywhere
+        zeros = [torch.zeros((bsz, height, width, c), device=dev)
+                 for c in (num_cls, 2, 2, 1)]
+        return tuple(zeros)
+    sf = float(scale_factor)
+    b = boxes.float() / sf
+    xmin, ymin, xmax, ymax = b.unbind(-1)
+    xcen, ycen = (xmin + xmax) / 2.0, (ymin + ymax) / 2.0
+    xind = torch.floor(xcen).to(torch.int64).clamp(0, width - 1)
+    yind = torch.floor(ycen).to(torch.int64).clamp(0, height - 1)
+    xoff, yoff = xcen - xind.float(), ycen - yind.float()
+    xsize, ysize = xmax - xmin, ymax - ymin
+    if normalized:
+        xoff, yoff = xoff / sf, yoff / sf
+        xsize, ysize = xsize / width, ysize / height
+    radius = torch.sqrt((xcen - xmin) ** 2 + (ycen - ymin) ** 2)
+
+    # Gaussian field (B, N, H, W), windowed to |d| <= floor(r), valid
+    # boxes only; a per-class max (initial 0)
+    ri = torch.floor(radius)[..., None, None]
+    ys = torch.arange(height, dtype=torch.float32, device=dev)
+    xs = torch.arange(width, dtype=torch.float32, device=dev)
+    dy = ys[None, None, :, None] - yind.float()[..., None, None]
+    dx = xs[None, None, None, :] - xind.float()[..., None, None]
+    sigma = torch.clamp(radius, min=1e-6) / 3.0
+    g = torch.exp(-(dx * dx + dy * dy)
+                  / (2.0 * (sigma * sigma))[..., None, None])
+    window = (dx.abs() <= ri) & (dy.abs() <= ri) & valid[..., None, None]
+    g = torch.where(window, g, torch.zeros((), device=dev))
+    heat = torch.stack([
+        torch.where((labels == c)[..., None, None], g,
+                    torch.zeros((), device=dev)).amax(dim=1)
+        for c in range(num_cls)], dim=-1)
+
+    # last-valid-wins point scatter: each cell's largest valid box index
+    cell = yind * width + xind
+    order = torch.arange(n, device=dev).expand(bsz, n)
+    winner = torch.full((bsz, height * width), -1, dtype=torch.int64,
+                        device=dev).scatter_reduce_(
+        1, cell, torch.where(valid, order, -1), reduce="amax")
+    hit = (winner >= 0)[..., None]
+    pick = winner.clamp(min=0)[..., None].expand(bsz, height * width, 2)
+
+    def scatter(a, b2):
+        vals = torch.gather(torch.stack([a, b2], -1), 1, pick)
+        return torch.where(hit, vals, torch.zeros((), device=dev)).reshape(
+            bsz, height, width, 2)
+
+    offset = scatter(xoff, yoff)
+    size = scatter(xsize, ysize)
+    mask = hit.float().reshape(bsz, height, width, 1)
+    return heat, offset, size, mask

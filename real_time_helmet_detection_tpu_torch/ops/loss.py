@@ -437,6 +437,8 @@ class LossLog:
     constructor also reads an untagged dict of the four loss keys."""
 
     KEYS = ("hm", "offset", "size", "total")
+    # `--telemetry`'s norms (obs/telemetry.py): empty lists when it is off
+    TELEMETRY_KEYS = ("grad_norm", "update_norm", "param_norm")
     SCHEMA = "loss-log-v2"
 
     def __init__(self, log: Optional[Mapping[str, list]] = None):
@@ -445,11 +447,15 @@ class LossLog:
         if schema is not None and schema != self.SCHEMA:
             raise ValueError("unknown loss-log schema %r (this build reads "
                              "untagged logs and %s)" % (schema, self.SCHEMA))
-        self.log = {k: list(log.get(k, [])) for k in self.KEYS}
+        self.log = {k: list(log.get(k, []))
+                    for k in self.KEYS + self.TELEMETRY_KEYS}
 
     def append(self, losses: Mapping[str, float]) -> None:
         for k in self.KEYS:
             self.log[k].append(float(losses[k]))
+        for k in self.TELEMETRY_KEYS:  # only when the step made them
+            if k in losses:
+                self.log[k].append(float(losses[k]))
 
     def get_log(self, length: int = 100) -> str:
         parts = []

@@ -179,7 +179,11 @@ class MasterOptimizer:
         self.params = list(params)
         self.masters = [p.detach().float().clone() for p in self.params]
         self.inner = build_inner(self.masters)
-        self.param_groups = self.inner.param_groups
+
+    @property
+    def param_groups(self):
+        # the inner optimizer's live list: its load_state_dict replaces it
+        return self.inner.param_groups
 
     def accumulate(self) -> None:
         with torch.no_grad():

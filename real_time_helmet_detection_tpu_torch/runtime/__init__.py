@@ -1,5 +1,7 @@
-"""Fault injection for the port's serving engine (the JAX package's
-`runtime/errors.py` and `runtime/faults.py`, copied; no supervisor)."""
+"""Fault injection, the transient-error classifier and liveness signals
+of the port's serving engine and train loop (the JAX package's
+`runtime/errors.py`, `runtime/faults.py` and `runtime/heartbeat.py`,
+copied; no supervisor)."""
 
 from .errors import InjectedBackendError  # noqa: F401
 from .faults import (ALL_SITES, FAULT_KINDS, SERVE_SITES,  # noqa: F401

@@ -4,9 +4,11 @@ engine's recovery paths are tested against.
 Port of ref real_time_helmet_detection_tpu/runtime/faults.py:136-327
 (`FaultEvent`, `FaultSchedule`, `ChaosInjector`, `maybe_injector`) and
 its site vocabulary (:87 `SERVE_SITES`), stdlib only. The fleet, cascade,
-stream, train, loader and artifact sites are kept as names, so a schedule
-written for the JAX package parses here; only the serving sites are
-instrumented in the port.
+stream, loader and artifact sites are kept as names, so a schedule
+written for the JAX package parses here; the serving sites and the train
+loop's (`train:batch`: a `nan-batch` poisons the host batch;
+`train:rank`: a `worker-death` raises the transient `UNAVAILABLE:` a
+lost rank would) are instrumented in the port.
 
 * A schedule is a finite list of `(site, kind, at)` events: `at` is the
   Nth arrival at that site, so a replay hits the same program points
@@ -52,6 +54,8 @@ ALL_SITES = (SERVE_SITES + FLEET_SITES + CASCADE_SITES + STREAM_SITES
 SITE_KINDS: Dict[str, Tuple[str, ...]] = {
     "serve:dispatch": ("device-loss", "slow-batch"),
     "serve:fetch": ("device-loss", "hung-fetch", "slow-batch"),
+    "train:batch": ("nan-batch", "slow-batch"),
+    "train:rank": ("worker-death",),
 }
 
 

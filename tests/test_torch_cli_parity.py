@@ -32,15 +32,6 @@ NOT_PORTED = {
     "--platform", "--use-pallas", "--no-use-pallas", "--loss-kernel",
     "--epilogue", "--block-fuse", "--preset", "--profile", "--no-profile",
     "--summary", "--no-summary",
-    # loader and device-side input
-    "--loader", "--device-prefetch", "--device-augment", "--cache-device",
-    "--no-cache-device",
-    # checkpoints, recovery, eval in the background
-    "--ckpt-interval", "--keep-ckpt", "--async-ckpt", "--no-async-ckpt",
-    "--auto-resume", "--resume-backoff-s", "--async-eval",
-    "--no-async-eval", "--prewarm", "--no-prewarm", "--hang-warn-seconds",
-    # observability
-    "--telemetry", "--no-telemetry", "--span-log", "--fault-inject",
     # cascade and streams
     "--cascade", "--no-cascade", "--cascade-threshold", "--cascade-tiers",
     "--stream", "--no-stream", "--stream-threshold", "--stream-tile-grid",
@@ -124,6 +115,37 @@ def test_slice_flags_parse_like_jax(argv):
                  "grad_accum", "world_size", "rank", "dist_url",
                  "dist_backend", "num_devices", "spatial"):
         assert getattr(port, name) == getattr(jax_cfg, name), name
+
+
+RUNTIME_FLAGS = (
+    "--loader", "--device-prefetch", "--device-augment", "--cache-device",
+    "--no-cache-device", "--ckpt-interval", "--keep-ckpt", "--async-ckpt",
+    "--no-async-ckpt", "--auto-resume", "--resume-backoff-s",
+    "--async-eval", "--no-async-eval", "--prewarm", "--no-prewarm",
+    "--hang-warn-seconds", "--telemetry", "--no-telemetry", "--span-log",
+    "--fault-inject")
+
+
+def test_not_ported_is_the_tpu_switches_and_cascade_streams():
+    """The training runtime's 20 option strings are ported; what is left
+    are the 21 TPU switches and the cascade/stream options."""
+    assert len(NOT_PORTED) == 21 and len(set(RUNTIME_FLAGS)) == 20
+    assert not NOT_PORTED & set(RUNTIME_FLAGS)
+    assert set(RUNTIME_FLAGS) <= {o for o, _ in jax_options()}
+
+
+@pytest.mark.parametrize("argv", [
+    ["--loader", "process", "--device-prefetch", "3"],
+    ["--device-augment", "--cache-device", "--prewarm"],
+    ["--ckpt-interval", "4", "--keep-ckpt", "2", "--async-ckpt"],
+    ["--auto-resume", "3", "--resume-backoff-s", "0.5",
+     "--fault-inject", "2:7"],
+    ["--async-eval", "--hang-warn-seconds", "12.5"],
+    ["--telemetry", "--span-log", "/tmp/spans.jsonl"],
+], ids=lambda a: " ".join(a))
+def test_runtime_flags_parse_like_jax(argv):
+    port, jax_cfg = parse_args(argv), jax_parse(argv)
+    assert_same_fields(port, jax_cfg, argv)
 
 
 def test_slice_defaults_are_jax_defaults():

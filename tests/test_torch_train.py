@@ -546,15 +546,11 @@ def test_cli_train_default_device_refuses_cpu_only_box(tmp_path):
     "--param-policy=bf16-compute", "--ema-decay=0.99", "--sentinel",
     "--distill=t", "--device-augment", "--fwd-dtype=int8"])
 def test_unported_train_options_raise(flag):
-    """The train options the port has not built raise: of these only
-    `--device-augment` now. The ported ones keep their cases here and
-    parse to their value (`--param-policy bf16-compute` with the `--amp`
-    it requires, as in JAX)."""
+    """The train options the port once refused; every one is ported now
+    (`--device-augment` last), keeps its case here and parses to its
+    value (`--param-policy bf16-compute` with the `--amp` it requires, as
+    in JAX)."""
     argv = ["--train-flag", "--data", "x", "--device", "cpu", flag]
-    if flag == "--device-augment":
-        with pytest.raises(NotImplementedError):
-            parse_args(argv)
-        return
     if flag == "--param-policy=bf16-compute":
         argv.append("--amp")
     name, _, value = flag[2:].partition("=")
