@@ -213,6 +213,22 @@ version on the card:
    and 90% of its rate (p50/p99, alerts), a reload of weights and scales
    with no capture, and eval at the tier through the engine against
    eager int8 predicts;
+22b. fleet: the serving fleet through `serving.runs` (the port of
+   scripts/serve_bench.py's fleet mode): flagship bf16 replicas, buckets
+   1-16, each an engine with its own model and graphs on the one card;
+   closed loops of 64 at 1 and 2 replicas, rows bit-equal to the eager
+   predict at the bucket that served them, skewed routing, a tenant over
+   its budget, a seeded replica death with its respawn, a canary promote
+   and a rollback; launches per replay against `expected_launches`;
+22c. cascade: the edge tier with the confidence in its graphs in front
+   of the quality tier, at the calibrated threshold: the confidence
+   bit-equal to the host's, answers bit-equal to the answering tier's,
+   an escalation fault and a quality replica's death; escalation rate,
+   images/s, p50/p99;
+22d. streams: 4 seeded 1024^2 streams of 2 x 2 tiles over an edge-tier
+   engine: the card's delta summary bit-equal to the CPU's, tile gating,
+   the stitched answer against each tile's predict, in-order delivery,
+   frame and tile faults; frames/s gated and ungated at one offered rate;
 23. export: `export_predict` (the port of ref export.py:60) at 512^2,
    the uint8 wire: the flagship bf16 with --export-serve at buckets 1
    and 16, and `--tier throughput` int8, each with one AOTInductor
@@ -274,7 +290,8 @@ PHASES = ("identity", "build", "kernels", "timing", "main", "states",
           "eval_grad",
           "eval_timing",
           "variants", "variants_small", "variants_train", "nms", "serve",
-          "qkernels", "qtiming", "int8", "serve_int8", "export", "profile",
+          "qkernels", "qtiming", "int8", "serve_int8", "fleet", "cascade",
+          "streams", "export", "profile",
           "cli", "train_cli")
 
 
@@ -4862,6 +4879,251 @@ def phase_serve_int8(state):
         % (changed, e["map"], e["sha256"][:12], e["detections"]))
 
 
+# ------------------------------------ fleet, cascade, streams (serving.runs)
+
+# each run's load loops, seconds
+RUN_SECONDS = 1.5
+
+
+def runs_args(*argv):
+    """`serving.runs` options: the card, bf16, 512^2, the given mode."""
+    from real_time_helmet_detection_tpu_torch.serving import runs
+    return runs.build_parser().parse_args(
+        list(argv) + ["--duration", str(RUN_SECONDS)])
+
+
+def replay_inspector(launches, labels):
+    """An `inspect` hook for `serving.runs`: for each configuration in
+    `labels`, the first replica's launches per replay of every bucket
+    (profiler), required equal to `want_replay`; recorded in
+    `launches[label]`."""
+    import torch
+
+    def inspect(label, cfg, engines):
+        if label not in labels:
+            return
+        want = want_replay(cfg, torch.bfloat16 if cfg.amp else torch.float32)
+        for b, runner in sorted(engines[0].runners.items()):
+            got = replay_launches(runner)
+            got = {k: got.get(k, 0) for k in want}
+            require(got == want, "%s bucket %d: launches per replay %s, "
+                    "want %s" % (label, b, got, want))
+        launches[label] = {k: v for k, v in want.items() if v}
+    return inspect
+
+
+def path_counts(what, need):
+    """The launch counters since the last `reset_counts`, required above
+    zero for each kernel of the path in `need`."""
+    counts = read_counts()
+    require(all(counts[k] > 0 for k in need), "%s: kernels of the path "
+            "launched no time: %s" % (what, {k: counts[k] for k in need}))
+    return {k: v for k, v in counts.items() if v}
+
+
+def rows_all(rec, what):
+    require(rec["rows"] > 0 and rec["equal"] == rec["rows"],
+            "%s: %d of %d rows equal the eager predict at their bucket; "
+            "first misses %s" % (what, rec["equal"], rec["rows"],
+                                 rec.get("misses")))
+
+
+def phase_fleet(state):
+    """The fleet (`serving.runs.run_fleet_bench`): flagship bf16 replicas
+    on the card, buckets 1-16, each with its own model and graphs. Closed
+    loops of 64 clients at 1 and 2 replicas (images/s, p50/p99), their
+    rows bit-equal to the eager predict at the bucket that served each;
+    skewed load (replica 0 pinned busy) routes all to replica 1, a tenant
+    over its budget sheds alone; a seeded fleet:replica worker-death in a
+    closed loop of 64: lost 0, one respawn that builds each bucket once,
+    rows still bit-equal; a canary rollout of perturbed weights at 0.25
+    promotes and every replica then serves the new weights' rows; a
+    rollback on the canary's error burn (faults on the canary only)
+    restores the old rows. Launches per replay of every bucket (profiler)
+    against `expected_launches`; the wrappers' counts over the phase."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.serving import runs
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    out = runs.run_fleet_bench(runs_args("--replicas", "1", "2"),
+                               replay_inspector(launches, {"fleet x1"}))
+    out["counts"] = path_counts("fleet", ("peak_scores", "bn_act",
+                                          "bn_add_act"))
+    out["launches"] = launches
+    nb = len(out["buckets"])
+    for row in out["rows"]:
+        rows_all(row["rows"], "fleet x%d" % row["replicas"])
+        require(row["lost"] == 0 and row["builds"] == [nb] * row["replicas"],
+                "fleet x%d: lost %d, builds %s" % (row["replicas"],
+                                                   row["lost"], row["builds"]))
+    r = out["routing"]
+    rows_all(r["rows"], "fleet routing")
+    require(r["b_replicas"] == [[1]] * 6 and r["a_shed"] == 3
+            and r["a_tenant_shed"] == 3 and r["tenants"]["b"]["shed"] == 0
+            and r["tenants"]["bulk"]["shed"] == 0,
+            "fleet routing: replicas of the unpinned requests %s, tenant a "
+            "shed %d (%d by its budget), tenants %s" % (
+                r["b_replicas"], r["a_shed"], r["a_tenant_shed"],
+                r["tenants"]))
+    d = out["death"]
+    rows_all(d["after"], "fleet after the death")
+    require(len(d["fired"]) == 1 and d["lost"] == 0 and d["deaths"] == 1
+            and d["respawns"] == 1 and d["builds"] == [nb, nb]
+            and sorted(d["generations"]) == [0, 1],
+            "fleet death: fired %s, lost %d, deaths %d, respawns %d, builds "
+            "%s, generations %s" % (d["fired"], d["lost"], d["deaths"],
+                                    d["respawns"], d["builds"],
+                                    d["generations"]))
+    p, b = out["promote"], out["rollback"]
+    rows_all(p["after"], "fleet after the promote")
+    rows_all(b["after"], "fleet after the rollback")
+    require(p["outcome"] == "promoted" and p["lost"] == 0
+            and p["after"]["replicas"] == [0, 1],
+            "fleet promote: %s, lost %d, replicas %s" % (
+                p["outcome"], p["lost"], p["after"]["replicas"]))
+    require(b["outcome"] == "rolled-back"
+            and "canary-error-burn" in b["alerts"]
+            and b["lost_acks"] == 0 and b["lost"] == 0
+            and b["during_equal"] == b["during"] - b["shed"]
+            and b["after"]["replicas"] == [0, 1],
+            "fleet rollback: %s on %s, lost %d/%d, %d of %d served rows "
+            "the old or new weights', replicas after %s" % (
+                b["outcome"], b["alerts"], b["lost_acks"], b["lost"],
+                b["during_equal"], b["during"] - b["shed"],
+                b["after"]["replicas"]))
+    state["fleet"] = out
+    rates = {row["replicas"]: row["loop"] for row in out["rows"]}
+    log("fleet: closed loops of 64: x1 %.1f img/s (p50 %.3f, p99 %.3f ms), "
+        "x2 %.1f img/s (p50 %.3f, p99 %.3f ms), x2/x1 %.3f; launches per "
+        "replay (profiler, every bucket) %s; peak memory %s GB; engine "
+        "builds %s s" % (
+            rates[1]["goodput_rps"], rates[1]["p50_ms"], rates[1]["p99_ms"],
+            rates[2]["goodput_rps"], rates[2]["p50_ms"], rates[2]["p99_ms"],
+            rates[2]["goodput_rps"] / rates[1]["goodput_rps"],
+            out["launches"]["fleet x1"], out["peak_gb"],
+            ", ".join("%.2f" % x for x in out["engine_build_s"])))
+    log("fleet death %s: lost 0, 1 respawn built in %s s, %d re-dispatched; "
+        "the loop %.1f img/s, p50 %.3f, p99 %.3f ms; promote after %d "
+        "canary completions, rollback on %s with %d of %d requests shed"
+        % (d["fired"], ", ".join("%.2f" % x for x in d["respawn_build_s"]),
+           d["redispatched"], d["loop"]["goodput_rps"], d["loop"]["p50_ms"],
+           d["loop"]["p99_ms"], p["observed"], b["alerts"], b["shed"],
+           b["during"]))
+
+
+def phase_cascade(state):
+    """The cascade (`serving.runs.run_cascade_bench`): an edge-tier
+    engine (ghost 64, buckets 1/2/4) predicting with the confidence, in
+    front of a quality-tier engine (2 stacks, soft-NMS), bf16 512^2, at
+    the calibrated threshold (`cascade_overrides()`). The graph's
+    confidence equals `confidence_summary` of its rows on the host bit
+    for bit; tier-pinned rows and cascade answers equal the answering
+    tier's eager predict at their bucket, escalation follows the
+    confidence; an injected fleet:escalate fault degrades to the edge
+    answer, a quality replica's death during escalation still delivers.
+    Launches per replay of both engines (the confidence adds none of
+    ours); escalation rate, images/s and p50/p99 of a closed loop."""
+    from real_time_helmet_detection_tpu_torch.config import \
+        cascade_overrides
+    from real_time_helmet_detection_tpu_torch.serving import runs
+    reset_counts()
+    launches = {}
+    out = runs.run_cascade_bench(
+        runs_args("--cascade"),
+        replay_inspector(launches, {"cascade edge", "cascade quality"}))
+    out["counts"] = path_counts("cascade", ("peak_scores", "bn_act",
+                                            "bn_add_act"))
+    out["launches"] = launches
+    require(out["threshold"] == cascade_overrides()["cascade_threshold"],
+            "cascade threshold %r" % out["threshold"])
+    edge, quality = out["pinned"]["edge"], out["pinned"]["quality"]
+    rows_all(edge, "cascade edge rows")
+    rows_all(quality, "cascade quality rows")
+    require(edge["confidence_equal"] == edge["rows"],
+            "cascade: %d of %d confidences equal the host's"
+            % (edge["confidence_equal"], edge["rows"]))
+    c = out["cascade"]
+    rows_all(c, "cascade answers")
+    require(c["follows_threshold"] == c["rows"] and out["lost"] == 0
+            and out["builds"] == [3, 5], "cascade: %d of %d follow the "
+            "threshold, lost %d, builds %s" % (c["follows_threshold"],
+                                                c["rows"], out["lost"],
+                                                out["builds"]))
+    f = out["faults"]
+    require(f["lost_acks"] == 0 and f["lost"] == 0 and f["degraded"] == 1
+            and f["degraded_equal"] == 1
+            and f["quality_equal"] == f["requests"] - 1
+            and f["deaths"] == 1 and f["respawns"] == 1
+            and f["builds"] == [3, 5], "cascade faults: %s" % f)
+    state["cascade"] = out
+    loop = out["loop"]
+    log("cascade at threshold %g: escalation rate %.4f (%d of %d resolved "
+        "at the edge in the checked burst); closed loop of 64 through the "
+        "cascade tenant %.1f img/s, p50 %.3f, p99 %.3f ms; launches per "
+        "replay %s; faults %s: 1 degraded to the edge row, the quality "
+        "respawn built in %s s, lost 0; peak memory %s GB" % (
+            out["threshold"], out["escalation_rate"], c["resolved"],
+            c["rows"], loop["goodput_rps"], loop["p50_ms"], loop["p99_ms"],
+            launches, f["fired"],
+            ", ".join("%.2f" % x for x in f["respawn_build_s"]),
+            out["peak_gb"]))
+
+
+def phase_streams(state):
+    """Streaming video (`serving.runs.run_streams_bench`): 4 seeded
+    streams of 1024^2 uint8 frames (2 x 2 tiles of 512^2) at redundancy
+    0.75 through sessions over an edge-tier engine, at the calibrated
+    threshold (`stream_overrides()`). The card's tile delta summary
+    equals the CPU's on every frame pair; a first frame computes every
+    tile and its copy none; an all-changed frame's stitched answer equals
+    the eager predict of each tile; frames deliver in order; dropped,
+    corrupt and late frames and a failed tile deliver from the cache.
+    Frames/s gated and ungated at the same offered rate, the skip rate."""
+    from real_time_helmet_detection_tpu_torch.config import stream_overrides
+    from real_time_helmet_detection_tpu_torch.serving import runs
+    reset_counts()
+    launches = {}
+    out = runs.run_streams_bench(runs_args("--streams"),
+                                 replay_inspector(launches,
+                                                  {"streams edge"}))
+    out["counts"] = path_counts("streams", ("peak_scores", "bn_act"))
+    out["launches"] = launches
+    require(out["threshold"] == stream_overrides()["stream_threshold"],
+            "streams threshold %r" % out["threshold"])
+    require(out["delta"]["equal"] == out["delta"]["pairs"] > 0,
+            "streams: the card's delta equals the CPU's on %d of %d pairs"
+            % (out["delta"]["equal"], out["delta"]["pairs"]))
+    g = out["gating"]
+    require((g["first_computed"], g["copy_computed"], g["changed_computed"])
+            == (4, 0, 4) and g["copy_same"]
+            and g["first_oracle"] == g["changed_oracle"] == 4,
+            "streams gating: %s" % g)
+    require(out["in_order"] and out["builds"] == [3]
+            and all(a["lost"] == 0 for a in out["arms"].values()),
+            "streams: in order %s, builds %s, lost %s" % (
+                out["in_order"], out["builds"],
+                [a["lost"] for a in out["arms"].values()]))
+    f = out["faults"]
+    require(f["lost"] == 0 and f["in_order"] and f["delivered"] == 10
+            and (f["gaps"], f["corrupt"], f["late"]) == (2, 1, 1)
+            and f["degraded_tiles"] > 0, "streams faults: %s" % f)
+    state["streams"] = out
+    a = out["arms"]
+    log("streams: 4 x 1024^2 at redundancy 0.75, threshold %g: ungated "
+        "capacity %.1f frames/s; at %.1f offered, gated %.1f vs ungated %.1f "
+        "frames/s on time (x%.3f; p50 %s vs %s ms, p99 %s vs %s ms), tile "
+        "skip rate %.4f; delta card = CPU on %d pairs; launches per replay "
+        "%s; faults %s delivered from the cache (%d tiles degraded)" % (
+            out["threshold"], out["capacity_ungated"]["fps"],
+            out["offered_fps"], a["gated"]["goodput_fps"],
+            a["ungated"]["goodput_fps"], out["goodput_ratio"],
+            a["gated"]["p50_ms"], a["ungated"]["p50_ms"],
+            a["gated"]["p99_ms"], a["ungated"]["p99_ms"],
+            out["tile_skip_rate"], out["delta"]["pairs"], launches,
+            f["fired"], f["degraded_tiles"]))
+
+
 # ------------------------------------------------------------------ export
 
 # the configurations of phase export, at 512^2 with the uint8 wire: the
@@ -6224,6 +6486,11 @@ def kernel_rows(state):
                             scalar_ms=t["scalar_ms"])
         if name == "peak_scores":  # the bytes the logits' layout forces
             rows[-1]["forced_bound_ms"] = t["forced_ms"]
+        if row in (1, 2, 8):  # the served graphs of the new phases
+            for key in ("fleet x1", "cascade edge", "cascade quality",
+                        "streams edge"):
+                rows[-1]["launches_replay_" + key.replace(" ", "_")] = \
+                    state[key.split()[0]]["launches"][key].get(name, 0)
         if row in (2, 8):  # the --distill teacher's eval forward
             rows[-1]["launches_distill_teacher"] = state["train_extras"][
                 "distill"]["teacher_launches"][name]

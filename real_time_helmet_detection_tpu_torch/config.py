@@ -34,6 +34,16 @@ through. `--tier edge|throughput|quality` (ref config.py:59-85 `TIER_PRESETS`,
 the CLI before it dispatches; the tier wins over the individual flags.
 The throughput tier sets `infer_dtype="int8"`.
 
+Cascade and streams (ref config.py:212-246, :562-586, :700-800):
+`--cascade [--cascade-threshold t] [--cascade-tiers edge quality]`
+enrolls fleet tenants in edge-first serving (`serving/fleet.py`);
+`--stream [--stream-threshold t] [--stream-tile-grid g] [--stream-ema e]
+[--stream-track-radius r]` configures delta-gated tile inference
+(`serving/streams.py`). A threshold left unset resolves, in
+`get_config`, to the operating point of the newest committed
+`artifacts/*/cascade.json` or `streams.json` (`cascade_overrides`,
+`stream_overrides`): thresholds are calibrated, never picked by hand.
+
 Gradient accumulation (ref config.py:98-111, :498-512): `--grad-accum k`
 splits each step's batch into k micro-batches and makes one optimizer
 update on the sum of their gradients; `--sub-divisions k` makes one
@@ -110,7 +120,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import glob
 import json
+import math
 import os
 import re
 from dataclasses import dataclass, field
@@ -293,6 +305,28 @@ class Config:
     tier: str = ""                # "" | edge | throughput | quality (see
     # TIER_PRESETS)
 
+    # cascade serving (ref config.py:212-227; serving/fleet.py): tenants
+    # enrolled in the cascade dispatch to the edge tier first and
+    # escalate to the quality tier iff the edge predict's confidence
+    # (ops.decode.confidence_summary) is below the threshold
+    cascade: bool = False
+    cascade_threshold: Optional[float] = None  # None: the calibrated
+    # operating point of the newest artifacts/*/cascade.json
+    # (cascade_overrides); an explicit value wins
+    cascade_tiers: List[str] = field(
+        default_factory=lambda: ["edge", "quality"])  # (edge, quality)
+
+    # streaming video (ref config.py:229-246; serving/streams.py): a
+    # StreamSession computes only the tiles whose mean |delta| reaches
+    # the threshold, the others answer from its tile cache
+    stream: bool = False
+    stream_threshold: Optional[float] = None  # mean |delta| in [0, 255];
+    # None: the newest artifacts/*/streams.json (stream_overrides)
+    stream_tile_grid: int = 2     # grid x grid tiles a frame
+    stream_ema: float = 0.5       # weight of the previous score of an
+    # associated track (0: no smoothing)
+    stream_track_radius: float = 8.0  # association radius, tile pixels
+
     # network
     variant: str = "residual"
     stem_width: int = 0
@@ -431,6 +465,7 @@ class Config:
         if self.serve_hang_timeout_ms < 0:
             raise ValueError("--serve-hang-timeout-ms must be >= 0, got %r"
                              % (self.serve_hang_timeout_ms,))
+        self._check_cascade_streams()
         if self.scale_factor != 4:
             raise ValueError("--scale-factor must be 4: the stem's 4x "
                              "downsample is structural")
@@ -444,6 +479,34 @@ class Config:
             raise ValueError("--multiscale takes MIN MAX STEP with STEP > 0, "
                              "got %r" % (self.multiscale,))
 
+
+    def _check_cascade_streams(self) -> None:
+        """The cascade and stream fields' checks (ref config.py:562-586)."""
+        if self.cascade:
+            if (len(self.cascade_tiers) != 2
+                    or self.cascade_tiers[0] == self.cascade_tiers[1]):
+                raise ValueError(
+                    "--cascade-tiers must name two distinct tiers "
+                    "(edge-hop first), got %r" % (self.cascade_tiers,))
+            bad = [t for t in self.cascade_tiers if t not in TIER_PRESETS]
+            if bad:
+                raise ValueError(
+                    "--cascade-tiers must be named tier presets %s, got %r"
+                    % (sorted(TIER_PRESETS), self.cascade_tiers))
+        if self.cascade_threshold is not None \
+                and not math.isfinite(self.cascade_threshold):
+            raise ValueError("--cascade-threshold must be finite, got %r"
+                             % (self.cascade_threshold,))
+        if self.stream_tile_grid < 1:
+            raise ValueError("--stream-tile-grid must be >= 1, got %d"
+                             % self.stream_tile_grid)
+        if self.stream_threshold is not None \
+                and not math.isfinite(self.stream_threshold):
+            raise ValueError("--stream-threshold must be finite, got %r"
+                             % (self.stream_threshold,))
+        if not 0.0 <= self.stream_ema < 1.0:
+            raise ValueError("--stream-ema must be in [0, 1), got %r"
+                             % (self.stream_ema,))
 
     def _check_runtime(self) -> None:
         """The training runtime's values and JAX's refusals of its
@@ -501,12 +564,15 @@ def build_parser() -> argparse.ArgumentParser:
             parser.add_argument(flag, action=argparse.BooleanOptionalAction,
                                 default=default)
         elif f.type.startswith("List["):
-            elem = {"List[int]": int, "List[float]": float}[f.type]
+            elem = {"List[int]": int, "List[float]": float,
+                    "List[str]": str}[f.type]
             parser.add_argument(flag, type=elem, nargs="+", default=default)
         elif f.type == "Optional[int]":
             parser.add_argument(flag, type=int, default=default)
         elif f.type == "Optional[str]":
             parser.add_argument(flag, type=str, default=default)
+        elif f.type == "Optional[float]":
+            parser.add_argument(flag, type=float, default=default)
         else:
             parser.add_argument(flag, type=type(default), default=default)
     # reference-compat aliases (ref config.py:636-640)
@@ -613,7 +679,7 @@ def get_config(argv=None) -> Config:
     resolve a save dir to its newest complete checkpoint and take the
     architecture from the snapshot beside it. The snapshot of the
     result is written by the CLI (`save_config`)."""
-    cfg = apply_tier(parse_args(argv))
+    cfg = apply_streams(apply_cascade(apply_tier(parse_args(argv))))
     if not cfg.train_flag and cfg.model_load:
         cfg = dataclasses.replace(
             cfg, model_load=resolve_model_load(cfg.model_load))
@@ -646,3 +712,70 @@ def tier_of(cfg) -> str:
     if arch == ("residual", 1, 128):
         return "flagship"
     return "custom"
+
+
+def _calibrated(kind: str, field_name: str,
+                repo_root: Optional[str] = None) -> dict:
+    """The `selected` threshold of the newest committed
+    `artifacts/r<N>/<kind>.json` (highest round wins; unreadable files
+    and records without a threshold are skipped), as {field_name: value,
+    "_source": its path relative to the repo root}. FileNotFoundError
+    when none carries one."""
+    root = repo_root or os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))
+    best = None
+    for path in glob.glob(os.path.join(root, "artifacts", "*",
+                                       kind + ".json")):
+        try:
+            with open(path) as f:
+                rec = json.load(f).get("selected")
+        except (OSError, json.JSONDecodeError):
+            continue
+        if not rec or "threshold" not in rec:
+            continue
+        m = re.search(r"r(\d+)", os.path.basename(os.path.dirname(path)))
+        key = int(m.group(1)) if m else -1
+        if best is None or key > best[0]:
+            best = (key, path, rec)
+    if best is None:
+        flag = {"cascade": "cascade", "streams": "stream"}[kind]
+        raise FileNotFoundError(
+            "--%s: no artifacts/*/%s.json carries a selected operating "
+            "point; pass --%s-threshold explicitly" % (flag, kind, flag))
+    _, path, rec = best
+    return {field_name: float(rec["threshold"]),
+            "_source": os.path.relpath(path, root)}
+
+
+def cascade_overrides(repo_root: Optional[str] = None) -> dict:
+    """The calibrated cascade threshold of the newest committed
+    `artifacts/*/cascade.json` (ref config.py:700): {"cascade_threshold",
+    "_source"}."""
+    return _calibrated("cascade", "cascade_threshold", repo_root)
+
+
+def stream_overrides(repo_root: Optional[str] = None) -> dict:
+    """The calibrated tile-skip threshold of the newest committed
+    `artifacts/*/streams.json` (ref config.py:751): {"stream_threshold",
+    "_source"}."""
+    return _calibrated("streams", "stream_threshold", repo_root)
+
+
+def apply_cascade(cfg: Config) -> Config:
+    """`--cascade` without `--cascade-threshold` -> the calibrated
+    threshold (a no-op otherwise; ref config.py:738)."""
+    if not cfg.cascade or cfg.cascade_threshold is not None:
+        return cfg
+    over = cascade_overrides()
+    print("--cascade: %s -> %s" % (over.pop("_source"), over), flush=True)
+    return dataclasses.replace(cfg, **over)
+
+
+def apply_streams(cfg: Config) -> Config:
+    """`--stream` without `--stream-threshold` -> the calibrated
+    threshold (a no-op otherwise; ref config.py:790)."""
+    if not cfg.stream or cfg.stream_threshold is not None:
+        return cfg
+    over = stream_overrides()
+    print("--stream: %s -> %s" % (over.pop("_source"), over), flush=True)
+    return dataclasses.replace(cfg, **over)

@@ -5,6 +5,11 @@ ref ops/decode.py:158 `decode_heatmap` (reference transform.py:73-110
 `hm2box`). Shapes stay fixed: always `topk` boxes plus a `valid` mask
 (score >= conf_th) instead of a data-dependent filter.
 
+`CascadeDetections` and `confidence_summary` (ref ops/decode.py:35-86)
+are the cascade's per-image escalation signal: plain PyTorch on the
+predict's masked rows (XLA in the JAX package, no Pallas kernel), so a
+serving bucket's graph computes it and it rides the rows' D2H.
+
 Tie order reaches the mAP: with the default conf_th 0.0 every top-k slot
 is valid, including the zero-score fillers, so the order ties take picks
 which filler boxes reach NMS and the txt files. `lax.top_k` puts the lower
@@ -26,6 +31,43 @@ class Detections(NamedTuple):
     classes: torch.Tensor  # (..., N) int32
     scores: torch.Tensor   # (..., N) float32
     valid: torch.Tensor    # (..., N) bool
+
+
+class CascadeDetections(NamedTuple):
+    """`Detections` plus the per-image cascade confidence (`(...,)`
+    float32, one per image), the serving engine's rows carry it."""
+    boxes: torch.Tensor
+    classes: torch.Tensor
+    scores: torch.Tensor
+    valid: torch.Tensor
+    confidence: torch.Tensor
+
+    def detections(self) -> Detections:
+        """The plain `Detections` view (drops the confidence)."""
+        return Detections(boxes=self.boxes, classes=self.classes,
+                          scores=self.scores, valid=self.valid)
+
+
+# how deep the margin looks: top1 minus the MARGIN_K-th best valid
+# score; fixed, so every calibrated threshold refers to one signal
+MARGIN_K = 8
+
+
+def confidence_summary(scores: torch.Tensor, valid: torch.Tensor,
+                       margin_k: int = MARGIN_K) -> torch.Tensor:
+    """Cascade confidence of each image's masked detections (..., N) ->
+    (...,) float32: top1 + margin - frac, with top1 the best valid score
+    (0 when none is valid), margin top1 minus the `margin_k`-th best
+    valid score and frac the valid share of the N rows. Escalate when it
+    is below the calibrated threshold."""
+    masked = torch.where(valid, scores, torch.zeros((), dtype=scores.dtype,
+                                                    device=scores.device))
+    k = min(int(margin_k), masked.shape[-1])
+    top = torch.topk(masked, k, dim=-1).values
+    top1 = top[..., 0]
+    margin = top1 - top[..., k - 1]
+    frac = valid.to(torch.float32).mean(dim=-1)
+    return (top1 + margin - frac).to(torch.float32)
 
 
 def peak_mask(heat: torch.Tensor, pool_size: int = 3) -> torch.Tensor:

@@ -20,6 +20,12 @@ are folded and quantized once when the predict is built
 (`ops.quant.load_twin`), not in every call, and its convs run the int8
 kernels (`ops.qconv`); decode, the peak test and NMS are the same.
 
+`cascade_summary=True` (ref predict.py:34, :172-177) adds the per-image
+cascade confidence (`ops.decode.confidence_summary` of the final rows)
+as a fifth leaf, `CascadeDetections`: one more output of the body, so
+one more output of each serving bucket's graph, copied back with the
+rows. Off, the body is what it was.
+
 `make_predict_fn` returns a `Predict`: its `body` takes a device tensor
 and is what the serving engine captures; calling the `Predict` with host
 images is the one-shot path. A `BucketRunner` is one serving
@@ -40,7 +46,7 @@ import torch
 
 from .convert import flax_to_state_dict
 from .ops import decode, nms, peak
-from .ops.decode import Detections
+from .ops.decode import CascadeDetections, Detections
 from .utils import normalizer_stats
 
 
@@ -95,7 +101,8 @@ class Predict:
 
 def make_predict_fn(model: torch.nn.Module, cfg,
                     normalize: Optional[str] = None,
-                    device="cuda", quant_scales=None) -> Predict:
+                    device="cuda", quant_scales=None,
+                    cascade_summary: bool = False) -> Predict:
     """Build `predict(images) -> Detections` for a model on `device`.
 
     images: (B, H, W, 3), either normalized float32 or, when `normalize`
@@ -108,8 +115,10 @@ def make_predict_fn(model: torch.nn.Module, cfg,
     conv weights: an --amp model's must not be cast yet) with the
     activation scales `quant_scales` (the `quant` tree), which it needs.
 
-    Returns Detections with leaves (B, S * topk, ...) on `device`. On
-    CUDA it turns TF32 off for cuDNN and matmuls, process-wide."""
+    Returns Detections with leaves (B, S * topk, ...) on `device`
+    (`CascadeDetections`, with a (B,) confidence, under
+    `cascade_summary`). On CUDA it turns TF32 off for cuDNN and matmuls,
+    process-wide."""
     dev = resolve_device(device)
     num_cls = int(cfg.num_cls)
     topk = int(cfg.topk)
@@ -175,8 +184,13 @@ def make_predict_fn(model: torch.nn.Module, cfg,
             keep = nms.maxpool_nms_mask(boxes, scores, valid, extent=extent)
         else:
             keep = nms.nms_mask(boxes, scores, valid, nms_th)
+        valid = keep & valid
+        if cascade_summary:
+            return CascadeDetections(
+                boxes=boxes, classes=classes, scores=scores, valid=valid,
+                confidence=decode.confidence_summary(scores, valid))
         return Detections(boxes=boxes, classes=classes, scores=scores,
-                          valid=keep & valid)
+                          valid=valid)
 
     return Predict(body, model, dev, int8=int8)
 

@@ -3,12 +3,14 @@ engine's recovery paths are tested against.
 
 Port of ref real_time_helmet_detection_tpu/runtime/faults.py:136-327
 (`FaultEvent`, `FaultSchedule`, `ChaosInjector`, `maybe_injector`) and
-its site vocabulary (:87 `SERVE_SITES`), stdlib only. The fleet, cascade,
-stream, loader and artifact sites are kept as names, so a schedule
-written for the JAX package parses here; the serving sites and the train
-loop's (`train:batch`: a `nan-batch` poisons the host batch;
-`train:rank`: a `worker-death` raises the transient `UNAVAILABLE:` a
-lost rank would) are instrumented in the port.
+its site vocabulary (:87 `SERVE_SITES`), stdlib only. The loader and
+artifact sites are kept as names, so a schedule written for the JAX
+package parses here; the serving sites, the fleet's (`fleet:dispatch`,
+`fleet:replica`, `fleet:escalate`; `serving/fleet.py`), the stream's
+(`stream:frame`; `serving/streams.py`) and the train loop's
+(`train:batch`: a `nan-batch` poisons the host batch; `train:rank`: a
+`worker-death` raises the transient `UNAVAILABLE:` a lost rank would)
+are instrumented in the port.
 
 * A schedule is a finite list of `(site, kind, at)` events: `at` is the
   Nth arrival at that site, so a replay hits the same program points
@@ -54,6 +56,13 @@ ALL_SITES = (SERVE_SITES + FLEET_SITES + CASCADE_SITES + STREAM_SITES
 SITE_KINDS: Dict[str, Tuple[str, ...]] = {
     "serve:dispatch": ("device-loss", "slow-batch"),
     "serve:fetch": ("device-loss", "hung-fetch", "slow-batch"),
+    # a routing-layer dispatch fault; a whole replica's death (the router
+    # kills and respawns it); the cascade's escalation hop erroring or
+    # losing its quality replica; one stream frame lost, late or corrupt
+    "fleet:dispatch": ("device-loss", "slow-batch"),
+    "fleet:replica": ("worker-death",),
+    "fleet:escalate": ("device-loss", "worker-death"),
+    "stream:frame": ("dropped-frame", "late-frame", "corrupt-frame"),
     "train:batch": ("nan-batch", "slow-batch"),
     "train:rank": ("worker-death",),
 }

@@ -136,10 +136,17 @@ class ServeFuture:
     close surfaces as the recorded exception. Completion is first-wins:
     an abandoned fetch that lands late cannot overwrite the retry's
     result. `t_submit`/`t_done` are monotonic stamps; `bucket` is the
-    bucket that served the request."""
+    bucket that served the request.
+
+    `add_done_callback(fn)` (ref serving/engine.py:204-232) is the fleet
+    router's chaining hook: `fn(self)` runs once, on the completing
+    thread (the engine's fetcher, dispatcher or a closing thread), or
+    inline when the future is already done; its exceptions are
+    swallowed, so a callback cannot kill the fetcher."""
 
     __slots__ = ("_event", "_value", "_error", "t_submit", "t_done",
-                 "deadline", "ctx", "bucket")
+                 "deadline", "ctx", "bucket", "_cb", "_cb_lock",
+                 "_cb_fired")
 
     def __init__(self, deadline: Optional[float] = None):
         self._event = threading.Event()
@@ -150,6 +157,28 @@ class ServeFuture:
         self.deadline = deadline
         self.ctx = None  # TraceContext when tracing is on
         self.bucket: Optional[int] = None
+        self._cb = None
+        self._cb_lock = threading.Lock()
+        self._cb_fired = False
+
+    def _run_callback(self) -> None:
+        with self._cb_lock:
+            cb = self._cb
+            if cb is None or self._cb_fired:
+                return
+            self._cb_fired = True
+        try:
+            cb(self)
+        except Exception:  # noqa: BLE001 - see the class docstring
+            pass
+
+    def add_done_callback(self, fn) -> None:
+        """Register the one completion callback (the last registration
+        wins); fires inline when the future is already done."""
+        with self._cb_lock:
+            self._cb = fn
+        if self._event.is_set():
+            self._run_callback()
 
     def _set(self, value, bucket: int) -> bool:
         if self._event.is_set():
@@ -158,6 +187,7 @@ class ServeFuture:
         self.bucket = bucket
         self.t_done = time.monotonic()
         self._event.set()
+        self._run_callback()
         return True
 
     def _fail(self, error: BaseException) -> bool:
@@ -166,10 +196,15 @@ class ServeFuture:
         self._error = error
         self.t_done = time.monotonic()
         self._event.set()
+        self._run_callback()
         return True
 
     def done(self) -> bool:
         return self._event.is_set()
+
+    def exception(self) -> Optional[BaseException]:
+        """The recorded error of a done future, else None."""
+        return self._error if self._event.is_set() else None
 
     def result(self, timeout: Optional[float] = None):
         if not self._event.wait(timeout):
@@ -194,8 +229,9 @@ class _Request:
 
 class _Slot:
     """One in-flight batch's host memory: the staging buffer of the image
-    wire and the four Detections leaves, pinned on CUDA, each sized for
-    the largest bucket, with an event that marks the batch's D2H done."""
+    wire and the predict's output leaves (the four of Detections, five
+    of CascadeDetections), pinned on CUDA, each sized for the largest
+    bucket, with an event that marks the batch's D2H done."""
 
     def __init__(self, maxb: int, image_shape, image_dtype: torch.dtype,
                  outputs: Detections, cuda: bool):
@@ -206,6 +242,7 @@ class _Slot:
                                  dtype=o.dtype, pin_memory=cuda)
                      for o in outputs]
         self.host_np = [h.numpy() for h in self.host]
+        self.kind = type(outputs)
         self.event = torch.cuda.Event() if cuda else None
 
     def stage_rows(self, images: Sequence[np.ndarray], b: int) -> None:
@@ -216,8 +253,9 @@ class _Slot:
         self.stage_np[n:b] = 0
 
     def rows(self, n: int) -> List[Detections]:
-        """Each of the first n rows as its own numpy Detections."""
-        return [Detections(*(leaf[i].copy() for leaf in self.host_np))
+        """Each of the first n rows as its own numpy Detections (or
+        CascadeDetections, with a 0-d confidence)."""
+        return [self.kind(*(leaf[i].copy() for leaf in self.host_np))
                 for i in range(n)]
 
 
@@ -533,6 +571,12 @@ class ServingEngine:
     @property
     def buckets(self) -> Tuple[int, ...]:
         return self._buckets
+
+    @property
+    def metrics(self):
+        """This engine's MetricsRegistry (the fleet's canary watchdog
+        reads the canary replica's own)."""
+        return self._metrics
 
     @property
     def runners(self) -> Dict[int, "predict_mod.BucketRunner"]:

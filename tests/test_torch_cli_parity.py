@@ -32,11 +32,12 @@ NOT_PORTED = {
     "--platform", "--use-pallas", "--no-use-pallas", "--loss-kernel",
     "--epilogue", "--block-fuse", "--preset", "--profile", "--no-profile",
     "--summary", "--no-summary",
-    # cascade and streams
+}
+
+CASCADE_STREAM_FLAGS = (
     "--cascade", "--no-cascade", "--cascade-threshold", "--cascade-tiers",
     "--stream", "--no-stream", "--stream-threshold", "--stream-tile-grid",
-    "--stream-ema", "--stream-track-radius",
-}
+    "--stream-ema", "--stream-track-radius")
 
 # sample values of the flags whose JAX default is None
 SAMPLES = {"data": "x", "imsize": "64", "model_load": "w.npz",
@@ -127,11 +128,49 @@ RUNTIME_FLAGS = (
 
 
 def test_not_ported_is_the_tpu_switches_and_cascade_streams():
-    """The training runtime's 20 option strings are ported; what is left
-    are the 21 TPU switches and the cascade/stream options."""
-    assert len(NOT_PORTED) == 21 and len(set(RUNTIME_FLAGS)) == 20
-    assert not NOT_PORTED & set(RUNTIME_FLAGS)
-    assert set(RUNTIME_FLAGS) <= {o for o, _ in jax_options()}
+    """The training runtime's 20 option strings and the 10 cascade/stream
+    ones are ported; what is left are the 11 TPU switches."""
+    assert len(NOT_PORTED) == 11 and len(set(RUNTIME_FLAGS)) == 20
+    assert len(set(CASCADE_STREAM_FLAGS)) == 10
+    assert not NOT_PORTED & (set(RUNTIME_FLAGS) | set(CASCADE_STREAM_FLAGS))
+    assert set(RUNTIME_FLAGS) | set(CASCADE_STREAM_FLAGS) <= {
+        o for o, _ in jax_options()}
+
+
+@pytest.mark.parametrize("argv", [
+    ["--cascade", "--cascade-threshold", "0.25"],
+    ["--cascade", "--cascade-tiers", "throughput", "quality",
+     "--cascade-threshold", "-1.5"],
+    ["--no-cascade", "--cascade-tiers", "edge", "quality"],
+    ["--stream", "--stream-threshold", "12.5", "--stream-tile-grid", "4",
+     "--stream-ema", "0.25", "--stream-track-radius", "3.5"],
+    ["--no-stream", "--stream-ema", "0.0"],
+], ids=lambda a: " ".join(a))
+def test_cascade_stream_flags_parse_like_jax(argv):
+    """Every value of the cascade and stream options gives the port the
+    shared fields JAX's parser gives."""
+    port, jax_cfg = parse_args(argv), jax_parse(argv)
+    assert_same_fields(port, jax_cfg, argv)
+    for name in ("cascade", "cascade_threshold", "cascade_tiers", "stream",
+                 "stream_threshold", "stream_tile_grid", "stream_ema",
+                 "stream_track_radius"):
+        assert getattr(port, name) == getattr(jax_cfg, name), name
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--cascade", "--cascade-tiers", "edge", "edge"], "two distinct"),
+    (["--cascade", "--cascade-tiers", "edge", "fast"], "tier presets"),
+    (["--cascade-threshold", "nan"], "finite"),
+    (["--stream-threshold", "inf"], "finite"),
+    (["--stream-tile-grid", "0"], ">= 1"),
+    (["--stream-ema", "1.0"], r"\[0, 1\)"),
+])
+def test_cascade_stream_refusals_match_jax(argv, match):
+    """The port refuses what JAX refuses, with JAX's message."""
+    with pytest.raises(ValueError, match=match):
+        jax_parse(argv)
+    with pytest.raises(ValueError, match=match):
+        parse_args(argv)
 
 
 @pytest.mark.parametrize("argv", [

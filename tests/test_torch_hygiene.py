@@ -73,7 +73,9 @@ def test_port_files_exist():
                  PKG + "/train.py", PKG + "/optim.py", PKG + "/ops/loss.py",
                  PKG + "/ops/encode.py", PKG + "/data/augment.py",
                  PKG + "/data/pipeline.py", PKG + "/ops/library.py",
-                 PKG + "/export.py"):
+                 PKG + "/export.py", PKG + "/serving/fleet.py",
+                 PKG + "/serving/streams.py", PKG + "/serving/runs.py",
+                 PKG + "/ops/delta.py"):
         assert must in names
 
 
