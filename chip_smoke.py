@@ -39,8 +39,8 @@ version on the card:
    the vector kernel, 17 residual tail, 1 peak, no train kernel;
    `expected_launches`), logits of the whole batch bit-equal and
    Detections identical, and matched both ways, against the same path
-   with every kernel swapped for its plain version, peak memory, images/s as the median of 5 windows
-   of about 2 s each (kernel and plain windows alternate), and a small
+   with every kernel swapped for its plain version, peak memory, images/s as the median of 3 windows
+   of about 1 s each (kernel and plain windows alternate), and a small
    model on the card against the CPU path;
 6. the same kernel-vs-plain rule under two BN states with larger
    logits, where scores round to 1 and ties decide the order;
@@ -72,7 +72,11 @@ version on the card:
    each), one step's loss, gradients and running statistics against the
    plain-version step (cudnn.deterministic) and, in f32, both against
    the step with float64 BN sums, the loss over 20 steps on one batch,
-   images/s over alternating ~2 s windows, peak memory; then one f32
+   images/s over alternating ~1 s windows, peak memory; the training-log
+   snapshot of the trained model (`train.make_snapshot_fn`: #2 20 and #8
+   17 launches, the heatmap bit-equal to the plain eval forward, the
+   model back in train mode with its BN buffers and the RNG states
+   untouched) and the wall of a print step's two PNGs; then one f32
    step;
 11b. accum: gradient accumulation at the flagship's width, b16 512^2
    --amp: one `--grad-accum 2` step through the kernels against the
@@ -251,11 +255,34 @@ version on the card:
    VOC fixture (32 images at 512^2, batch 16, --amp) to a printed mAP,
    txt files and pickle, the mAP within 1e-3 of eager predicts' over the
    same fixture;
-26. train_cli: `--train-flag` for one epoch on a 32-image 512^2 fixture,
-   then the eval CLI on the weights it wrote; one epoch with
-   `--device-augment --cache-device --prewarm`; then one epoch with
-   `--grad-accum 2 --sub-divisions 2` on 128 images (8 steps, 4
-   updates), whose loss must fall.
+26. train_cli: `--train-flag` for one epoch on a 32-image 512^2 fixture
+   (its training_log/ gt and pred PNGs of both steps), then the eval CLI
+   on the weights it wrote; one epoch with `--device-augment
+   --cache-device --prewarm`; then one epoch with `--grad-accum 2
+   --sub-divisions 2` on 128 images (8 steps, 4 updates), whose loss
+   must fall;
+27. supervisor: the job supervisor (`runtime/supervisor.py`) with its
+   default probes over real subprocess jobs on a 32-image 512^2
+   fixture: the triage (one waiter, #1 launched once and bit-equal to
+   its plain version); the flagship `--amp` train CLI as a job, hung on
+   its first attempt by a SIGSTOP of its process group after its first
+   checkpoint, stale-killed past a 30 s heartbeat deadline, salvaged
+   with its `check_point_*`, requeued and resumed from its save dir by
+   the same command to its last step, its group gone; the eval of that
+   save dir, whose txt files score to its own mAP (1e-9); a
+   `run_as_job` job failing transiently once, then done; a bad flag
+   failing once; traceview over the jobs' span log (0 orphans, 0 broken
+   chains); the queue metrics; the walls of each attempt, the kill, the
+   respawn to the first step and the triage.
+
+Every phase must close or reap the threads and processes it starts:
+one left behind fails the run after the last phase (`leftovers`). The
+script makes itself the subreaper of its descendants, so a grandchild
+orphaned by its parent (a job's workers, a compile pool's sidecar) is
+seen as its child; each phase's left processes get a grace to end, and
+before the result lines no process the script started may still run. A
+failed phase, SIGTERM, SIGHUP or SIGINT kills what is left (each job's
+process group with it) before the script exits.
 
 `--phases variants` (or any comma-separated subset; `identity` always
 runs) runs phases alone. Any failure exits non-zero. Each phase prints
@@ -275,6 +302,7 @@ import glob
 import json
 import math
 import os
+import shlex
 import shutil
 import subprocess
 import sys
@@ -292,7 +320,7 @@ PHASES = ("identity", "build", "kernels", "timing", "main", "states",
           "variants", "variants_small", "variants_train", "nms", "serve",
           "qkernels", "qtiming", "int8", "serve_int8", "fleet", "cascade",
           "streams", "export", "profile",
-          "cli", "train_cli")
+          "cli", "train_cli", "supervisor")
 
 
 class SmokeFailure(RuntimeError):
@@ -1186,7 +1214,7 @@ def phase_main(state):
         predict(images)
         torch.cuda.synchronize()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        rates = throughput(predict, images)
+        rates = throughput(predict, images, windows=3, window_s=1.0)
         state.setdefault("main", {})[tag] = dict(
             rates=rates, peak_gb=peak_gb, logit_err=rec["logit_err"],
             valid=rec["valid"], checked=rec["checked"])
@@ -2099,12 +2127,13 @@ def phase_train_main(state):
             and statistics.mean(losses[-5:]) < statistics.mean(losses[:5])
             and losses[-1] < losses[0],
             "loss does not fall over 20 steps on one batch: %s" % losses)
+    snapshot_check(state, model, cfg, arrs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step(21, *arrs)
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    rates = train_throughput(step, arrs)
+    rates = train_throughput(step, arrs, windows=3, window_s=1.0)
     state["train_main"] = dict(rates=rates, peak_gb=peak_gb, errs=errs,
                                losses=losses, conversions=conversions)
     log("train_main bf16: launches %s per step; %d gradients converted "
@@ -2142,6 +2171,69 @@ def phase_train_main(state):
             state["train_main"]["f32"]["peak_gb"]))
     del model, opt, step, arrs
     torch.cuda.empty_cache()
+
+
+def snapshot_check(state, model, cfg, arrs):
+    """The training-log snapshot of the trained `--amp` model on the step's
+    batch (`train.make_snapshot_fn`): its launches (the eval forward's
+    epilogue and residual-tail kernels, no peak test), the heatmap
+    bit-equal to the plain eval forward's (phase main's rule for ReLU),
+    the model back in train mode with its BN buffers and the RNG states
+    untouched; then the wall of one print step's two PNGs
+    (`train.write_snapshots`, gt and pred) at b16 512^2."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.train import (
+        make_snapshot_fn, write_snapshots)
+    from real_time_helmet_detection_tpu_torch.data.pipeline import Batch
+    snapshot = make_snapshot_fn(model, cfg)
+    buffers = {k: v.clone() for k, v in model.named_buffers()}
+    rng = (torch.get_rng_state(), torch.cuda.get_rng_state())
+    snapshot(arrs[0])  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    heat = snapshot(arrs[0])  # THE snapshot the counts read
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = expected_launches(dataclasses.replace(cfg, imsize=512),
+                             "predict", torch.bfloat16)
+    for key in ("peak_scores", "peak_vec", "peak_scalar"):
+        want[key] = 0  # the snapshot decodes nothing
+    require(counts == want, "launches per snapshot %s, want %s"
+            % (counts, want))
+    require(model.training, "the model is not back in train mode")
+    require(all(torch.equal(v, buffers[k])
+                for k, v in model.named_buffers())
+            and torch.equal(rng[0], torch.get_rng_state())
+            and torch.equal(rng[1], torch.cuda.get_rng_state()),
+            "the snapshot moved a BN buffer or an RNG state")
+    with plain_kernels():
+        plain = snapshot(arrs[0])
+    require(tuple(heat.shape) == (16, 128, 128, cfg.num_cls)
+            and bool(torch.isfinite(heat).all()),
+            "snapshot heatmap malformed: %s" % (tuple(heat.shape),))
+    err = float((heat - plain).abs().max())
+    require(torch.equal(heat, plain), "snapshot heatmap kernels vs plain: "
+            "max abs err %g, not bit-equal" % err)
+    host = Batch(*(a.cpu().numpy() for a in arrs), infos=[])
+    with tempfile.TemporaryDirectory() as tmp:
+        scfg = dataclasses.replace(cfg, save_path=tmp)
+        os.makedirs(os.path.join(tmp, "training_log"))
+        walls = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            write_snapshots(scfg, 0, i, host, snapshot)
+            walls.append(time.perf_counter() - t0)
+        pngs = sorted(os.listdir(os.path.join(tmp, "training_log")))
+    require(len(pngs) == 4, "write_snapshots wrote %s" % pngs)
+    state.setdefault("launches", {})["snapshot"] = counts
+    state["snapshot"] = dict(walls=walls, err=err)
+    log("train_main snapshot: launches %s per snapshot, no peak test; "
+        "heatmap (16, 128, 128, 2) bit-equal to the plain eval forward; "
+        "model back in train mode, BN buffers and RNG states untouched; "
+        "one print step's gt + pred PNGs at b16 512^2: %s s" % (
+            {k: v for k, v in counts.items() if v},
+            ", ".join("%.3f" % w for w in walls)))
 
 
 # ---------------------------------------------- accumulation and DDP phases
@@ -2539,18 +2631,16 @@ def phase_ddp(state):
         base = [sys.executable, "-m", "real_time_helmet_detection_tpu_torch",
                 "--data", root, "--imsize", "512", "--batch-size", "16",
                 "--amp", "--serve-max-wait-ms", "50"]
+        # the one-process eval beside the world-2 pair, all on the card
         t0 = time.time()
-        (single_out,) = run_ranks([base + ["--save-path",
-                                           os.path.join(tmp, "single")]],
-                                  "eval CLI, one process")
-        t1 = time.time()
         port = free_port()
-        outs = run_ranks([base + [
-            "--world-size", "2", "--rank", str(r), "--dist-url",
-            "tcp://localhost:%d" % port, "--dist-backend", "gloo",
-            "--save-path", os.path.join(tmp, "rank%d" % r)]
-            for r in range(2)], "eval CLI, world 2")
-        t2 = time.time()
+        single_out, *outs = run_ranks(
+            [base + ["--save-path", os.path.join(tmp, "single")]]
+            + [base + ["--world-size", "2", "--rank", str(r), "--dist-url",
+                       "tcp://localhost:%d" % port, "--dist-backend",
+                       "gloo", "--save-path", os.path.join(tmp, "rank%d" % r)]
+               for r in range(2)], "eval CLI (0 one process, 1-2 world 2)")
+        t1 = time.time()
         maps = [[l.split(": mAP ", 1)[1] for l in out.splitlines()
                  if ": mAP " in l] for out in (single_out, *outs)]
         files = {}
@@ -2580,12 +2670,12 @@ def phase_ddp(state):
     state["ddp"] = dict(bit_equal=bit_equal, world2=e, same_ranks=same_ranks,
                         ms=(r0["ms"], r1["ms"], single["ms"]),
                         eval_map=maps[0][0], eval_same=same,
-                        eval_s=(t1 - t0, t2 - t1))
-    log("ddp (c) eval CLI on 32 images, b16 512^2 --amp: one process %s "
-        "(%.1f s); world 2 over gloo on one card: rank 0 %s (%.1f s), rank "
-        "1 no mAP line, no txt, no pickle; rank 0's 32 txt files and "
-        "pickle, its detections bit-equal to the single process's %s" % (
-            maps[0][0], t1 - t0, maps[1][0], t2 - t1, same))
+                        eval_s=t1 - t0)
+    log("ddp (c) eval CLI on 32 images, b16 512^2 --amp: one process %s; "
+        "world 2 over gloo on one card: rank 0 %s, rank 1 no mAP line, no "
+        "txt, no pickle (the three processes side by side, %.1f s); rank "
+        "0's 32 txt files and pickle, its detections bit-equal to the "
+        "single process's %s" % (maps[0][0], maps[1][0], t1 - t0, same))
 
 
 # ----------------------------------------------------- train-extras phase
@@ -4988,10 +5078,10 @@ def phase_fleet(state):
             and b["during_equal"] == b["during"] - b["shed"]
             and b["after"]["replicas"] == [0, 1],
             "fleet rollback: %s on %s, lost %d/%d, %d of %d served rows "
-            "the old or new weights', replicas after %s" % (
+            "the old or new weights', replicas after %s (states %s)" % (
                 b["outcome"], b["alerts"], b["lost_acks"], b["lost"],
                 b["during_equal"], b["during"] - b["shed"],
-                b["after"]["replicas"]))
+                b["after"]["replicas"], b["states"]))
     state["fleet"] = out
     rates = {row["replicas"]: row["loop"] for row in out["rows"]}
     log("fleet: closed loops of 64: x1 %.1f img/s (p50 %.3f, p99 %.3f ms), "
@@ -5138,6 +5228,34 @@ EXPORT_RUNS = (
 )
 RUNNER_ITERS = 100  # frames of each of the runner's two passes
 RUNNER_DEPTH = 4
+
+
+def export_run(label, d):
+    """(cfg, seeded model) of EXPORT_RUNS' `label`, and its
+    `export_predict` into `d` with the phase's arguments, timed."""
+    from real_time_helmet_detection_tpu_torch.config import (Config,
+                                                             apply_tier)
+    from real_time_helmet_detection_tpu_torch.evaluate import load_eval_state
+    from real_time_helmet_detection_tpu_torch.export import export_predict
+    fields, seed = {l: (f, s) for l, f, s in EXPORT_RUNS}[label]
+    cfg = apply_tier(Config(**fields))
+    model = perturb_bn(load_eval_state(cfg), seed=seed)
+    t0 = time.perf_counter()
+    program, package = export_predict(cfg, out_dir=d, model=model,
+                                      runner_batches=(1,))
+    return cfg, model, program, package, time.perf_counter() - t0
+
+
+def export_worker(label, d):
+    """`--export-worker`: one EXPORT_RUNS export in a process of its own,
+    beside the phase's other export (their AOTInductor compiles overlap);
+    its paths and wall go to `d`/worker.json."""
+    from torch._inductor.async_compile import shutdown_compile_workers
+    from real_time_helmet_detection_tpu_torch.utils import save_json
+    _, _, program, package, wall = export_run(label, d)
+    shutdown_compile_workers()
+    save_json(os.path.join(d, "worker.json"), {
+        "program": program, "package": package, "export_wall_s": wall})
 
 
 def program_launches(fn, x, attempts=3):
@@ -5320,64 +5438,36 @@ def op_host_us(state):
     return out
 
 
-def phase_export(state):
-    """Export end to end (`export.export_predict`, the port of ref
-    export.py:60) at 512^2 with the uint8 wire, for EXPORT_RUNS (seeded
-    weights and BN state): the flagship bf16 with --export-serve at
-    buckets 1 and 16 (one AOTInductor package, batch 1) and the
-    throughput tier's int8 (one package); each reloaded `.pt2`
-    (`load_exported`) bit-equal to the eager predict at its batch, its
-    launches counted by kernel name in a profiler trace (and by the
-    launch counters) equal to `expected_launches`; then the op library
-    and the C++ runner (`_build.build_ops`) and, with no Python, the
-    runner on each package with a seeded uint8 image file: its
-    detections matched both ways against the Python program's on that
-    image (class, IoU >= 0.99, |score difference| <= 1e-3), its per-frame
-    op calls equal to the derived launches, latency p50/p99 at depth 1
-    and frames/s at depths 1 and RUNNER_DEPTH (the serving engine's
-    bucket-1 latency of phase serve beside it); export wall, program
-    sizes, compile seconds; the host microseconds of each op's call
-    against the route before the ops (`op_host_us`)."""
-    import numpy as np
+def export_runs(state, out, root, images, image_file, runner, workers):
+    """Each EXPORT_RUNS export of phase export and its checks: exported
+    here, or by its worker in `workers` (waited for here)."""
     import torch
     from real_time_helmet_detection_tpu_torch.config import (Config,
                                                              apply_tier)
     from real_time_helmet_detection_tpu_torch.evaluate import load_eval_state
     from real_time_helmet_detection_tpu_torch.export import (
-        PROGRAM, RUNNER_PACKAGE, export_predict, load_exported)
-    from real_time_helmet_detection_tpu_torch.ops import _build, quant
+        PROGRAM, RUNNER_PACKAGE, load_exported)
+    from real_time_helmet_detection_tpu_torch.ops import quant
     from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
-    from real_time_helmet_detection_tpu_torch.utils import atomic_write_bytes
-    build = os.path.join(REPO, "build")
-    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
-                          os.path.join(build, "inductor"))
-    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(build, "triton"))
-    out = state.setdefault("export", {})
-    t0 = time.perf_counter()
-    out["cxx_s"] = _build.build_ops()
-    out["build_s"] = time.perf_counter() - t0
-    runner = _build.runner_path()
-    from real_time_helmet_detection_tpu_torch.export import \
-        _inductor_configs
-    log("export: op library and runner built in %.1f s (g++ seconds: %s); "
-        "AOTInductor settings %s" % (out["build_s"], out["cxx_s"]
-                                     or "current builds found",
-                                     _inductor_configs()))
-    os.makedirs(build, exist_ok=True)
-    root = tempfile.mkdtemp(prefix="export-", dir=build)
-    images = np.random.default_rng(12).integers(
-        0, 256, (16, 512, 512, 3), dtype=np.uint8)
-    image_file = os.path.join(root, "image.u8")
-    atomic_write_bytes(image_file, images[0].tobytes())
+    dtype = torch.bfloat16
     for label, fields, seed in EXPORT_RUNS:
-        cfg = apply_tier(Config(**fields))
-        dtype = torch.bfloat16
-        model = perturb_bn(load_eval_state(cfg), seed=seed)
         d = os.path.join(root, label.split()[0])
-        t0 = time.perf_counter()
-        program, package = export_predict(cfg, out_dir=d, model=model,
-                                          runner_batches=(1,))
-        rec = dict(export_wall_s=time.perf_counter() - t0)
+        if label in workers:
+            cfg = apply_tier(Config(**fields))
+            model = perturb_bn(load_eval_state(cfg), seed=seed)
+            rc = workers[label].wait(timeout=900)
+            done = os.path.join(d, "worker.json")
+            with open(os.path.join(d, "worker.log"), "rb") as f:
+                tail = f.read()[-4000:].decode(errors="replace")
+            require(rc == 0 and os.path.exists(done), "%s: the export "
+                    "worker exited %d:\n%s" % (label, rc, tail))
+            with open(done) as f:
+                w = json.load(f)
+            program, package = w["program"], w["package"]
+            rec = dict(export_wall_s=w["export_wall_s"])
+        else:
+            cfg, model, program, package, wall = export_run(label, d)
+            rec = dict(export_wall_s=wall)
         with open(os.path.join(d, "meta.json")) as f:
             meta = json.load(f)
         require(package == os.path.join(d, RUNNER_PACKAGE)
@@ -5489,6 +5579,70 @@ def phase_export(state):
                if "p50_ms" in serve else ""))
         del model, predict
         torch.cuda.empty_cache()
+
+
+def phase_export(state):
+    """Export end to end (`export.export_predict`, the port of ref
+    export.py:60) at 512^2 with the uint8 wire, for EXPORT_RUNS (seeded
+    weights and BN state): the flagship bf16 with --export-serve at
+    buckets 1 and 16 (one AOTInductor package, batch 1) and the
+    throughput tier's int8 (one package, exported by a worker process
+    started beside the first export, so that their AOTInductor compiles
+    overlap); each reloaded `.pt2`
+    (`load_exported`) bit-equal to the eager predict at its batch, its
+    launches counted by kernel name in a profiler trace (and by the
+    launch counters) equal to `expected_launches`; then the op library
+    and the C++ runner (`_build.build_ops`) and, with no Python, the
+    runner on each package with a seeded uint8 image file: its
+    detections matched both ways against the Python program's on that
+    image (class, IoU >= 0.99, |score difference| <= 1e-3), its per-frame
+    op calls equal to the derived launches, latency p50/p99 at depth 1
+    and frames/s at depths 1 and RUNNER_DEPTH (the serving engine's
+    bucket-1 latency of phase serve beside it); export wall, program
+    sizes, compile seconds; the host microseconds of each op's call
+    against the route before the ops (`op_host_us`)."""
+    import numpy as np
+    from real_time_helmet_detection_tpu_torch.ops import _build
+    from real_time_helmet_detection_tpu_torch.utils import atomic_write_bytes
+    build = os.path.join(REPO, "build")
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          os.path.join(build, "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(build, "triton"))
+    out = state.setdefault("export", {})
+    t0 = time.perf_counter()
+    out["cxx_s"] = _build.build_ops()
+    out["build_s"] = time.perf_counter() - t0
+    runner = _build.runner_path()
+    from real_time_helmet_detection_tpu_torch.export import \
+        _inductor_configs
+    log("export: op library and runner built in %.1f s (g++ seconds: %s); "
+        "AOTInductor settings %s" % (out["build_s"], out["cxx_s"]
+                                     or "current builds found",
+                                     _inductor_configs()))
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="export-", dir=build)
+    images = np.random.default_rng(12).integers(
+        0, 256, (16, 512, 512, 3), dtype=np.uint8)
+    image_file = os.path.join(root, "image.u8")
+    atomic_write_bytes(image_file, images[0].tobytes())
+    # the runs after the first export in worker processes started now:
+    # their compiles overlap the first's
+    workers = {}
+    for label, _, _ in EXPORT_RUNS[1:]:
+        d = os.path.join(root, label.split()[0])
+        os.makedirs(d)
+        with open(os.path.join(d, "worker.log"), "ab") as f:
+            workers[label] = subprocess.Popen(
+                [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                 "--export-worker", label, d], cwd=REPO, stdout=f,
+                stderr=subprocess.STDOUT)
+    try:
+        export_runs(state, out, root, images, image_file, runner, workers)
+    finally:
+        for p in workers.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
     out["host_us"] = op_host_us(state)
     log("export: host us of one call (mean of two turns): public wrapper "
         "/ the op alone / the wrapper before the ops (checks, output, "
@@ -5497,6 +5651,10 @@ def phase_export(state):
         log("  %-13s %.1f / %.1f / %.1f" % (name, t["wrapper"], t["op"],
                                              t["old"]))
     shutil.rmtree(root, ignore_errors=True)
+    # AOTInductor's compiles left inductor's pool of compile workers, child
+    # processes kept for later compiles
+    from torch._inductor.async_compile import shutdown_compile_workers
+    shutdown_compile_workers()
 
 
 def scale_tree(tree, factor):
@@ -5694,7 +5852,9 @@ def profile_train(state):
 
 def phase_train_cli(state):
     """`--train-flag` for one epoch on a 32-image 512^2 synthetic fixture
-    (--amp, batch 16), then the eval CLI on the weights it wrote."""
+    (--amp, batch 16), then the eval CLI on the weights it wrote; beside
+    the first, the fused input path and gradient accumulation through the
+    CLI (the three train runs share the card)."""
     from real_time_helmet_detection_tpu_torch.data.synthetic import \
         make_synthetic_voc
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
@@ -5712,75 +5872,383 @@ def phase_train_cli(state):
                     "--imsize", "512", "--batch-size", "16", "--amp",
                     "--model-load", weights, "--save-path",
                     os.path.join(out, "eval")]
-        for what, cmd in (("train", train_cmd), ("eval", eval_cmd)):
-            t0 = time.time()
-            proc = subprocess.run(cmd, cwd=REPO, capture_output=True,
-                                  text=True, timeout=600)
-            secs = time.time() - t0
-            tail = "\n".join((proc.stdout + proc.stderr).splitlines()[-12:])
-            require(proc.returncode == 0, "%s CLI exit %d:\n%s"
-                    % (what, proc.returncode, tail))
-            if what == "train":
-                iters = [l for l in proc.stdout.splitlines() if " iter " in l]
-                require(len(iters) == 2 and os.path.exists(weights)
-                        and os.path.exists(os.path.join(
-                            out, "check_point_1", "checkpoint.pt")),
-                        "train CLI: %d iteration lines, checkpoint %s:\n%s"
-                        % (len(iters), os.path.exists(weights), tail))
-                shown = iters[-1].split(", ", 1)[1]
-            else:
-                maps = [l for l in proc.stdout.splitlines() if ": mAP " in l]
-                require(len(maps) == 1, "eval CLI printed no mAP:\n%s" % tail)
-                shown = maps[0].split(": ", 1)[1]
-            log("train_cli %s: python %s (%.1f s) -> %s" % (
-                what, " ".join(cmd[1:]).replace(tmp, "<tmp>"), secs, shown))
         # the fused input path through the CLI
-        cmd = train_cmd[:-1] + [os.path.join(out, "fused"),
-                                "--device-augment", "--cache-device",
-                                "--prewarm"]
-        t0 = time.time()
-        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                              timeout=600)
-        secs = time.time() - t0
-        tail = "\n".join((proc.stdout + proc.stderr).splitlines()[-12:])
-        iters = [ln for ln in proc.stdout.splitlines() if " iter " in ln]
-        require(proc.returncode == 0 and len(iters) == 2
-                and "prewarmed bucket 512" in proc.stdout
-                and os.path.exists(os.path.join(out, "fused", "check_point_1",
-                                                "weights.npz")),
-                "train CLI --device-augment --cache-device --prewarm exit "
-                "%d, %d iteration lines:\n%s" % (proc.returncode,
-                                                 len(iters), tail))
-        log("train_cli fused: python %s (%.1f s) -> %s" % (
-            " ".join(cmd[1:]).replace(tmp, "<tmp>"), secs,
-            iters[-1].split(", ", 1)[1]))
+        fused_cmd = train_cmd[:-1] + [os.path.join(tmp, "w_fused"),
+                                      "--device-augment", "--cache-device",
+                                      "--prewarm"]
         # gradient accumulation through the CLI: one epoch of 8 host steps
         # on 128 images, 4 updates of 2 x 2 micro-batches of 8
-        root = make_synthetic_voc(os.path.join(tmp, "voc128"),
-                                  num_train=128, num_test=0,
-                                  imsize=(512, 512), seed=1)
-        cmd = [sys.executable, "-m", "real_time_helmet_detection_tpu_torch",
-               "--train-flag", "--data", root, "--batch-size", "16", "--amp",
-               "--grad-accum", "2", "--sub-divisions", "2", "--end-epoch",
-               "1", "--print-interval", "1", "--save-path",
-               os.path.join(tmp, "w_accum")]
+        root128 = make_synthetic_voc(os.path.join(tmp, "voc128"),
+                                     num_train=128, num_test=0,
+                                     imsize=(512, 512), seed=1)
+        # (one print step: the loss of each step from the checkpoint's
+        # loss log, not from 8 print lines and their training-log PNGs)
+        accum_cmd = [sys.executable, "-m",
+                     "real_time_helmet_detection_tpu_torch", "--train-flag",
+                     "--data", root128, "--batch-size", "16", "--amp",
+                     "--grad-accum", "2", "--sub-divisions", "2",
+                     "--end-epoch", "1", "--print-interval", "8",
+                     "--save-path", os.path.join(tmp, "w_accum")]
         t0 = time.time()
-        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                              timeout=600)
-        secs = time.time() - t0
-        tail = "\n".join((proc.stdout + proc.stderr).splitlines()[-12:])
-        require(proc.returncode == 0, "train CLI --grad-accum 2 "
-                "--sub-divisions 2 exit %d:\n%s" % (proc.returncode, tail))
-        totals = [float(l.split("total: ")[1].split()[0])
-                  for l in proc.stdout.splitlines() if " iter " in l]
+        outs = run_ranks([train_cmd, fused_cmd, accum_cmd],
+                         "train CLI (0 train, 1 fused, 2 accum)", timeout=600)
+        train_s = time.time() - t0
+        t0 = time.time()
+        (eval_out,) = run_ranks([eval_cmd], "eval CLI", timeout=600)
+        eval_s = time.time() - t0
+
+        def tail(text):
+            return "\n".join(text.splitlines()[-12:])
+
+        def short(cmd):
+            return " ".join(cmd[1:]).replace(tmp, "<tmp>")
+        iters = [l for l in outs[0].splitlines() if " iter " in l]
+        require(len(iters) == 2 and os.path.exists(weights)
+                and os.path.exists(os.path.join(
+                    out, "check_point_1", "checkpoint.pt")),
+                "train CLI: %d iteration lines, checkpoint %s:\n%s"
+                % (len(iters), os.path.exists(weights), tail(outs[0])))
+        pngs = sorted(os.listdir(os.path.join(out, "training_log")))
+        require(pngs == ["e0_i%d_%s.png" % (i, k) for i in (0, 1)
+                         for k in ("gt", "pred")],
+                "train CLI training_log holds %s" % pngs)
+        log("train_cli train: python %s (%.1f s, beside fused and accum) "
+            "-> %s; training_log %s" % (short(train_cmd), train_s,
+                                        iters[-1].split(", ", 1)[1],
+                                        " ".join(pngs)))
+        maps = [l for l in eval_out.splitlines() if ": mAP " in l]
+        require(len(maps) == 1, "eval CLI printed no mAP:\n%s"
+                % tail(eval_out))
+        log("train_cli eval: python %s (%.1f s) -> %s" % (
+            short(eval_cmd), eval_s, maps[0].split(": ", 1)[1]))
+        iters = [ln for ln in outs[1].splitlines() if " iter " in ln]
+        require(len(iters) == 2 and "prewarmed bucket 512" in outs[1]
+                and os.path.exists(os.path.join(tmp, "w_fused",
+                                                "check_point_1",
+                                                "weights.npz")),
+                "train CLI --device-augment --cache-device --prewarm: %d "
+                "iteration lines:\n%s" % (len(iters), tail(outs[1])))
+        log("train_cli fused: python %s (beside train) -> %s" % (
+            short(fused_cmd), iters[-1].split(", ", 1)[1]))
+        import torch
+        totals = [float(v) for v in torch.load(
+            os.path.join(tmp, "w_accum", "check_point_1", "checkpoint.pt"),
+            map_location="cpu", weights_only=False)["loss_log"]["total"]]
         require(len(totals) == 8 and sum(totals[-2:]) < sum(totals[:2]),
                 "train CLI --grad-accum 2 --sub-divisions 2: the loss does "
-                "not fall over 8 steps: %s\n%s" % (totals, tail))
-        state["train_cli_accum"] = dict(totals=totals, seconds=secs)
-        log("train_cli accum: python %s (%.1f s): 8 steps, 4 updates, "
+                "not fall over 8 steps: %s\n%s" % (totals, tail(outs[2])))
+        state["train_cli_accum"] = dict(totals=totals, seconds=train_s)
+        log("train_cli accum: python %s (beside train): 8 steps, 4 updates, "
             "total loss per step %s" % (
-                " ".join(cmd[1:]).replace(tmp, "<tmp>"), secs,
-                " ".join("%.2f" % v for v in totals)))
+                short(accum_cmd), " ".join("%.2f" % v for v in totals)))
+
+
+# ------------------------------------------------------ the supervisor phase
+
+SUPERVISOR_HEARTBEAT_S = 30.0  # the train job's stale-kill deadline
+TRANSIENT_JOB = (
+    "import os\n"
+    "from real_time_helmet_detection_tpu_torch.runtime.errors import "
+    "InjectedBackendError\n"
+    "from real_time_helmet_detection_tpu_torch.runtime.heartbeat import "
+    "run_as_job\n"
+    "from real_time_helmet_detection_tpu_torch.utils import "
+    "atomic_write_bytes\n"
+    "def main():\n"
+    "    marker = os.environ['SMOKE_MARKER']\n"
+    "    if not os.path.exists(marker):\n"
+    "        atomic_write_bytes(marker, b'1')\n"
+    "        raise InjectedBackendError('UNAVAILABLE: injected on the "
+    "first attempt')\n"
+    "run_as_job(main)\n"
+)
+
+
+def group_members(pgid):
+    """(pid, state) of every process whose process group is `pgid`."""
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open("/proc/%s/stat" % pid) as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[2]) == pgid:
+            out.append((int(pid), fields[0]))
+    return out
+
+
+def stop_after_checkpoint(spool, job, ckpt, stopped, quit_evt):
+    """The watcher thread of phase supervisor: once `job`'s first attempt
+    runs and `ckpt` is complete, SIGSTOP its process group — a hang that
+    stops every beat — once."""
+    import signal
+    while not quit_evt.wait(0.05):
+        js = spool.jobs.get(job)
+        if js is None or js.attempt != 1 or js.state != "running" \
+                or not js.pid:
+            continue
+        if all(os.path.exists(os.path.join(ckpt, f))
+               for f in ("checkpoint.pt", "weights.npz")):
+            os.killpg(js.pid, signal.SIGSTOP)
+            stopped.update(pid=js.pid, t=time.time())
+            return
+
+
+def phase_supervisor(state):
+    """The job supervisor with its default probes over real subprocess
+    jobs on a 32-image 512^2 synthetic VOC, the flagship `--amp` at b16:
+    the triage (one waiter, #1 launched and bit-equal to its plain
+    version); job `train` (2 epochs of 2 steps, a checkpoint each, print
+    interval 2), hung on its first attempt by a SIGSTOP of its process
+    group after its first checkpoint: stale-killed, salvaged with its
+    `check_point_*`, requeued and resumed from its save dir on attempt
+    2 to its last step; job `eval` of that save dir, whose txt files
+    score to its own mAP; a `run_as_job` job failing transiently once;
+    a bad flag failing permanently; traceview over the jobs' span log;
+    the queue metrics. Walls: each attempt, the kill latency, the
+    respawn to the first step, the triage."""
+    import threading
+    import xml.etree.ElementTree as ET
+    import torch
+    from real_time_helmet_detection_tpu_torch.data.synthetic import \
+        make_synthetic_voc
+    from real_time_helmet_detection_tpu_torch.data.voc import (
+        boxes_from_voc_dict, parse_voc_xml)
+    from real_time_helmet_detection_tpu_torch.metrics import (
+        compute_map, compute_map_from_txt)
+    from real_time_helmet_detection_tpu_torch.obs import traceview
+    from real_time_helmet_detection_tpu_torch.obs.metrics import (
+        read_latest, reset_default_registry, snapshot_digest)
+    from real_time_helmet_detection_tpu_torch.runtime import (
+        HEALTHY, JobSpec, Spool, Supervisor)
+    from real_time_helmet_detection_tpu_torch.utils import load_pickle
+    pkg = "real_time_helmet_detection_tpu_torch"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_queue_") as tmp:
+        root = make_synthetic_voc(os.path.join(tmp, "voc"), num_train=32,
+                                  num_test=16, imsize=(512, 512), seed=2)
+        save = os.path.join(tmp, "w")
+        env = {"PYTHONPATH": REPO}
+        base = shlex.join([sys.executable, "-m", pkg, "--train-flag",
+                           "--data", root, "--batch-size", "16", "--amp",
+                           "--num-stack", "1", "--end-epoch", "2",
+                           "--print-interval", "2", "--save-path", save])
+        # one command for both attempts: a fresh start, or the resume
+        # from the save dir's newest complete checkpoint once it has one
+        train_sh = ("if ls %s/check_point_*/weights.npz >/dev/null 2>&1; "
+                    "then exec %s --model-load %s; else exec %s; fi"
+                    % (shlex.quote(save), base, shlex.quote(save), base))
+        metrics_path = os.path.join(tmp, "obs", "metrics.jsonl")
+        saved_env = {k: os.environ.get(k)
+                     for k in ("OBS_METRICS", "OBS_SPAN_LOG")}
+        os.environ["OBS_METRICS"] = metrics_path
+        os.environ.pop("OBS_SPAN_LOG", None)
+        reset_default_registry()
+        lines = []
+
+        def sup_log(msg):
+            lines.append((time.time(), msg))
+            log("  [queue] %s" % msg)
+
+        spool = Spool(os.path.join(tmp, "queue"))
+        stopped, quit_evt = {}, threading.Event()
+        watcher = threading.Thread(
+            target=stop_after_checkpoint, name="smoke-hang", args=(
+                spool, "train", os.path.join(save, "check_point_1"),
+                stopped, quit_evt))
+        try:
+            for spec in (
+                    JobSpec(job="train", argv=["/bin/sh", "-c", train_sh],
+                            artifacts=["w/check_point_*"], cwd=tmp,
+                            heartbeat_timeout_s=SUPERVISOR_HEARTBEAT_S,
+                            # no backoff: FIFO then takes its attempt 2
+                            # before the eval of its save dir
+                            max_attempts=2, backoff_base_s=0.0,
+                            backoff_cap_s=0.0, env=env),
+                    JobSpec(job="eval", argv=[
+                        sys.executable, "-m", pkg, "--data", root,
+                        "--imsize", "512", "--batch-size", "16", "--amp",
+                        "--model-load", save, "--save-path",
+                        os.path.join(save, "eval")], cwd=tmp,
+                        heartbeat_timeout_s=300.0, max_attempts=1, env=env),
+                    JobSpec(job="transient", argv=[
+                        sys.executable, "-c", TRANSIENT_JOB], cwd=tmp,
+                        heartbeat_timeout_s=60.0, max_attempts=2,
+                        backoff_base_s=1.0, backoff_cap_s=2.0,
+                        env=dict(env, SMOKE_MARKER=os.path.join(
+                            tmp, "transient_marker"))),
+                    JobSpec(job="permanent", argv=[
+                        sys.executable, "-m", pkg, "--no-such-flag"],
+                        cwd=tmp, heartbeat_timeout_s=60.0, max_attempts=3,
+                        env=env)):
+                spool.enqueue(spec)
+            sup = Supervisor(spool, kill_grace_s=2.0, poll_s=0.2,
+                             log=sup_log)
+            t0 = time.time()
+            verdict = sup.triage()
+            triage_s = time.time() - t0
+            require(verdict == HEALTHY and sup.waiters_spawned == 1,
+                    "triage %s with %d waiters" % (verdict,
+                                                   sup.waiters_spawned))
+            watcher.start()
+            summary = sup.run()
+        finally:
+            quit_evt.set()
+            if watcher.is_alive():
+                watcher.join()
+            spool.close()
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        with open(sup.waiter_log_path()) as f:
+            waiter_log = f.read()
+        clear = [l for l in waiter_log.splitlines()
+                 if l.startswith("device clear:")]
+        require(len(clear) == sup.waiters_spawned == 3
+                and "waiter:" not in waiter_log
+                and all("launched 1 kernel(s), bit-equal" in l
+                        for l in clear),
+                "each triage one waiter, #1 bit-equal: %d waiters, log:\n%s"
+                % (sup.waiters_spawned, waiter_log))
+        waiter_launches = int(clear[0].split(" launched ")[1].split()[0])
+        with open(spool.path) as f:
+            recs = [json.loads(l) for l in f if l.strip()]
+
+        def states(job):
+            return [r for r in recs if r.get("kind") == "state"
+                    and r["job"] == job]
+        seq = [r["state"] for r in states("train")]
+        require(seq == ["queued", "running", "salvaged", "queued",
+                        "running", "done"] and stopped,
+                "job train went %s (stopped %s)" % (seq, stopped))
+        salvaged = [a["path"] for a in states("train")[2][
+            "salvaged_artifacts"]]
+        require(salvaged == ["w/check_point_1"],
+                "job train salvaged %s" % salvaged)
+        pgid = stopped["pid"]
+        reap_zombies()  # the group's orphans were adopted by this process
+        require(not group_members(pgid), "attempt 1's process group %d "
+                "survives: %s" % (pgid, group_members(pgid)))
+        with open(spool.log_path("train", 2)) as f:
+            log2 = f.read()
+        ckpt = torch.load(os.path.join(save, "check_point_2",
+                                       "checkpoint.pt"),
+                          map_location="cpu", weights_only=False)
+        require("resumed from" in log2 and int(ckpt["step"]) == 4
+                and int(ckpt["epoch"]) == 1,
+                "attempt 2: resumed %s, last checkpoint step %s epoch %s"
+                % ("resumed from" in log2, ckpt["step"], ckpt["epoch"]))
+        pngs = sorted(os.listdir(os.path.join(save, "training_log")))
+        want_pngs = ["e%d_i0_%s.png" % (e, k) for e in range(2)
+                     for k in ("gt", "pred")]
+        require(set(want_pngs) <= set(pngs), "training_log holds %s" % pngs)
+        # eval: its txt files against its own detections
+        eval_dir = os.path.join(save, "eval")
+        seq_e = [r["state"] for r in states("eval")]
+        require(seq_e == ["queued", "running", "done"],
+                "job eval went %s" % seq_e)
+        with open(os.path.join(root, "ImageSets", "Main", "test.txt")) as f:
+            ids = [l.strip() for l in f if l.strip()]
+        gt_b, gt_l = {}, {}
+        for i in ids:
+            gt_b[i], gt_l[i] = boxes_from_voc_dict(parse_voc_xml(ET.parse(
+                os.path.join(root, "Annotations", i + ".xml")).getroot()))
+        dets = load_pickle(os.path.join(eval_dir,
+                                        "prediction_results.pickle"))
+        own = compute_map(gt_b, gt_l, {k: v["box"] for k, v in dets.items()},
+                          {k: v["cls"] for k, v in dets.items()},
+                          {k: v["score"] for k, v in dets.items()})["map"]
+        from_txt = compute_map_from_txt(os.path.join(
+            eval_dir, "results", "txt"), gt_b, gt_l)["map"]
+        with open(spool.log_path("eval", 1)) as f:
+            shown = [l.split(": mAP ")[1].split()[0] for l in f
+                     if ": mAP " in l]
+        require(len(shown) == 1 and abs(own - float(shown[0])) <= 5e-5
+                and abs(own - from_txt) <= 1e-9,
+                "eval mAP printed %s, own %.12f, from its txt files %.12f"
+                % (shown, own, from_txt))
+        seq_t = [r["state"] for r in states("transient")]
+        status = [json.load(open(spool.status_path("transient", a)))
+                  for a in (1, 2)]
+        require(seq_t == ["queued", "running", "salvaged", "queued",
+                          "running", "done"]
+                and status[0].get("error_class") == "transient"
+                and not status[0]["ok"] and status[1]["ok"],
+                "job transient went %s, status files %s" % (seq_t, status))
+        seq_p = [r["state"] for r in states("permanent")]
+        require(seq_p == ["queued", "running", "failed"]
+                and states("permanent")[-1].get("error_class")
+                == "permanent", "job permanent went %s" % seq_p)
+        require(summary["jobs"] == {
+            "train": {"state": "done", "attempt": 2},
+            "eval": {"state": "done", "attempt": 1},
+            "transient": {"state": "done", "attempt": 2},
+            "permanent": {"state": "failed", "attempt": 1}},
+            "summary %s" % summary)
+        # traceview over the jobs' span log
+        span_log = os.path.join(tmp, "obs", "spans.jsonl")
+        traces = traceview.assemble_logs([span_log])
+        report = traceview.analyze(traces)
+        require(report["request_traces"] > 0 and report["orphans"] == 0
+                and report["broken_chains"] == 0 and report["step_traces"]
+                > 0, "traceview: %s" % report)
+        slowest = traceview.tail_exemplars(traces, 1)[0]
+        # the queue metrics
+        snap = read_latest(metrics_path)
+        counters = snap["counters"]
+        require(counters.get("queue.requeues", 0) >= 2
+                and counters.get("queue.salvages", 0) >= 2,
+                "queue counters %s" % counters)
+        digest = snapshot_digest(snap)
+        # walls from the journal, the supervisor's log and the span log
+        runs = [r for r in states("train") if r["state"] == "running"]
+        ends = [r for r in states("train")
+                if r["state"] in ("salvaged", "done")]
+        walls = [e["t"] - r["started_at"] for r, e in zip(runs, ends)]
+        stale_t = [t for t, m in lines if "train heartbeat stale" in m][0]
+        kill_s = states("train")[2]["t"] - stale_t
+        steps2 = [r["t"] for r in (json.loads(l) for l in open(span_log)
+                                   if l.strip())
+                  if r.get("name") == "step" and r.get("pid") == runs[1]["pid"]]
+        respawn_s = min(steps2) - runs[1]["started_at"]
+    state["supervisor"] = dict(triage_s=triage_s, walls=walls,
+                               waiter_launches=waiter_launches,
+                               kill_s=kill_s, respawn_s=respawn_s,
+                               stale_after_stop_s=stale_t - stopped["t"],
+                               own_map=own, report=report)
+    log("supervisor triage: %s in %.2f s, one waiter a triage (%d, each "
+        "'%s')" % (verdict, triage_s, sup.waiters_spawned,
+                   clear[0].split("; ", 1)[1]))
+    log("supervisor train: journal %s; salvaged %s; attempt walls %s s; "
+        "stopped at %.2f s into attempt 1, stale after %.2f s more "
+        "(deadline %.0f s); kill latency (stale -> group gone) %.3f s; "
+        "respawn -> first step %.2f s; attempt 2 resumed to step %d; "
+        "training_log %d PNGs" % (
+            " -> ".join(seq), salvaged, ", ".join("%.2f" % w for w in walls),
+            stopped["t"] - runs[0]["started_at"], stale_t - stopped["t"],
+            SUPERVISOR_HEARTBEAT_S, kill_s, respawn_s, int(ckpt["step"]),
+            len(pngs)))
+    log("supervisor eval: mAP %s printed, %.12f from its %d detections, "
+        "%.12f from its txt files; transient: %s, status %s then %s; "
+        "permanent: %s" % (shown[0], own, sum(len(v["score"]) for v in
+                                              dets.values()),
+                           from_txt, " -> ".join(seq_t),
+                           status[0].get("error_class"),
+                           "ok" if status[1]["ok"] else "failed",
+                           " -> ".join(seq_p)))
+    log("supervisor traceview: %d traces, %d request traces (%d closed), "
+        "%d orphans, %d broken chains, %d step traces; slowest %s: %s" % (
+            report["traces"], report["request_traces"], report["closed"],
+            report["orphans"], report["broken_chains"],
+            report["step_traces"], slowest["trace"],
+            json.dumps(slowest["critical_path"], sort_keys=True)))
+    log("supervisor metrics: %s" % json.dumps(
+        {k: {n: v for n, v in d.items() if n.startswith("queue.")}
+         for k, d in digest.items()}, sort_keys=True))
 
 
 # ----------------------------------------------- the training runtime phase
@@ -6252,6 +6720,10 @@ def phase_train_runtime(state):
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        # the process loader's spawn context started multiprocessing's
+        # resource tracker, a child process that lives until stopped
+        from multiprocessing import resource_tracker
+        resource_tracker._resource_tracker._stop()
 
 
 def phase_profile(state):
@@ -6491,9 +6963,15 @@ def kernel_rows(state):
                         "streams edge"):
                 rows[-1]["launches_replay_" + key.replace(" ", "_")] = \
                     state[key.split()[0]]["launches"][key].get(name, 0)
-        if row in (2, 8):  # the --distill teacher's eval forward
+        if row in (2, 8):  # the --distill teacher's eval forward, and
+            # the training-log snapshot's
             rows[-1]["launches_distill_teacher"] = state["train_extras"][
                 "distill"]["teacher_launches"][name]
+            rows[-1]["launches_training_log_snapshot"] = launches[
+                "snapshot"][name]
+        if row == 1:  # the supervisor's triage waiter, per waiter
+            rows[-1]["launches_triage_waiter"] = state["supervisor"][
+                "waiter_launches"]
     # the int8 kernels, which have no Pallas counterpart: their main path
     # is the throughput tier's bf16 int8 predict
     qt, qe = state["qtiming"], state["qerrs"]
@@ -6543,11 +7021,128 @@ def kernel_rows(state):
     return rows
 
 
+def become_subreaper() -> bool:
+    """Make this process the reaper of its orphaned descendants
+    (prctl PR_SET_CHILD_SUBREAPER): a process whose parent ended becomes
+    this one's child instead of init's, so `leftovers` sees it."""
+    import ctypes
+    try:
+        libc = ctypes.CDLL(None, use_errno=True)
+        return libc.prctl(36, 1, 0, 0, 0) == 0  # PR_SET_CHILD_SUBREAPER
+    except (OSError, AttributeError):
+        return False
+
+
+def _children():
+    """{pid: (state, "pid (name) command")} of this process's children."""
+    out = {}
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open("/proc/%s/stat" % pid) as f:
+                head, tail = f.read().rsplit(")", 1)
+        except (OSError, ValueError):
+            continue
+        fields = tail.split()
+        if int(fields[1]) != os.getpid():
+            continue
+        try:
+            with open("/proc/%s/cmdline" % pid, "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            cmd = ""
+        out[int(pid)] = (fields[0], "%s (%s) %s" % (
+            pid, head.split("(", 1)[1], cmd[:120].strip()))
+    return out
+
+
+def leftovers():
+    """What would outlive a phase: live non-daemon threads besides the
+    main one (interpreter shutdown joins them), and child processes of
+    this process, zombies included (unreaped), as "pid (name) command";
+    with `become_subreaper` the children include orphaned descendants."""
+    import threading
+    threads = [t.name for t in threading.enumerate()
+               if t is not threading.main_thread() and not t.daemon
+               and t.is_alive()]
+    return {"threads": threads,
+            "children": [c for _, c in _children().values()]}
+
+
+def reap_zombies():
+    """Reap this process's children that have ended (orphans adopted as
+    the subreaper have no other parent to wait for them); their
+    "pid (name)"."""
+    reaped = []
+    for pid, (st, desc) in _children().items():
+        if st == "Z":
+            try:
+                os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:
+                continue
+            reaped.append(desc.split(")", 1)[0] + ")")
+    return reaped
+
+
+def settle(before, grace_s=10.0, seen=None):
+    """What is left beyond `before` once it has had `grace_s` to end
+    (an orphan ends on its own once it sees its parent gone); ended
+    processes are reaped, not counted. `seen`, a dict, gets what had to
+    be waited for ("waited", with "wait_s") and what was reaped."""
+    t0 = time.time()
+    while True:
+        reaped = reap_zombies()
+        new = {k: sorted(set(v) - set(before[k]))
+               for k, v in leftovers().items()}
+        if seen is not None:
+            seen.setdefault("reaped", []).extend(reaped)
+            if any(new.values()) and "waited" not in seen:
+                seen["waited"] = new
+        if not any(new.values()) or time.time() - t0 >= grace_s:
+            if seen is not None and "waited" in seen:
+                seen["wait_s"] = round(time.time() - t0, 2)
+            return new
+        time.sleep(0.2)
+
+
+def stop_left(before) -> None:
+    """SIGKILL the child processes not in `before` (orphans adopted as
+    the subreaper included) with the process groups they lead (a job's),
+    and reap them, so that a failed or stopped run leaves none running."""
+    import signal
+    old = {c.split(" ", 1)[0] for c in before["children"]}
+    for _ in range(10):
+        pids = [p for p in _children() if str(p) not in old]
+        if not pids:
+            return
+        for pid in pids:
+            try:
+                if os.getpgid(pid) == pid:
+                    os.killpg(pid, signal.SIGKILL)
+                os.kill(pid, signal.SIGKILL)
+            except (ProcessLookupError, PermissionError):
+                pass
+        time.sleep(0.2)
+        reap_zombies()
+
+
+class Stopped(BaseException):
+    """SIGTERM or SIGHUP: the run stops, and what it started with it."""
+
+
+def _stop_on_signal(signum, frame):
+    raise Stopped("signal %d" % signum)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of %s (default: all)"
                     % ",".join(PHASES))
+    ap.add_argument("--export-worker", nargs=2, default=None,
+                    metavar=("LABEL", "DIR"),
+                    help="run one EXPORT_RUNS export of phase export")
     ap.add_argument("--ddp-worker", nargs=4, default=None,
                     metavar=("RANK", "WORLD", "PORT", "DIR"),
                     help="run one rank of phase ddp's world-2 step")
@@ -6575,23 +7170,58 @@ def main(argv=None) -> int:
         rank, world, port, out_dir = args.ddp_worker
         ddp_worker(int(rank), int(world), int(port), out_dir)
         return 0
-    state = {}
+    if args.export_worker:
+        export_worker(*args.export_worker)
+        return 0
+    import signal
+    become_subreaper()
+    for sig in (signal.SIGTERM, signal.SIGHUP):
+        signal.signal(sig, _stop_on_signal)
+    state, leaks = {}, {}
     t_all = time.time()
+    at_start = leftovers()
     for name in PHASES:
         if name not in phases and name != "identity":
             continue
         t0 = time.time()
+        before = leftovers()
         try:
             globals()["phase_" + name](state)
         except SmokeFailure as e:
             log("FAIL [%s]: %s" % (name, e))
+            stop_left(at_start)
             return 1
         except Exception as e:  # a fault of the phase itself: say where
             traceback.print_exc()
             log("FAIL [%s]: %s: %s" % (name, type(e).__name__, e))
+            stop_left(at_start)
             return 1
+        except (Stopped, KeyboardInterrupt) as e:
+            log("FAIL [%s]: stopped (%s); stopping what the run started"
+                % (name, e or "SIGINT"))
+            stop_left(at_start)
+            return 1
+        seen = {}
+        new = settle(before, seen=seen)
+        if seen.get("reaped") or seen.get("waited"):
+            log("phase %s: reaped ended children %s; waited %s s for %s"
+                % (name, seen.get("reaped"), seen.get("wait_s"),
+                   seen.get("waited")))
+        if any(new.values()):
+            leaks[name] = new
+            log("phase %s left %s" % (name, new))
         log("phase %s: %.1f s" % (name, time.time() - t0))
     log("all phases: %.1f s" % (time.time() - t_all))
+    seen = {}
+    left = settle(at_start, seen=seen)
+    if seen.get("reaped") or seen.get("waited"):
+        log("at the end: reaped %s; waited %s s for %s" % (
+            seen.get("reaped"), seen.get("wait_s"), seen.get("waited")))
+    if leaks or any(left.values()):  # a phase must close or reap its own
+        log("FAIL: phases left threads or processes: %s; still running at "
+            "the end: %s" % (leaks, left))
+        stop_left(at_start)
+        return 1
     log(state["card"])
     if not set(PHASES) <= set(phases):
         log("partial run (%s): passed; no result line" % ",".join(phases))

@@ -673,14 +673,22 @@ def snapshot_beside(path: str) -> Optional[str]:
     return snap if os.path.exists(snap) else None
 
 
+TRAINING_LOG = "training_log"
+
+
 def get_config(argv=None) -> Config:
     """The CLI's config (ref config.py:880 `get_config`): parse, apply
-    the tier, and for an eval, demo or export with `--model-load`,
+    the tier; for a train run create `<save_path>/training_log/`, where
+    the train loop writes its gt and pred snapshots (ref
+    config.py:898-899); for an eval, demo or export with `--model-load`,
     resolve a save dir to its newest complete checkpoint and take the
     architecture from the snapshot beside it. The snapshot of the
     result is written by the CLI (`save_config`)."""
     cfg = apply_streams(apply_cascade(apply_tier(parse_args(argv))))
-    if not cfg.train_flag and cfg.model_load:
+    if cfg.train_flag:
+        os.makedirs(os.path.join(cfg.save_path, TRAINING_LOG),
+                    exist_ok=True)
+    elif cfg.model_load:
         cfg = dataclasses.replace(
             cfg, model_load=resolve_model_load(cfg.model_load))
         snap = snapshot_beside(cfg.model_load)

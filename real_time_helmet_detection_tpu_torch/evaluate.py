@@ -39,7 +39,6 @@ its own image.
 
 from __future__ import annotations
 
-import io
 import math
 import os
 import time
@@ -63,8 +62,8 @@ from .ops.quant import calibrate_scales, load_scales, save_scales
 from .parallel import all_gather_arrays, init_distributed
 from .predict import make_predict_fn, resolve_device
 from .serving import ServingEngine, resolve_buckets
-from .utils import (AverageMeter, atomic_write_bytes, draw_box, imload,
-                    save_pickle, timestamp, write_text)
+from .utils import (AverageMeter, draw_box, imload, save_pickle, save_png,
+                    timestamp, write_text)
 
 
 def init_weights(model: torch.nn.Module, seed: int) -> torch.nn.Module:
@@ -406,8 +405,6 @@ def demo(cfg: Config) -> Dict:
                  box[2] * rw, box[3] * rh), flush=True)
     os.makedirs(cfg.save_path, exist_ok=True)
     out = os.path.join(cfg.save_path, "image.png")
-    buf = io.BytesIO()
-    pil.save(buf, format="PNG")
-    atomic_write_bytes(out, buf.getvalue())
+    save_png(out, pil)
     print("%s: demo overlay -> %s" % (timestamp(), out), flush=True)
     return {"boxes": boxes, "classes": classes, "scores": scores}

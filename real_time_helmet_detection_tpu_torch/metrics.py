@@ -6,6 +6,9 @@ its `cls score x1 y1 x2 y2` txt files, reference evaluate.py:43-54):
 PASCAL VOC2010+ all-point interpolated AP, IoU >= 0.5, greedy best-IoU
 matching of score-sorted detections, duplicates of a matched GT counted
 as false positives, classes absent from the ground truth left out.
+`read_detection_txt` / `compute_map_from_txt` (ref metrics.py:139-166)
+score a directory of those txt files, the eval's `results/txt`, against
+in-memory ground truth; an image with no file has no detections.
 """
 
 from __future__ import annotations
@@ -110,3 +113,36 @@ def write_detection_txt(out_dir: str, image_id: str, boxes, labels,
                     for b, l, s in zip(boxes, labels, scores))
     atomic_write_bytes(path, lines.encode())
     return path
+
+
+def read_detection_txt(path: str):
+    """One detection txt back as (boxes (N, 4), labels, scores)."""
+    boxes, labels, scores = [], [], []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) != 6:
+                continue
+            labels.append(int(parts[0]))
+            scores.append(float(parts[1]))
+            boxes.append([float(x) for x in parts[2:]])
+    return (np.asarray(boxes, np.float32).reshape(-1, 4),
+            np.asarray(labels, np.int32), np.asarray(scores, np.float32))
+
+
+def compute_map_from_txt(det_dir: str, gt_boxes, gt_labels, num_cls: int = 2,
+                         iou_th: float = 0.5) -> Dict:
+    """`compute_map` of the detection txt files in `det_dir`."""
+    det_b, det_l, det_s = {}, {}, {}
+    for fname in os.listdir(det_dir):
+        if not fname.endswith(".txt"):
+            continue
+        img = fname[:-4]
+        det_b[img], det_l[img], det_s[img] = read_detection_txt(
+            os.path.join(det_dir, fname))
+    for img in gt_boxes:
+        det_b.setdefault(img, np.zeros((0, 4), np.float32))
+        det_l.setdefault(img, np.zeros((0,), np.int32))
+        det_s.setdefault(img, np.zeros((0,), np.float32))
+    return compute_map(gt_boxes, gt_labels, det_b, det_l, det_s, num_cls,
+                       iou_th)

@@ -3,8 +3,9 @@ periodic snapshots.
 
 Port of ref real_time_helmet_detection_tpu/obs/metrics.py:55-508
 (`Counter`, `Gauge`, `Histogram`, `MetricsRegistry`, `default_registry`,
-`MetricsWriter`, `maybe_writer`), stdlib only, as far as the serving
-engine uses it.
+`reset_default_registry`, `MetricsWriter`, `maybe_writer`, and the
+readers `latest_path`, `read_metrics`, `read_latest`,
+`snapshot_digest`).
 
 * The latency histogram is log-linear with a fixed layout: `sub`
   geometric sub-buckets per power of two between `lo` and `hi`, an
@@ -16,6 +17,11 @@ engine uses it.
   `obs-metrics-v1` line is appended to the file and the `<path>.latest`
   sidecar is replaced atomically. Without a path the writer is disabled
   and the registry still counts.
+* The readers take either package's files: `read_metrics` returns every
+  parseable snapshot line (a torn last line dropped), `read_latest` the
+  `.latest` sidecar or else the last line, and `snapshot_digest` digests
+  a snapshot already read (counters and gauges as they are, histograms
+  to count/mean/p50/p99/max) without a live registry.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import math
 import os
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from ..utils import atomic_write_bytes
 
@@ -157,6 +163,17 @@ class Histogram:
                     "min": self.min, "max": self.max,
                     "buckets": list(self._buckets)}
 
+    @classmethod
+    def from_snapshot(cls, name: str, snap: Dict) -> "Histogram":
+        """The histogram a `snapshot()` dict describes."""
+        h = cls(name, lo=snap["lo"], hi=snap["hi"], sub=snap["sub"])
+        h._buckets = list(snap["buckets"])
+        h.count = int(snap["count"])
+        h.total = float(snap["total"])
+        h.min = snap.get("min")
+        h.max = snap.get("max")
+        return h
+
     def digest(self) -> Dict:
         """count, mean, p50, p99, max under one lock acquisition."""
         with self._lock:
@@ -246,6 +263,19 @@ def default_registry() -> MetricsRegistry:
         return _DEFAULT
 
 
+def reset_default_registry() -> MetricsRegistry:
+    """Replace the process-wide registry (tests: one test's counts must
+    not leak into the next one's snapshot)."""
+    global _DEFAULT
+    with _DEFAULT_LOCK:
+        _DEFAULT = MetricsRegistry()
+        return _DEFAULT
+
+
+def latest_path(path: str) -> str:
+    return path + ".latest"
+
+
 class MetricsWriter:
     """Periodic snapshot export; `path=None` builds a disabled writer."""
 
@@ -279,7 +309,7 @@ class MetricsWriter:
                     self._f = open(self.path, "a")
                 self._f.write(snap + "\n")
                 self._f.flush()
-                atomic_write_bytes(self.path + ".latest", snap.encode())
+                atomic_write_bytes(latest_path(self.path), snap.encode())
                 return True
             except (OSError, ValueError, TypeError):
                 self.enabled = False
@@ -303,3 +333,51 @@ def maybe_writer(path: Optional[str] = None, env: Optional[dict] = None,
     p = path or (env if env is not None else os.environ).get(
         OBS_METRICS_ENV)
     return MetricsWriter(registry=registry, path=p, period_s=period_s)
+
+
+def read_metrics(path: str) -> List[dict]:
+    """Every parseable snapshot of a metrics JSONL; a torn last line is
+    dropped silently, unparseable lines elsewhere with a warning."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError:
+        return []
+    out = []
+    lines = data.split(b"\n")
+    for i, raw in enumerate(lines):
+        if not raw.strip():
+            continue
+        try:
+            out.append(json.loads(raw))
+        except json.JSONDecodeError:
+            if i != len(lines) - 1:
+                print("[obs] WARNING: unparseable metrics line %d skipped"
+                      % (i + 1), flush=True)
+    return out
+
+
+def read_latest(path: str) -> Optional[dict]:
+    """The newest complete snapshot: the `.latest` sidecar if it parses,
+    else the last parseable line."""
+    try:
+        with open(latest_path(path)) as f:
+            return json.load(f)
+    except (OSError, json.JSONDecodeError):
+        pass
+    snaps = read_metrics(path)
+    return snaps[-1] if snaps else None
+
+
+def snapshot_digest(snap: dict) -> Dict:
+    """A snapshot already read, digested: counters and gauges as they
+    are, each histogram as count/mean/p50/p99/max."""
+    hists = {}
+    for name, h in (snap.get("histograms") or {}).items():
+        try:
+            hists[name] = Histogram.from_snapshot(name, h).digest()
+        except (KeyError, TypeError, ValueError):
+            continue
+    return {"counters": dict(snap.get("counters") or {}),
+            "gauges": dict(snap.get("gauges") or {}),
+            "histograms": hists}

@@ -10,7 +10,11 @@ carries the status prefix a real failure would: `UNAVAILABLE:`,
 `classify_exception`, `classify_error_text`, `EXIT_TRANSIENT`), with
 JAX's contract unchanged: status-prefix markers on a `RuntimeError`
 (or an exception type named `XlaRuntimeError`, which alone may carry
-the `INTERNAL:` marker), and an injected fault always transient. A
+the `INTERNAL:` marker), and an injected fault always transient. One
+marker is the card's own: "busy or unavailable" at context creation
+(`TRANSIENT_MARKERS_CUDA`; an exclusive-process card held by another
+process), which a retry after that process exits cures; it also counts
+on PyTorch's `AcceleratorError`. A
 sticky CUDA error (an illegal address poisons the context) is raised by
 PyTorch as another type and classifies as permanent, as does anything
 else a retry would not cure. The serving engine's own errors
@@ -29,6 +33,10 @@ TRANSIENT_MARKERS = ("UNAVAILABLE:", "DEADLINE_EXCEEDED:",
                      "Unable to initialize backend", "Socket closed")
 # XLA's generic assertion bucket: transient only on its own error type
 TRANSIENT_MARKERS_XLA_ONLY = ("INTERNAL:",)
+# cudaErrorDevicesUnavailable: the card is held by another process (an
+# exclusive-process compute mode), the card's analogue of a wedged claim
+TRANSIENT_MARKERS_CUDA = ("CUDA-capable device(s) is/are busy or unavailable",
+                          "all CUDA-capable devices are busy or unavailable")
 
 # exit code of a job whose failure a later retry may survive (EX_TEMPFAIL)
 EXIT_TRANSIENT = 75
@@ -51,9 +59,12 @@ def is_transient_backend_error(e: BaseException) -> bool:
     """Would retrying after a backend re-init plausibly succeed?"""
     if isinstance(e, InjectedBackendError):
         return True
+    msg = str(e)
+    if type(e).__name__ in ("RuntimeError", "AcceleratorError") \
+            and any(m in msg for m in TRANSIENT_MARKERS_CUDA):
+        return True
     if type(e).__name__ not in ("XlaRuntimeError", "RuntimeError"):
         return False
-    msg = str(e)
     if any(m in msg for m in TRANSIENT_MARKERS):
         return True
     return type(e).__name__ == "XlaRuntimeError" and \
@@ -68,5 +79,6 @@ def classify_exception(e: BaseException) -> str:
 def classify_error_text(text: str) -> str:
     """Classification when only the message text survives: the
     unambiguous status-prefix markers alone classify as transient."""
-    return ("transient" if any(m in text for m in TRANSIENT_MARKERS)
+    return ("transient" if any(m in text for m in TRANSIENT_MARKERS
+                               + TRANSIENT_MARKERS_CUDA)
             else "permanent")

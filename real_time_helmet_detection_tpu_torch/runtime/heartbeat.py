@@ -1,8 +1,8 @@
 """Liveness signals: in-process stall warnings and cross-process
 heartbeats.
 
-Port of ref real_time_helmet_detection_tpu/runtime/heartbeat.py:37-117,
-:179-289, stdlib only:
+Port of ref real_time_helmet_detection_tpu/runtime/heartbeat.py:37-289,
+stdlib only:
 
 * `HangWatchdog` watches this process: it warns, with the thread stacks
   and an optional status line (the process loader's worker liveness),
@@ -15,9 +15,12 @@ Port of ref real_time_helmet_detection_tpu/runtime/heartbeat.py:37-117,
   the JAX package's name, so one supervisor watches either package) and
   returns an inert stub otherwise. `read_heartbeat` / `heartbeat_age_s`
   read it back.
-
-The job supervisor itself (`run_as_job`, `write_job_status`) is not
-ported.
+* `write_job_status` writes the job's machine-readable exit status to
+  $TPU_QUEUE_STATUS (`STATUS_ENV`), which the supervisor
+  (`runtime/supervisor.py`) reads instead of scraping logs; `run_as_job`
+  runs a job's main function under that contract: 0 done,
+  `EXIT_TRANSIENT` (75) transient, 1 permanent, classified by
+  `runtime/errors.py`.
 """
 
 from __future__ import annotations
@@ -97,6 +100,62 @@ def heartbeat_age_s(path: str, now: Optional[float] = None
     except OSError:
         return None
     return max(0.0, (time.time() if now is None else now) - mtime)
+
+
+def write_job_status(ok: bool, error: str = "", error_class: str = "",
+                     extra: Optional[dict] = None,
+                     env: Optional[dict] = None) -> None:
+    """The job's exit status at $TPU_QUEUE_STATUS (a no-op when the job
+    runs under no supervisor): `{"ok", "t", "pid"}` plus `error` (500
+    characters at most), `error_class` ('transient' or 'permanent') and
+    `extra`. The supervisor prefers it over the exit code."""
+    path = (env if env is not None else os.environ).get(STATUS_ENV)
+    if not path:
+        return
+    rec = {"ok": bool(ok), "t": time.time(), "pid": os.getpid()}
+    if error:
+        rec["error"] = str(error)[:500]
+    if error_class:
+        rec["error_class"] = error_class
+    if extra:
+        rec.update(extra)
+    try:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        _atomic_write_text(path, json.dumps(rec))
+    except OSError:
+        pass
+
+
+def run_as_job(main_fn) -> None:
+    """Run `main_fn` as a supervised job: write the status file and map
+    a failure onto the exit-code contract (0 done, `EXIT_TRANSIENT`
+    transient, 1 permanent). A string `SystemExit` is the "backend
+    unavailable" family and counts as transient; an integer one keeps
+    its code and counts as permanent."""
+    from .errors import EXIT_TRANSIENT, classify_exception
+    try:
+        main_fn()
+    except KeyboardInterrupt:
+        raise
+    except SystemExit as e:
+        if e.code in (None, 0):
+            write_job_status(True)
+            raise
+        if isinstance(e.code, int):
+            write_job_status(False, error="exit code %d" % e.code,
+                             error_class="permanent")
+            raise
+        write_job_status(False, error=str(e.code), error_class="transient")
+        raise SystemExit(EXIT_TRANSIENT) from e
+    except Exception as e:  # noqa: BLE001 — classified, not swallowed
+        klass = classify_exception(e)
+        head = str(e).splitlines()[0] if str(e) else repr(e)
+        write_job_status(False, error="%s: %s" % (type(e).__name__, head),
+                         error_class=klass)
+        raise SystemExit(EXIT_TRANSIENT if klass == "transient"
+                         else 1) from e
+    else:
+        write_job_status(True)
 
 
 class HangWatchdog:

@@ -16,7 +16,13 @@ one card:
   `--model-load` of an npz of the flax variable tree (the weight
   bridge); a port checkpoint (`checkpoint.pt`) resumes the run.
 * The loss scalars of each step stay on the device and are fetched in
-  one copy every `--print-interval` steps.
+  one copy every `--print-interval` steps. At each such step the chief
+  of a host-augment run writes `<save_path>/training_log/e{epoch}_i{i}_
+  gt.png` (the batch grid blended with its first image's target
+  heatmap) and, in a one-process run, `..._pred.png` (with the first
+  stack's sigmoid heatmap of an eval-mode forward, `make_snapshot_fn`;
+  ref train.py:1062-1070, :1670-1690; reference train.py:154-158) when
+  that directory exists (`config.get_config` makes it for a train run).
 * Every `--ckpt-interval` epochs (and after the last) the run writes
   `<save_path>/check_point_<epoch+1>/` (the JAX package's naming):
   `checkpoint.pt` = {state_dict, optimizer, epoch, step, loss_log} and
@@ -103,8 +109,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .config import (Config, load_config, resolve_model_load,
-                     snapshot_beside, update_config_for_eval)
+from .config import (TRAINING_LOG, Config, load_config,
+                     resolve_model_load, snapshot_beside,
+                     update_config_for_eval)
 from .convert import load_into, load_npz, save_npz, state_dict_to_flax
 from .data.augment import TestAugmentor
 from .data.pipeline import (Batch, BatchLoader, DeviceDatasetCache,
@@ -122,7 +129,8 @@ from .parallel import (all_reduce_sum_, barrier_synced_build,
 from .runtime.errors import (InjectedBackendError, TrainingDivergenceError,
                              is_transient_backend_error)
 from .runtime.heartbeat import HEARTBEAT_ENV, STATUS_ENV, HangWatchdog
-from .utils import AverageMeter, atomic_write_bytes, save_json, timestamp
+from .utils import (AverageMeter, atomic_write_bytes, blend_heatmap,
+                    save_png, save_json, timestamp)
 
 CHECKPOINT = "checkpoint.pt"
 WEIGHTS = "weights.npz"
@@ -464,6 +472,51 @@ def make_train_step(model: torch.nn.Module, optimizer,
     return step
 
 
+def make_snapshot_fn(model: torch.nn.Module, cfg: Config):
+    """`snapshot(images) -> (B, h, w, num_cls)` float32 on the model's
+    device, for normalized (B, H, W, 3) images (numpy or a tensor):
+    sigmoid of the first stack's class logits from an eval-mode
+    forward under `torch.no_grad()` (ref train.py:1062); on a card the
+    forward runs the eval kernels #2 and #8. The model is back in its
+    mode afterwards; an eval forward updates no running statistic and
+    draws no random number, so a run's state is the same with or
+    without snapshots."""
+    device = next(model.parameters()).device
+
+    def snapshot(images) -> torch.Tensor:
+        if not isinstance(images, torch.Tensor):  # host numpy, copied
+            images = torch.tensor(np.asarray(images, np.float32))
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                out = model(images.to(device, torch.float32))
+                return torch.sigmoid(out[:, 0, ..., :cfg.num_cls].float())
+        finally:
+            model.train(was_training)
+
+    return snapshot
+
+
+def write_snapshots(cfg: Config, epoch: int, it: int, batch,
+                    snapshot_fn) -> None:
+    """The training-log PNGs of a print step (ref train.py:1675-1690):
+    on the host-augment path only (a raw batch carries no target maps),
+    into an existing `training_log/`; the pred image in a one-process
+    run only (another rank's rows are not in this batch)."""
+    snapshot_dir = os.path.join(cfg.save_path, TRAINING_LOG)
+    if cfg.device_augment or not os.path.isdir(snapshot_dir):
+        return
+    host = batch.host if isinstance(batch, StagedBatch) else batch
+    save_png(os.path.join(snapshot_dir, "e%d_i%d_gt.png" % (epoch, it)),
+               blend_heatmap(host.image, host.heatmap, cfg.pretrained))
+    if snapshot_fn is not None and world_size() == 1:
+        pred = snapshot_fn(host.image).cpu().numpy()
+        save_png(os.path.join(snapshot_dir,
+                                "e%d_i%d_pred.png" % (epoch, it)),
+                   blend_heatmap(host.image, pred, cfg.pretrained))
+
+
 def stage(batch: Batch, device: torch.device):
     """The step's five input tensors on `device`; to a card they go
     through pinned host memory, asynchronously."""
@@ -730,7 +783,8 @@ def train_epoch(cfg: Config, epoch: int, loader, step,
                 monitor: Optional[SentinelMonitor] = None, *,
                 runner=None, epoch_base_step: int = 0, tracer=None,
                 injector: Optional[FaultInjector] = None, chaos=None,
-                watchdog=None, mwriter=None, slo=None) -> int:
+                watchdog=None, mwriter=None, slo=None,
+                snapshot_fn=None) -> int:
     """One epoch of the hot loop (ref train.py:1508); returns the update
     count after it. Under `--sub-divisions k` a step updates on every
     k-th batch and on the epoch's last. `runner` (default: the host
@@ -745,7 +799,8 @@ def train_epoch(cfg: Config, epoch: int, loader, step,
     `train.fetch_ms` and `train.steps` always count, and `slo` watches
     the step time and the loss. `injector` and `chaos` (the `train:rank`
     and `train:batch` sites) fire at the top of an iteration; `watchdog`
-    beats at each flush."""
+    beats at each flush. A chief's print step writes the training-log
+    snapshots (`write_snapshots`, the pred one with `snapshot_fn`)."""
     from .obs.spans import SpanTracer
     from .obs.trace import step_context
     tracer = tracer if tracer is not None else SpanTracer(None)
@@ -837,6 +892,7 @@ def train_epoch(cfg: Config, epoch: int, loader, step,
                   % (timestamp(), epoch, i, n,
                      loss_log.get_log(length=cfg.print_interval),
                      meters["data"].avg, meters["step"].avg), flush=True)
+            write_snapshots(cfg, epoch, i, batch, snapshot_fn)
         tic = time.time()
     flush_losses()
     return count
@@ -1265,6 +1321,8 @@ def train(cfg: Config, chaos=None) -> Dict:
             print("%s: --prewarm has no effect without --device-augment "
                   "(the host path has a single fixed-shape step)"
                   % timestamp(), flush=True)
+    snapshot_fn = (make_snapshot_fn(model, cfg)
+                   if chief and not cfg.device_augment else None)
     if chief:
         print("%s: model built, %d params, device %s, rank 0 of %d, %d "
               "steps per epoch" % (
@@ -1304,7 +1362,8 @@ def train(cfg: Config, chaos=None) -> Dict:
                     trainer.count, chief=chief, monitor=monitor,
                     runner=runner, epoch_base_step=epoch * steps_per_epoch,
                     tracer=tracer, injector=injector, chaos=chaos,
-                    watchdog=watchdog, mwriter=mwriter, slo=slo)
+                    watchdog=watchdog, mwriter=mwriter, slo=slo,
+                    snapshot_fn=snapshot_fn)
                 if sentinel is not None:  # the updates taken, skips out
                     trainer.count = int(sentinel.count.item())
                 if (epoch + 1) % max(1, cfg.ckpt_interval) == 0 \

@@ -1,14 +1,18 @@
 """Utilities for the PyTorch port: atomic artifact writes, normalization
-statistics, image I/O, box drawing, meters.
+statistics, image I/O, box drawing, the training-log heatmap blends,
+meters.
 
 The port keeps its own copy of what it needs from the JAX package's
-`utils.py` (ref real_time_helmet_detection_tpu/utils.py:25 and the
+`utils.py` (ref real_time_helmet_detection_tpu/utils.py:25-182 and the
 reference helpers ref utils.py:9-94): the same atomic tmp + os.replace
-writes, the same normalization statistics, the same PIL image path.
+writes, the same normalization statistics, the same PIL image path, and
+`denormalize_image` / `make_grid` / `arr2pil` / `blend_heatmap`, the
+numpy + PIL functions behind the train loop's `training_log/` PNGs.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import pickle
@@ -46,6 +50,18 @@ def save_json(path, obj, **dump_kw) -> None:
 def save_pickle(path, data) -> None:
     atomic_write_bytes(
         path, pickle.dumps(data, protocol=pickle.HIGHEST_PROTOCOL))
+
+
+def load_pickle(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def save_png(path, pil: Image.Image) -> None:
+    """A PIL image written atomically as PNG."""
+    buf = io.BytesIO()
+    pil.save(buf, format="PNG")
+    atomic_write_bytes(path, buf.getvalue())
 
 
 class AverageMeter:
@@ -89,6 +105,66 @@ def normalize_image(img: np.ndarray, pretrained: str = "imagenet") -> np.ndarray
     """uint8 (H, W, 3) -> normalized float32 channels-last."""
     mean, std = normalizer_stats(pretrained)
     return (img.astype(np.float32) / 255.0 - mean) / std
+
+
+def denormalize_image(img: np.ndarray,
+                      pretrained: Optional[str] = "imagenet") -> np.ndarray:
+    """normalized float32 (H, W, 3) -> [0, 1] float32."""
+    if pretrained is None:
+        return np.clip(np.asarray(img, np.float32), 0.0, 1.0)
+    mean, std = normalizer_stats(pretrained)
+    return np.clip(np.asarray(img, np.float32) * std + mean, 0.0, 1.0)
+
+
+def make_grid(images: np.ndarray, pad: int = 2,
+              pad_value: float = 0.5) -> np.ndarray:
+    """Tile (B, H, W, C) float images into one (H', W', C) grid (the
+    numpy analogue of torchvision.utils.make_grid, ref utils.py:40)."""
+    b, h, w, c = images.shape
+    ncol = int(np.ceil(np.sqrt(b)))
+    nrow = int(np.ceil(b / ncol))
+    grid = np.full((nrow * (h + pad) + pad, ncol * (w + pad) + pad, c),
+                   pad_value, dtype=np.float32)
+    for i in range(b):
+        r, col = divmod(i, ncol)
+        y, x = pad + r * (h + pad), pad + col * (w + pad)
+        grid[y:y + h, x:x + w] = images[i]
+    return grid
+
+
+def arr2pil(images: np.ndarray,
+            pretrained: Optional[str] = "imagenet") -> Image.Image:
+    """(B, H, W, C) or (H, W, C) normalized float array -> PIL grid image
+    (ref utils.py:33-42 `ten2pil`)."""
+    images = np.asarray(images, np.float32)
+    if images.ndim == 3:
+        images = images[None]
+    if images.shape[-1] == 1:
+        images = np.repeat(images, 3, axis=-1)
+    images = np.stack([denormalize_image(im, pretrained) for im in images])
+    grid = make_grid(images)
+    return Image.fromarray((grid * 255).astype(np.uint8))
+
+
+def blend_heatmap(image: np.ndarray, heatmap: np.ndarray,
+                  pretrained: Optional[str] = "imagenet") -> Image.Image:
+    """Per-class heatmaps blended over the batch grid — the training-time
+    sanity snapshot (ref utils.py:70-85). image: (B, H, W, 3) normalized;
+    heatmap: (Hm, Wm, C), or (B, Hm, Wm, C) of which the first is used;
+    class c tints channel min(c, 2), each blend at 0.3."""
+    image_pil = arr2pil(image, pretrained)
+    if heatmap.ndim == 4:
+        heatmap = heatmap[0]
+    heatmap = np.asarray(heatmap, np.float32)
+    num_cls = heatmap.shape[-1]
+    for c in range(num_cls):
+        hm = (np.clip(heatmap[..., c], 0, 1) * 255).astype(np.uint8)
+        rgb = [np.zeros_like(hm)] * 2
+        rgb.insert(min(c, 2), hm)
+        hm_pil = Image.fromarray(np.stack(rgb[:3], axis=-1)).resize(
+            image_pil.size).convert("RGB")
+        image_pil = Image.blend(image_pil, hm_pil, 0.3)
+    return image_pil
 
 
 def imload(path: str, pretrained: str = "imagenet", size: Optional[int] = None):

@@ -322,7 +322,7 @@ def test_divergence_rolls_back_to_the_last_checkpoint(voc, tmp_path,
     out = capsys.readouterr().out
     assert "rollback 1/2" in out and "rollback 2/2" in out
     assert sorted(os.listdir(save)) == ["argument.json", "argument.txt",
-                                        "check_point_1"]
+                                        "check_point_1", "training_log"]
     ck = load_checkpoint(os.path.join(save, "check_point_1"))
     assert ck["step"] == 4 and len(restored) == 2
     for state in restored:

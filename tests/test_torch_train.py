@@ -518,7 +518,11 @@ def test_cli_train_then_eval_on_cpu(tmp_path, capsys):
     assert ckpt["epoch"] == 1 and ckpt["step"] == len(totals) == 8
     assert np.mean(totals[4:]) < np.mean(totals[:4])
     assert sorted(os.listdir(out)) == ["argument.json", "argument.txt",
-                                       "check_point_1", "check_point_2"]
+                                       "check_point_1", "check_point_2",
+                                       "training_log"]
+    assert sorted(os.listdir(os.path.join(out, "training_log"))) == sorted(
+        "e%d_i%d_%s.png" % (e, i, k) for e in range(2) for i in range(4)
+        for k in ("gt", "pred"))
     capsys.readouterr()
     main(common + ["--imsize", "64", "--batch-size", "2", "--model-load",
                    os.path.join(out, "check_point_2", "weights.npz"),
