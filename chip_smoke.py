@@ -111,7 +111,16 @@ version on the card:
    state tensor bit-identical with no host sync more than the plain
    step's, a finite spike is skipped, the backoff ladder), `--distill`
    (a 2-stack flagship teacher the phase writes, an edge-architecture
-   student: the teacher's #2/#8 launches, the loss falls over 8 steps);
+   student: the teacher's #2/#8 launches, the loss falls over 8 steps),
+   `--sentinel --sub-divisions 2` (4 micro-steps with the 2nd poisoned:
+   in f32 under cudnn.deterministic every state tensor, the device
+   window among them, bit-equal to the same run with that micro-batch
+   left out; at --amp the skip, launches 4 steps' worth, host syncs no
+   more than the plain `--sub-divisions 2` step's), `--tier throughput
+   --train-flag` (3 steps of the tier's float ghost-96 architecture at
+   --amp, launches as derived, finite loss; its checkpoint evaluated at
+   the tier: #14-#16 and #1 launched as the int8 predict derives, the
+   detections equal to a twin built from the same npz);
 11e. train_runtime: the training runtime at the flagship's width, b16
    512^2 --amp, max_boxes 128, on a 160-image 512^2 fixture: the device
    augmentation and encoder (`--device-augment`) on the card against the
@@ -259,8 +268,12 @@ version on the card:
    (its training_log/ gt and pred PNGs of both steps), then the eval CLI
    on the weights it wrote; one epoch with `--device-augment
    --cache-device --prewarm`; then one epoch with `--grad-accum 2
-   --sub-divisions 2` on 128 images (8 steps, 4 updates), whose loss
-   must fall;
+   --sub-divisions 2 --profile` on 128 images (8 steps, 4 updates),
+   whose loss must fall and whose `<save>/trace/trace.json` holds the
+   train kernels #4-#13 and exactly the ProfilerStep markers of steps
+   2-7; the layer table each run prints (`--summary`) totals the model's
+   parameters, and the table's function, called under torch.profiler
+   with the model on the card, launches nothing and copies nothing;
 27. supervisor: the job supervisor (`runtime/supervisor.py`) with its
    default probes over real subprocess jobs on a 32-image 512^2
    fixture: the triage (one waiter, #1 launched once and bit-equal to
@@ -273,7 +286,14 @@ version on the card:
    `run_as_job` job failing transiently once, then done; a bad flag
    failing once; traceview over the jobs' span log (0 orphans, 0 broken
    chains); the queue metrics; the walls of each attempt, the kill, the
-   respawn to the first step and the triage.
+   respawn to the first step and the triage;
+28. analysis: the transfer audit on the card: predict, serve b1/b2/b4
+   and the train step at the audit's tiny shapes
+   (`analysis.transfer_audit`), each run once under torch.profiler
+   after a warm-up, its `Memcpy HtoD`/`DtoH` records against
+   `analysis/transfer_manifest.json` (counts exact, bytes within 2%);
+   then the flagship bf16 b16 512^2 predict and the served bucket 16,
+   their copies' counts equal to the tiny entries'.
 
 Every phase must close or reap the threads and processes it starts:
 one left behind fails the run after the last phase (`leftovers`). The
@@ -320,7 +340,7 @@ PHASES = ("identity", "build", "kernels", "timing", "main", "states",
           "variants", "variants_small", "variants_train", "nms", "serve",
           "qkernels", "qtiming", "int8", "serve_int8", "fleet", "cascade",
           "streams", "export", "profile",
-          "cli", "train_cli", "supervisor")
+          "cli", "train_cli", "supervisor", "analysis")
 
 
 class SmokeFailure(RuntimeError):
@@ -3233,6 +3253,162 @@ def extras_distill(state, arrs):
     return out
 
 
+def extras_sentinel_subdiv(state, arrs):
+    """--sentinel --sub-divisions 2 at the flagship's width, b16 512^2:
+    4 micro-steps (the epoch's last flushes) with the 2nd poisoned. In
+    f32 under cudnn.deterministic every state tensor (parameters,
+    buffers, moments and counts, the EMA, the device window, the LR
+    count) ends bit-equal to the same run with that micro-batch left
+    out; at --amp the skip is flagged, the 4 micro-steps launch 4 train
+    steps' kernels, and a step syncs the host no more than the plain
+    `--sub-divisions 2` step."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.config import Config
+    from real_time_helmet_detection_tpu_torch.data.synthetic import \
+        synthetic_target_batch
+    others = [[torch.from_numpy(a).cuda()
+               for a in synthetic_target_batch(16, 512, seed=seed)]
+              for seed in (1, 2)]
+    poison = [torch.full_like(arrs[0], float("nan"))] + list(arrs[1:])
+    seq = [arrs, poison] + others
+
+    def run(cfg, batches, counted=False):
+        _, _, _, step = extras_trainer(cfg)
+        reset_counts()
+        flags = [step(0, *b, update=i == len(batches) - 1)["sentinel_bad"]
+                 for i, b in enumerate(batches)]
+        torch.cuda.synchronize()
+        counts = read_counts() if counted else None
+        return step, [float(f) for f in flags], counts
+
+    cfg32 = Config(batch_size=16, imsize=512, sentinel=True,
+                   sub_divisions=2, ema_decay=0.99)
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        step, flags32, _ = run(cfg32, seq)
+        skipped = [t.clone() for t in step.sentinel.tensors()]
+        updates = float(step.sentinel.count)
+        del step
+        step, _, _ = run(cfg32, [seq[0]] + seq[2:])
+        equal = [torch.equal(a, b)
+                 for a, b in zip(skipped, step.sentinel.tensors())]
+        del step
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = det
+    require(flags32 == [0.0, 1.0, 0.0, 0.0] and all(equal)
+            and updates == 2.0,
+            "--sentinel --sub-divisions 2 (f32): flags %s, %d of %d state "
+            "tensors bit-equal to leaving the poisoned micro-batch out, "
+            "%s updates (want 2: the window's and the flush's)"
+            % (flags32, sum(equal), len(equal), updates))
+    cfg = dataclasses.replace(cfg32, amp=True)
+    step, flags, counts = run(cfg, seq, counted=True)
+    want = {k: 4 * n for k, n in expected_launches(
+        cfg, "train", torch.bfloat16).items()}
+    require(flags == [0.0, 1.0, 0.0, 0.0] and counts == want,
+            "--sentinel --sub-divisions 2 (--amp): flags %s, launches %s "
+            "(want 4 steps' %s)" % (flags, counts, want))
+    syncs, _ = syncs_in(lambda: step(0, *arrs))
+    _, _, _, plain = extras_trainer(dataclasses.replace(
+        cfg, sentinel=False))
+    plain(0, *arrs, update=False)
+    plain_syncs, _ = syncs_in(lambda: plain(1, *arrs, update=False))
+    require(syncs <= plain_syncs, "the gated step syncs %d times, the "
+            "plain --sub-divisions 2 step %d" % (syncs, plain_syncs))
+    del step, plain
+    torch.cuda.empty_cache()
+    log("train_extras sentinel_subdiv: f32 %d state tensors bit-equal to "
+        "the run without the poisoned micro-batch, 2 updates; --amp flags "
+        "%s, launches 4 steps' (#4 %d, #12 %d), host syncs a step %d "
+        "(plain --sub-divisions 2: %d)" % (
+            len(equal), flags, counts["bn_stats"], counts["loss_fwd"],
+            syncs, plain_syncs))
+    return dict(launches=counts, syncs=syncs, plain_syncs=plain_syncs,
+                tensors_equal=len(equal))
+
+
+def extras_tier_throughput(state, arrs):
+    """--tier throughput --train-flag: 3 steps of the tier's float
+    architecture (ghost, 96 channels, stem 96) at b16 512^2 --amp, the
+    launches as derived for it, the loss finite; its checkpoint evaluated
+    at the tier: the int8 predict's launches as `expected_launches`
+    derives (#16, #14, #15, #1) and its detections equal to those of a
+    twin built from the same weights.npz."""
+    import numpy as np
+    import torch
+    from real_time_helmet_detection_tpu_torch.config import (Config,
+                                                             apply_tier)
+    from real_time_helmet_detection_tpu_torch.convert import (load_into,
+                                                              load_npz)
+    from real_time_helmet_detection_tpu_torch.evaluate import load_eval_state
+    from real_time_helmet_detection_tpu_torch.models.hourglass import \
+        build_model
+    from real_time_helmet_detection_tpu_torch.ops import quant
+    from real_time_helmet_detection_tpu_torch.ops.loss import LossLog
+    from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
+    from real_time_helmet_detection_tpu_torch.train import save_checkpoint
+    cfg = apply_tier(Config(tier="throughput", train_flag=True,
+                            batch_size=16, imsize=512, amp=True))
+    require((cfg.variant, cfg.hourglass_inch, cfg.stem_width,
+             cfg.infer_dtype) == ("ghost", 96, 96, "int8"),
+            "--tier throughput: %s" % cfg)
+    model, opt, _, step = extras_trainer(cfg)
+    step(0, *arrs)
+    reset_counts()
+    totals = [float(step(i + 1, *arrs)["total"]) for i in range(3)]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {k: 3 * n for k, n in expected_launches(
+        dataclasses.replace(cfg, infer_dtype="bf16"), "train",
+        torch.bfloat16).items()}
+    require(all(map(math.isfinite, totals)) and counts == want,
+            "--tier throughput train: losses %s, launches %s, want %s"
+            % (totals, counts, want))
+    images = np.random.default_rng(7).integers(
+        0, 256, (16, 512, 512, 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tier_") as tmp:
+        ckpt = save_checkpoint(tmp, 0, 4, model, opt, LossLog())
+        del model, opt, step
+        ecfg = apply_tier(Config(tier="throughput", batch_size=16,
+                                 imsize=512, amp=True, model_load=ckpt))
+        emodel = load_eval_state(ecfg)
+        scales = quant.calibrate_scales(
+            ecfg, emodel.state_dict(), quant.synthetic_calibration_batches(
+                16, 512, n=2, raw=True, seed=7),
+            dtype=emodel.dtype, normalize="imagenet")
+        predict = make_predict_fn(emodel, ecfg, normalize="imagenet",
+                                  quant_scales=scales)
+        predict(images)
+        reset_counts()
+        dets = predict(images)
+        torch.cuda.synchronize()
+        ecounts = read_counts()
+        twin_src = build_model(ecfg, dtype=torch.bfloat16)
+        load_into(twin_src, load_npz(os.path.join(ckpt, "weights.npz")))
+        direct = make_predict_fn(twin_src, ecfg, normalize="imagenet",
+                                 quant_scales=scales)(images)
+    ewant = expected_launches(ecfg, "predict", torch.bfloat16)
+    same = all(torch.equal(a, b) for a, b in zip(dets, direct))
+    require(ecounts == ewant and same,
+            "--tier throughput eval of the trained checkpoint: launches %s "
+            "(want %s), detections equal to the npz's twin %s"
+            % (ecounts, ewant, same))
+    del emodel, predict, twin_src
+    torch.cuda.empty_cache()
+    log("train_extras tier_throughput: ghost-96 --amp, 3 steps, total "
+        "%s; #4 %d, #8 %d, #12 %d; eval at the tier: #16 %d, #14 %d, #15 "
+        "%d, #1 %d a predict, detections equal to the npz's twin (%d "
+        "valid)" % (" ".join("%.3f" % v for v in totals),
+                    counts["bn_stats"], counts["bn_add_act"],
+                    counts["loss_fwd"], ecounts["quantize_act"],
+                    ecounts["qconv_dense"], ecounts["qconv_dw"],
+                    ecounts["peak_scores"], int(dets.valid.sum())))
+    return dict(train_launches=counts, eval_launches=ecounts, losses=totals)
+
+
 def phase_train_extras(state):
     """The train-step extras at the flagship's width, b16 512^2 (the
     port's synthetic_target_batch): --fwd-dtype int8 (#14-#16 in
@@ -3243,7 +3419,9 @@ def phase_train_extras(state):
     out = {}
     for name, fn in (("int8", extras_int8), ("remat", extras_remat),
                      ("ema", extras_ema), ("sentinel", extras_sentinel),
-                     ("distill", extras_distill), ("policy", extras_policy)):
+                     ("distill", extras_distill), ("policy", extras_policy),
+                     ("sentinel_subdiv", extras_sentinel_subdiv),
+                     ("tier_throughput", extras_tier_throughput)):
         t0 = time.time()
         out[name] = fn(state, arrs)
         log("train_extras %s: %.1f s" % (name, time.time() - t0))
@@ -5888,7 +6066,7 @@ def phase_train_cli(state):
                      "--data", root128, "--batch-size", "16", "--amp",
                      "--grad-accum", "2", "--sub-divisions", "2",
                      "--end-epoch", "1", "--print-interval", "8",
-                     "--save-path", os.path.join(tmp, "w_accum")]
+                     "--profile", "--save-path", os.path.join(tmp, "w_accum")]
         t0 = time.time()
         outs = run_ranks([train_cmd, fused_cmd, accum_cmd],
                          "train CLI (0 train, 1 fused, 2 accum)", timeout=600)
@@ -5941,6 +6119,115 @@ def phase_train_cli(state):
         log("train_cli accum: python %s (beside train): 8 steps, 4 updates, "
             "total loss per step %s" % (
                 short(accum_cmd), " ".join("%.2f" % v for v in totals)))
+        state["train_cli_profile"] = profile_trace_checked(
+            os.path.join(tmp, "w_accum", "trace"), outs[2])
+        state["train_cli_summary"] = summary_checked(outs)
+
+
+# the train kernels #4-#13 by their names in a trace (#5 is #2's vector
+# kernel, #10/#11 the residual instances of #6/#7's templates)
+TRAIN_TRACE_KERNELS = ("bn_stats_kernel", "bn_act_vec_kernel",
+                       "bn_bwd_sums_kernel", "bn_bwd_dx_kernel",
+                       "bn_add_act_kernel", "loss_fwd_kernel", "loss_bwd")
+
+
+def trace_events(path):
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def profile_trace_checked(trace_dir, out):
+    """`--profile`'s trace of the accumulation run: written whole into
+    `<save>/trace`, its path printed, the train kernels #4-#13 in it and
+    exactly the ProfilerStep markers of steps 2-7."""
+    path = os.path.join(trace_dir, "trace.json")
+    require(os.path.isfile(path) and "profiler trace -> " + trace_dir in out,
+            "--profile: no trace at %s (or its path not printed)" % path)
+    events = trace_events(path)
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    missing = [k for k in TRAIN_TRACE_KERNELS
+               if not any(k in name for name in kernels)]
+    steps = sorted({int(e["name"].split("#", 1)[1]) for e in events
+                    if e.get("name", "").startswith("ProfilerStep#")})
+    require(not missing and steps == list(range(2, 8)),
+            "--profile trace: train kernels missing %s, ProfilerStep "
+            "markers %s (want 2-7)" % (missing, steps))
+    n = sum(e.get("cat") == "kernel" for e in events)
+    log("train_cli profile: %s, %d kernel records, steps %s, %.1f MB"
+        % (path.replace(os.path.dirname(os.path.dirname(trace_dir)), "<tmp>"),
+           n, steps, os.path.getsize(path) / 1e6))
+    return dict(kernel_records=n, steps=steps,
+                mb=os.path.getsize(path) / 1e6)
+
+
+def device_records(prof):
+    """{"kernel": n, "gpu_memcpy": n, "gpu_memset": n} of a finished
+    torch.profiler run, and its memcpy records by kind with their bytes
+    ({"HtoD": [n, bytes], "DtoH": [n, bytes]})."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        events = trace_events(path)
+    cats = {c: 0 for c in ("kernel", "gpu_memcpy", "gpu_memset")}
+    copies = {"HtoD": [0, 0], "DtoH": [0, 0]}
+    names = {}
+    for e in events:
+        if e.get("cat") == "gpu_memcpy":
+            names[e.get("name")] = names.get(e.get("name"), 0) + 1
+        if e.get("cat") in cats:
+            cats[e["cat"]] += 1
+        for kind, rec in copies.items():
+            if e.get("cat") == "gpu_memcpy" \
+                    and e.get("name", "").startswith("Memcpy " + kind):
+                rec[0] += 1
+                rec[1] += int(e.get("args", {}).get("bytes", 0))
+    copies["names"] = names
+    return cats, copies
+
+
+def profiled(run):
+    """(run's result, device_records) of the second of two calls of run()
+    under torch.profiler, CPU and CUDA activity: the first is the
+    schedule's warm-up step, traced and dropped, so that the recorded
+    step starts on a running tracer (a copy issued right at a trace's
+    start can go unrecorded); each step synchronized before it ends."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            out = run()
+            torch.cuda.synchronize()
+            prof.step()
+    return out, device_records(prof)
+
+
+def summary_checked(outs):
+    """The layer table (`--summary`, on by default) of every train CLI run
+    totals the flagship's parameters; `layer_summary` called under the
+    profiler with the train model on the card launches no kernel and
+    copies nothing."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.config import Config
+    from real_time_helmet_detection_tpu_torch.models.hourglass import (
+        build_model, layer_summary)
+    cfg = Config(batch_size=16, amp=True)
+    model = build_model(cfg, dtype=torch.bfloat16).cuda()
+    count = sum(p.numel() for p in model.parameters())
+    totals = [[int(ln.split(":")[1]) for ln in out.splitlines()
+               if ln.startswith("total params: ")] for out in outs]
+    require(all(t == [count] for t in totals),
+            "train CLI layer tables total %s, the model %d" % (totals, count))
+    (rows, total), (cats, _) = profiled(lambda: layer_summary(cfg, 512))
+    require(total == count and sum(cats.values()) == 0,
+            "layer_summary on the card's model: total %d (model %d), "
+            "device records %s" % (total, count, cats))
+    del model
+    log("train_cli summary: %d rows, total %d params in each of %d runs; "
+        "layer_summary under the profiler: %s device records"
+        % (len(rows), total, len(outs), cats))
+    return dict(rows=len(rows), total=total, device_records=cats)
 
 
 # ------------------------------------------------------ the supervisor phase
@@ -6869,6 +7156,96 @@ def phase_cli(state):
 # ------------------------------------------------------------------ main
 
 
+# the transfer audit's entries the analysis phase runs on the card
+ANALYSIS_ENTRIES = ("predict", "serve_predict[b=1]", "serve_predict[b=2]",
+                    "serve_predict[b=4]", "train_step")
+
+
+def within(got, want, tol):
+    return abs(got - want) <= tol * max(want, 1)
+
+
+def copies_of(entry):
+    """(device_records' copies, launch counts) of one run of a transfer
+    audit entry on the card after a warm-up one: its host inputs up,
+    the program, every output leaf back."""
+    import torch
+
+    def run():
+        reset_counts()  # the launches of the recorded run alone
+        return [t.cpu() for t in entry.run("cuda")]
+
+    entry.run("cuda")
+    torch.cuda.synchronize()
+    _, (_, copies) = profiled(run)
+    return copies, read_counts()
+
+
+def phase_analysis(state):
+    """The transfer audit on the card: each of ANALYSIS_ENTRIES at the
+    audit's tiny shapes, its Memcpy HtoD / DtoH records against
+    `analysis/transfer_manifest.json` (counts exact, bytes within
+    `BYTES_TOL`); then the flagship bf16 b16 512^2 predict and the served
+    bucket 16, their copies recorded and their counts held to the tiny
+    predict's and serve entries'."""
+    import numpy as np
+    import torch
+    from real_time_helmet_detection_tpu_torch.analysis import \
+        transfer_audit as xa
+    from real_time_helmet_detection_tpu_torch.config import Config
+    from real_time_helmet_detection_tpu_torch.evaluate import load_eval_state
+    from real_time_helmet_detection_tpu_torch.predict import (BucketRunner,
+                                                              make_predict_fn)
+    manifest = xa.load_manifest()["entries"]
+    out, launches = {}, {}
+    for name in ANALYSIS_ENTRIES:
+        copies, launches[name] = copies_of(xa.ENTRY_POINTS[name][0]("cuda"))
+        want = manifest[name]
+        w = {"HtoD": (want["h2d_fresh"]["leaves"],
+                      want["h2d_fresh"]["bytes"]),
+             "DtoH": (want["d2h"]["leaves"], want["d2h"]["bytes"])}
+        require(all(copies[k][0] == w[k][0]
+                    and within(copies[k][1], w[k][1], xa.BYTES_TOL)
+                    for k in w),
+                "%s on the card: copies %s, manifest %s, every memcpy "
+                "record %s" % (name, {k: copies[k] for k in w}, w,
+                               copies["names"]))
+        out[name] = copies
+        log("analysis %s: HtoD %d (%d B), DtoH %d (%d B), as the manifest"
+            % (name, copies["HtoD"][0], copies["HtoD"][1],
+               copies["DtoH"][0], copies["DtoH"][1]))
+    cfg = Config(batch_size=16, imsize=512, amp=True)
+    model = load_eval_state(cfg)
+    images = np.zeros((16, 512, 512, 3), np.float32)
+    predict = make_predict_fn(model, cfg)
+    flag = {"predict": xa.Entry(lambda x: tuple(predict.body(x)), (images,),
+                                ())}
+    served = make_predict_fn(model, cfg, normalize="imagenet")
+    runner = BucketRunner(served, 16, (512, 512, 3), torch.uint8)
+
+    def bucket(x):
+        runner.input.copy_(x)
+        return tuple(runner.run())
+
+    flag["serve_predict[b=16]"] = xa.Entry(
+        bucket, (np.zeros((16, 512, 512, 3), np.uint8),), ())
+    for name, entry in flag.items():
+        with torch.inference_mode():
+            copies, _ = copies_of(entry)
+        tiny = out["predict" if name == "predict" else "serve_predict[b=1]"]
+        require(all(copies[k][0] == tiny[k][0] for k in ("HtoD", "DtoH")),
+                "flagship %s: copies %s, the tiny entry's %s"
+                % (name, copies, tiny))
+        out["flagship " + name] = copies
+        log("analysis flagship %s: HtoD %d (%d B), DtoH %d (%d B), the "
+            "tiny entry's counts" % (name, copies["HtoD"][0],
+                                     copies["HtoD"][1], copies["DtoH"][0],
+                                     copies["DtoH"][1]))
+    del model, predict, served, runner
+    torch.cuda.empty_cache()
+    state["analysis"] = dict(copies=out, launches=launches)
+
+
 def kernel_rows(state):
     """One row per TPU kernel (each function of the JAX package that
     reaches `pl.pallas_call`, #5 being #2's train call): time, bound,
@@ -6942,6 +7319,19 @@ def kernel_rows(state):
             rows[-1]["launches_grad_accum_2"] = launches["accum"][name]
             for path in ("device_augment", "cache_device"):
                 rows[-1]["launches_" + path] = launches["train_" + path][name]
+            # the gated sentinel window (4 micro-steps), the throughput
+            # tier's training (3 steps) and the audit's tiny train step
+            extras = state["train_extras"]
+            rows[-1].update(
+                launches_sentinel_subdiv=extras["sentinel_subdiv"][
+                    "launches"][name],
+                launches_tier_throughput_train=extras["tier_throughput"][
+                    "train_launches"][name],
+                launches_analysis_train_step=state["analysis"]["launches"][
+                    "train_step"][name])
+        if counts is predict:  # the audit's tiny predict on the card
+            rows[-1]["launches_analysis_predict"] = state["analysis"][
+                "launches"]["predict"][name]
         if "composition_ms" in t:
             rows[-1]["composition_ms"] = t["composition_ms"]
             rows[-1]["launches_eval_grad"] = eval_grad[name]
@@ -6969,9 +7359,12 @@ def kernel_rows(state):
                 "distill"]["teacher_launches"][name]
             rows[-1]["launches_training_log_snapshot"] = launches[
                 "snapshot"][name]
-        if row == 1:  # the supervisor's triage waiter, per waiter
+        if row == 1:  # the supervisor's triage waiter, per waiter; the
+            # throughput tier's eval of its trained checkpoint
             rows[-1]["launches_triage_waiter"] = state["supervisor"][
                 "waiter_launches"]
+            rows[-1]["launches_tier_throughput_eval"] = state[
+                "train_extras"]["tier_throughput"]["eval_launches"][name]
     # the int8 kernels, which have no Pallas counterpart: their main path
     # is the throughput tier's bf16 int8 predict
     qt, qe = state["qtiming"], state["qerrs"]
@@ -6999,7 +7392,9 @@ def kernel_rows(state):
         extras = state["train_extras"]["int8"]
         rows[-1].update(
             launches_train_int8=extras["launches"][name],
-            launches_train_int8_edge=extras["launches_edge"][name])
+            launches_train_int8_edge=extras["launches_edge"][name],
+            launches_tier_throughput_eval=state["train_extras"][
+                "tier_throughput"]["eval_launches"][name])
         if kind:  # the first design's kernel, timed in turns with it
             rows[-1].update(variant=t["variant"], old_variant=t["old_variant"],
                             old_ms=t["old_ms"], host_us=t["host_us"],

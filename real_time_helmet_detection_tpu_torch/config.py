@@ -25,7 +25,10 @@ eval and the demo on the BN-folded, post-training-quantized twin
 (`ops/quant.py`, the int8 conv kernels of `ops/qconv.py`), with the
 activation scales of `--quant-scales` or calibrated on the first
 `--calib-batches` eval batches (`--calib-percentile` < 100 clips to that
-percentile of |x|). Training stays float and refuses it.
+percentile of |x|). Training never reads it (ref config.py:78-80): a
+`--train-flag` run under `--infer-dtype int8` or `--tier throughput`
+trains the float architecture (the tier's ghost-96), whose checkpoint
+the same flags then evaluate through the int8 twin.
 
 Serving (ref config.py:181-210): the `--serve-*` fields configure the
 serving engine (`serving/engine.py`) that eval and the demo predict
@@ -75,8 +78,9 @@ The train-step extras (ref config.py:319-440, validation :470-503,
   a step with a non-finite loss or gradient norm, or a gradient norm
   above the spike, leaves the whole train state as it was; the loss
   scale backs off; sustained skips roll back to the last checkpoint.
-  The port refuses it with `--sub-divisions` > 1 (a skip would have to
-  move the host's update window);
+  With `--sub-divisions` > 1 the update window counts good steps on the
+  device (`train.make_train_step`): a skip moves neither the window nor
+  the accumulated gradient;
 * `--distill CKPT --distill-alpha a`: a teacher's soft targets join the
   loss.
 
@@ -255,6 +259,11 @@ class Config:
     # step's losses, fetched with them
     span_log: str = ""            # flight-recorder span log (JSONL); "" =
     # $OBS_SPAN_LOG when set, else off
+    profile: bool = False         # torch.profiler trace of the first
+    # epoch's steps 2-7 on the chief, into <save_path>/trace
+    summary: bool = True          # print a layer table at train start on
+    # the chief (the reference's torchsummary on rank 0, ref
+    # config.py:456-458): shape inference on `meta` tensors, no device work
 
     # distributed: one process per card (the reference's convention)
     world_size: int = 1           # number of processes
@@ -280,7 +289,7 @@ class Config:
     fontsize: int = 10
     infer_dtype: str = "bf16"     # eval/demo numeric path: "bf16" = the
     # float model (compute dtype from --amp); "int8" = the BN-folded,
-    # post-training-quantized twin (ops/quant.py). Training refuses int8.
+    # post-training-quantized twin (ops/quant.py). Training ignores it.
     quant_scales: Optional[str] = None  # a saved activation-scales
     # artifact (ops.quant.save_scales); unset = calibrate on the first
     # --calib-batches eval batches and save one
@@ -391,12 +400,6 @@ class Config:
         if self.sentinel_rollbacks < 0:
             raise ValueError("--sentinel-rollbacks must be >= 0, got %d"
                              % self.sentinel_rollbacks)
-        if self.sentinel and self.sub_divisions > 1:
-            raise NotImplementedError(
-                "--sentinel with --sub-divisions > 1 is not ported: a "
-                "skipped step would move the update window, which the "
-                "port sets on the host ahead of the verdict; use "
-                "--grad-accum")
         self._check_runtime()
         only("optim", self.optim.lower(), ("adam", "adamw", "sgd"))
         if self.sub_divisions < 1:
@@ -439,12 +442,6 @@ class Config:
         if not 0.0 < self.calib_percentile <= 100.0:
             raise ValueError("--calib-percentile must be in (0, 100], "
                              "got %r" % (self.calib_percentile,))
-        if self.train_flag and self.infer_dtype == "int8":
-            raise NotImplementedError(
-                "--infer-dtype int8 (also set by --tier throughput) is an "
-                "eval/demo path: training stays float. Train the "
-                "architecture with --variant/--hourglass-inch/--stem-width "
-                "and evaluate it with --infer-dtype int8")
         if not self.serve_buckets or any(int(b) < 1
                                          for b in self.serve_buckets):
             raise ValueError("--serve-buckets must be a non-empty list of "

@@ -117,7 +117,8 @@ def state_dict_to_flax(state: Mapping[str, torch.Tensor]) -> Dict:
     flat: Dict[str, np.ndarray] = {}
     for key, value in state.items():
         *modules, name = key.split(".")
-        arr = value.detach().float().cpu().numpy()
+        # a checkpoint's conversion: one copy per tensor is the work
+        arr = value.detach().float().cpu().numpy()  # graftlint: off=device-get-in-loop
         if name == "weight":
             leaf = ("params", "kernel") if arr.ndim == 4 else \
                 ("params", "scale")

@@ -88,7 +88,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -815,3 +815,47 @@ def build_model(cfg, dtype: Optional[torch.dtype] = None,
         stem_s2d=cfg.stem_s2d, dtype=dtype,
         remat=getattr(cfg, "remat", "none"), **twin)
     return model.to(memory_format=torch.channels_last)
+
+
+def layer_summary(cfg, imsize: int
+                  ) -> Tuple[List[Tuple[str, str, Tuple[int, ...], int]],
+                             int]:
+    """The layer table of `cfg`'s detector (ref train.py:1832-1842, flax
+    `nn.tabulate(depth=2)`; the reference prints torchsummary on rank 0):
+    (rows, total). A row is (name, type, output shape, parameters) of a
+    module at depth 2, or of a depth-1 module without submodules, in
+    module order; the rows' parameters add up to `total`, the model's
+    `sum(p.numel())`. Shape inference alone: the model is built on the
+    `meta` device and run on a (1, imsize, imsize, 3) `meta` image in eval
+    mode, so no tensor lives on a card and no kernel launches (the
+    wrappers take their fakes and plain versions on `meta` tensors)."""
+    with torch.device("meta"):
+        model = build_model(cfg).eval()
+    picked = [(name, m) for name, m in model.named_modules()
+              if name.count(".") == 1
+              or (name and "." not in name and not any(m.children()))]
+    shapes: Dict[str, Tuple[int, ...]] = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out, name=name: shapes.__setitem__(
+            name, tuple(out.shape)))
+        for name, m in picked]
+    try:
+        with torch.no_grad():
+            model(torch.empty(1, imsize, imsize, 3, device="meta"))
+    finally:
+        for h in hooks:
+            h.remove()
+    rows = [(name, type(m).__name__, shapes.get(name, ()),
+             sum(p.numel() for p in m.parameters())) for name, m in picked]
+    return rows, sum(p.numel() for p in model.parameters())
+
+
+def format_summary(rows, total: int) -> str:
+    """`layer_summary`'s table as text, the total on its last line."""
+    lines = ["%-40s %-18s %-22s %12s" % ("layer", "type",
+                                          "output (N, C, H, W)", "params")]
+    for name, kind, shape, n in rows:
+        lines.append("%-40s %-18s %-22s %12d"
+                     % (name, kind, shape or "-", n))  # "-": not called
+    lines.append("total params: %d" % total)
+    return "\n".join(lines)

@@ -61,6 +61,7 @@ _ACT_CODE = {"ReLU": 0, "Mish": 1, "Linear": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMS = 132  # streaming multiprocessors of the H100
 _ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+PLAIN_DEVICES = ("cpu", "meta")  # the wrappers' plain (or fake) path
 _VEC_BYTES = 16   # one access of csrc/epilogue.cu's vector kernel
 _MAX_GROUPS = 256  # its most channel groups (C / V), kMaxGroups there
 
@@ -139,9 +140,16 @@ def check_activation(activation: str) -> None:
                                   % (activation, ACTIVATIONS))
 
 
+def plain_device(x: torch.Tensor) -> bool:
+    """True where a wrapper runs the plain version (or, through its op,
+    the fake): a CPU tensor, or a `meta` one (shape inference, which
+    launches nothing)."""
+    return x.device.type in PLAIN_DEVICES
+
+
 def check_cuda(what: str, x: torch.Tensor) -> None:
     """Raise unless x lies on a CUDA card: the wrappers run their plain
-    versions for CPU tensors only."""
+    versions for CPU (and meta) tensors only."""
     if x.device.type != "cuda":
         raise ValueError("%s runs on cuda or cpu, got %s" % (what, x.device))
 
@@ -193,7 +201,7 @@ def bn_act(x: torch.Tensor, eff_scale: torch.Tensor, eff_bias: torch.Tensor,
     check_activation(activation)
     check_layout("x", x)
     check_vectors(x, eff_scale=eff_scale, eff_bias=eff_bias)
-    if x.device.type != "cpu":
+    if not plain_device(x):
         check_cuda("bn_act", x)
     if variant not in (None, "vector", "scalar"):
         raise ValueError("variant must be 'vector' or 'scalar', got %r"
@@ -236,7 +244,7 @@ def bn_eval_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     column sums are the totals."""
     global eval_bwd_launches
     _check_bwd(x, a, b, g, activation)
-    if x.device.type == "cpu":
+    if plain_device(x):
         return bn_eval_bwd_reference(x, a, b, g, activation)
     db, da, dx, _, launched = launch_bwd_sums(x, a, b, g, activation,
                                               write_dx=True)
@@ -345,7 +353,7 @@ def bn_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     x: (N, C, H, W) channels-last, float32 or bfloat16."""
     global stats_launches
     check_layout("x", x)
-    if x.device.type == "cpu":
+    if plain_device(x):
         return bn_stats_reference(x)
     check_cuda("bn_stats", x)
     rows, c = x.numel() // x.shape[1], x.shape[1]
@@ -451,7 +459,7 @@ def bn_bwd_sums(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     dz = g * act'(x * a + b) recomputed (ref epilogue.py:430)."""
     global bwd_sums_launches
     _check_bwd(x, a, b, g, activation)
-    if x.device.type == "cpu":
+    if plain_device(x):
         return bn_bwd_sums_reference(x, a, b, g, activation)
     s1, s2, _, _, launched = launch_bwd_sums(x, a, b, g, activation)
     bwd_sums_launches += launched
@@ -464,7 +472,7 @@ def bn_bwd_dx(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     """dx = a*dz - k2*x - k1 in x's dtype (ref epilogue.py:439)."""
     global bwd_dx_launches
     _check_bwd(x, a, b, g, activation, k1=k1, k2=k2)
-    if x.device.type == "cpu":
+    if plain_device(x):
         return bn_bwd_dx_reference(x, a, b, g, k1, k2, activation)[0]
     dx, _, launched = launch_bwd_dx(x, a, b, g, k1, k2, activation)
     bwd_dx_launches += launched

@@ -41,7 +41,8 @@ import torch
 
 from . import _build
 from ..parallel import distributed
-from .epilogue import _DTYPE_CODE, _ELEMENT_BYTES, _VEC_BYTES, check_cuda
+from .epilogue import (_DTYPE_CODE, _ELEMENT_BYTES, _VEC_BYTES, check_cuda,
+                       plain_device)
 
 EPS = 1e-7            # focal eps, ref ops/pallas/loss.py:47
 FWD_TILE_PIXELS = 512  # pixels of one (stack, sample) map per forward block
@@ -307,7 +308,7 @@ def loss_sums(out: torch.Tensor, heat: torch.Tensor, off: torch.Tensor,
     global fwd_launches
     check_loss_operands(out, heat, off, wh, mask)
     kw = dict(alpha=alpha, beta=beta, normalized=normalized)
-    if out.device.type == "cpu":
+    if plain_device(out):
         return loss_sums_reference(out, heat, off, wh, mask, **kw)
     check_cuda("loss_sums", out)
     b, s, hw, c = _loss_args(out)
@@ -353,7 +354,7 @@ def loss_sums_bwd(out: torch.Tensor, heat: torch.Tensor, off: torch.Tensor,
                                  (out.shape[1], out.shape[0]), out.device,
                                  t.dtype, tuple(t.shape), t.device))
     kw = dict(alpha=alpha, beta=beta, normalized=normalized)
-    if out.device.type == "cpu":
+    if plain_device(out):
         return loss_sums_bwd_reference(out, heat, off, wh, mask, *cots, **kw)
     check_cuda("loss_sums_bwd", out)
     dout = torch.empty_like(out)

@@ -113,7 +113,7 @@ def peak_scores(logits: torch.Tensor, num_cls: int, pool_size: int = 3,
     on, a shape it cannot take."""
     check_pool_size(pool_size)
     _check(logits, num_cls)
-    if logits.device.type not in ("cpu", "cuda"):
+    if logits.device.type not in ("cpu", "meta", "cuda"):
         raise ValueError("peak_scores runs on cuda or cpu, got %s"
                          % logits.device)
     if variant not in (None, "vector", "scalar"):

@@ -62,7 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .epilogue import _channels_last, activate, check_cuda
+from .epilogue import _channels_last, activate, check_cuda, plain_device
 
 ACTIVATIONS = ("ReLU", "Linear")  # what the conv epilogue fuses
 _ACT_CODE = {"ReLU": 0, "Linear": 2}  # common.cuh Act
@@ -131,7 +131,7 @@ def quantize_act(x: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
         raise ValueError("step must be a 0-d float32 tensor on %s, got %s "
                          "%s on %s" % (x.device, tuple(step.shape),
                                        step.dtype, step.device))
-    if x.device.type != "cpu":
+    if not plain_device(x):
         check_cuda("quantize_act", x)
     return torch.ops.helmet.quantize_act.default(x, step)
 
@@ -365,7 +365,7 @@ def conv_dense_variant(q: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
     cout = w.shape[0]
     _check_conv("conv_dense", q, w, mult, bias, dtype, activation, cout)
     n, cin, h, wd = q.shape
-    if q.device.type != "cpu":
+    if not plain_device(q):
         check_cuda("conv_dense", q)
         if cin % 16 or cout % 8:
             raise ValueError("conv_dense: the kernel takes Cin % 16 == 0 and "
@@ -397,7 +397,7 @@ def conv_dw_variant(q: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
                          "got %s" % (c, tuple(w.shape)))
     _check_conv("conv_dw", q, w, mult, bias, dtype, activation, c)
     n, _, h, wd = q.shape
-    if q.device.type != "cpu":
+    if not plain_device(q):
         check_cuda("conv_dw", q)
         if c % 8 or n * h * wd * (c // 8) >= 2 ** 31:
             raise ValueError("conv_dw: the kernel takes C % 8 == 0 and fewer "

@@ -43,7 +43,7 @@ from .epilogue import (BNEval, BNTrain, EvalPasses,
                        Passes, _check_bwd, activate, bn_bwd_dx_reference,
                        bn_bwd_sums_reference, check_activation, check_cuda,
                        check_layout, check_vectors, eval_bwd_reference,
-                       launch_bwd_dx, launch_bwd_sums)
+                       launch_bwd_dx, launch_bwd_sums, plain_device)
 
 launches = 0
 eval_bwd_launches = 0
@@ -74,7 +74,7 @@ def bn_add_act(y: torch.Tensor, eff_scale: torch.Tensor,
     check_layout("y", y)
     check_layout("skip", skip, like=y)
     check_vectors(y, eff_scale=eff_scale, eff_bias=eff_bias)
-    if y.device.type != "cpu":
+    if not plain_device(y):
         check_cuda("bn_add_act", y)
     return torch.ops.helmet.bn_add_act.default(y, eff_scale, eff_bias,
                                                skip, activation)
@@ -94,7 +94,7 @@ def bn_add_eval_bwd(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     partials of d(eff_bias) = sum(dz)), the partials (nblocks, C)."""
     global eval_bwd_launches
     _check_bwd(y, a, b, g, activation, skip=skip)
-    if y.device.type == "cpu":
+    if plain_device(y):
         return bn_add_eval_bwd_reference(y, a, b, skip, g, activation)
     db, da, dy, ds, launched = launch_bwd_sums(y, a, b, g, activation,
                                                skip=skip, write_dx=True)
@@ -138,7 +138,7 @@ def bn_add_bwd_sums(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     dz = g * act'(y * a + b + skip) (ref residual.py:112)."""
     global bwd_sums_launches
     _check_bwd(y, a, b, g, activation, skip=skip)
-    if y.device.type == "cpu":
+    if plain_device(y):
         return bn_add_bwd_sums_reference(y, a, b, skip, g, activation)
     s1, s2, _, _, launched = launch_bwd_sums(y, a, b, g, activation,
                                              skip=skip)
@@ -154,7 +154,7 @@ def bn_add_bwd_dx(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     (ref residual.py:121)."""
     global bwd_dx_launches
     _check_bwd(y, a, b, g, activation, skip=skip, k1=k1, k2=k2)
-    if y.device.type == "cpu":
+    if plain_device(y):
         return bn_add_bwd_dx_reference(y, a, b, skip, g, k1, k2, activation)
     dy, ds, launched = launch_bwd_dx(y, a, b, g, k1, k2, activation,
                                      skip=skip)

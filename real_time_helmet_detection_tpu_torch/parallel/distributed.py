@@ -73,8 +73,8 @@ def all_gather_arrays(arrays: Sequence[np.ndarray]) -> List[np.ndarray]:
         t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
         parts = [torch.empty_like(t) for _ in range(world_size())]
         dist.all_gather(parts, t)
-        out.append(torch.stack(parts).cpu().numpy())
-    return out
+        out.append(torch.stack(parts))
+    return [t.cpu().numpy() for t in out]  # the gathers queued first
 
 
 def backend_for(cfg, device) -> str:

@@ -765,14 +765,16 @@ class ServingEngine:
             return None
         return item
 
-    def _launch(self, slot: _Slot, b: int) -> None:
+    def _launch(self, slot: _Slot, b: int, links=None) -> None:
         """H2D of the staged rows, the bucket's replay (or eager body on
         the CPU), D2H of the outputs into the slot, and its event: all on
-        the engine stream, in this order."""
+        the engine stream, in this order. `links`: the batch's requests'
+        contexts, which the two spans carry (ref serving/engine.py:895)."""
         runner = self._runners[b]
-        with self._tracer.span("serve:h2d", b=b) as sp_h2d:
+        with self._tracer.span("serve:h2d", b=b, links=links) as sp_h2d:
             runner.input.copy_(slot.stage[:b], non_blocking=True)
-        with self._tracer.span("serve:compute", b=b) as sp_comp:
+        with self._tracer.span("serve:compute", b=b,
+                               links=links) as sp_comp:
             outputs = runner.run()
             for host, out in zip(slot.host, outputs):
                 host[:b].copy_(out, non_blocking=True)
@@ -839,7 +841,7 @@ class ServingEngine:
             try:
                 if self._injector is not None:
                     self._injector.fire("serve:dispatch", b=b)
-                self._launch(slot, b)
+                self._launch(slot, b, blinks)
             except Exception as e:  # noqa: BLE001 - requeue, serve on
                 self._free.put(slot)
                 self._requeue_or_fail(live, e, stage="dispatch", b=b)

@@ -420,9 +420,13 @@ class FleetRouter:
         snapshot, without per-replica metrics digests), tenant budgets /
         penalty boxes, canary state and the fleet counters."""
         with self._lock:
-            reps = list(self._replicas)
             canary = self._canary
             canary_frac = self._canary_frac
+            # each slot's fields with the canary in the same window: a
+            # respawn moves the engine, the generation and the canary
+            # together
+            reps = [(rep.rid, rep.generation, rep.tier, rep.engine,
+                     canary is rep) for rep in self._replicas]
             tenants = {t.name: {"budget": t.budget,
                                 "outstanding": t.outstanding,
                                 "penalty": t.penalty,
@@ -432,10 +436,10 @@ class FleetRouter:
                                 "failed": t.c_failed.value}
                        for t in self._tenants.values()}
         return {
-            "replicas": [dict(rid=rep.rid, generation=rep.generation,
-                              tier=rep.tier, canary=(canary is rep),
-                              **rep.engine.health(include_metrics=False))
-                         for rep in reps],
+            "replicas": [dict(rid=rid, generation=gen, tier=tier,
+                              canary=is_canary,
+                              **engine.health(include_metrics=False))
+                         for rid, gen, tier, engine, is_canary in reps],
             "tenants": tenants,
             "tenant_tiers": dict(self._tenant_tiers),
             "cascade": (None if not self._cascade_tenants else {

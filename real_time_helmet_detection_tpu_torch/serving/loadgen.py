@@ -158,7 +158,9 @@ def serial_loop(predict_b1: Callable, pool: List[np.ndarray],
         if lag > 0:
             time.sleep(lag)  # an idle server waits for the next arrival
         scores = predict_b1(pool[i % len(pool)][None]).scores
-        np.asarray(scores.cpu() if hasattr(scores, "cpu") else scores)
+        # the serial baseline: each request's own fetch is what it times
+        np.asarray(scores.cpu()  # graftlint: off=device-get-in-loop,device-get-in-serving-loop
+                   if hasattr(scores, "cpu") else scores)
         lat = time.monotonic() - (t0 + at)
         served += 1
         lats.append(lat)

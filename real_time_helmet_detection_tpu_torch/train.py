@@ -30,6 +30,11 @@ one card:
   .../weights.npz`), both written atomically. `step` counts optimizer
   updates.
 
+At train start the chief prints the layer table (`--summary`, on by
+default; `print_layer_table`, shape inference on `meta` tensors), and
+`--profile` traces steps 2-7 of the first epoch into `<save_path>/trace`
+(`StepTrace`; ref train.py:1634-1668, :1832-1842).
+
 The training runtime (ref train.py:642-1245, :1345-1697, :1698-2123):
 the input path of `make_step_runner` (host batches; `--device-augment`'s
 fused augment + encode on the card; `--cache-device`'s gather from the
@@ -83,6 +88,8 @@ The train-step extras (ref train.py:141-357, :582-615, :1249-1345):
   them there and backs the scale off, and `--sentinel-divergence`
   consecutive skips raise `TrainingDivergenceError`, on which `train`
   restores this run's last checkpoint (`--sentinel-rollbacks` times).
+  With `--sub-divisions k` > 1 the update window is the sentinel's, on
+  the device (`make_gated_step`): the update falls on the k-th good step.
 * `--distill CKPT` (`Distiller`, ref :141-243): the teacher (its
   architecture from the snapshot beside its checkpoint), in eval mode
   under `torch.no_grad()`, and its soft losses at `--distill-alpha`.
@@ -117,7 +124,8 @@ from .data.augment import TestAugmentor
 from .data.pipeline import (Batch, BatchLoader, DeviceDatasetCache,
                             DevicePrefetcher, StagedBatch, load_dataset)
 from .evaluate import init_weights, weights_file
-from .models.hourglass import build_model, cast_convs, cast_params
+from .models.hourglass import (build_model, cast_convs, cast_params,
+                              format_summary, layer_summary)
 from .obs.metrics import default_registry
 from .obs.telemetry import telemetry_scalars
 from .ops.loss import (LossLog, _num_pos, fused_detection_loss,
@@ -274,7 +282,15 @@ class Sentinel:
     after its update — every state tensor of the step keeps its
     pre-step value where `bad` (a 0-d bool tensor) holds, by a select on
     the device. `count` is the LR schedule's count of updates taken,
-    a 0-d float32 device tensor."""
+    a 0-d float32 device tensor.
+
+    Under `--sub-divisions k` > 1 the update window lives on the device
+    too, as JAX's `optax.MultiSteps` state does (ref optim.py:140-142,
+    `mini_step` and `acc_grads`, which its select takes back): `acc`
+    holds the sum of the window's good gradients, `mini` (0-d float32)
+    their number. `gated_update(gate, schedule)` runs an update on
+    `acc` and keeps it only where `gate` holds; a skipped step moves
+    neither."""
 
     def __init__(self, cfg: Config, model: torch.nn.Module, optimizer,
                  ema: Optional[EMA], device, count: int = 0):
@@ -284,21 +300,35 @@ class Sentinel:
         optimizer.init_state()  # the zero moments a skip must keep
         device_counts(optimizer, device)
         self.model, self.optimizer, self.ema = model, optimizer, ema
+        self.acc: List[torch.Tensor] = []
+        self.mini: Optional[torch.Tensor] = None
+        if cfg.sub_divisions > 1:
+            self.acc = [torch.zeros_like(p) for p in model.parameters()]
+            self.mini = torch.zeros((), dtype=torch.float32, device=device)
 
-    def tensors(self) -> List[torch.Tensor]:
+    def update_tensors(self) -> List[torch.Tensor]:
+        """What an optimizer update writes: the parameters, the
+        optimizer's state and counts (the fp32 masters), the LR count."""
         opt = self.optimizer
         inner = opt.inner if isinstance(opt, MasterOptimizer) else opt
         ts = [p.data for p in self.model.parameters()]
-        ts += list(self.model.buffers())
         for st in inner.state.values():
             ts += [t for t in st.values() if torch.is_tensor(t)]
         ts += [g["count"] for g in inner.param_groups
                if torch.is_tensor(g.get("count"))]
         if isinstance(opt, MasterOptimizer):
             ts += opt.masters
+        return ts + [self.count]
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every state tensor a step may write: `update_tensors`, the BN
+        buffers, the EMA and the device window."""
+        ts = self.update_tensors() + list(self.model.buffers())
         if self.ema is not None:
             ts += self.ema.tensors
-        return ts + [self.count]
+        if self.mini is not None:
+            ts += self.acc + [self.mini]
+        return ts
 
     def snapshot(self) -> List[torch.Tensor]:
         return [t.detach().clone() for t in self.tensors()]
@@ -320,6 +350,37 @@ class Sentinel:
     def restore(self, bad: torch.Tensor, snapshot) -> None:
         for t, old in zip(self.tensors(), snapshot):
             torch.where(bad, old, t, out=t)
+
+    @torch.no_grad()
+    def gated_update(self, gate: torch.Tensor, schedule: Callable,
+                     ema: Optional[EMA] = None) -> None:
+        """One update on the window's sum at `schedule(count)` (then a
+        step of `ema`, if given), kept where `gate` (0-d bool) holds and
+        taken back elsewhere; where it holds the window empties. No host
+        sync."""
+        written = self.update_tensors()
+        if ema is not None:
+            written += ema.tensors
+        old = [t.clone() for t in written]
+        for p, a in zip(self.model.parameters(), self.acc):
+            p.grad = a  # read, never written, by the update
+        set_lr(self.optimizer, schedule(self.count))
+        self.optimizer.step()
+        self.count += 1
+        if ema is not None:
+            ema.update()
+        for t, o in zip(written, old):
+            torch.where(gate, t, o, out=t)
+        keep = (~gate).to(self.mini.dtype)
+        torch._foreach_mul_(self.acc, keep)
+        self.mini.mul_(keep)
+
+    def reset_window(self) -> None:
+        """Empty the device window (a rollback or a resume starts one)."""
+        if self.mini is not None:
+            with torch.no_grad():
+                torch._foreach_zero_(self.acc)
+                self.mini.zero_()
 
 
 class SentinelMonitor:
@@ -406,12 +467,15 @@ def make_train_step(model: torch.nn.Module, optimizer,
     their parts; `--telemetry` adds the gradient, update and parameter
     norms (`obs.telemetry`, ref train.py:290; under `--sub-divisions` the
     gradient norm is the window's running sum). The losses dict holds
-    detached device scalars, the micro-batches' mean."""
+    detached device scalars, the micro-batches' mean. A sentinel with
+    `--sub-divisions` > 1 takes `make_gated_step`'s step."""
     net = model if net is None else net
-    k = cfg.grad_accum
     master = isinstance(optimizer, MasterOptimizer)
     no_sync = None if master else getattr(net, "no_sync", None)
     window = [0]  # host steps whose gradients are in p.grad
+    if sentinel is not None and sentinel.mini is not None:
+        return make_gated_step(model, optimizer, schedule, cfg, net, ema,
+                               sentinel, distiller, loss_scale)
 
     def step(count: int, images, gt_heat, gt_off, gt_wh, mask,
              update: bool = True):
@@ -422,24 +486,10 @@ def make_train_step(model: torch.nn.Module, optimizer,
         if sentinel is not None:
             scale = float(loss_scale()) if loss_scale else 1.0
             snapshot = sentinel.snapshot()
-        arrays = (images, gt_heat, gt_off, gt_wh, mask)
-        rows = images.shape[0] // k
-        micro = []
-        for j in range(k):
-            part = arrays if k == 1 else tuple(
-                a[j * rows:(j + 1) * rows] for a in arrays)
-            syncs = no_sync is None or (update and j == k - 1)
-            with contextlib.nullcontext() if syncs else no_sync():
-                total, losses = loss_fn(net, *part, cfg, distiller)
-                (total * scale if sentinel is not None else total).backward()
-            if master:
-                optimizer.accumulate()
-            micro.append(losses)
-        if k == 1:
-            out = {n: v.detach() for n, v in micro[0].items()}
-        else:
-            out = {n: torch.stack([m[n].detach() for m in micro]).mean()
-                   for n in micro[0]}
+        out = micro_losses(
+            net, (images, gt_heat, gt_off, gt_wh, mask), cfg, distiller,
+            scale if sentinel is not None else None, no_sync,
+            sync_last=update, after=optimizer.accumulate if master else None)
         grads = [m.grad for m in optimizer.masters] if master else \
             [p.grad for p in model.parameters() if p.grad is not None]
         if sentinel is not None:
@@ -464,6 +514,86 @@ def make_train_step(model: torch.nn.Module, optimizer,
             ema.update()
         if sentinel is not None:
             sentinel.restore(bad, snapshot)
+        if cfg.telemetry:
+            out.update(telemetry_scalars(grads, old,
+                                         list(model.parameters())))
+        return out
+
+    return step
+
+
+def micro_losses(net, arrays, cfg: Config, distiller, scale,
+                 no_sync=None, sync_last: bool = True,
+                 after: Optional[Callable[[], None]] = None) -> Dict:
+    """Forward + backward of the step's `--grad-accum` micro-batches,
+    each loss times `scale` (None: unscaled), their gradients summed into
+    `p.grad` (`after`, if given, runs after each backward); returns the
+    micro-batches' mean losses, detached. A DistributedDataParallel
+    `no_sync` holds the all-reduce back from all but the last
+    micro-batch (from that too unless `sync_last`)."""
+    k = cfg.grad_accum
+    rows = arrays[0].shape[0] // k
+    micro = []
+    for j in range(k):
+        part = arrays if k == 1 else tuple(
+            a[j * rows:(j + 1) * rows] for a in arrays)
+        syncs = no_sync is None or (sync_last and j == k - 1)
+        with contextlib.nullcontext() if syncs else no_sync():
+            total, losses = loss_fn(net, *part, cfg, distiller)
+            (total if scale is None else total * scale).backward()
+        if after is not None:
+            after()
+        micro.append(losses)
+    if k == 1:
+        return {n: v.detach() for n, v in micro[0].items()}
+    return {n: torch.stack([m[n].detach() for m in micro]).mean()
+            for n in micro[0]}
+
+
+def make_gated_step(model: torch.nn.Module, optimizer, schedule: Callable,
+                    cfg: Config, net, ema: Optional[EMA], sentinel: Sentinel,
+                    distiller: Optional[Distiller],
+                    loss_scale: Optional[Callable[[], float]]):
+    """`--sentinel` with `--sub-divisions k` > 1 (ref train.py:331-357
+    over `optax.MultiSteps`, optim.py:140-142): `step(count, images, heat,
+    off, wh, mask, update=False)`. Each step's gradient (unscaled) joins
+    the sentinel's device window `acc` and `mini` counts it; the update
+    runs every step and is kept only where the step is good and `mini`
+    reaches k (`Sentinel.gated_update`), so it falls on the k-th good
+    step and a skip moves neither the window, the sum, the EMA, the
+    schedule's count nor the running statistics. The EMA moves on every
+    good step, as JAX's does on every host step. `update` marks the
+    epoch's last step (`train_epoch`): after it a window left partial is
+    flushed with its partial sum, gated on `mini > 0` (JAX's
+    `make_state_accum_flush`, ref train.py:582-615, which reads
+    `mini_step` on the host; here the gate stays on the device). `count`
+    is ignored: the schedule reads the sentinel's. No host sync in the
+    step; every step all-reduces its gradient across ranks (the update's
+    step is not known on the host)."""
+    k = cfg.sub_divisions
+
+    def step(count: int, images, gt_heat, gt_off, gt_wh, mask,
+             update: bool = False):
+        optimizer.zero_grad(set_to_none=True)
+        scale = float(loss_scale()) if loss_scale else 1.0
+        snapshot = sentinel.snapshot()
+        out = micro_losses(net, (images, gt_heat, gt_off, gt_wh, mask), cfg,
+                           distiller, scale)
+        grads = [p.grad for p in model.parameters()]
+        bad, norm = sentinel.verdict(out["total"], grads, scale)
+        out.update(sentinel_bad=bad.float(), sentinel_grad_norm=norm,
+                   sentinel_scale=torch.full_like(norm, scale))
+        if cfg.telemetry:
+            old = [p.detach().clone() for p in model.parameters()]
+        with torch.no_grad():
+            torch._foreach_add_(sentinel.acc, grads)
+            sentinel.mini += 1
+        sentinel.gated_update(sentinel.mini >= k, schedule)
+        if ema is not None:  # every host step, as JAX's
+            ema.update()
+        sentinel.restore(bad, snapshot)
+        if update:  # the epoch's end: flush a partial window
+            sentinel.gated_update(sentinel.mini > 0, schedule, ema)
         if cfg.telemetry:
             out.update(telemetry_scalars(grads, old,
                                          list(model.parameters())))
@@ -701,6 +831,7 @@ class Trainer:
             device_counts(self.optimizer, None)
             device_counts(self.optimizer, self.device)
             self.sentinel.count.copy_(snap["sentinel"])
+            self.sentinel.reset_window()
         self.loss_log = LossLog(snap["loss_log"])
         self.count = snap["count"]
 
@@ -714,6 +845,7 @@ class Trainer:
         if self.sentinel is not None:
             device_counts(self.optimizer, self.device)
             self.sentinel.count.fill_(self.count)
+            self.sentinel.reset_window()
         return int(ckpt["epoch"])
 
 
@@ -777,6 +909,52 @@ def _poison_batch(batch):
     return batch
 
 
+PROFILE_STEPS = (2, 7)  # the first and last traced step (ref train.py:1634)
+
+
+class StepTrace:
+    """`--profile` (ref train.py:1634-1668): a `torch.profiler` trace of
+    steps 2-7 of the first epoch on the chief, CPU activity and, on a
+    card, CUDA activity. Each traced step runs under a
+    `ProfilerStep#<i>` range (`step(i)`); `end()` takes a synchronize
+    first, so the trace holds the steps' device work and not only their
+    launch, then writes `trace.json` into a temp dir renamed to
+    `<save_path>/trace`, and returns that path."""
+
+    def __init__(self, save_path: str, device: torch.device):
+        self.path = os.path.join(save_path, "trace")
+        self.device = device
+        self.prof = None
+
+    def begin(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=acts)
+        self.prof.start()
+
+    def step(self, i: int):
+        if self.prof is None:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function("ProfilerStep#%d" % i)
+
+    def end(self) -> Optional[str]:
+        if self.prof is None:
+            return None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        self.prof, prof = None, self.prof
+        tmp = "%s.tmp-%d" % (self.path, os.getpid())
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        prof.export_chrome_trace(os.path.join(tmp, "trace.json"))
+        shutil.rmtree(self.path, ignore_errors=True)
+        os.replace(tmp, self.path)
+        return self.path
+
+
 def train_epoch(cfg: Config, epoch: int, loader, step,
                 device: torch.device, loss_log: LossLog,
                 count: int, chief: bool = True,
@@ -784,7 +962,7 @@ def train_epoch(cfg: Config, epoch: int, loader, step,
                 runner=None, epoch_base_step: int = 0, tracer=None,
                 injector: Optional[FaultInjector] = None, chaos=None,
                 watchdog=None, mwriter=None, slo=None,
-                snapshot_fn=None) -> int:
+                snapshot_fn=None, trace: Optional[StepTrace] = None) -> int:
     """One epoch of the hot loop (ref train.py:1508); returns the update
     count after it. Under `--sub-divisions k` a step updates on every
     k-th batch and on the epoch's last. `runner` (default: the host
@@ -800,7 +978,14 @@ def train_epoch(cfg: Config, epoch: int, loader, step,
     the step time and the loss. `injector` and `chaos` (the `train:rank`
     and `train:batch` sites) fire at the top of an iteration; `watchdog`
     beats at each flush. A chief's print step writes the training-log
-    snapshots (`write_snapshots`, the pred one with `snapshot_fn`)."""
+    snapshots (`write_snapshots`, the pred one with `snapshot_fn`).
+    `trace` (`--profile`) traces steps 2-7, the pending losses flushed
+    before it stops.
+
+    Under `--sentinel` with `--sub-divisions` > 1 the step decides its
+    updates on the device (`make_gated_step`); its flag marks the epoch's
+    last step only, and the returned count is the host's schedule (the
+    caller reads the sentinel's)."""
     from .obs.spans import SpanTracer
     from .obs.trace import step_context
     tracer = tracer if tracer is not None else SpanTracer(None)
@@ -815,6 +1000,7 @@ def train_epoch(cfg: Config, epoch: int, loader, step,
     meters = {k: AverageMeter() for k in ("data", "step")}
     pending = []
     n, k = len(loader), cfg.sub_divisions
+    gated = cfg.sentinel and k > 1
 
     def flush_losses():
         # one device -> host copy (and, across ranks, one all-reduce) for
@@ -872,8 +1058,16 @@ def train_epoch(cfg: Config, epoch: int, loader, step,
             tracer.record("loader-wait", data_t, ctx=sctx.child(),
                           epoch=epoch, it=i)
         update = (i + 1) % k == 0 or i == n - 1
-        pending.append(runner(batch, epoch_base_step + i, count, update))
+        # the device window decides the updates; the step flushes at the end
+        flag = i == n - 1 if gated else update
+        if trace is not None and i == PROFILE_STEPS[0]:
+            trace.begin()
+        with trace.step(i) if trace is not None else contextlib.nullcontext():
+            pending.append(runner(batch, epoch_base_step + i, count, flag))
         count += update
+        if trace is not None and i == PROFILE_STEPS[1]:
+            flush_losses()  # the traced steps' device work, not the queue
+            end_trace(trace, chief)
         if i % cfg.print_interval == 0:
             flush_losses()
             if watchdog is not None:
@@ -895,7 +1089,15 @@ def train_epoch(cfg: Config, epoch: int, loader, step,
             write_snapshots(cfg, epoch, i, batch, snapshot_fn)
         tic = time.time()
     flush_losses()
+    if trace is not None:  # a short epoch
+        end_trace(trace, chief)
     return count
+
+
+def end_trace(trace: StepTrace, chief: bool) -> None:
+    path = trace.end()
+    if path is not None and chief:
+        print("%s: profiler trace -> %s" % (timestamp(), path), flush=True)
 
 
 def checkpoint_dir(save_path: str, epoch: int) -> str:
@@ -1247,6 +1449,16 @@ def make_loader(cfg: Config, dataset, augmentor, device: torch.device):
     return BatchLoader(dataset, augmentor, **kw)
 
 
+def print_layer_table(cfg: Config, chief: bool) -> None:
+    """`--summary` (ref train.py:1832-1842): the chief prints the layer
+    table of `cfg`'s model at the largest train size, from shape
+    inference on `meta` tensors (`models.hourglass.layer_summary`): no
+    launch, no copy to the card."""
+    if chief and cfg.summary:
+        imsize = cfg.multiscale[1] if cfg.imsize is None else cfg.imsize
+        print(format_summary(*layer_summary(cfg, imsize)), flush=True)
+
+
 def train(cfg: Config, chaos=None) -> Dict:
     """Full training run (ref train.py:1698), on every rank of a
     `--world-size` run. Returns {"model", "optimizer", "loss_log",
@@ -1328,6 +1540,7 @@ def train(cfg: Config, chaos=None) -> Dict:
               "steps per epoch" % (
                   timestamp(), sum(p.numel() for p in model.parameters()),
                   dev, cfg.world_size, steps_per_epoch), flush=True)
+    print_layer_table(cfg, chief)
     from .obs.metrics import maybe_writer
     from .obs.slo import SloWatchdog, default_train_rules
     from .obs.spans import maybe_tracer
@@ -1363,7 +1576,10 @@ def train(cfg: Config, chaos=None) -> Dict:
                     runner=runner, epoch_base_step=epoch * steps_per_epoch,
                     tracer=tracer, injector=injector, chaos=chaos,
                     watchdog=watchdog, mwriter=mwriter, slo=slo,
-                    snapshot_fn=snapshot_fn)
+                    snapshot_fn=snapshot_fn,
+                    trace=StepTrace(cfg.save_path, dev)
+                    if cfg.profile and chief and epoch == start_epoch
+                    else None)
                 if sentinel is not None:  # the updates taken, skips out
                     trainer.count = int(sentinel.count.item())
                 if (epoch + 1) % max(1, cfg.ckpt_interval) == 0 \

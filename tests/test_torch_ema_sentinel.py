@@ -331,7 +331,19 @@ def test_divergence_rolls_back_to_the_last_checkpoint(voc, tmp_path,
             assert torch.equal(state[n], t), n
 
 
-def test_sentinel_refuses_sub_divisions():
-    with pytest.raises(NotImplementedError, match="sub-divisions"):
-        Config(sentinel=True, sub_divisions=2)
+def test_sentinel_refuses_sub_divisions(voc, tmp_path):
+    """(The refusal is lifted.) `--sentinel --sub-divisions k` is taken
+    as JAX's Config takes it, and the train CLI runs it: 8 images at
+    batch 4 are an epoch of 2 micro-steps, one window of 3 is flushed at
+    its end, so each epoch takes one update and its checkpoint counts
+    them (tests/test_torch_sentinel_subdiv.py holds the steps to
+    JAX's)."""
+    cfg = Config(sentinel=True, sub_divisions=2)
+    jcfg = JaxConfig(sentinel=True, sub_divisions=2)
+    assert (cfg.sentinel, cfg.sub_divisions) \
+        == (jcfg.sentinel, jcfg.sub_divisions)
     Config(sentinel=True, grad_accum=2)
+    save = str(tmp_path / "w")
+    train_cli(voc, save, "--sentinel", "--sub-divisions", "3", epochs=2)
+    ck = load_checkpoint(os.path.join(save, "check_point_2"))
+    assert ck["step"] == 2 and len(ck["loss_log"]["total"]) == 4

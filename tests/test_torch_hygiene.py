@@ -18,6 +18,7 @@
 
 import ast
 import os
+import sys
 
 import pytest
 
@@ -78,8 +79,25 @@ def test_port_files_exist():
                  PKG + "/serving/streams.py", PKG + "/serving/runs.py",
                  PKG + "/ops/delta.py", PKG + "/runtime/spool.py",
                  PKG + "/runtime/supervisor.py", PKG + "/runtime/queue.py",
-                 PKG + "/obs/traceview.py"):
+                 PKG + "/obs/traceview.py", PKG + "/analysis/__init__.py",
+                 PKG + "/analysis/ast_rules.py",
+                 PKG + "/analysis/lock_audit.py",
+                 PKG + "/analysis/interleave.py",
+                 PKG + "/analysis/trace_audit.py",
+                 PKG + "/analysis/transfer_audit.py",
+                 PKG + "/analysis/graftlint.py"):
         assert must in names
+
+
+@pytest.mark.parametrize("name", ["__init__", "ast_rules", "lock_audit",
+                                  "interleave"])
+def test_static_analysis_layers_are_stdlib_only(name):
+    """The AST and lock layers import nothing but the standard library
+    and each other (no torch, no numpy): they lint a tree without
+    building anything."""
+    path = os.path.join(REPO, PKG, "analysis", name + ".py")
+    mods = {m.split(".")[0] for m in imported_modules(path)}
+    assert mods <= set(sys.stdlib_module_names) | {PKG}, mods
 
 
 def test_every_cuda_source_has_its_c_signatures():

@@ -310,14 +310,14 @@ def test_config_rejects_unported_paths(field, value):
 def test_cli_refuses_jax_only_path_flags(flag, capsys):
     """The port has one path per op, its kernel: the JAX CLI's switches to
     an XLA composition are not flags of the port's CLI. `--infer-dtype
-    int8` is one (the int8 twin and its kernels), for eval and the demo
-    only: training refuses it."""
+    int8` is one (the int8 twin and its kernels) for eval and the demo;
+    a train run takes it as JAX's does and trains the float model."""
     if flag == "--infer-dtype=int8":
         assert parse_args(["--data", "x", "--device", "cpu",
                            flag]).infer_dtype == "int8"
-        with pytest.raises(NotImplementedError, match="int8"):
-            parse_args(["--data", "x", "--device", "cpu", "--train-flag",
-                        flag])
+        cfg = parse_args(["--data", "x", "--device", "cpu", "--train-flag",
+                          flag])
+        assert (cfg.infer_dtype, cfg.train_flag) == ("int8", True)
         return
     with pytest.raises(SystemExit):
         parse_args(["--data", "x", "--device", "cpu", flag])

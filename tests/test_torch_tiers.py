@@ -7,8 +7,10 @@
   the same values as JAX `apply_tier`, `tier_of` and `resolve_buckets`
   agree; the int8 fields (`infer_dtype`, `quant_scales`,
   `calib_batches`, `calib_percentile`) have the JAX defaults and
-  validation; `--tier throughput` (int8 inference) and `--infer-dtype
-  int8` are refused for training;
+  validation; a train run takes `--tier throughput` and `--infer-dtype
+  int8` as JAX's does: it trains the tier's float architecture (JAX's
+  train never reads `infer_dtype`) — one step against JAX's at width 16
+  and 64^2, and the train CLI's checkpoint evaluated at the tier;
 * `--tier edge` and `--tier quality` run eval through the serving engine,
   with the tier's buckets up to the batch size;
 * `--tier throughput` runs eval through the engine on the int8 twin,
@@ -92,10 +94,21 @@ def test_int8_validation_matches_jax(field, value):
 
 
 def test_int8_refused_for_training():
-    with pytest.raises(NotImplementedError, match="int8"):
-        config.Config(infer_dtype="int8", train_flag=True)
-    with pytest.raises(NotImplementedError, match="int8"):
-        config.parse_args(["--infer-dtype", "int8", "--train-flag"])
+    """(The refusal is lifted.) `--infer-dtype int8 --train-flag` parses
+    to JAX's fields, and the model training builds from it is the float
+    one: no int8 module, the float model's parameters."""
+    from real_time_helmet_detection_tpu_torch.models.hourglass import (
+        QuantConv, build_model)
+    argv = ["--infer-dtype", "int8", "--train-flag"]
+    ours, theirs = config.parse_args(argv), jax_config.parse_args(argv)
+    assert (ours.infer_dtype, ours.train_flag) == ("int8", True)
+    for name in INT8_FIELDS + ("train_flag",):
+        assert getattr(ours, name) == getattr(theirs, name), name
+    model = build_model(ours)
+    float_model = build_model(config.Config())
+    assert not any(isinstance(m, QuantConv) for m in model.modules())
+    assert [p.shape for p in model.parameters()] \
+        == [p.shape for p in float_model.parameters()]
 
 
 @pytest.mark.parametrize("tier", ["edge", "quality", "throughput"])
@@ -124,15 +137,119 @@ def test_tier_of_other_architectures_matches_jax():
 
 
 def test_throughput_tier_is_refused():
-    """The throughput tier's int8 inference is eval and demo only: its
-    preset is JAX's, eval takes it, training refuses it."""
+    """(The refusal is lifted.) `--tier throughput --train-flag` trains
+    the tier's float ghost architecture as JAX's does: the preset's
+    fields equal JAX's, and one train step of it (at width 16, stem 16 and
+    64^2) from one JAX init through the port's `make_train_step` and
+    JAX's step body gives tests/test_torch_train.py's step pins: losses
+    rtol 1e-5 on the first step, 1e-4 on the second (after an SGD
+    update), the running statistics rtol 1e-2 atol 2e-5."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from real_time_helmet_detection_tpu import optim as jax_optim
+    from real_time_helmet_detection_tpu.models import \
+        build_model as jax_build
+    from real_time_helmet_detection_tpu.train import (
+        TrainState, init_variables, make_train_step_body)
+    from real_time_helmet_detection_tpu_torch import convert
+    from real_time_helmet_detection_tpu_torch.data.synthetic import \
+        synthetic_target_batch
+    from real_time_helmet_detection_tpu_torch.models.hourglass import \
+        build_model
+    from real_time_helmet_detection_tpu_torch.optim import (
+        build_optimizer, make_lr_schedule)
+    from real_time_helmet_detection_tpu_torch.train import make_train_step
     assert config.TIER_PRESETS["throughput"] \
         == jax_config.TIER_PRESETS["throughput"]
-    assert config.apply_tier(config.Config(tier="throughput")).infer_dtype \
-        == "int8"
-    with pytest.raises(NotImplementedError, match="int8"):
-        config.apply_tier(config.parse_args(["--tier", "throughput",
-                                             "--train-flag"]))
+    small = dict(hourglass_inch=16, stem_width=16, batch_size=2,
+                 optim="SGD", lr=1e-3)
+    ours = dataclasses.replace(config.apply_tier(config.parse_args(
+        ["--tier", "throughput", "--train-flag"])), **small)
+    theirs = dataclasses.replace(jax_config.apply_tier(jax_config.parse_args(
+        ["--tier", "throughput", "--train-flag"])), epilogue="fused",
+        block_fuse="fused", loss_kernel="xla", **small)
+    for name in ("variant", "num_stack", "increase_ch", "infer_dtype",
+                 "train_flag"):
+        assert getattr(ours, name) == getattr(theirs, name), name
+    assert (ours.variant, ours.infer_dtype) == ("ghost", "int8")
+    jmodel = jax_build(theirs)
+    params, stats = jax.device_get(init_variables(jmodel, jax.random.key(3),
+                                                  64))
+    tx = jax_optim.build_optimizer(theirs, 10)
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                       batch_stats=stats, opt_state=tx.init(params))
+    body = jax.jit(make_train_step_body(jmodel, tx, theirs))
+    ours = dataclasses.replace(ours, device="cpu")
+    model = build_model(ours).train()
+    convert.load_into(model, {"params": params, "batch_stats": stats})
+    step = make_train_step(model, build_optimizer(ours, model.parameters()),
+                           make_lr_schedule(ours, 10), ours)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for count, seed in enumerate((0, 1)):
+            arrs = synthetic_target_batch(2, 64, seed=seed)
+            state, jl = body(state, *map(jnp.asarray, arrs))
+            pl = step(count, *map(torch.from_numpy, arrs))
+            np.testing.assert_allclose(float(pl["total"]),
+                                       float(jl["total"]),
+                                       rtol=1e-5 if count == 0 else 1e-4)
+    finally:
+        torch.set_num_threads(threads)
+    got = convert.flatten_tree(convert.state_dict_to_flax(
+        model.state_dict())["batch_stats"])
+    want = convert.flatten_tree(jax.device_get(state.batch_stats))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], np.asarray(want[k]), rtol=1e-2,
+                                   atol=2e-5, err_msg=k)
+
+
+def test_cli_throughput_tier_trains_then_evaluates(tmp_path, capsys):
+    """The train CLI under `--tier throughput` writes a checkpoint of the
+    float ghost-96 model (its snapshot says int8 inference), the eval CLI
+    at the tier evaluates it through the int8 twin with no conversion
+    step, and `--distill` trains a tier student from it."""
+    root = make_synthetic_voc(str(tmp_path / "voc"), num_train=4,
+                              num_test=2, imsize=(96, 72), seed=4)
+    save = str(tmp_path / "w")
+    main(["--train-flag", "--tier", "throughput", "--device", "cpu",
+          "--data", root, "--batch-size", "2", "--end-epoch", "1",
+          "--multiscale", "32", "64", "32", "--num-workers", "0",
+          "--no-summary", "--save-path", save])
+    snap = config.load_config(os.path.join(save, "argument.json"))
+    assert (snap.variant, snap.hourglass_inch, snap.stem_width) \
+        == ("ghost", 96, 96)
+    assert os.path.isfile(os.path.join(save, "check_point_1",
+                                       "weights.npz"))
+    capsys.readouterr()
+    main(["--tier", "throughput", "--device", "cpu", "--data", root,
+          "--imsize", "64", "--batch-size", "2", "--model-load", save,
+          "--save-path", str(tmp_path / "eval")])
+    out = capsys.readouterr().out
+    assert "int8 calibration" in out and ": mAP " in out
+    assert os.path.isfile(os.path.join(str(tmp_path / "eval"),
+                                       "calibration", "quant_scales.json"))
+    # a tier student distilled from a teacher checkpoint (JAX's --distill
+    # into the throughput tier): the soft loss joins every step's total
+    # beyond the hard losses' weighted sum
+    import torch
+    main(["--train-flag", "--tier", "throughput", "--device", "cpu",
+          "--data", root, "--batch-size", "2", "--end-epoch", "1",
+          "--multiscale", "32", "64", "32", "--num-workers", "0",
+          "--no-summary", "--distill", save, "--save-path",
+          str(tmp_path / "student")])
+    log = torch.load(os.path.join(str(tmp_path / "student"), "check_point_1",
+                                  "checkpoint.pt"), map_location="cpu",
+                     weights_only=False)["loss_log"]
+    c = config.Config()
+    soft = [t - (h * c.hm_weight + o * c.offset_weight + z * c.size_weight)
+            for t, h, o, z in zip(log["total"], log["hm"], log["offset"],
+                                  log["size"])]
+    assert len(soft) == 2 and all(v > 1e-3 for v in soft), soft
 
 
 @pytest.fixture(scope="module")
