@@ -293,7 +293,31 @@ version on the card:
    after a warm-up, its `Memcpy HtoD`/`DtoH` records against
    `analysis/transfer_manifest.json` (counts exact, bytes within 2%);
    then the flagship bf16 b16 512^2 predict and the served bucket 16,
-   their copies' counts equal to the tiny entries'.
+   their copies' counts equal to the tiny entries';
+29. quality: the quality matrix (`quality.matrix`, the port of
+   scripts/quality_matrix.py) on the card: `--tiers`, `--cascade` and
+   `--streams` at `--smoke` sizes (64^2, the blocks fixture) at the
+   tiers' real widths (`--width-scale 1`: a width / 4 throughput tier
+   has channel counts the int8 kernels refuse), `--epochs 2 --train 16
+   --test 8` (`--streams` on 4 videos of 4 frames), in a temp dir: four
+   trainings through `train.train`
+   (quality, edge from scratch, edge and throughput distilled), the
+   tiers' evals (the throughput tier's also through int8), the counting
+   model and served b1 latency of each tier, the cascade and stream
+   sweeps; every kernel of those paths launched (the counters); one eval
+   predict of each tier counted by kernel name in a profiler trace
+   against `want_replay` (#1, #2, #8; #16/#14/#15 for the throughput
+   tier's int8 predict); the cascade's escalation rate never falling as
+   the threshold rises, its ends the all-edge and all-quality mAPs; the
+   stream sweep at threshold 0 equal to full inference; no record
+   written to the package's calibration/; the `_source` of both served
+   thresholds printed;
+30. report: the round report (`obs.report`, the port of
+   scripts/obs_report.py) over the span logs, journal and metrics that
+   the supervisor, streams and quality phases of this run wrote (over
+   the quality phase's span log alone when the others did not run): 0
+   orphan traces, 0 broken chains, the streams' fault run's frames and
+   gaps, the jobs' final states.
 
 Every phase must close or reap the threads and processes it starts:
 one left behind fails the run after the last phase (`leftovers`). The
@@ -319,6 +343,7 @@ import argparse
 import contextlib
 import dataclasses
 import glob
+import io
 import json
 import math
 import os
@@ -340,7 +365,8 @@ PHASES = ("identity", "build", "kernels", "timing", "main", "states",
           "variants", "variants_small", "variants_train", "nms", "serve",
           "qkernels", "qtiming", "int8", "serve_int8", "fleet", "cascade",
           "streams", "export", "profile",
-          "cli", "train_cli", "supervisor", "analysis")
+          "cli", "train_cli", "supervisor", "analysis", "quality",
+          "report")
 
 
 class SmokeFailure(RuntimeError):
@@ -5303,8 +5329,10 @@ def phase_cascade(state):
     out["counts"] = path_counts("cascade", ("peak_scores", "bn_act",
                                             "bn_add_act"))
     out["launches"] = launches
-    require(out["threshold"] == cascade_overrides()["cascade_threshold"],
+    over = cascade_overrides()
+    require(out["threshold"] == over["cascade_threshold"],
             "cascade threshold %r" % out["threshold"])
+    log("cascade threshold %g from %s" % (out["threshold"], over["_source"]))
     edge, quality = out["pinned"]["edge"], out["pinned"]["quality"]
     rows_all(edge, "cascade edge rows")
     rows_all(quality, "cascade quality rows")
@@ -5349,16 +5377,26 @@ def phase_streams(state):
     corrupt and late frames and a failed tile deliver from the cache.
     Frames/s gated and ungated at the same offered rate, the skip rate."""
     from real_time_helmet_detection_tpu_torch.config import stream_overrides
+    from real_time_helmet_detection_tpu_torch.obs.spans import SpanTracer
     from real_time_helmet_detection_tpu_torch.serving import runs
     reset_counts()
     launches = {}
-    out = runs.run_streams_bench(runs_args("--streams"),
-                                 replay_inspector(launches,
-                                                  {"streams edge"}))
+    # the fault run's stream records, for phase report
+    tracer = SpanTracer(os.path.join(round_dir(state), "obs",
+                                     "streams_spans.jsonl"))
+    try:
+        out = runs.run_streams_bench(runs_args("--streams"),
+                                     replay_inspector(launches,
+                                                      {"streams edge"}),
+                                     tracer=tracer)
+    finally:
+        tracer.close()
     out["counts"] = path_counts("streams", ("peak_scores", "bn_act"))
     out["launches"] = launches
-    require(out["threshold"] == stream_overrides()["stream_threshold"],
+    over = stream_overrides()
+    require(out["threshold"] == over["stream_threshold"],
             "streams threshold %r" % out["threshold"])
+    log("streams threshold %g from %s" % (out["threshold"], over["_source"]))
     require(out["delta"]["equal"] == out["delta"]["pairs"] > 0,
             "streams: the card's delta equals the CPU's on %d of %d pairs"
             % (out["delta"]["equal"], out["delta"]["pairs"]))
@@ -5390,6 +5428,207 @@ def phase_streams(state):
             a["gated"]["p99_ms"], a["ungated"]["p99_ms"],
             out["tile_skip_rate"], out["delta"]["pairs"], launches,
             f["fired"], f["degraded_tiles"]))
+
+
+# ------------------------------------------- the run's round, quality, report
+
+def round_dir(state):
+    """This run's round directory (`obs/`, `queue/`): what phases write
+    for phase report; `main` removes it at the end."""
+    if "round_dir" not in state:
+        state["round_dir"] = tempfile.mkdtemp(prefix="chip_smoke_round_")
+        for sub in ("obs", "queue"):
+            os.makedirs(os.path.join(state["round_dir"], sub))
+    return state["round_dir"]
+
+
+def drop_round(state):
+    if "round_dir" in state:
+        shutil.rmtree(state.pop("round_dir"), ignore_errors=True)
+
+
+def keep_round_files(state, files):
+    """Copy {path: name in the round dir} before a phase's temp dir goes."""
+    for src, rel in files.items():
+        shutil.copyfile(src, os.path.join(round_dir(state), rel))
+
+
+# the quality matrix's configuration on the card: JAX's smoke sizes at the
+# tiers' real widths, 2 epochs of 16 images (4 steps), 8 held out
+QUALITY_ARGS = ("--smoke", "--width-scale", "1", "--epochs", "2",
+                "--train", "16", "--test", "8")
+# 4 videos of 4 frames: the sweep's host mAP over 16 frames, not 64
+QUALITY_VIDEO = ("--frames", "4", "--seqs", "4")
+QUALITY_KERNELS = ("peak_scores", "bn_act", "bn_add_act", "bn_stats",
+                   "bn_bwd_sums", "bn_add_bwd_sums", "bn_bwd_dx",
+                   "bn_add_bwd_dx", "loss_fwd", "loss_bwd", "quantize_act",
+                   "qconv_dense", "qconv_dw")
+
+
+def phase_quality(state):
+    """The quality matrix on the card (`quality.matrix`): `--tiers`,
+    `--cascade` and `--streams` at QUALITY_ARGS in a temp dir, its flight
+    recorder on the round's `obs/quality_spans.jsonl`. Every kernel of the
+    trainings, evals and int8 eval launched; one eval predict of each tier
+    (the throughput tier's also int8) counted by kernel name in a
+    profiler trace against `want_replay`; the records' platform and card;
+    the cascade sweep's escalation rate non-decreasing in the threshold,
+    its ends the all-edge and all-quality mAPs; the stream sweep at 0
+    equal to full inference; calibration/ untouched; the served
+    thresholds' `_source`."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.config import (
+        cascade_overrides, stream_overrides)
+    from real_time_helmet_detection_tpu_torch.evaluate import load_eval_state
+    from real_time_helmet_detection_tpu_torch.ops.quant import load_scales
+    from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
+    from real_time_helmet_detection_tpu_torch.quality import matrix
+    calib = sorted(os.listdir(matrix.CALIBRATION_DIR)) \
+        if os.path.isdir(matrix.CALIBRATION_DIR) else []
+    saved = os.environ.get("OBS_SPAN_LOG")
+    os.environ["OBS_SPAN_LOG"] = os.path.join(round_dir(state), "obs",
+                                              "quality_spans.jsonl")
+    reset_counts()
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_quality_") as tmp:
+        common = list(QUALITY_ARGS) + ["--work-dir", tmp]
+        try:
+            out = {}
+            for mode in ("tiers", "cascade", "streams"):
+                t0 = time.time()
+                out[mode] = matrix.main(["--" + mode] + common + (
+                    list(QUALITY_VIDEO) if mode == "streams" else []))
+                walls[mode] = time.time() - t0
+        finally:
+            if saved is None:
+                os.environ.pop("OBS_SPAN_LOG", None)
+            else:
+                os.environ["OBS_SPAN_LOG"] = saved
+        counts = path_counts("quality", QUALITY_KERNELS)
+        run = matrix.Run(matrix.build_parser().parse_args(
+            ["--tiers"] + common))
+        images, _ = run.held_out()
+        image = images[0][None]
+        traced = {}
+        for name in ("edge", "throughput", "quality"):
+            cfg, predict = run.predict_of(name, run.save_of(name))
+            traced[name] = (cfg, predict)
+        save = run.save_of("throughput")
+        cfg8 = run.eval_config("throughput", save, infer_dtype="int8")
+        scales = load_scales(os.path.join(save, "calibration",
+                                          "quant_scales.json"))
+        traced["throughput int8"] = (cfg8, make_predict_fn(
+            load_eval_state(cfg8, run.device), cfg8,
+            normalize=cfg8.pretrained, device=run.device,
+            quant_scales=scales))
+        launches = {}
+        for label, (cfg, predict) in traced.items():
+            want = want_replay(cfg, torch.float32)
+            predict(image)  # warm: cuDNN's first call of a shape
+            got = kernel_counts(step_trace(lambda: predict(image)))
+            got = {k: got.get(k, 0) for k in want}
+            require(got == want, "quality: %s predict launches %s, want %s"
+                    % (label, got, want))
+            launches[label] = {k: v for k, v in want.items() if v}
+    tiers = out["tiers"]
+    require(tiers["tier_meta"]["platform"] == "gpu"
+            and tiers["device"]["name"] == state["kind"]
+            and all(out[m]["platform"] == "gpu" for m in ("cascade",
+                                                          "streams")),
+            "quality: records' platform %s / %s / %s, card %s" % (
+                tiers["tier_meta"]["platform"], out["cascade"]["platform"],
+                out["streams"]["platform"], tiers["device"]))
+    require(set(tiers["tiers"]) == set(matrix.TIER_ROWS)
+            and all(math.isfinite(r["mAP"]) for r in tiers["tiers"].values()),
+            "quality: tier rows %s" % tiers["tiers"])
+    c = out["cascade"]
+    rates = [r["escalation_rate"] for r in c["sweep"]]
+    require(rates == sorted(rates) and rates[-1] == 1.0
+            and c["sweep"][0]["blended_mAP"] == c["all_edge_mAP"]
+            and c["sweep"][-1]["blended_mAP"] == c["all_quality_mAP"],
+            "quality: cascade sweep %s, all-edge %s, all-quality %s" % (
+                c["sweep"], c["all_edge_mAP"], c["all_quality_mAP"]))
+    st = out["streams"]
+    first = st["sweep"][0]
+    require(first["threshold"] == 0.0 and first["tile_skip_rate"] == 0.0
+            and first["blended_video_mAP"] == st["full_video_mAP"],
+            "quality: stream sweep at 0 %s, full %s" % (first,
+                                                        st["full_video_mAP"]))
+    now = sorted(os.listdir(matrix.CALIBRATION_DIR)) \
+        if os.path.isdir(matrix.CALIBRATION_DIR) else []
+    require(now == calib, "quality: calibration/ %s -> %s" % (calib, now))
+    sources = (cascade_overrides()["_source"], stream_overrides()["_source"])
+    state["quality"] = dict(walls=walls, counts=counts, launches=launches,
+                            sources=sources)
+    rows = tiers["tiers"]
+    log("quality: --tiers %.1f s, --cascade %.1f s, --streams %.1f s; "
+        "mAP quality %.4f, edge %.4f (scratch %.4f), throughput int8 %.4f "
+        "(float %.4f); b1 p50/p99 ms edge %s/%s, throughput %s/%s, quality "
+        "%s/%s; GFLOPs %s / %s / %s" % (
+            walls["tiers"], walls["cascade"], walls["streams"],
+            rows["quality"]["mAP"], rows["edge"]["mAP"],
+            rows["edge_scratch"]["mAP"], rows["throughput"]["mAP"],
+            rows["throughput"]["map_bf16"],
+            rows["edge"]["serve_wire_ms_b1"],
+            rows["edge"]["serve_wire_p99_ms_b1"],
+            rows["throughput"]["serve_wire_ms_b1"],
+            rows["throughput"]["serve_wire_p99_ms_b1"],
+            rows["quality"]["serve_wire_ms_b1"],
+            rows["quality"]["serve_wire_p99_ms_b1"],
+            rows["edge"]["predict_gflops"],
+            rows["throughput"]["predict_gflops"],
+            rows["quality"]["predict_gflops"]))
+    log("quality: cascade %d points, selected %s; streams %d points, "
+        "selected %s; launches per traced predict %s; the path's counters "
+        "%s" % (len(c["sweep"]), c["selected"], len(st["sweep"]),
+                st["selected"], launches, counts))
+    log("quality: served thresholds from %s (cascade) and %s (streams)"
+        % sources)
+
+
+def phase_report(state):
+    """The round report (`obs.report`) over this run's round directory:
+    the supervisor's span log, journal and metrics, the streams' fault
+    run's records and the quality phase's span log, whichever ran. No
+    orphan trace, no broken chain; the streams' 10 frames with 2 gaps
+    and the jobs' final states where those phases ran."""
+    from real_time_helmet_detection_tpu_torch.obs import report
+    root = round_dir(state)
+    logs = sorted(os.listdir(os.path.join(root, "obs")))
+    require(any(n.endswith("spans.jsonl") for n in logs),
+            "report: no span log in the round (%s)" % logs)
+    out = os.path.join(root, "report")
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):  # its JSON line
+        rc = report.main(["--round-dir", root, "--out", out])
+    wall = time.time() - t0
+    require(rc == 0, "report: exit %d" % rc)
+    rep = report.read_report(os.path.join(out, "report.json"))
+    trc = rep["traces"]
+    require(trc is None or (trc["orphans"] == 0
+                            and trc["broken_chains"] == 0),
+            "report: %s orphan traces %s, %s broken chains %s" % (
+                trc["orphans"], trc["orphan_ids"], trc["broken_chains"],
+                trc["broken_detail"]))
+    if "streams_spans.jsonl" in logs:
+        stm = rep["streams"]
+        require(stm is not None and stm["frames"] == 10 and stm["gaps"] == 2
+                and stm["late"] == 1, "report: streams %s" % stm)
+    if "supervisor_spans.jsonl" in logs:
+        q = rep["queue"]
+        require(q is not None and q["counts"] == {"done": 3, "failed": 1}
+                and rep["metrics"] is not None,
+                "report: queue %s, metrics %s" % (q, rep["metrics"]))
+    state["report"] = dict(wall=wall, logs=logs)
+    log("report: %d span logs (%s), %d records; traces %s (%s request, "
+        "%s closed, 0 orphans, 0 broken chains); streams %s; queue %s; "
+        "%.2f s" % (
+            len(rep["spans"]["logs"]), ", ".join(logs),
+            rep["spans"]["records"], trc and trc["traces"],
+            trc and trc["request_traces"], trc and trc["closed"],
+            rep["streams"] and {k: rep["streams"][k] for k in (
+                "frames", "computed_tiles", "total_tiles", "gaps", "late")},
+            rep["queue"] and rep["queue"]["counts"], wall))
 
 
 # ------------------------------------------------------------------ export
@@ -6502,6 +6741,9 @@ def phase_supervisor(state):
                                    if l.strip())
                   if r.get("name") == "step" and r.get("pid") == runs[1]["pid"]]
         respawn_s = min(steps2) - runs[1]["started_at"]
+        keep_round_files(state, {span_log: "obs/supervisor_spans.jsonl",
+                                 metrics_path: "obs/metrics_supervisor.jsonl",
+                                 spool.path: "queue/jobs.jsonl"})
     state["supervisor"] = dict(triage_s=triage_s, walls=walls,
                                waiter_launches=waiter_launches,
                                kill_s=kill_s, respawn_s=respawn_s,
@@ -7165,19 +7407,32 @@ def within(got, want, tol):
     return abs(got - want) <= tol * max(want, 1)
 
 
-def copies_of(entry):
+def copies_of(entry, attempts=3):
     """(device_records' copies, launch counts) of one run of a transfer
     audit entry on the card after a warm-up one: its host inputs up,
-    the program, every output leaf back."""
+    the program, every output leaf back. Each step opens with 10 ms of
+    host time, so that its first upload is not at the recorded window's
+    edge; a trace that still holds fewer HtoD records than the entry has
+    host inputs (each is one upload) missed one (the profiler has done
+    so at a window's first instant) and is taken again, up to `attempts`
+    times; the copies of the last trace are what the caller checks."""
     import torch
 
     def run():
+        time.sleep(0.01)
         reset_counts()  # the launches of the recorded run alone
         return [t.cpu() for t in entry.run("cuda")]
 
     entry.run("cuda")
     torch.cuda.synchronize()
-    _, (_, copies) = profiled(run)
+    for attempt in range(attempts):
+        _, (_, copies) = profiled(run)
+        if copies["HtoD"][0] >= len(entry.host):
+            break
+        log("  a trace held %d HtoD records of the entry's %d uploads "
+            "(attempt %d of %d): %s" % (copies["HtoD"][0], len(entry.host),
+                                        attempt + 1, attempts,
+                                        copies["names"]))
     return copies, read_counts()
 
 
@@ -7585,16 +7840,19 @@ def main(argv=None) -> int:
         except SmokeFailure as e:
             log("FAIL [%s]: %s" % (name, e))
             stop_left(at_start)
+            drop_round(state)
             return 1
         except Exception as e:  # a fault of the phase itself: say where
             traceback.print_exc()
             log("FAIL [%s]: %s: %s" % (name, type(e).__name__, e))
             stop_left(at_start)
+            drop_round(state)
             return 1
         except (Stopped, KeyboardInterrupt) as e:
             log("FAIL [%s]: stopped (%s); stopping what the run started"
                 % (name, e or "SIGINT"))
             stop_left(at_start)
+            drop_round(state)
             return 1
         seen = {}
         new = settle(before, seen=seen)
@@ -7607,6 +7865,7 @@ def main(argv=None) -> int:
             log("phase %s left %s" % (name, new))
         log("phase %s: %.1f s" % (name, time.time() - t0))
     log("all phases: %.1f s" % (time.time() - t_all))
+    drop_round(state)
     seen = {}
     left = settle(at_start, seen=seen)
     if seen.get("reaped") or seen.get("waited"):
@@ -7616,6 +7875,7 @@ def main(argv=None) -> int:
         log("FAIL: phases left threads or processes: %s; still running at "
             "the end: %s" % (leaks, left))
         stop_left(at_start)
+        drop_round(state)
         return 1
     log(state["card"])
     if not set(PHASES) <= set(phases):

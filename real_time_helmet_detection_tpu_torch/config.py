@@ -719,15 +719,43 @@ def tier_of(cfg) -> str:
     return "custom"
 
 
+CALIBRATION_DIR = "calibration"  # the port's own records, in the package
+
+
+def _own_calibration(kind: str, root: str) -> Optional[dict]:
+    """The port's record `<package>/calibration/<kind>.json` when it is a
+    full run on the card ("platform" "gpu", "smoke" false) with a
+    selected threshold, else None: a smoke or CPU record never steers
+    serving."""
+    path = os.path.join(root, os.path.basename(os.path.dirname(
+        os.path.abspath(__file__))), CALIBRATION_DIR, kind + ".json")
+    try:
+        with open(path) as f:
+            rec = json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return None
+    sel = rec.get("selected") if isinstance(rec, dict) else None
+    if (not sel or "threshold" not in sel or rec.get("smoke") is not False
+            or rec.get("platform") != "gpu"):
+        return None
+    return {"path": path, "selected": sel}
+
+
 def _calibrated(kind: str, field_name: str,
                 repo_root: Optional[str] = None) -> dict:
-    """The `selected` threshold of the newest committed
-    `artifacts/r<N>/<kind>.json` (highest round wins; unreadable files
-    and records without a threshold are skipped), as {field_name: value,
-    "_source": its path relative to the repo root}. FileNotFoundError
-    when none carries one."""
+    """The calibrated `selected` threshold of `kind`, as {field_name:
+    value, "_source": its file relative to the repo root}: the port's own
+    record from a full run on the card (`quality/matrix.py`) when there
+    is one, else that of the newest committed `artifacts/r<N>/<kind>.json`
+    of the JAX package (highest round wins; unreadable files and records
+    without a threshold are skipped). FileNotFoundError when none
+    carries one."""
     root = repo_root or os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))
+    own = _own_calibration(kind, root)
+    if own is not None:
+        return {field_name: float(own["selected"]["threshold"]),
+                "_source": os.path.relpath(own["path"], root)}
     best = None
     for path in glob.glob(os.path.join(root, "artifacts", "*",
                                        kind + ".json")):
@@ -745,24 +773,22 @@ def _calibrated(kind: str, field_name: str,
     if best is None:
         flag = {"cascade": "cascade", "streams": "stream"}[kind]
         raise FileNotFoundError(
-            "--%s: no artifacts/*/%s.json carries a selected operating "
-            "point; pass --%s-threshold explicitly" % (flag, kind, flag))
+            "--%s: no calibration record carries a selected operating "
+            "point; pass --%s-threshold explicitly" % (flag, flag))
     _, path, rec = best
     return {field_name: float(rec["threshold"]),
             "_source": os.path.relpath(path, root)}
 
 
 def cascade_overrides(repo_root: Optional[str] = None) -> dict:
-    """The calibrated cascade threshold of the newest committed
-    `artifacts/*/cascade.json` (ref config.py:700): {"cascade_threshold",
-    "_source"}."""
+    """The calibrated cascade threshold (ref config.py:700; `_calibrated`):
+    {"cascade_threshold", "_source"}."""
     return _calibrated("cascade", "cascade_threshold", repo_root)
 
 
 def stream_overrides(repo_root: Optional[str] = None) -> dict:
-    """The calibrated tile-skip threshold of the newest committed
-    `artifacts/*/streams.json` (ref config.py:751): {"stream_threshold",
-    "_source"}."""
+    """The calibrated tile-skip threshold (ref config.py:751;
+    `_calibrated`): {"stream_threshold", "_source"}."""
     return _calibrated("streams", "stream_threshold", repo_root)
 
 

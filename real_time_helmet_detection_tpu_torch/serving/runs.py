@@ -40,7 +40,7 @@ from ..config import (Config, apply_tier, cascade_overrides,
                       stream_overrides)
 from ..evaluate import load_eval_state
 from ..obs.metrics import MetricsRegistry
-from ..obs.spans import SpanTracer
+from ..obs.spans import SpanTracer, maybe_tracer
 from ..ops.decode import confidence_summary
 from ..ops.delta import (offset_detections, tile_delta_summary,
                          tile_origins, tile_shape)
@@ -770,7 +770,7 @@ def _tile_oracle_match(result, frame, origins, tile_hw, oracle_of) -> int:
     return hits
 
 
-def run_streams_bench(args, inspect: Inspect = None) -> Dict:
+def run_streams_bench(args, inspect: Inspect = None, tracer=None) -> Dict:
     """`--streams-n` seeded streams of (grid * imsize)^2 uint8 frames at
     `--redundancy`, through sessions over an edge-tier engine behind a
     one-replica fleet. Checks: the card's delta summary equals the CPU's
@@ -778,7 +778,11 @@ def run_streams_bench(args, inspect: Inspect = None) -> Dict:
     none; an all-changed frame's stitched answer equals the tile oracle;
     frames deliver in order; injected frame faults and a failed tile
     deliver from the cache. Records frames/s gated against ungated at
-    the same offered rate, and the tile skip rate."""
+    the same offered rate, and the tile skip rate. The fault run's
+    session and injector write their `stream:frame`, `recover:frame-gap`
+    and `fault:*` records to `tracer` (default $OBS_SPAN_LOG), as JAX's
+    serve_bench's do (ref scripts/serve_bench.py:1193); the measured
+    arms write none, so span writes do not move their frames/s."""
     threshold = (args.stream_threshold if args.stream_threshold
                  is not None else stream_overrides()["stream_threshold"])
     cfg = run_config(args, "edge")
@@ -834,7 +838,8 @@ def run_streams_bench(args, inspect: Inspect = None) -> Dict:
         return [StreamSession(router, fshape, grid=g, threshold=th,
                               deadline_s=kw.get("deadline_s"),
                               ema=kw.get("ema", 0.5), sid=sid,
-                              injector=kw.get("injector"), device=dev)
+                              injector=kw.get("injector"),
+                              tracer=kw.get("tracer"), device=dev)
                 for sid in range(kw.get("n", args.streams_n))]
 
     router = fleet()
@@ -892,13 +897,15 @@ def run_streams_bench(args, inspect: Inspect = None) -> Dict:
     # faults: a dropped, a corrupt and a late frame, and the tiles of a
     # batch that fails with no retry left (no re-dispatch): all deliver.
     # Two distinct frames in turns: every frame computes every tile.
+    tracer = tracer if tracer is not None else maybe_tracer()
     inj = ChaosInjector(FaultSchedule.parse(
         "stream:frame=dropped-frame@3,stream:frame=corrupt-frame@5,"
-        "stream:frame=late-frame@7"))
+        "stream:frame=late-frame@7"), tracer=tracer)
     router = fleet(max_retries=0, max_redispatch=0,
                    injector_for={0: "serve:dispatch=device-loss@4"})
     try:
-        sess = sessions(router, threshold, injector=inj, n=1)[0]
+        sess = sessions(router, threshold, injector=inj, tracer=tracer,
+                        n=1)[0]
         futs = [sess.submit_frame(f) for f in [f0, f1] * 5]
         lost = 0
         seqs_got = []

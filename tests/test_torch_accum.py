@@ -59,6 +59,7 @@ from real_time_helmet_detection_tpu_torch.optim import (build_optimizer,
 from real_time_helmet_detection_tpu_torch.train import (loss_fn,
                                                         make_train_step,
                                                         train_epoch)
+from test_torch_train import one_torch_thread  # noqa: F401 (autouse)
 
 IMSIZE = 128
 LR = 1e-2

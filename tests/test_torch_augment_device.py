@@ -46,6 +46,7 @@ from real_time_helmet_detection_tpu_torch.data import augment_device as pad
 from real_time_helmet_detection_tpu_torch.ops.encode import \
     encode_boxes_device
 from real_time_helmet_detection_tpu_torch.train import pick_target
+from test_torch_train import one_torch_thread  # noqa: F401 (autouse)
 
 B, CANVAS = 4, 96
 

@@ -174,10 +174,25 @@ def test_apply_cascade_noop_when_off_or_explicit():
 
 
 def test_committed_calibration_artifact_resolves():
-    """The committed artifact resolves to JAX's value, through
-    `cascade_overrides` and through `get_config(["--cascade"])`."""
+    """The committed calibration resolves through `cascade_overrides` and
+    through `get_config(["--cascade"])`: the port's own record from a
+    full run on the card (the package's calibration/cascade.json) where
+    there is one, JAX's newest artifact otherwise; JAX's loader reads its
+    own artifacts whatever the port commits."""
     over = config_mod.cascade_overrides()
-    assert over == jax_config.cascade_overrides()
+    own = os.path.join(os.path.dirname(config_mod.__file__), "calibration",
+                       "cascade.json")
+    if os.path.isfile(own):
+        with open(own) as f:
+            rec = json.load(f)
+        assert (rec["platform"], rec["smoke"]) == ("gpu", False)
+        assert over == {"cascade_threshold": rec["selected"]["threshold"],
+                        "_source": os.path.join(
+                            "real_time_helmet_detection_tpu_torch",
+                            "calibration", "cascade.json")}
+    else:
+        assert over == jax_config.cascade_overrides()
+    assert jax_config.cascade_overrides()["_source"].startswith("artifacts")
     assert isinstance(over["cascade_threshold"], float)
     cfg = config_mod.get_config(["--cascade", "--device", "cpu"])
     assert cfg.cascade_threshold == over["cascade_threshold"]

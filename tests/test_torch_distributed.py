@@ -52,6 +52,7 @@ import time
 import numpy as np
 import pytest
 import torch
+from test_torch_train import one_torch_thread  # noqa: F401 (autouse)
 
 HERE = os.path.abspath(__file__)
 REPO = os.path.dirname(os.path.dirname(HERE))

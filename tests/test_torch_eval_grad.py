@@ -52,6 +52,7 @@ from real_time_helmet_detection_tpu_torch.models.hourglass import build_model
 from real_time_helmet_detection_tpu_torch.ops import epilogue, residual
 from real_time_helmet_detection_tpu_torch.ops.loss import fused_detection_loss
 from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
+from test_torch_train import one_torch_thread  # noqa: F401 (autouse)
 
 ACTS = ("ReLU", "Mish", "Linear")
 DTYPES = {"f32": (torch.float32, jnp.float32),

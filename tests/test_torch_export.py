@@ -61,6 +61,7 @@ from real_time_helmet_detection_tpu_torch.export import (PROGRAM,
 from real_time_helmet_detection_tpu_torch.ops import library, qconv
 from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
 from real_time_helmet_detection_tpu_torch.utils import normalize_image
+from test_torch_train import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:

@@ -35,6 +35,7 @@ from real_time_helmet_detection_tpu.ops.pallas import (fused_detection_loss
                                                        as jax_fused_loss)
 from real_time_helmet_detection_tpu.ops.pallas import fused_stack_loss_sums
 from real_time_helmet_detection_tpu_torch.ops import loss as L
+from test_torch_train import one_torch_thread  # noqa: F401 (autouse)
 
 CASES = ["plain", "normalized", "alpha3beta3", "no_positives"]
 

@@ -32,6 +32,7 @@ from real_time_helmet_detection_tpu_torch.config import Config, parse_args
 from real_time_helmet_detection_tpu_torch.evaluate import init_weights
 from real_time_helmet_detection_tpu_torch.models.hourglass import \
     build_model
+from test_torch_train import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = dict(imsize=64, hourglass_inch=32, num_cls=2)
 # architecture options beside ARCH, each case against JAX in both BN

@@ -33,6 +33,7 @@ from real_time_helmet_detection_tpu_torch.ops import nms
 from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
 
 from test_nms import _clustered_boxes
+from test_torch_train import one_torch_thread  # noqa: F401 (autouse)
 
 
 def oracle_boxes(seed, n=40):

@@ -34,6 +34,7 @@ from real_time_helmet_detection_tpu.ops.pallas.residual import \
     fused_bn_add_act
 from real_time_helmet_detection_tpu_torch.ops import (decode, epilogue, nms,
                                                       peak, residual)
+from test_torch_train import one_torch_thread  # noqa: F401 (autouse)
 
 ACTS = ("ReLU", "Mish", "Linear")
 RTOL = {"ReLU": 0.0, "Linear": 0.0, "Mish": 1e-6}

@@ -36,6 +36,7 @@ from real_time_helmet_detection_tpu_torch.data.synthetic import \
 from real_time_helmet_detection_tpu_torch.evaluate import load_eval_state
 
 from test_torch_model import randomize_bn
+from test_torch_train import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = dict(imsize=64, hourglass_inch=16, num_cls=2, variant="ghost",

@@ -46,6 +46,7 @@ from real_time_helmet_detection_tpu_torch.models.hourglass import \
     build_model
 from real_time_helmet_detection_tpu_torch.ops import epilogue, peak, residual
 from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
+from test_torch_train import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = dict(imsize=64, hourglass_inch=32, num_cls=2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

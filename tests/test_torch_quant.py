@@ -66,6 +66,7 @@ from real_time_helmet_detection_tpu_torch.ops import quant as pq
 from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
 from test_torch_predict import _iou, bn_scaled
 from test_torch_predict import rows as _rows
+from test_torch_train import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = dict(imsize=64, hourglass_inch=32, num_cls=2)
 

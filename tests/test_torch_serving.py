@@ -40,6 +40,7 @@ from real_time_helmet_detection_tpu_torch.serving import (
     DEFAULT_BUCKETS, DEGRADED, SERVING, EngineClosedError, FetchHungError,
     ServingEngine, SheddedError, resolve_buckets)
 from test_torch_predict import assert_detections_match, bn_scaled
+from test_torch_train import one_torch_thread  # noqa: F401 (autouse)
 
 IMSIZE = 64
 BUCKETS = (1, 2, 4)

@@ -498,8 +498,22 @@ def test_apply_streams_noop_when_off_or_explicit():
 
 
 def test_committed_calibration_artifact_resolves():
+    """As the cascade's (tests/test_torch_cascade.py): the port's own card
+    record where there is one, else JAX's newest artifact."""
     over = config_mod.stream_overrides()
-    assert over == jax_config.stream_overrides()
+    own = os.path.join(os.path.dirname(config_mod.__file__), "calibration",
+                       "streams.json")
+    if os.path.isfile(own):
+        with open(own) as f:
+            rec = json.load(f)
+        assert (rec["platform"], rec["smoke"]) == ("gpu", False)
+        assert over == {"stream_threshold": rec["selected"]["threshold"],
+                        "_source": os.path.join(
+                            "real_time_helmet_detection_tpu_torch",
+                            "calibration", "streams.json")}
+    else:
+        assert over == jax_config.stream_overrides()
+    assert jax_config.stream_overrides()["_source"].startswith("artifacts")
     cfg = config_mod.get_config(["--stream", "--device", "cpu"])
     assert cfg.stream_threshold == over["stream_threshold"]
 
@@ -556,8 +570,8 @@ def test_stream_session_matches_jax_session():
                               redundancy=0.5)
     frames = runs.synth_stream_frames(args, 0, 8)
     origins = tile_origins(frames[0].shape, 2)
-    th = config_mod.stream_overrides()["stream_threshold"]
-    assert th == jax_config.stream_overrides()["stream_threshold"]
+    # one threshold for both sessions: JAX's committed one
+    th = jax_config.stream_overrides()["stream_threshold"]
     got = {}
     for name in ("port", "jax"):
         if name == "port":

@@ -33,6 +33,7 @@ from real_time_helmet_detection_tpu_torch.data.synthetic import \
     make_synthetic_voc
 from real_time_helmet_detection_tpu_torch.serving import (ServingEngine,
                                                           resolve_buckets)
+from test_torch_train import one_torch_thread  # noqa: F401 (autouse)
 
 SERVE_FIELDS = ("serve_buckets", "serve_max_wait_ms", "serve_depth",
                 "serve_queue", "serve_max_retries", "serve_hang_timeout_ms",

@@ -26,6 +26,7 @@ from real_time_helmet_detection_tpu.ops.pallas.epilogue import \
 from real_time_helmet_detection_tpu.ops.pallas.residual import \
     fused_bn_add_act_train
 from real_time_helmet_detection_tpu_torch.ops import epilogue, residual
+from test_torch_train import one_torch_thread  # noqa: F401 (autouse)
 
 ACTS = ("ReLU", "Mish", "Linear")
 DTYPES = {"f32": (torch.float32, jnp.float32),

@@ -54,6 +54,7 @@ from real_time_helmet_detection_tpu_torch.models.hourglass import build_model
 from real_time_helmet_detection_tpu_torch.train import loss_fn
 
 from test_torch_train import FUSED, assert_close, jax_grads, stats_of
+from test_torch_train import one_torch_thread  # noqa: F401 (autouse)
 
 IMSIZE = 128
 CASES = {
