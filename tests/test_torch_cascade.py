@@ -280,7 +280,7 @@ def test_engine_rows_carry_the_confidence(ghost):
             assert row.confidence.shape == ()
 
 
-def test_cascade_run_on_cpu():
+def test_cascade_run_on_cpu(tmp_path):
     """`serving.runs --cascade` at a small size on the CPU, at the
     calibrated threshold: tier rows and the graph's confidence equal the
     oracles, answers follow the confidence, an escalation fault degrades
@@ -288,7 +288,8 @@ def test_cascade_run_on_cpu():
     from real_time_helmet_detection_tpu_torch.serving import runs
     out = runs.main(["--cascade", "--device", "cpu", "--imsize", "64",
                      "--pool", "2", "--duration", "0.3", "--clients", "4",
-                     "--no-amp"])
+                     "--no-amp", "--out", str(tmp_path / "cascade.json")])
+    out = out["engine"]  # the real-engine section of the record
     assert out["threshold"] == config_mod.cascade_overrides()[
         "cascade_threshold"]
     for tier, rec in out["pinned"].items():

@@ -14,7 +14,16 @@ encoder and the numpy encoders of both packages, on the CPU.
 * The library is keyed by a hash of its source and flags under
   build/torch_kernels, and a failed build raises: there is no numpy
   fallback.
+
+JAX's native encoder is reached through a private build of its source
+(`jax_private_native`, module-scoped): JAX's own library path is shared
+by every pytest worker, which rebuilds it in place when it finds it
+missing or stale, and a worker that loads it half-written falls back to
+numpy for the rest of its life (`encode_boxes_native` returning None).
 """
+
+import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -37,6 +46,26 @@ from real_time_helmet_detection_tpu_torch.ops.encode import (
     encode_boxes, encode_boxes_batch)
 
 NAMES = ("heat", "offset", "size", "mask")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_private_native(tmp_path_factory):
+    """JAX's `cpp/hostops/encode.cc` compiled with JAX's flags (its
+    `_build`) into a directory of this module's own, and JAX's loader
+    pointed at it for the module's duration, its cached state reset
+    before and restored after."""
+    lib = str(tmp_path_factory.mktemp("jax_hostops") / "libhostops.so")
+    subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+                    jax_native._SRC, "-o", lib], check=True,
+                   capture_output=True)
+    assert os.path.exists(lib)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_LIB", lib)
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_load_failed", False)
+        assert jax_native.native_available(), "JAX's native encoder " \
+            "did not load from its private build %s" % lib
+        yield lib
 
 
 def boxes_of(seed, n, size=128):

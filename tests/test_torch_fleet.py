@@ -775,15 +775,17 @@ def test_canary_matches_jax_canary(parts, jax_predicts):
     assert_rows_match(p["rows"], j["rows"])
 
 
-def test_fleet_run_on_cpu():
+def test_fleet_run_on_cpu(tmp_path):
     """`serving.runs --replicas 1 2` at a small size on the CPU: every
     check the smoke run holds on the card holds here (rows equal the
-    oracle, skew, tenants, a death with its respawn, promote, rollback)."""
+    oracle, skew, tenants, a death with its respawn, promote, rollback),
+    in the record's real-engine section (`engine`)."""
     from real_time_helmet_detection_tpu_torch.serving import runs
     out = runs.main(["--replicas", "1", "2", "--device", "cpu", "--imsize",
                      "64", "--inch", "16", "--buckets", "1", "2", "--pool",
                      "4", "--duration", "0.3", "--clients", "4",
-                     "--no-amp"])
+                     "--no-amp", "--out", str(tmp_path / "fleet.json")])
+    out = out["engine"]
     for row in out["rows"]:
         assert row["rows"]["equal"] == row["rows"]["rows"] > 0
         assert row["lost"] == 0 and row["builds"] == [2] * row["replicas"]

@@ -223,13 +223,18 @@ def test_streams_run_writes_what_the_report_reads(tmp_path, monkeypatch,
     serve_bench writes them. Now the report's Streams section reads the
     fault run's 10 delivered frames, its 2 gaps (a dropped and a corrupt
     frame, answered from the cache) and its late frame, as JAX's
-    report does from the same log."""
+    report does from the same log. The record's simulated sections write
+    to their own span log (`--span-log`), so this one holds the real
+    engines' fault run alone."""
     from real_time_helmet_detection_tpu_torch.serving import runs
     log = str(tmp_path / "obs" / "spans.jsonl")
     monkeypatch.setenv("OBS_SPAN_LOG", log)
     out = runs.main(["--streams", "--device", "cpu", "--imsize", "64",
                      "--streams-n", "1", "--stream-frames", "2",
-                     "--duration", "0.1", "--no-amp"])
+                     "--duration", "0.1", "--no-amp",
+                     "--span-log", str(tmp_path / "sim_spans.jsonl"),
+                     "--out", str(tmp_path / "streams.json")])
+    out = out["engine"]  # the real-engine section of the record
     ours = port_report.build_report("r", [log], None, [], [])
     assert strip_paths(ours) == strip_paths(
         jax_report.build_report("r", [log], None, [], []))

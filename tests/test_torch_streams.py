@@ -621,14 +621,16 @@ def test_stream_session_matches_jax_session():
     assert n > 0
 
 
-def test_streams_run_on_cpu():
+def test_streams_run_on_cpu(tmp_path):
     """`serving.runs --streams` at a small size on the CPU: the summary
     equals itself across devices (both the CPU here), gating and the
     tile oracle hold, frames deliver in order, faults deliver from the
     cache."""
     out = runs.main(["--streams", "--device", "cpu", "--imsize", "64",
                      "--streams-n", "2", "--stream-frames", "4",
-                     "--duration", "0.3", "--no-amp"])
+                     "--duration", "0.3", "--no-amp",
+                     "--out", str(tmp_path / "streams.json")])
+    out = out["engine"]  # the real-engine section of the record
     assert out["threshold"] == config_mod.stream_overrides()[
         "stream_threshold"]
     assert out["delta"]["equal"] == out["delta"]["pairs"] == 6
