@@ -262,10 +262,6 @@ version on the card:
    engine's bucket-1 latency; export wall, program sizes, compile
    seconds; the host microseconds of one call of each `helmet` op
    against the route before the ops;
-24. a torch.profiler trace (CUDA activity) of a predict and of a train
-   step: device time by kernel group and the idle share against the
-   untraced walls of phases 5 and 11, and the train step's phases by
-   CUDA events;
 25. the eval CLI end to end (through the serving engine) on a synthetic
    VOC fixture (32 images at 512^2, batch 16, --amp) to a printed mAP,
    txt files and pickle, the mAP within 1e-3 of eager predicts' over the
@@ -312,6 +308,7 @@ version on the card:
    model and served b1 latency of each tier, the cascade and stream
    sweeps; every kernel of those paths launched (the counters); one eval
    predict of each tier counted by kernel name in a profiler trace
+   (`program_launches`: retaken when short of the counters' launches)
    against `want_replay` (#1, #2, #8; #16/#14/#15 for the throughput
    tier's int8 predict); the cascade's escalation rate never falling as
    the threshold rises, its ends the all-edge and all-quality mAPs; the
@@ -323,7 +320,21 @@ version on the card:
    the supervisor, streams and quality phases of this run wrote (over
    the quality phase's span log alone when the others did not run): 0
    orphan traces, 0 broken chains, the streams' fault run's frames and
-   gaps, the jobs' final states.
+   gaps, the jobs' final states;
+31. roofline, last (no profiler session follows it): where the card's
+   time goes (`obs.roofline`, `obs.breakdown`, `obs.trace_summary`):
+   the roofline of the flagship bf16 predict, the `--amp` train step and
+   the `--fwd-dtype int8` step at b16 512^2, each device operation
+   joined to the row of the counted operation that launched it
+   (unattributed at most 1% of busy, the rows adding up to busy within
+   0.5%), each hand kernel one row with the calls `expected_launches`
+   derives, at least as many device operations and the bytes of
+   `SITE_MOVES`' rule, no row outside the L2 above 105% of its roofline,
+   the predict's conv FLOPs equal to `quality/cost.py`'s; the top rows,
+   the class table, MFU and idle share; the breakdown's components (MFU
+   and HBM utilisation at most 105%); and the trace summary of 26's
+   `--profile` trace (run beside 26's eval CLI: the train kernels #4-#13
+   named, each kernel stream busy in (0, 1]).
 
 Every phase must close or reap the threads and processes it starts:
 one left behind fails the run after the last phase (`leftovers`). The
@@ -353,6 +364,7 @@ import io
 import json
 import math
 import os
+import re
 import shlex
 import shutil
 import subprocess
@@ -370,9 +382,8 @@ PHASES = ("identity", "build", "kernels", "timing", "main", "states",
           "eval_timing",
           "variants", "variants_small", "variants_train", "nms", "serve",
           "qkernels", "qtiming", "int8", "serve_int8", "fleet", "cascade",
-          "streams", "serve_bench", "export", "profile",
-          "cli", "train_cli", "supervisor", "analysis", "quality",
-          "report")
+          "streams", "serve_bench", "export", "cli", "train_cli",
+          "supervisor", "analysis", "quality", "report", "roofline")
 
 
 class SmokeFailure(RuntimeError):
@@ -545,29 +556,6 @@ def plain_kernels():
         (residual, "bn_add_bwd_sums", residual.bn_add_bwd_sums_reference),
         (residual, "bn_add_bwd_dx", residual.bn_add_bwd_dx_reference),
     ])
-
-
-def site_bytes(totals):
-    """Add up, per wrapper, the bytes each call must move (inputs read
-    once, outputs written once; the (C,) vectors and partials are
-    negligible) while the block runs."""
-    from real_time_helmet_detection_tpu_torch.ops import epilogue, residual
-    # wrapper -> activation-sized tensors moved per call
-    moved = {(epilogue, "bn_act"): 2, (residual, "bn_add_act"): 3,
-             (epilogue, "bn_stats"): 1, (epilogue, "bn_bwd_sums"): 2,
-             (residual, "bn_add_bwd_sums"): 3, (epilogue, "bn_bwd_dx"): 3,
-             (residual, "bn_add_bwd_dx"): 5}
-
-    def counting(mod, name, n):
-        real = getattr(mod, name)
-
-        def wrapper(x, *args):
-            totals[name] = totals.get(name, 0) + n * x.numel() \
-                * x.element_size()
-            return real(x, *args)
-        return wrapper
-    return swapped([(mod, name, counting(mod, name, n))
-                    for (mod, name), n in moved.items()], totals)
 
 
 # every launch counter: name in the kernels line -> (module, attribute)
@@ -2465,7 +2453,7 @@ def phase_accum(state):
         fn(101, *arrs)
         torch.cuda.synchronize()
         peaks[name] = torch.cuda.max_memory_allocated() / 1e9
-    rates = alternating_rates(steps, arrs)
+    rates = alternating_rates(steps, arrs, window_s=0.5)
     state["accum"] = dict(errs=errs, counts=counts, equiv=equiv,
                           bit_equal=bit_equal, rates=rates, peak_gb=peaks)
     log("accum: launches per --grad-accum 2 step %s (twice the derived "
@@ -2910,7 +2898,7 @@ def extras_int8(state, arrs):
                 cfg, fwd_dtype="bf16"))
             step_bf(0, *arrs)
             out["rates"] = alternating_rates({"int8": step, "bf16": step_bf},
-                                             arrs)
+                                             arrs, window_s=0.5)
             out["peak_gb"] = {"int8": peak_gb(step, arrs),
                               "bf16": peak_gb(step_bf, arrs)}
             del step_bf
@@ -3003,7 +2991,7 @@ def extras_policy(state, arrs):
         models[pol], _, _, steps[pol] = extras_trainer(cfg)
         steps[pol](0, *arrs)
         peaks[pol] = peak_gb(steps[pol], arrs)
-    rates = alternating_rates(steps, arrs)
+    rates = alternating_rates(steps, arrs, window_s=0.5)
     for pol, model in models.items():
         casts[pol] = weight_casts(model, arrs, dataclasses.replace(
             cfg, param_policy=pol))
@@ -3097,7 +3085,7 @@ def extras_remat(state, arrs):
             steps[mode](0, *arrs)
             out["peak_gb"]["%s %s" % (arch, mode)] = peak_gb(steps[mode],
                                                              arrs)
-        rates = alternating_rates(steps, arrs, windows=2)
+        rates = alternating_rates(steps, arrs, windows=2, window_s=0.5)
         for mode, r in rates.items():
             out.setdefault("ms", {})["%s %s" % (arch, mode)] = \
                 r["ms_per_step"]
@@ -5666,7 +5654,8 @@ def phase_quality(state):
         for label, (cfg, predict) in traced.items():
             want = want_replay(cfg, torch.float32)
             predict(image)  # warm: cuDNN's first call of a shape
-            got = kernel_counts(step_trace(lambda: predict(image)))
+            # a trace short of the counters' launches is taken again
+            got, _ = program_launches(predict, image)
             got = {k: got.get(k, 0) for k in want}
             require(got == want, "quality: %s predict launches %s, want %s"
                     % (label, got, want))
@@ -6304,132 +6293,25 @@ def int8_eval(cfg):
         return dict(map=m["map"], sha256=digest, detections=n_det)
 
 
-# cuDNN's convolution kernels: implicit GEMMs (fprop, dgrad, wgrad), FFT
-# and Winograd algorithms and their layout transforms
-CONV_KEYS = ("conv", "xmma", "cudnn", "gemm", "cutlass", "fft", "winograd",
-             "wgrad", "dgrad", "pointwise_mult_and_sum_complex")
-
-
 def trace_device_ms(run, reps=3, counts=None):
-    """Call `run(i)` for i < reps under torch.profiler (CUDA activity
-    only): (device ms per call by kernel name, traced wall ms per call);
-    `counts`, a dict when given, gets device operations per call by
-    name."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.perf_counter()
-        for i in range(reps):
-            run(i)
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3 / reps
-    by_name = {}
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) \
-                + ev.self_device_time_total / 1e3 / reps
-            if counts is not None:
-                counts[ev.key] = counts.get(ev.key, 0) + ev.count / reps
-    return by_name, traced_ms
+    """(device ms per call by kernel name, traced wall ms per call) of
+    `run(i)` for i < reps (`obs.roofline.device_ms_by_name`)."""
+    from real_time_helmet_detection_tpu_torch.obs import roofline
+    return roofline.device_ms_by_name(run, reps, counts)
 
 
 def group_device_ms(by_name, kernels):
-    """Device ms by group: each of our `kernels` (a substring of the
-    kernel's name), convolution, the optimizer's foreach kernels, copies,
-    the rest."""
-    groups = dict.fromkeys(kernels, 0.0)
-    groups.update({"convolution": 0.0, "optimizer (foreach)": 0.0,
-                   "copies": 0.0, "other": 0.0})
-    for name, ms in by_name.items():
-        low = name.lower()
-        hit = next((k for k in kernels if k in name), None)
-        if hit:
-            groups[hit] += ms
-        elif any(k in low for k in CONV_KEYS):
-            groups["convolution"] += ms
-        elif "multi_tensor_apply" in low or "foreach" in low:
-            groups["optimizer (foreach)"] += ms
-        elif low.startswith("memcpy") or low.startswith("memset"):
-            groups["copies"] += ms
-        else:
-            groups["other"] += ms
-    return groups
+    """Device ms by group: each of our `kernels`, convolution, the
+    optimizer, copies, the rest (`obs.roofline.kernel_groups`)."""
+    from real_time_helmet_detection_tpu_torch.obs import roofline
+    return roofline.kernel_groups(by_name, kernels)
 
 
 def log_profile(what, wall_ms, traced_ms, by_name, groups, top):
-    busy = sum(by_name.values())
-    log("profile %s: wall %.2f (untraced; %.2f under the profiler), device "
-        "busy %.2f, idle share %.1f%%; %s" % (
-            what, wall_ms, traced_ms, busy,
-            100.0 * max(0.0, 1 - busy / wall_ms),
-            ", ".join("%s %.2f (%.1f%%)" % (k, v, 100 * v / busy)
-                      for k, v in groups.items() if v)))
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
-        log("    %8.3f ms  %s" % (ms, name[:110]))
-
-
-def profile_train(state):
-    """Where the device time of one flagship bf16 train step goes: kernel
-    groups from a torch.profiler trace (CUDA activity) of 3 steps, the
-    step's phases (forward, loss, backward, optimizer) from CUDA events
-    around one untraced step, and the idle share against phase
-    train_main's untraced wall."""
-    import torch
-    from real_time_helmet_detection_tpu_torch.config import Config
-    from real_time_helmet_detection_tpu_torch.ops.loss import \
-        fused_detection_loss
-    from real_time_helmet_detection_tpu_torch.optim import set_lr
-    cfg = Config(batch_size=16, amp=True)
-    model, opt, _, step = extras_trainer(cfg)
-    arrs = train_batch()
-    for i in range(2):
-        step(i, *arrs)
-    with site_bytes({}) as nbytes:
-        step(2, *arrs)
-    # phases of one untraced step, CUDA events
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-    set_lr(opt, cfg.lr)
-    opt.zero_grad(set_to_none=True)
-    ev[0].record()
-    out = model(arrs[0])
-    ev[1].record()
-    total = fused_detection_loss(
-        out, *arrs[1:], size_weight=cfg.size_weight,
-        hm_weight=cfg.hm_weight, offset_weight=cfg.offset_weight,
-        focal_alpha=cfg.focal_alpha, focal_beta=cfg.focal_beta)["total"]
-    ev[2].record()
-    total.backward()
-    ev[3].record()
-    opt.step()
-    ev[4].record()
-    ev[4].synchronize()
-    phases = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in
-              enumerate(("forward", "loss", "backward", "optimizer"))}
-    by_name, traced_ms = trace_device_ms(lambda i: step(3 + i, *arrs))
-    busy = sum(by_name.values())
-    wall_ms = state["train_main"]["rates"]["kernels"]["ms_per_step"]
-    if busy == 0.0:
-        log("profile train: the profiler saw no device time; breakdown "
-            "not measured (traced wall %.2f ms per step)" % traced_ms)
-        return
-    groups = group_device_ms(by_name, (
-        "bn_add_act_kernel", "bn_act_vec_kernel", "bn_act_kernel",
-        "bn_stats_kernel", "bn_bwd_sums_kernel", "bn_bwd_dx_kernel",
-        "loss_fwd_kernel", "loss_bwd_vec_kernel", "loss_bwd_kernel"))
-    state["profile_train"] = dict(wall_ms=wall_ms, traced_ms=traced_ms,
-                                  busy_ms=busy, groups=groups, phases=phases)
-    log("    step phases by CUDA events (one untraced step): %s"
-        % ", ".join("%s %.2f ms" % kv for kv in phases.items()))
-    log("    bound over the step's BN sites (bytes / 3.35 TB/s): %s"
-        % ", ".join("%s %.3f ms" % (k, v / HBM_BYTES_PER_S * 1e3)
-                    for k, v in sorted(nbytes.items())))
-    log_profile("train bf16 (ms per step of 16 x 512^2, wall from phase "
-                "train_main)", wall_ms, traced_ms, by_name, groups, top=10)
-    del model, opt, step, arrs
-    torch.cuda.empty_cache()
+    from real_time_helmet_detection_tpu_torch.obs import roofline
+    for line in roofline.profile_lines(what, wall_ms, traced_ms, by_name,
+                                       groups, top):
+        log(line)
 
 
 def phase_train_cli(state):
@@ -6476,7 +6358,16 @@ def phase_train_cli(state):
                          "train CLI (0 train, 1 fused, 2 accum)", timeout=600)
         train_s = time.time() - t0
         t0 = time.time()
-        (eval_out,) = run_ranks([eval_cmd], "eval CLI", timeout=600)
+        # the trace summary of the accumulation run's --profile trace,
+        # beside the eval (phase roofline checks it)
+        summary_cmd = [sys.executable, "-m",
+                       "real_time_helmet_detection_tpu_torch.obs."
+                       "trace_summary", os.path.join(tmp, "w_accum",
+                                                     "trace"),
+                       "--top", "1000"]
+        eval_out, summary_out = run_ranks(
+            [eval_cmd, summary_cmd], "eval CLI and trace summary",
+            timeout=600)
         eval_s = time.time() - t0
 
         def tail(text):
@@ -6525,6 +6416,7 @@ def phase_train_cli(state):
                 short(accum_cmd), " ".join("%.2f" % v for v in totals)))
         state["train_cli_profile"] = profile_trace_checked(
             os.path.join(tmp, "w_accum", "trace"), outs[2])
+        state["train_cli_trace_summary"] = trace_summary_read(summary_out)
         state["train_cli_summary"] = summary_checked(outs)
 
 
@@ -6562,6 +6454,23 @@ def profile_trace_checked(trace_dir, out):
            n, steps, os.path.getsize(path) / 1e6))
     return dict(kernel_records=n, steps=steps,
                 mb=os.path.getsize(path) / 1e6)
+
+
+def trace_summary_read(text):
+    """{track: (summed ms, wall ms)} and {track: [names]} of
+    `obs.trace_summary`'s output."""
+    tracks, names, track = {}, {}, None
+    for line in text.splitlines():
+        head = re.match(r"== (.*)  \(sum ([0-9.]+) ms over wall ([0-9.]+) "
+                        r"ms, ", line)
+        row = re.match(r"\s+[0-9.]+ ms\s+[0-9.]+%  (.*)$", line)
+        if head:
+            track = head.group(1)
+            tracks[track] = (float(head.group(2)), float(head.group(3)))
+            names[track] = []
+        elif row and track is not None:
+            names[track].append(row.group(1))
+    return dict(tracks=tracks, names=names)
 
 
 def device_records(prof):
@@ -6653,6 +6562,159 @@ TRANSIENT_JOB = (
     "first attempt')\n"
     "run_as_job(main)\n"
 )
+
+
+# the activation-sized tensors each BN kernel's call moves: the byte rule
+# the roofline's rows must meet at every site (ref epilogue.py:84,
+# residual.py:78 `site_kernel_bytes`, split over the port's passes)
+SITE_MOVES = {"bn_act": 2, "bn_add_act": 3, "bn_stats": 1, "bn_bwd_sums": 2,
+              "bn_add_bwd_sums": 3, "bn_bwd_dx": 3, "bn_add_bwd_dx": 5}
+# phase roofline's runs: (label, roofline CLI flags, expected_launches path)
+ROOFLINE_RUNS = (("predict bf16", ["--mode", "predict"], "predict"),
+                 ("train --amp", [], "train"),
+                 ("train --amp --fwd-dtype int8", ["--fwd-dtype", "int8"],
+                  "train"))
+IMPOSSIBLE = 1.05  # a share of a roofline above this: the count is wrong
+
+
+def roofline_checked(label, argv, path):
+    """One roofline of the card (`obs.roofline.roofline`, the CLI's
+    function) at b16 512^2, checked: every device operation joined (at
+    most 1% of busy unattributed; the rows' times add up to busy within
+    0.5%), each hand kernel's calls as `expected_launches` derives and
+    its bytes `SITE_MOVES`' rule at its sites, no row outside the L2
+    above IMPOSSIBLE of its roofline. Returns the artifact."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.obs import roofline
+    args = roofline.build_parser().parse_args(argv)
+    meta = roofline.roofline(args)
+    rows, s = meta["fusions"], meta["summary"]
+    busy, un = s["busy_us"], s["unattributed_us"]
+    timed = sum(r["time_us"] or 0.0 for r in rows)
+    require(un <= 0.01 * busy and abs(timed - busy) <= 0.005 * busy,
+            "roofline %s: %.1f us of %.1f us busy unattributed, rows sum "
+            "to %.1f us" % (label, un, busy, timed))
+    cfg = roofline._config(args, train=path == "train")
+    want = {k: v for k, v in expected_launches(cfg, path,
+                                               torch.bfloat16).items()
+            if v and k in roofline.KERNELS}
+    kernels = {r["name"]: r for r in rows if r.get("kernel")}
+    require({k: r["calls"] for k, r in kernels.items()} == want,
+            "roofline %s: kernel calls %s, want %s" % (
+                label, {k: r["calls"] for k, r in kernels.items()}, want))
+    # every call launches: fewer device operations than calls means the
+    # trace lost some of the card's activity
+    short = {k: (r.get("trace_calls"), r["calls"])
+             for k, r in kernels.items()
+             if (r.get("trace_calls") or 0) < r["calls"]}
+    require(not short, "roofline %s: the trace holds fewer device "
+            "operations than calls (per run): %s" % (label, short))
+    for name, r in kernels.items():
+        if name in SITE_MOVES:
+            rule = sum(SITE_MOVES[n] * e * size
+                       for n, e, size, _ in meta["kernel_sites"]
+                       if n == name)
+            require(r["bytes"] == rule, "roofline %s: %s moves %.0f "
+                    "bytes, its rule %.0f" % (label, name, r["bytes"], rule))
+    over = [(r["name"], r["t_roofline_us"], r["time_us"]) for r in rows
+            if r["time_us"] and not r["l2_resident_possible"]
+            and r["t_roofline_us"] > IMPOSSIBLE * r["time_us"]]
+    require(not over, "roofline %s: rows read above %.0f%% of their "
+            "roofline: %s; hand kernels (device ops, calls): %s" % (
+                label, 100 * IMPOSSIBLE, over[:5],
+                {k: (r.get("trace_calls"), r["calls"])
+                 for k, r in kernels.items()}))
+    log("roofline %s: busy %.1f us, wall %.1f us (untraced; traced %.1f), "
+        "idle %.1f%%, mfu %.4f, %.3f TFLOP, %.2f GB, %d rows, unattributed "
+        "%.1f us; seconds %s" % (label, busy, s["wall_us"],
+                                 s["traced_wall_us"], 100 * s["idle_share"],
+                                 s["mfu"], s["total_flops"] / 1e12,
+                                 s["total_bytes"] / 1e9, len(rows), un,
+                                 meta["seconds"]))
+    log("    %-64s %5s %9s %6s %9s %6s %5s %s" % (
+        "row (top 10 by time)", "calls", "us/step", "%time", "MB", "roofl",
+        "bound", "L2"))
+    for r in rows[:10]:
+        log("    %-64s %5d %9.1f %6.1f %9.1f %5.0f%% %5s %s" % (
+            r["name"][:64], r["calls"], r["time_us"] or 0.0,
+            r["pct_time"] or 0.0, r["bytes"] / 2**20,
+            100 * r["t_roofline_us"] / r["time_us"] if r["time_us"] else 0,
+            r["bound"], "yes" if r["l2_resident_possible"] else "no"))
+    log("    class: %s" % ", ".join(
+        "%s %.1f us (hand kernels %.1f; %d calls, %.1f%% of bytes, %d "
+        "rows)" % (c, v["time_us"], v["kernel_time_us"], v["calls"],
+                   v["pct_bytes"], v["ops"])
+        for c, v in s["by_class"].items()))
+    log("    hand kernels: %s" % ", ".join(
+        "#%s %s %d calls %.1f us (%.0f%% of roofline)" % (
+            r["kernel"], n, r["calls"], r["time_us"] or 0.0,
+            100 * r["t_roofline_us"] / r["time_us"] if r["time_us"] else 0)
+        for n, r in sorted(kernels.items(),
+                           key=lambda kv: kv[1]["kernel"])))
+    return meta
+
+
+def phase_roofline(state):
+    """Where the card's time goes, through `obs.roofline`,
+    `obs.breakdown` and `obs.trace_summary`: the roofline of the
+    flagship bf16 predict, the flagship `--amp` train step and its
+    `--fwd-dtype int8` step at b16 512^2 (`roofline_checked`), the conv
+    FLOPs of the predict equal to `quality/cost.py`'s at the same
+    configuration, the breakdown's components (each `mfu` and HBM
+    utilisation at most IMPOSSIBLE), and the trace summary of train_cli's
+    `--profile` trace (run there): the train kernels #4-#13 among its
+    kernels, every kernel stream's busy share in (0, 1]."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.obs import breakdown, roofline
+    from real_time_helmet_detection_tpu_torch.quality import cost
+    require("train_cli_trace_summary" in state,
+            "phase roofline reads the trace summary of train_cli's "
+            "--profile trace: run train_cli too")
+    out = state.setdefault("roofline", {})
+    for label, argv, path in ROOFLINE_RUNS:
+        t0 = time.time()
+        meta = roofline_checked(label, argv, path)
+        out[label] = meta["summary"]
+        log("    (%.1f s)" % (time.time() - t0))
+        if path == "predict":
+            args = roofline.build_parser().parse_args(argv)
+            cfg = roofline._config(args, train=False)
+            conv = sum(r["flops"] for r in meta["fusions"]
+                       if r["opcode"] == "convolution")
+            want = args.batch * cost.counts(cfg, args.imsize)["conv_flops"]
+            require(conv == want, "roofline predict: conv FLOPs %.0f, "
+                    "quality/cost.py's %.0f" % (conv, want))
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    last = [t0]
+
+    def timed_log(msg):
+        now = time.time()
+        log("    %s (%.1f s)" % (msg, now - last[0]))
+        last[0] = now
+    bd = breakdown.breakdown("cuda", log=timed_log)
+    out["breakdown"] = bd["components"]
+    over = {k: (c["mfu"], c["hbm_util"]) for k, c in bd["components"].items()
+            if max(c["mfu"], c["hbm_util"]) > IMPOSSIBLE}
+    require(not over, "breakdown: components above %.0f%% of a peak: %s"
+            % (100 * IMPOSSIBLE, over))
+    log("    breakdown: %d components (%.1f s)" % (len(bd["components"]),
+                                                   time.time() - t0))
+    ts = state["train_cli_trace_summary"]
+    kernel_tracks = {t: n for t, n in ts["names"].items()
+                     if any(k in name for name in n
+                            for k in TRAIN_TRACE_KERNELS)}
+    named = {k for k in TRAIN_TRACE_KERNELS
+             for n in kernel_tracks.values() for name in n if k in name}
+    shares = {t: ts["tracks"][t][0] / ts["tracks"][t][1]
+              for t in kernel_tracks}
+    require(named == set(TRAIN_TRACE_KERNELS)
+            and all(0 < v <= 1 for v in shares.values()),
+            "trace summary: train kernels named %s of %s, busy shares %s"
+            % (sorted(named), TRAIN_TRACE_KERNELS, shares))
+    log("    trace summary of train_cli's --profile trace (beside its "
+        "eval CLI): %s; the train kernels #4-#13 named" % ", ".join(
+            "%s busy %.1f%%" % (t, 100 * v) for t, v in shares.items()))
 
 
 def group_members(pgid):
@@ -7418,58 +7480,6 @@ def phase_train_runtime(state):
         # resource tracker, a child process that lives until stopped
         from multiprocessing import resource_tracker
         resource_tracker._resource_tracker._stop()
-
-
-def phase_profile(state):
-    """Where the device time of one flagship predict goes, from a
-    torch.profiler trace (CUDA activity only) of 3 predicts: our kernels,
-    convolutions, the rest. The device's idle share is 1 - busy / wall,
-    with wall the median ms per predict of phase main, taken without the
-    profiler: the profiler's own host overhead stretches the traced
-    predicts' wall, which it reports beside."""
-    import numpy as np
-    import torch
-    from real_time_helmet_detection_tpu_torch.config import Config
-    from real_time_helmet_detection_tpu_torch.evaluate import load_eval_state
-    from real_time_helmet_detection_tpu_torch.predict import make_predict_fn
-    require("main" in state and "train_main" in state,
-            "phase profile reads the predict and train-step times of "
-            "phases main and train_main: run all three")
-    images = np.random.default_rng(0).integers(
-        0, 256, (16, 512, 512, 3), dtype=np.uint8)
-    for amp in (False, True):
-        tag = "bf16" if amp else "f32"
-        wall_ms = state["main"][tag]["rates"]["kernels"]["ms_per_predict"]
-        cfg = Config(batch_size=16, imsize=512, amp=amp)
-        predict = make_predict_fn(perturb_bn(load_eval_state(cfg), seed=3),
-                                  cfg, normalize="imagenet")
-        predict(images)
-        with site_bytes({}) as nbytes:
-            predict(images)
-        by_name, traced_ms = trace_device_ms(lambda i: predict(images))
-        busy = sum(by_name.values())
-        if busy == 0.0:
-            log("profile %s: the profiler saw no device time; breakdown "
-                "not measured (traced wall %.2f ms per predict)"
-                % (tag, traced_ms))
-            continue
-        groups = group_device_ms(by_name, ("bn_add_act_kernel",
-                                           "bn_act_vec_kernel",
-                                           "bn_act_kernel", "peak_kernel"))
-        state.setdefault("profile", {})[tag] = dict(
-            wall_ms=wall_ms, traced_ms=traced_ms, busy_ms=busy,
-            groups=groups)
-        log("    bound over the forward's sites (bytes / 3.35 TB/s): "
-            "bn_act %.3f ms, bn_add_act %.3f ms"
-            % tuple(nbytes[k] / HBM_BYTES_PER_S * 1e3
-                    for k in ("bn_act", "bn_add_act")))
-        log_profile("%s (ms per predict of 16 x 512^2, wall from phase "
-                    "main)" % tag, wall_ms, traced_ms, by_name, groups,
-                    top=8)
-        del predict
-        torch.cuda.empty_cache()
-
-    profile_train(state)
 
 
 def eager_map(cfg):

@@ -40,6 +40,8 @@ operand.
   variant; `grad_conversions` counts the
   backward gradients that arrived in another layout than channels-last
   and were copied into it.
+* `@marks.kernel` on the ctypes wrappers lets a count of the work
+  (`obs.roofline.OpCount`) take each call as one row of its kernel.
 
 Layout: x is an NCHW tensor in `torch.channels_last` memory format, whose
 storage is the (N*H*W, C) row-major block the TPU kernels tiled
@@ -53,7 +55,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, marks
 from ..parallel import distributed
 
 ACTIVATIONS = ("ReLU", "Mish", "Linear")
@@ -234,6 +236,7 @@ def bn_eval_bwd_reference(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return dx, da, db
 
 
+@marks.kernel("bn_eval_bwd")
 def bn_eval_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                 g: torch.Tensor, activation: str
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -346,6 +349,7 @@ def bn_stats_reference(x: torch.Tensor
     return x2.sum(0, keepdim=True), (x2 * x2).sum(0, keepdim=True)
 
 
+@marks.kernel("bn_stats")
 def bn_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-channel partial sums of x and x^2: two (nblocks, C) float32
     tensors whose column sums are the totals (ref epilogue.py:424).
@@ -452,6 +456,7 @@ def launch_bwd_dx(x, a, b, g, k1, k2, activation, skip=None):
     return dx, ds, True
 
 
+@marks.kernel("bn_bwd_sums")
 def bn_bwd_sums(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                 g: torch.Tensor, activation: str
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -466,6 +471,7 @@ def bn_bwd_sums(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return s1, s2
 
 
+@marks.kernel("bn_bwd_dx")
 def bn_bwd_dx(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
               g: torch.Tensor, k1: torch.Tensor, k2: torch.Tensor,
               activation: str) -> torch.Tensor:

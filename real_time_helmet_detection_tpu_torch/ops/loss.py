@@ -39,7 +39,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, marks
 from ..parallel import distributed
 from .epilogue import (_DTYPE_CODE, _ELEMENT_BYTES, _VEC_BYTES, check_cuda,
                        plain_device)
@@ -297,6 +297,7 @@ def _ticket_buffer(device: torch.device, maps: int) -> torch.Tensor:
     return held[-1]
 
 
+@marks.kernel("loss_fwd")
 def loss_sums(out: torch.Tensor, heat: torch.Tensor, off: torch.Tensor,
               wh: torch.Tensor, mask: torch.Tensor, *, alpha: float,
               beta: float, normalized: bool) -> Tuple[torch.Tensor, ...]:
@@ -332,6 +333,7 @@ def loss_sums(out: torch.Tensor, heat: torch.Tensor, off: torch.Tensor,
     return sums.unbind(0)
 
 
+@marks.kernel("loss_bwd")
 def loss_sums_bwd(out: torch.Tensor, heat: torch.Tensor, off: torch.Tensor,
                   wh: torch.Tensor, mask: torch.Tensor, gpos: torch.Tensor,
                   gneg: torch.Tensor, goff: torch.Tensor, gwh: torch.Tensor,

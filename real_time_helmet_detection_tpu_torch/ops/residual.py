@@ -39,6 +39,7 @@ from typing import Tuple
 
 import torch
 
+from . import marks
 from .epilogue import (BNEval, BNTrain, EvalPasses,
                        Passes, _check_bwd, activate, bn_bwd_dx_reference,
                        bn_bwd_sums_reference, check_activation, check_cuda,
@@ -85,6 +86,7 @@ def bn_add_eval_bwd_reference(y, a, b, skip, g, activation):
     return eval_bwd_reference(y, a, b, g, activation, skip=skip)
 
 
+@marks.kernel("bn_add_eval_bwd")
 def bn_add_eval_bwd(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                     skip: torch.Tensor, g: torch.Tensor, activation: str
                     ) -> Tuple[torch.Tensor, ...]:
@@ -131,6 +133,7 @@ def bn_add_bwd_dx_reference(y, a, b, skip, g, k1, k2, activation):
     return bn_bwd_dx_reference(y, a, b, g, k1, k2, activation, skip=skip)
 
 
+@marks.kernel("bn_add_bwd_sums")
 def bn_add_bwd_sums(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                     skip: torch.Tensor, g: torch.Tensor, activation: str
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -146,6 +149,7 @@ def bn_add_bwd_sums(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return s1, s2
 
 
+@marks.kernel("bn_add_bwd_dx")
 def bn_add_bwd_dx(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                   skip: torch.Tensor, g: torch.Tensor, k1: torch.Tensor,
                   k2: torch.Tensor, activation: str

@@ -52,15 +52,17 @@ from .utils import normalizer_stats
 
 def resolve_device(device) -> torch.device:
     """The torch device an entry point runs on. CUDA without a card
-    raises: an entry point never drops to the CPU on its own."""
+    raises: an entry point never drops to the CPU on its own. `meta`
+    runs shapes alone (`obs.roofline`'s count)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device %r requested but torch.cuda.is_available() is False; "
             "pass device='cpu' (CLI: --device cpu) to run the plain "
             "versions on the CPU" % str(device))
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError("device must be cuda or cpu, got %r" % str(device))
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError("device must be cuda, cpu or meta, got %r"
+                         % str(device))
     return dev
 
 

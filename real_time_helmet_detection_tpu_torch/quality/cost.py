@@ -7,15 +7,16 @@ JAX reads its counts from XLA's compiled program (scripts/roofline.py
 program, so it counts for itself and labels the result
 "count": "port-analytic", never to be read as XLA's per-op-class count:
 
-* FLOPs: `torch.utils.flop_counter.FlopCounterMode` over the plain
-  forward on `meta` tensors (the convolutions; decode and NMS count
-  nothing), `conv_flops` = 2 * sum of k^2 * c_in / groups * c_out * H * W
-  over the convolutions;
+* FLOPs: the roofline count (`obs.roofline.count_rows`) of the plain
+  forward on `meta` tensors, its exact rows (the convolutions; decode
+  and NMS count nothing), `conv_flops` = 2 * sum of k^2 * c_in / groups
+  * c_out * H * W over the convolution rows;
 * bytes, once each at the serving dtypes (bf16 activations and conv
   weights, float32 for the other parameters and buffers, the uint8
   image): `predict_bytes` is the state, the input and the output of
   every row of `models.hourglass.layer_summary`; `conv_bytes` each
-  convolution's weight, input and output;
+  convolution row's weight, input and output at those dtypes (the
+  count's own bytes are the f32 forward's);
 * `serve_wire_ms_b1` / `serve_wire_p99_ms_b1`: nearest-rank p50 and p99,
   submit to result, of a serial stream of uint8 images through a
   `ServingEngine` with bucket 1 (a CUDA graph replay on the card),
@@ -30,7 +31,6 @@ from typing import Dict, List
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..config import Config, TIER_PRESETS
 from ..models.hourglass import build_model, layer_summary
@@ -54,50 +54,48 @@ def _pctl(sorted_vals: List[float], q: float) -> float:
                            int(round(q * (len(sorted_vals) - 1))))]
 
 
-class ConvBytes(TorchDispatchMode):
-    """Bytes of every convolution run under it: its weight and input read
-    once and its output written once, at ACT_BYTES an element (the bias,
-    if any, at PARAM_BYTES)."""
+def _numel(shape) -> int:
+    return int(np.prod(shape)) if shape else 1
 
-    def __init__(self):
-        super().__init__()
-        self.bytes = 0
 
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        if func is torch.ops.aten.convolution.default:
-            x, w, b = args[:3]
-            self.bytes += ACT_BYTES * (x.numel() + w.numel() + out.numel())
-            if b is not None:
-                self.bytes += PARAM_BYTES * b.numel()
-        return out
+def conv_bytes(row: Dict) -> int:
+    """A convolution row's bytes at the serving dtypes: its input, weight
+    and output at ACT_BYTES an element, its bias (if any) at PARAM_BYTES,
+    once per call."""
+    (x, _), (w, _) = row["operands"][:2]
+    per = ACT_BYTES * (_numel(x) + _numel(w) + _numel(row["results"][0][0]))
+    if len(row["operands"]) > 2:
+        per += PARAM_BYTES * _numel(row["operands"][2][0])
+    return row["calls"] * per
 
 
 def counts(cfg: Config, imsize: int) -> Dict:
     """FLOPs and bytes of one b1 predict of `cfg` at `imsize` (see the
     module docstring); no tensor lives on a device."""
-    from torch.utils.flop_counter import FlopCounterMode
+    from ..obs.roofline import count_rows
     with torch.device("meta"):
         model = build_model(cfg).eval()
-    with FlopCounterMode(display=False) as fc, ConvBytes() as cb, \
-            torch.no_grad():
-        model(torch.empty(1, imsize, imsize, 3, device="meta"))
-    flops = fc.get_flop_counts()["Global"]
-    conv_flops = int(sum(v for k, v in flops.items()
-                         if "convolution" in str(k)))
+    image = torch.empty(1, imsize, imsize, 3, device="meta")
+
+    def forward():
+        with torch.no_grad():
+            model(image)
+    rows, _ = count_rows(forward)
+    convs = [r for r in rows if r["opcode"] == "convolution"]
     weights = {id(m.weight) for m in model.modules()
                if isinstance(m, torch.nn.Conv2d)}
     state = sum(t.numel() * (ACT_BYTES if id(t) in weights else PARAM_BYTES)
                 for t in list(model.parameters()) + list(model.buffers())
                 if t.is_floating_point())
-    rows, n_params = layer_summary(cfg, imsize)
-    outputs = sum(int(np.prod(shape)) for _, _, shape, _ in rows if shape)
+    summary, n_params = layer_summary(cfg, imsize)
+    outputs = sum(int(np.prod(shape)) for _, _, shape, _ in summary if shape)
     return {"count": "port-analytic",
-            "predict_gflops": round(fc.get_total_flops() / 1e9, 3),
-            "conv_flops": conv_flops,
+            "predict_gflops": round(sum(r["flops"] for r in rows
+                                        if not r["approx"]) / 1e9, 3),
+            "conv_flops": int(sum(r["flops"] for r in convs)),
             "predict_bytes": int(state + imsize * imsize * 3
                                  + ACT_BYTES * outputs),
-            "conv_bytes": cb.bytes,
+            "conv_bytes": sum(conv_bytes(r) for r in convs),
             "params_m": round(n_params / 1e6, 4)}
 
 

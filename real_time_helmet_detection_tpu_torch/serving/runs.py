@@ -472,6 +472,31 @@ def serial_server(predict, cfg: Config):
     return runner, b1
 
 
+def drain_schedule(rec: Recorder, pool, injector) -> Dict:
+    """Keep the load going after the loops until every scheduled fault
+    has fired, whatever the host's speed: one round submits the pool and
+    waits for every answer, so it dispatches and fetches at least one
+    batch (a faulted batch is dispatched and fetched again), and the
+    schedule's largest trigger bounds the rounds. Rounds and requests it
+    took, and the admitted requests that surfaced an error (`lost`)."""
+    bound = max((e.at for e in injector.schedule), default=0)
+    out = {"rounds": 0, "requests": 0, "lost": 0}
+    while injector.pending() and out["rounds"] < bound:
+        futs = [rec.submit(img) for img in pool]
+        for fut in futs:
+            try:
+                fut.result()
+            except Exception:  # noqa: BLE001 - an admitted request lost
+                out["lost"] += 1
+        out["rounds"] += 1
+        out["requests"] += len(futs)
+    if injector.pending():
+        raise RuntimeError("fault schedule %s: %d events never fired in %d "
+                           "rounds" % (injector.schedule.spec(),
+                                       injector.pending(), out["rounds"]))
+    return out
+
+
 def run_bench(args, inspect: Inspect = None) -> Dict:
     """The engine's goodput against offered load, with the serial
     batch-1 server as the baseline (ref serve_bench.py:1417; module
@@ -569,6 +594,8 @@ def run_bench(args, inspect: Inspect = None) -> Dict:
             beat("open loop x%.2f done" % mult)
         out["curve"] = curve
         if injector is not None:
+            drain = drain_schedule(rec, pool, injector)
+            check_rows()
             st = server.stats()
             out["faults"] = {
                 "spec": injector.schedule.spec(),
@@ -576,8 +603,10 @@ def run_bench(args, inspect: Inspect = None) -> Dict:
                 "retried": st["retried"],
                 "requeued_batches": st["requeued_batches"],
                 "hung_batches": st["hung_batches"],
-                "lost_acks": sum(r.get("lost", 0) for r in curve),
+                "lost_acks": sum(r.get("lost", 0) for r in curve)
+                + drain["lost"],
                 "engine_state": server.state,
+                "drain": drain,
             }
             log("faults: injected %d, retried %d, lost acks %d"
                 % (out["faults"]["injected"]["total"],
