@@ -96,8 +96,9 @@ version on the card:
    one process on 32 images (the same mAP, rank 0's detections, the txt
    files and the pickle from rank 0 alone);
 11d. train_extras: the train-step extras at b16 512^2: `--fwd-dtype
-   int8` (the flagship --amp step with #16 and #14 at its 35 STE sites,
-   all on wgmma, against the plain versions by train_main's bf16 rule;
+   int8` (the flagship --amp step with the abs-max, #16 and #14 at its 35
+   STE sites, all on wgmma, against the plain versions by train_main's
+   bf16 rule;
    the edge architecture's step with #15; launches as `ste_walk`
    derives; img/s and peak memory against --fwd-dtype bf16),
    `--param-policy bf16-compute` (bf16 parameters of f32 masters, no
@@ -196,30 +197,44 @@ version on the card:
    images/s at the largest bucket and bucket-1 latency;
 19. qkernels: the int8 kernels (#14 the dense 1x1/3x3 int8 conv on its
    wgmma kernel and its first, mma.sync one; #15 the depthwise one,
-   tiled and gather; #16 the activation quantizer; no Pallas
-   counterpart) against their plain versions at every int8 conv site of
-   the throughput tier and the flagship at b16 512^2 (the int32 sums and
-   the f32/bf16 ReLU/Linear outputs bit-equal, each conv on each of its
-   kernels), at odd shapes (ragged boxes, one image, Cout past one wgmma
-   width, C % 16 != 0) and on views 16 bytes into their storage, on the
-   quantizer's ties, +-inf, saturation and NaN (0, JAX-CPU's value), and
-   the wrappers' refusals (misaligned, not channels-last, other
-   geometry);
+   tiled and gather; #16 the activation quantizer; the abs-max; no
+   Pallas counterpart) against their plain versions at every int8 conv
+   site of the throughput tier and the flagship at b16 512^2 (the int32
+   sums and the f32/bf16 ReLU/Linear outputs bit-equal, each conv on
+   each of its kernels), the convs' code outputs (the codes of the
+   stored values at a consumer's step, at a channel offset of a wider
+   tensor whose other channels stay, one or two of them, with or
+   without the float output) on each kernel at every throughput-tier
+   site, at odd shapes (ragged boxes, one image, Cout past one wgmma
+   width, C % 16 != 0) and on views 16 bytes into their storage, the
+   quantizer at one and two steps and the abs-max at every site input,
+   on the quantizer's ties, +-inf, saturation and NaN (0, JAX-CPU's
+   value; the abs-max NaN, +-inf, -0.0), and the wrappers' refusals
+   (misaligned inputs and code outputs, a code offset off 8, codes of
+   int32 sums, not channels-last, other geometry);
 20. qtiming: their time at the throughput tier's largest sites and the
    flagship's largest 3x3 and its 3x3 at 128^2, each conv's new kernel
    and its first one in turns, beside the bound, the plain version,
    `torch._int_mm` (the library's int32 sums alone) and cuDNN's bf16
    conv (a float yardstick); the quantizer beside
    `torch.quantize_per_tensor` (its library call, on the f32 values; the
-   values where the two differ counted);
+   values where the two differ counted); the fused forms (a ghost
+   module's 1x1 writing two code outputs, a depthwise conv and the
+   flagship's 3x3 one) in turns with the unfused conv + quantizer
+   launches they replace; the quantizer at each of its sites on the
+   fused predicts beside its bound; the abs-max beside `x.abs().amax()`
+   and `torch.linalg.vector_norm(x, inf)`;
 21. int8: `--infer-dtype int8` predicts at b16 512^2 for the throughput
    tier and the flagship, bf16 and f32: scales calibrated on the card,
    launches as derived (`qconv_sites`, by kernel: every dense conv on
-   the wgmma kernel, every depthwise one on the tiled kernel; the peak
-   test once, no BN kernel), logits bit-equal and Detections identical
-   to the plain twin, peak memory, images/s against the float model,
-   #14's and #15's device sums per predict against the float model's
-   convolutions, and the int8 vs float agreement (a record);
+   the wgmma kernel, every depthwise one on the tiled kernel; the convs
+   that write their consumers' codes, `code_walk`; the quantizer 18
+   times, once at two steps, `quant_walk`; the peak test once, no BN
+   kernel), logits bit-equal and Detections identical to the plain
+   twin, peak memory, images/s against the float model, #14's, #15's
+   and #16's device sums per predict against the float model's
+   convolutions, the predict's busy time, and the int8 vs float
+   agreement (a record);
 22. serve_int8: `--tier throughput` through the engine (buckets 4/8/16)
    with an SLO watchdog: one graph per bucket, replay launches, rows
    bit-equal to eager, a closed loop of 64 clients and open loops at 50%
@@ -251,7 +266,8 @@ version on the card:
 23. export: `export_predict` (the port of ref export.py:60) at 512^2,
    the uint8 wire: the flagship bf16 with --export-serve at buckets 1
    and 16, and `--tier throughput` int8, each with one AOTInductor
-   package (batch 1): every reloaded `.pt2` bit-equal to the eager
+   package (batch 1), each exported by a worker process that phase
+   export_compile starts right after the build: every reloaded `.pt2` bit-equal to the eager
    predict at its batch, its launches by kernel name (profiler) and by
    the counters equal to `expected_launches`; the op library
    (csrc/torch_ops.cpp) and the C++ runner (cpp/runner.cc) built with
@@ -336,8 +352,13 @@ version on the card:
    `--profile` trace (run beside 26's eval CLI: the train kernels #4-#13
    named, each kernel stream busy in (0, 1]).
 
+The phases run in the order of PHASES, not of this list: the export
+workers compile beside the phases that record no kernel or predict
+time, and every phase that times the card runs after them.
+
 Every phase must close or reap the threads and processes it starts:
-one left behind fails the run after the last phase (`leftovers`). The
+one left behind fails the run after the last phase (`leftovers`), but
+for the export workers, which phase export waits for (`BACKGROUND`). The
 script makes itself the subreaper of its descendants, so a grandchild
 orphaned by its parent (a job's workers, a compile pool's sidecar) is
 seen as its child; each phase's left processes get a grace to end, and
@@ -349,8 +370,8 @@ process group with it) before the script exits.
 runs) runs phases alone. Any failure exits non-zero. Each phase prints
 its wall time. The last
 three lines are the card's name and power limit, one JSON object of
-per-kernel numbers (all 13 TPU kernels and the int8 kernels #14-#16, these
-with their launches in an int8 train step beside), and
+per-kernel numbers (all 13 TPU kernels, the int8 kernels #14-#16 with
+their launches in an int8 train step beside, and the abs-max), and
 {"ok": true, "device": {...}}.
 """
 
@@ -375,15 +396,23 @@ import traceback
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PHASES = ("identity", "build", "kernels", "timing", "main", "states",
-          "train_kernels", "train_timing", "loss_kernels", "loss_timing",
+# The run order: export_compile starts the exports' AOTInductor compiles
+# (phase export's worker processes, CPU work at the lowest priority);
+# the phases that record no kernel or predict time run beside them, and
+# every phase that times the card runs after they have ended (they take
+# about 170 s; the phases before `timing` about 300 s)
+PHASES = ("identity", "build", "export_compile", "kernels", "states",
+          "train_kernels", "loss_kernels", "variants_small", "nms", "cli",
+          "train_cli", "supervisor", "analysis", "quality", "variants",
+          "variants_train", "timing", "main", "train_timing", "loss_timing",
           "train_main", "accum", "ddp", "train_extras", "train_runtime",
-          "eval_grad",
-          "eval_timing",
-          "variants", "variants_small", "variants_train", "nms", "serve",
-          "qkernels", "qtiming", "int8", "serve_int8", "fleet", "cascade",
-          "streams", "serve_bench", "export", "cli", "train_cli",
-          "supervisor", "analysis", "quality", "report", "roofline")
+          "eval_grad", "eval_timing", "serve", "qkernels", "qtiming", "int8",
+          "serve_int8", "fleet", "cascade", "streams", "serve_bench",
+          "export", "report", "roofline")
+# child processes that outlive the phase that started them (phase
+# export's workers, {pid: Popen}): no phase counts them as its leftovers
+BACKGROUND = {}
+EXPORT_BG = {}  # "root", "workers" of phase export_compile
 
 
 class SmokeFailure(RuntimeError):
@@ -540,6 +569,7 @@ def plain_kernels():
                                                           residual)
     return swapped([
         (qconv, "quantize_act", qconv.quantize_act_reference),
+        (qconv, "abs_max", qconv.abs_max_reference),
         (qconv, "conv_dense", qconv.conv_dense_reference),
         (qconv, "conv_dw", qconv.conv_dw_reference),
         (loss, "loss_sums", loss.loss_sums_reference),
@@ -579,12 +609,16 @@ COUNTERS = {
     "loss_bwd_vec": ("loss", "bwd_vector_launches"),
     "loss_bwd_scalar": ("loss", "bwd_scalar_launches"),
     "quantize_act": ("qconv", "quant_launches"),
+    "quantize_act_dual": ("qconv", "quant_dual_launches"),
+    "abs_max": ("qconv", "absmax_launches"),
     "qconv_dense": ("qconv", "dense_launches"),
     "qconv_dense_wgmma": ("qconv", "dense_wgmma_launches"),
     "qconv_dense_mma": ("qconv", "dense_mma_launches"),
+    "qconv_dense_codes": ("qconv", "dense_code_launches"),
     "qconv_dw": ("qconv", "dw_launches"),
     "qconv_dw_tiled": ("qconv", "dw_tiled_launches"),
     "qconv_dw_gather": ("qconv", "dw_gather_launches"),
+    "qconv_dw_codes": ("qconv", "dw_code_launches"),
 }
 
 
@@ -671,44 +705,95 @@ def qconv_sites(cfg):
     return dense, len(dw_channels)
 
 
+def walk_blocks(cfg, parts=PARTS):
+    """(input width, output width, activation) of each residual block of
+    one forward of cfg's model, in order, and the number of neck convs
+    (`parts` as in `bn_sites`): the PreLayer's and the necks' blocks take
+    ReLU, the hourglass blocks cfg.activation (ref models/hourglass.py:
+    793-863)."""
+    blocks, necks = [], 0
+
+    def hourglass(n, c):
+        m = c + cfg.increase_ch
+        blocks.extend([(c, c, cfg.activation), (c, m, cfg.activation)])
+        if n > 1:
+            hourglass(n - 1, m)
+        else:
+            blocks.append((m, m, cfg.activation))
+        blocks.append((m, c, cfg.activation))
+
+    width, mid = cfg.hourglass_inch, cfg.stem_width or 128
+    if "pre" in parts:
+        blocks.extend((cin, cout, "ReLU") for cin, cout in
+                      ((64, mid), (mid, mid), (mid, width)))
+    for _ in range(cfg.num_stack):
+        if "stacks" in parts:
+            hourglass(4, width)
+        if "necks" in parts:
+            necks += 1
+            blocks.append((width, width, "ReLU"))
+    return blocks, necks
+
+
+def block_convs(cfg, cin, cout):
+    """(dense int8 convs, channel counts of the depthwise ones) of one
+    residual block of cfg's variant."""
+    dense = 2 + (cin != cout)
+    dw = {"depthwise": [cin, cout], "ghost": [cout // 2] * 2}.get(
+        cfg.variant, [])
+    return dense, dw
+
+
 def qconv_walk(cfg, parts=PARTS, neck_conv=True):
     """(dense int8 convs, the channel count of each depthwise int8 conv)
     of one forward of cfg's int8 twin (see `qconv_sites`): a depthwise
     block's depthwise convs take its input and output widths, a ghost
     module's its half width. `parts` as in `bn_sites`; `neck_conv` False
     leaves out the neck's 1x1 conv (it has a bias: no STE site)."""
-    dense = 0
-    dw = []
-
-    def residual(cin, cout):
-        nonlocal dense
-        dense += 2 + (cin != cout)
-        if cfg.variant == "depthwise":
-            dw.extend([cin, cout])
-        elif cfg.variant == "ghost":
-            dw.extend([cout // 2] * 2)
-
-    def hourglass(n, c):
-        m = c + cfg.increase_ch
-        residual(c, c)
-        residual(c, m)
-        if n > 1:
-            hourglass(n - 1, m)
-        else:
-            residual(m, m)
-        residual(m, c)
-
-    width, mid = cfg.hourglass_inch, cfg.stem_width or 128
-    if "pre" in parts:
-        for cin, cout in ((64, mid), (mid, mid), (mid, width)):
-            residual(cin, cout)
-    for _ in range(cfg.num_stack):
-        if "stacks" in parts:
-            hourglass(4, width)
-        if "necks" in parts:
-            dense += neck_conv
-            residual(width, width)
+    blocks, necks = walk_blocks(cfg, parts)
+    dense, dw = necks * neck_conv, []
+    for cin, cout, _ in blocks:
+        d, c = block_convs(cfg, cin, cout)
+        dense += d
+        dw.extend(c)
     return dense, dw
+
+
+def fuses_codes(cfg, activation):
+    """Does a residual block of cfg's int8 twin with `activation` write
+    its convs' input codes in their producers' epilogues
+    (`models.hourglass.Residual.fuse_codes`)?"""
+    return cfg.variant in ("residual", "ghost") and activation in (
+        "ReLU", "Linear")
+
+
+def quant_walk(cfg, parts=PARTS):
+    """(quantizer launches, of which at two steps) of one predict of cfg's
+    int8 twin: a block that fuses its codes (`fuses_codes`) quantizes its
+    input once, at two steps where a projection takes it too; any other
+    block once per int8 conv; each neck conv once."""
+    blocks, necks = walk_blocks(cfg, parts)
+    launches, dual = necks, 0
+    for cin, cout, act in blocks:
+        if fuses_codes(cfg, act):
+            launches += 1
+            dual += cin != cout
+        else:
+            d, c = block_convs(cfg, cin, cout)
+            launches += d + len(c)
+    return launches, dual
+
+
+def code_walk(cfg, parts=PARTS):
+    """(dense, depthwise) int8 conv launches of one predict of cfg's int8
+    twin that write codes: in a fusing block the residual variant's
+    `Convolution_0`, or each ghost module's 1x1 and `GhostModule_0`'s
+    depthwise conv."""
+    blocks, _ = walk_blocks(cfg, parts)
+    fused = sum(fuses_codes(cfg, act) for _, _, act in blocks)
+    if cfg.variant == "ghost":
+        return 2 * fused, fused
+    return fused, 0
 
 
 def ste_walk(cfg, parts=PARTS):
@@ -719,18 +804,22 @@ def ste_walk(cfg, parts=PARTS):
     return qconv_walk(cfg, parts, neck_conv=False)
 
 
-def int8_launches(dense, dw_channels):
+def int8_launches(dense, dw_channels, quant=None, dual=0, codes=(0, 0)):
     """The quantizer and int8 conv counters of `dense` dense convs and a
     depthwise conv at each of `dw_channels`, each on the kernel its plan
     takes (`dense_plan`: the wgmma kernel for every shape; `dw_plan`: the
-    tiled kernel for C % 16 == 0)."""
+    tiled kernel for C % 16 == 0): `quant` quantizer launches (default
+    one a conv), `dual` of them at two steps, `codes` (dense, depthwise)
+    conv launches that write codes."""
     from real_time_helmet_detection_tpu_torch.ops import qconv
     dw = len(dw_channels)
     tiled = sum(qconv.dw_plan(1, 1, 1, c).variant == "tiled"
                 for c in dw_channels)
-    return dict(quantize_act=dense + dw, qconv_dense=dense,
-                qconv_dense_wgmma=dense, qconv_dw=dw,
-                qconv_dw_tiled=tiled, qconv_dw_gather=dw - tiled)
+    return dict(quantize_act=dense + dw if quant is None else quant,
+                quantize_act_dual=dual, qconv_dense=dense,
+                qconv_dense_wgmma=dense, qconv_dense_codes=codes[0],
+                qconv_dw=dw, qconv_dw_tiled=tiled,
+                qconv_dw_gather=dw - tiled, qconv_dw_codes=codes[1])
 
 
 def expected_launches(cfg, path, dtype):
@@ -740,10 +829,13 @@ def expected_launches(cfg, path, dtype):
     epilogue's variant per site from `bn_act_variant` (fresh, aligned
     tensors), the peak test once and the loss kernels once each way, each
     on the variant its shape takes. An int8 predict (`cfg.infer_dtype`)
-    runs no BN kernel: the quantizer and an int8 conv at each of
-    `qconv_sites`, each on the kernel its plan takes (`dense_plan`: the
-    wgmma kernel for every shape; `dw_plan`: the tiled kernel for C % 16
-    == 0), and the peak test."""
+    runs no BN kernel: an int8 conv at each of `qconv_sites`, each on
+    the kernel its plan takes (`dense_plan`: the wgmma kernel for every
+    shape; `dw_plan`: the tiled kernel for C % 16 == 0), those that write
+    their consumers' codes (`code_walk`), the quantizer where no int8 conv
+    writes a conv's input codes (`quant_walk`), and the peak test. An
+    `--fwd-dtype int8` step adds the abs-max and the quantizer at each STE
+    site."""
     import torch
     from real_time_helmet_detection_tpu_torch.ops import (epilogue, loss,
                                                           peak)
@@ -751,7 +843,8 @@ def expected_launches(cfg, path, dtype):
     vec = sum(epilogue.bn_act_variant(c, dtype) == "vector" for c in epi)
     want = dict.fromkeys(COUNTERS, 0)
     if getattr(cfg, "infer_dtype", "bf16") == "int8":
-        want.update(int8_launches(*qconv_walk(cfg)))
+        want.update(int8_launches(*qconv_walk(cfg), *quant_walk(cfg),
+                                  codes=code_walk(cfg)))
     else:
         want.update(bn_act=len(epi), bn_act_vec=vec,
                     bn_act_scalar=len(epi) - vec, bn_add_act=len(tail))
@@ -770,7 +863,9 @@ def expected_launches(cfg, path, dtype):
                     bn_bwd_dx=len(epi), bn_add_bwd_sums=len(tail),
                     bn_add_bwd_dx=len(tail))
         if getattr(cfg, "fwd_dtype", "bf16") == "int8":
-            want.update(int8_launches(*ste_walk(cfg)))
+            dense, dw = ste_walk(cfg)
+            want.update(int8_launches(dense, dw),
+                        abs_max=dense + len(dw))
         # the forward launches a recompute reruns (`--remat`)
         again = {"stacks": ("stacks",), "full": PARTS}.get(
             getattr(cfg, "remat", "none"), ())
@@ -783,7 +878,9 @@ def expected_launches(cfg, path, dtype):
                          bn_add_act=len(r_tail),
                          bn_stats=len(r_epi) + len(r_tail))
             if getattr(cfg, "fwd_dtype", "bf16") == "int8":
-                extra.update(int8_launches(*ste_walk(cfg, again)))
+                dense, dw = ste_walk(cfg, again)
+                extra.update(int8_launches(dense, dw),
+                             abs_max=dense + len(dw))
             for key, n in extra.items():
                 want[key] += n
     else:
@@ -2760,9 +2857,10 @@ def syncs_in(fn):
 
 
 def ste_sites_checked(step, arrs, errs):
-    """Run one train step with each int8 kernel wrapper (#16, #14, #15)
-    held bit-equal to its plain version on the very operands the step
-    gives it (its activations, abs-max step, weight codes and scales);
+    """Run one train step with each int8 kernel wrapper (the abs-max,
+    #16, #14, #15) held bit-equal to its plain version on the very
+    operands the step gives it (its activations, abs-max step, weight
+    codes and scales);
     returns {(kind, input shape, out channels, k): calls} of its STE
     convs, kind dense | dw. `errs` gets each comparison's max abs error
     by site."""
@@ -2771,6 +2869,15 @@ def ste_sites_checked(step, arrs, errs):
     sites = {}
 
     def checked(name, real, ref):
+        if name == "abs_max":
+            def one(x):
+                got = real(x)
+                key = ("abs_max", tuple(x.shape), str(x.dtype))
+                errs[key] = max(errs.get(key, 0.0), compare(
+                    "abs_max %s" % (key,), got, ref(x), "nan_equal"))
+                return got
+            return one
+
         def wrapper(q, w, *args):
             got = real(q, w, *args)
             if name == "quantize_act":
@@ -2788,7 +2895,8 @@ def ste_sites_checked(step, arrs, errs):
 
     with swapped([(qconv, name, checked(name, getattr(qconv, name),
                                         getattr(qconv, name + "_reference")))
-                  for name in ("quantize_act", "conv_dense", "conv_dw")]):
+                  for name in ("abs_max", "quantize_act", "conv_dense",
+                               "conv_dw")]):
         step(0, *arrs)
     torch.cuda.synchronize()
     return sites
@@ -3924,7 +4032,8 @@ TRACE_KERNELS = (("bn_act_vec_kernel", "bn_act_vec"),
                  ("qconv_dense_kernel", "qconv_dense_mma"),
                  ("qconv_dw_tile_kernel", "qconv_dw_tiled"),
                  ("qconv_dw_kernel", "qconv_dw_gather"),
-                 ("quantize_kernel", "quantize_act"))
+                 ("quantize_kernel", "quantize_act"),
+                 ("absmax_kernel", "abs_max"))
 
 
 def graph_nodes(graph):
@@ -4442,6 +4551,29 @@ def int8_sites(cfg):
     return sites
 
 
+def quant_sites(cfg):
+    """{(input shape, at two steps): calls} of the quantizer in one b16
+    forward of cfg's int8 twin on the card (random weights): where no
+    int8 conv writes a conv's input codes."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.ops import qconv, quant
+    dtype = torch.bfloat16 if cfg.amp else None
+    twin = quant.make_quant_model(cfg, dtype=dtype, mode="int8")
+    twin = twin.cuda().eval()
+    sites = {}
+    real = qconv.quantize_act
+
+    def record(x, step, step2=None):
+        key = (tuple(x.shape), step2 is not None)
+        sites[key] = sites.get(key, 0) + 1
+        return real(x, step, step2)
+    x = torch.zeros((16, cfg.imsize, cfg.imsize, 3), device="cuda")
+    with swapped([(qconv, "quantize_act", record)]), torch.inference_mode():
+        twin(x)
+    del twin
+    return sites
+
+
 def qconv_operands(kind, shape, cout, k, gen, offset=0):
     """Seeded int8 input and weights and float32 (mult, bias) of one int8
     conv site; the input a channels-last view `offset` bytes into its
@@ -4499,12 +4631,89 @@ def qconv_case(kind, shape, cout, k, gen, errs, label, offset=0):
     return n
 
 
-def quant_case(x, step, errs, label):
+def quant_case(x, step, errs, label, step2=None):
+    """The quantizer at one step (and, given `step2`, at two in one
+    launch) against its plain version, bit-equal."""
     from real_time_helmet_detection_tpu_torch.ops import qconv
     errs[("quantize_act", label)] = compare(
         "quantize_act %s" % (label,), qconv.quantize_act(x, step),
         qconv.quantize_act_reference(x, step), "equal")
+    if step2 is None:
+        return 1
+    got = qconv.quantize_act(x, step, step2)
+    want = qconv.quantize_act_reference(x, step, step2)
+    for i in range(2):
+        errs[("quantize_act", "dual", i, label)] = compare(
+            "quantize_act at two steps (%d) %s" % (i, label), got[i],
+            want[i], "equal")
+    return 3
+
+
+def absmax_case(x, errs, label):
+    """The abs-max kernel against `x.abs().amax()` (NaN-aware)."""
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    errs[("abs_max", label)] = compare(
+        "abs_max %s" % (label,), qconv.abs_max(x),
+        qconv.abs_max_reference(x), "nan_equal")
     return 1
+
+
+# the code outputs a fused site is checked with: (dtype, activation,
+# store the float output, code outputs), the first code output at
+# channel offset Cout of a 2 * Cout + 16 wide tensor (a concat's second
+# half), the second (where asked) alone
+QCODE_FORMS = (("bf16", "ReLU", False, 2), ("bf16", "Linear", True, 1),
+               ("f32", "ReLU", True, 2))
+
+
+def qcodes_case(kind, shape, cout, k, gen, errs, label, offset=0):
+    """One int8 conv site's code outputs against the plain version, on
+    each of its kernels, in each of QCODE_FORMS: the float output (where
+    stored), each code output, and the wide tensor's channels outside
+    the conv's left as they were, bit-equal. Returns the number of
+    comparisons."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    q, wq, mult, bias = qconv_operands(kind, shape, cout, k, gen, offset)
+    conv = qconv.conv_dw_variant if kind == "dw" else qconv.conv_dense_variant
+    ref = (qconv.conv_dw_reference if kind == "dw"
+           else qconv.conv_dense_reference)
+    n, _, h, w = shape
+    step = torch.rand((), generator=gen, device="cuda") * 0.05 + 0.01
+    step2 = torch.rand((), generator=gen, device="cuda") * 0.05 + 0.01
+    count = 0
+    for tag, act, store, ncodes in QCODE_FORMS:
+        dtype = torch.bfloat16 if tag == "bf16" else torch.float32
+        want = ref(q, wq, mult, bias, dtype, act)
+        wide = channels_last(torch.full((n, 2 * cout + 16, h, w), 77,
+                                        dtype=torch.int8, device="cuda"))
+        alone = channels_last(torch.zeros((n, cout, h, w), dtype=torch.int8,
+                                          device="cuda"))
+        codes = [(wide, step, cout), (alone, step2, 0)][:ncodes]
+        for var in qconv_variants(kind, shape[1]):
+            wide.fill_(77)
+            alone.fill_(0)
+            got = conv(q, wq, mult, bias, dtype, act, var, store, codes)
+            key = (kind, "codes", tag, act, store, ncodes, var, label)
+            if store:
+                errs[key + ("out",)] = compare("%s out" % (key,), got, want,
+                                               "equal")
+            else:
+                require(got is None, "%s: a float output without store"
+                        % (key,))
+            errs[key] = compare("%s codes" % (key,),
+                                wide[:, cout:2 * cout],
+                                qconv.quantize_act_reference(want, step),
+                                "equal")
+            require(bool((wide[:, :cout] == 77).all()
+                         and (wide[:, 2 * cout:] == 77).all()),
+                    "%s: channels outside the conv's were written" % (key,))
+            if ncodes == 2:
+                errs[key + (2,)] = compare(
+                    "%s codes 2" % (key,), alone,
+                    qconv.quantize_act_reference(want, step2), "equal")
+            count += 1 + store + (ncodes == 2)
+    return count
 
 
 # off the main path: (N, Cin, H, W, Cout, k) for the dense conv: a Cin of
@@ -4526,6 +4735,12 @@ QDW_ODD = [(1, 8, 5, 7), (3, 24, 9, 13), (2, 136, 11, 6), (1, 8, 1, 1),
 # a channels-last view 16 bytes into its storage: (kind, shape, Cout, k)
 QOFFSET = [("dense", (2, 64, 13, 21), 96, 3), ("dw", (2, 48, 13, 21), 48, 3)]
 QUANT_ODD = [(3, 5, 7, 9), (1, 3, 1, 1), (2, 16, 9, 13)]
+# the code outputs off the main path: a ragged box and one image of the
+# dense conv (Cout 8 and 24: one and three n8 blocks; 264: two channel
+# blocks), the gather depthwise kernel (C % 16 != 0) and a ragged tile
+QCODES_ODD = [(3, 48, 9, 13, 24, 3), (1, 16, 5, 7, 8, 1),
+              (2, 32, 20, 37, 264, 1)]
+QDW_CODES_ODD = [(3, 24, 9, 13), (3, 80, 17, 33)]
 # what JAX-CPU's int8 quantizer gives for NaN input (tests/
 # test_torch_quant.py holds the port's plain version to it)
 JAX_NAN_TO_INT8 = 0
@@ -4550,16 +4765,24 @@ def phase_qkernels(state):
     for name in INT8_CONFIGS:
         sites = int8_sites(int8_cfg(name, amp=True))
         state.setdefault("int8_sites", {})[name] = sites
+        state.setdefault("quant_sites", {})[name] = quant_sites(
+            int8_cfg(name, amp=True))
         all_sites.update(sites)
     quant_shapes = set()
     for (kind, shape, cout, k), _calls in sorted(all_sites.items()):
         n += qconv_case(kind, shape, cout, k, gen, errs, (shape, cout, k))
         quant_shapes.add(shape)
+    # the code outputs at every int8 conv site of the throughput tier
+    fused = state["int8_sites"]["throughput"]
+    for kind, shape, cout, k in sorted(fused):
+        n += qcodes_case(kind, shape, cout, k, gen, errs, (shape, cout, k))
     for shape in sorted(quant_shapes):
         step = torch.rand((), generator=gen, device="cuda") * 0.05 + 0.01
+        step2 = torch.rand((), generator=gen, device="cuda") * 0.05 + 0.01
         for dtype in (torch.float32, torch.bfloat16):
             x = channels_last(rand(shape, dtype, gen, 2.0))
-            n += quant_case(x, step, errs, (shape, str(dtype)))
+            n += quant_case(x, step, errs, (shape, str(dtype)), step2)
+            n += absmax_case(x, errs, (shape, str(dtype)))
     for nb, cin, h, w, cout, k in QDENSE_ODD:
         n += qconv_case("dense", (nb, cin, h, w), cout, k, gen, errs,
                         ("odd", nb, cin, h, w, cout, k))
@@ -4568,11 +4791,21 @@ def phase_qkernels(state):
     for kind, shape, cout, k in QOFFSET:
         n += qconv_case(kind, shape, cout, k, gen, errs,
                         ("offset 16",) + shape, offset=16)
+        n += qcodes_case(kind, shape, cout, k, gen, errs,
+                         ("offset 16",) + shape, offset=16)
+    for nb, cin, h, w, cout, k in QCODES_ODD:
+        n += qcodes_case("dense", (nb, cin, h, w), cout, k, gen, errs,
+                         ("odd", nb, cin, h, w, cout, k))
+    for shape in QDW_CODES_ODD:
+        n += qcodes_case("dw", shape, shape[1], 3, gen, errs,
+                         ("odd",) + shape)
     for shape in QUANT_ODD:
         for dtype in (torch.float32, torch.bfloat16):
             x = channels_last(rand(shape, dtype, gen, 3.0))
             n += quant_case(x, torch.tensor(0.0173, device="cuda"), errs,
-                            ("odd", shape, str(dtype)))
+                            ("odd", shape, str(dtype)),
+                            torch.tensor(0.031, device="cuda"))
+            n += absmax_case(x, errs, ("odd", shape, str(dtype)))
     # ties at .5 (a power-of-two step: x / step exact), +-inf, saturation,
     # NaN
     step = torch.tensor(0.25, device="cuda")
@@ -4586,7 +4819,19 @@ def phase_qkernels(state):
     x = channels_last(x)
     for dtype in (torch.float32, torch.bfloat16):
         xd = channels_last(x.to(dtype))
-        n += quant_case(xd, step, errs, ("special", str(dtype)))
+        n += quant_case(xd, step, errs, ("special", str(dtype)),
+                        torch.tensor(0.5, device="cuda"))
+        n += absmax_case(xd, errs, ("special", str(dtype)))
+        # the abs-max without the NaN: +inf; of -0.0 alone: +0.0
+        nt = len(ties)
+        finite = channels_last(xd[:, :nt])
+        n += absmax_case(finite, errs, ("ties", str(dtype)))
+        inf = xd[:, nt:nt + 2].clone()
+        n += absmax_case(channels_last(inf), errs, ("inf", str(dtype)))
+        zero = torch.full((2, 8, 3, 5), -0.0, dtype=dtype, device="cuda")
+        n += absmax_case(zero, errs, ("-0.0", str(dtype)))
+        require(not bool(torch.signbit(qconv.abs_max(zero))),
+                "abs_max of -0.0: -0.0, want +0.0")
     got = qconv.quantize_act(x, step).reshape(-1).cpu().tolist()
     t = ties.cpu().tolist()
     want_ties = [max(-127, min(127, round(v / 0.25))) for v in t]
@@ -4603,6 +4848,9 @@ def phase_qkernels(state):
     base = torch.randint(-127, 128, (2 * 32 * 8 * 8 + 1,), generator=gen,
                          device="cuda", dtype=torch.int8)
     misaligned_q = base[1:].view(2, 8, 8, 32).permute(0, 3, 1, 2)
+    codes_base = torch.zeros((2 * 16 * 8 * 8 + 8,), device="cuda",
+                             dtype=torch.int8)
+    misaligned_codes = codes_base[8:].view(2, 8, 8, 16).permute(0, 3, 1, 2)
     refused = {}
     for label, fn in (
             ("misaligned", lambda: qconv.conv_dense(
@@ -4617,7 +4865,20 @@ def phase_qkernels(state):
                                device="cuda"), mult, bias, torch.float32)),
             ("quantize misaligned", lambda: qconv.quantize_act(
                 rand((17,), torch.float32, gen)[1:].view(1, 1, 1, 16),
-                step))):
+                step)),
+            ("codes misaligned", lambda: qconv.conv_dense(
+                q, wq, mult, bias, torch.bfloat16, "Linear", True,
+                [(misaligned_codes, step, 0)])),
+            ("codes offset 4", lambda: qconv.conv_dense(
+                q, wq, mult, bias, torch.bfloat16, "Linear", True,
+                [(channels_last(torch.zeros((2, 24, 8, 8), device="cuda",
+                                            dtype=torch.int8)), step, 4)])),
+            ("codes of int32 sums", lambda: qconv.conv_dense(
+                q, wq, mult, bias, torch.int32, "Linear", True,
+                [(channels_last(torch.zeros((2, 16, 8, 8), device="cuda",
+                                            dtype=torch.int8)), step, 0)])),
+            ("abs_max misaligned", lambda: qconv.abs_max(
+                rand((17,), torch.bfloat16, gen)[1:]))):
         try:
             fn()
             refused[label] = False
@@ -4631,10 +4892,16 @@ def phase_qkernels(state):
         "kernel of each conv (dense: wgmma, mma; depthwise: tiled, "
         "gather), at all %d int8 conv sites of the throughput tier and the "
         "flagship at b16 512^2, at %d odd shapes and on views 16 bytes "
-        "into their storage, the quantizer at every site input, "
-        "odd counts, ties at .5 (half to even), +-inf and +-1e30 (+-127) "
-        "and NaN (%d, JAX-CPU's value); refused: %s"
+        "into their storage; the code outputs (%s: float output, codes at "
+        "a channel offset of a wider tensor whose other channels stay, a "
+        "second code output) on each kernel at all %d throughput-tier "
+        "sites and %d odd shapes; the quantizer at one and two steps and "
+        "the abs-max at every site input, odd counts, ties at .5 (half to "
+        "even), +-inf and +-1e30 (+-127) and NaN (%d, JAX-CPU's value; the "
+        "abs-max NaN), -0.0 (abs-max +0.0); refused: %s"
         % (n, len(all_sites), len(QDENSE_ODD) + len(QDW_ODD),
+           ", ".join("%s %s store %s codes %d" % f for f in QCODE_FORMS),
+           len(fused), len(QCODES_ODD) + len(QDW_CODES_ODD),
            JAX_NAN_TO_INT8, ", ".join(refused)))
 
 
@@ -4736,6 +5003,54 @@ def qconv_timing(kind, shape, cout, k, gen):
                 k=k)
 
 
+def codes_timing(kind, shape, cout, k, gen, ncodes, activation):
+    """Graph-replay ms of one int8 conv site in its fused form (no float
+    output, `ncodes` code outputs) in turns with the unfused form it
+    replaces (the conv's bf16 output, then one quantizer launch a code
+    output: fused, unfused, unfused, fused), beside the fused form's
+    bound (input, weights and codes once; its operations) and plain
+    version."""
+    import torch
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    q, wq, mult, bias = qconv_operands(kind, shape, cout, k, gen)
+    n, c, h, w = shape
+    m = n * h * w
+    conv = qconv.conv_dw if kind == "dw" else qconv.conv_dense
+    ref = (qconv.conv_dw_reference if kind == "dw"
+           else qconv.conv_dense_reference)
+    codes = [(channels_last(torch.empty((n, cout, h, w), device="cuda",
+                                        dtype=torch.int8)),
+              torch.tensor(0.02 * (i + 1), device="cuda"), 0)
+             for i in range(ncodes)]
+
+    def fused():
+        conv(q, wq, mult, bias, torch.bfloat16, activation, False, codes)
+
+    def unfused():
+        y = conv(q, wq, mult, bias, torch.bfloat16, activation)
+        for _, step, _ in codes:
+            qconv.quantize_act(y, step)
+    turns = {"fused": [], "unfused": []}
+    for key in ("fused", "unfused", "unfused", "fused"):
+        turns[key].append(graph_ms(fused if key == "fused" else unfused))
+    if kind == "dw":
+        ops, peak = 2.0 * m * c * 9, INT32_OPS_PER_S
+    else:
+        ops, peak = 2.0 * m * c * k * k * cout, INT8_OPS_PER_S
+    by_bytes = (q.numel() + wq.numel() + ncodes * m * cout) \
+        / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / peak * 1e3
+    return dict(ms=sum(turns["fused"]) / 2,
+                unfused_ms=sum(turns["unfused"]) / 2, turns=turns,
+                plain_ms=graph_ms(lambda: ref(q, wq, mult, bias,
+                                              torch.bfloat16, activation,
+                                              False, codes),
+                                  calls=2, replays=2),
+                bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                shape=shape, cout=cout, k=k, codes=ncodes)
+
+
 def site_bytes_of(site):
     kind, (n, c, h, w), cout, k = site
     return n * h * w * (c + 2 * cout)
@@ -4791,6 +5106,46 @@ def phase_qtiming(state):
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         shape=shape)
     del x, x32
+    # the code outputs: the throughput tier's largest 1x1 site as a ghost
+    # module's first 1x1 writes them (two, no float output), its largest
+    # depthwise site (one), the flagship's largest 3x3 as a residual
+    # block's Convolution_0 (one)
+    fused = state.setdefault("qfused", {})
+    fused["qconv_dense_codes"] = codes_timing(*dense, gen, 2, "ReLU")
+    fused["qconv_dw_codes"] = codes_timing(*dw, gen, 1, "ReLU")
+    fused["qconv_dense_3x3_codes"] = codes_timing(*dense3, gen, 1, "ReLU")
+    # the quantizer at each site of the fused predicts, one and two steps
+    qsites = state.setdefault("qsite_timing", {})
+    for name in INT8_CONFIGS:
+        for (shape, dual), calls in sorted(state["quant_sites"][name].items()):
+            key = (shape, dual)
+            if key in qsites:
+                qsites[key]["calls"][name] = calls
+                continue
+            x = channels_last(rand(shape, torch.bfloat16, gen, 2.0))
+            s2 = torch.tensor(0.03, device="cuda") if dual else None
+            qsites[key] = dict(
+                ms=graph_ms(lambda: qconv.quantize_act(  # noqa: B023
+                    x, step, s2)),
+                bound_ms=x.numel() * (3 + dual) / HBM_BYTES_PER_S * 1e3,
+                calls={name: calls})
+            del x
+    # the abs-max at the flagship step's largest STE input
+    x = channels_last(rand(BIG, torch.bfloat16, gen, 2.0))
+    require(bool(torch.equal(qconv.abs_max(x),
+                             torch.linalg.vector_norm(x, float("inf"))
+                             .float())),
+            "abs_max differs from torch.linalg.vector_norm(x, inf)")
+    rows["abs_max"] = dict(
+        ms=graph_ms(lambda: qconv.abs_max(x)),
+        eager_ms=eager_ms(lambda: qconv.abs_max(x)),
+        plain_ms=graph_ms(lambda: qconv.abs_max_reference(x)),
+        library_ms=graph_ms(lambda: torch.linalg.vector_norm(
+            x, float("inf"))),
+        library_equal=True,
+        bound_ms=x.numel() * 2 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        shape=BIG)
+    del x
     torch.cuda.empty_cache()
     log("qtiming (ms per call, bf16, CUDA graph replay; eager = issued "
         "from Python; old = the first design's kernel, in turns new, old, "
@@ -4824,6 +5179,27 @@ def phase_qtiming(state):
                 100 * r["bound_ms"] / r["ms"], r["shape"],
                 " -> %d, k %d" % (r["cout"], r["k"]) if "cout" in r
                 else ""))
+    log("  (abs_max: plain = x.abs().amax(), the ATen pair the STE ran "
+        "before; library = torch.linalg.vector_norm(x, inf), equal)")
+    for key, r in fused.items():
+        log("  %-22s fused %.4f (codes %d, no float output) vs unfused "
+            "%.4f (bf16 output + %d quantizer launches; turns %s)  plain "
+            "%.4f  bound %.4f (%s, %.0f%% of it)  at %s -> %d, k %d" % (
+                key, r["ms"], r["codes"], r["unfused_ms"], r["codes"],
+                r["turns"], r["plain_ms"], r["bound_ms"], r["bound_by"],
+                100 * r["bound_ms"] / r["ms"], r["shape"], r["cout"],
+                r["k"]))
+    for (shape, dual), r in sorted(qsites.items()):
+        log("  quantize_act site %s%s: %.4f ms, bound %.4f (bytes, %.0f%% "
+            "of it); calls a predict %s" % (
+                shape, " at two steps" if dual else "", r["ms"],
+                r["bound_ms"], 100 * r["bound_ms"] / r["ms"], r["calls"]))
+    for name in INT8_CONFIGS:
+        tot = sum(r["ms"] * r["calls"].get(name, 0) for r in qsites.values())
+        bnd = sum(r["bound_ms"] * r["calls"].get(name, 0)
+                  for r in qsites.values())
+        log("  quantize_act over a %s predict's sites (replay sums): %.4f "
+            "ms, bound %.4f (%.0f%%)" % (name, tot, bnd, 100 * bnd / tot))
 
 
 def paired_rates(predicts, images, windows=3, window_s=1.0):
@@ -5006,13 +5382,16 @@ def phase_int8(state):
                 rec["device_sums"] = dict(
                     dense=g["qconv_wgmma_kernel"] + g["qconv_dense_kernel"],
                     dw=g["qconv_dw_tile_kernel"] + g["qconv_dw_kernel"],
+                    quant=g["quantize_kernel"],
                     float_conv=rec["profile"]["float"]["groups"][
                         "convolution"])
                 log("%s: device ms per b16 predict: #14 (dense int8 convs) "
-                    "%.3f, #15 (depthwise) %.3f; the float model's "
-                    "convolutions %.3f; int8 predict %.3f vs float %.3f"
+                    "%.3f, #15 (depthwise) %.3f, #16 (the quantizer, %d "
+                    "launches) %.3f; the float model's convolutions %.3f; "
+                    "int8 predict busy %.3f vs float %.3f"
                     % (label, rec["device_sums"]["dense"],
-                       rec["device_sums"]["dw"],
+                       rec["device_sums"]["dw"], counts["quantize_act"],
+                       rec["device_sums"]["quant"],
                        rec["device_sums"]["float_conv"],
                        rec["profile"]["int8"]["busy"],
                        rec["profile"]["float"]["busy"]))
@@ -5794,15 +6173,71 @@ def export_run(label, d):
 
 
 def export_worker(label, d):
-    """`--export-worker`: one EXPORT_RUNS export in a process of its own,
-    beside the phase's other export (their AOTInductor compiles overlap);
-    its paths and wall go to `d`/worker.json."""
+    """`--export-worker`: one EXPORT_RUNS export in a process of its own
+    at the lowest CPU priority, beside the run's other phases and the
+    other export (`start_export_workers`); the first run's worker then
+    builds the op library and the runner. Its paths, wall and g++
+    seconds go to `d`/worker.json."""
     from torch._inductor.async_compile import shutdown_compile_workers
+    from real_time_helmet_detection_tpu_torch.ops import _build
     from real_time_helmet_detection_tpu_torch.utils import save_json
     _, _, program, package, wall = export_run(label, d)
     shutdown_compile_workers()
-    save_json(os.path.join(d, "worker.json"), {
-        "program": program, "package": package, "export_wall_s": wall})
+    rec = {"program": program, "package": package, "export_wall_s": wall}
+    if label == EXPORT_RUNS[0][0]:
+        t0 = time.perf_counter()
+        rec.update(cxx_s=_build.build_ops(),
+                   build_s=time.perf_counter() - t0)
+    save_json(os.path.join(d, "worker.json"), rec)
+
+
+def start_export_workers():
+    """The export root (in the ignored build/) and {label: Popen} of one
+    `--export-worker` process per EXPORT_RUNS export, started now with
+    the AOTInductor and Triton caches under build/; each logs to its
+    dir's worker.log. They are `BACKGROUND` children until phase export
+    waits for them."""
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    env = dict(os.environ)
+    env.setdefault("TORCHINDUCTOR_CACHE_DIR", os.path.join(build,
+                                                           "inductor"))
+    env.setdefault("TRITON_CACHE_DIR", os.path.join(build, "triton"))
+    root = tempfile.mkdtemp(prefix="export-", dir=build)
+    workers = {}
+    for label, _, _ in EXPORT_RUNS:
+        d = os.path.join(root, label.split()[0])
+        os.makedirs(d)
+        with open(os.path.join(d, "worker.log"), "ab") as f:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                 "--export-worker", label, d], cwd=REPO, env=env,
+                stdout=f, stderr=subprocess.STDOUT)
+        workers[label] = proc
+        BACKGROUND[proc.pid] = proc
+    return root, workers
+
+
+def stop_background():
+    """Kill and reap the `BACKGROUND` children still running (a partial
+    run that started the exports and skipped phase export)."""
+    for pid, proc in list(BACKGROUND.items()):
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        BACKGROUND.pop(pid, None)
+
+
+def phase_export_compile(state):
+    """Start phase export's exports (`start_export_workers`): their
+    AOTInductor compiles, CPU work at the lowest priority, run beside
+    the phases that follow, which record no kernel time; phase export
+    waits for them and checks what they wrote."""
+    EXPORT_BG["root"], EXPORT_BG["workers"] = start_export_workers()
+    log("export_compile: %d export workers started (%s)" % (
+        len(EXPORT_BG["workers"]), ", ".join(
+            "%s pid %d" % (l, p.pid)
+            for l, p in EXPORT_BG["workers"].items())))
 
 
 def program_launches(fn, x, attempts=3):
@@ -5918,7 +6353,8 @@ def op_host_us(state):
         o = torch.empty(xq.shape, dtype=torch.int8, device="cuda",
                         memory_format=torch.channels_last)
         _build.check(_build.load("qconv").helmet_quantize(
-            p(xq), p(step), p(o), xq.numel(), 1, stream(xq.device)), "q")
+            p(xq), p(step), p(o), None, None, xq.numel(), 1,
+            stream(xq.device)), "q")
         return o
 
     def old_dense():
@@ -5930,8 +6366,8 @@ def op_host_us(state):
         pl = qconv.dense_plan(1, 256, 256, 96, 96, 1, 2)
         _build.check(_build.load("qconv").helmet_qconv_wgmma(
             p(q), p(wq), p(mult), p(bias), p(o), 1, 256, 256, 96, 96, 1,
-            pl.box[1], pl.box[2], pl.n, pl.stages, 1, 2, stream(q.device)),
-            "dense")
+            pl.box[1], pl.box[2], pl.n, pl.stages, 1, 2, None,
+            stream(q.device)), "dense")
         return o
 
     def old_dw():
@@ -5943,7 +6379,7 @@ def op_host_us(state):
         pl = qconv.dw_plan(1, 256, 256, 48)
         _build.check(_build.load("qconv").helmet_qconv_dw_tile(
             p(qd), p(wd), p(md), p(bd), p(o), 1, 256, 256, 48, *pl.tile,
-            pl.ct, 1, 2, stream(qd.device)), "dw")
+            pl.ct, 1, 2, None, stream(qd.device)), "dw")
         return o
 
     old_bn_act, old_bn_add_act = old_bn, lambda: old_bn(skip)
@@ -5987,8 +6423,8 @@ def op_host_us(state):
 
 def export_runs(state, out, root, images, image_file, runner, workers):
     """Each EXPORT_RUNS export of phase export and its checks: exported
-    here, or by its worker in `workers` (waited for here); `runner()` is
-    the C++ runner's path once it is built."""
+    by its worker in `workers` (waited for here); `runner()` is the C++
+    runner's path once it is built."""
     import torch
     from real_time_helmet_detection_tpu_torch.config import (Config,
                                                              apply_tier)
@@ -6000,22 +6436,27 @@ def export_runs(state, out, root, images, image_file, runner, workers):
     dtype = torch.bfloat16
     for label, fields, seed in EXPORT_RUNS:
         d = os.path.join(root, label.split()[0])
-        if label in workers:
-            cfg = apply_tier(Config(**fields))
-            model = perturb_bn(load_eval_state(cfg), seed=seed)
-            rc = workers[label].wait(timeout=900)
-            done = os.path.join(d, "worker.json")
-            with open(os.path.join(d, "worker.log"), "rb") as f:
-                tail = f.read()[-4000:].decode(errors="replace")
-            require(rc == 0 and os.path.exists(done), "%s: the export "
-                    "worker exited %d:\n%s" % (label, rc, tail))
-            with open(done) as f:
-                w = json.load(f)
-            program, package = w["program"], w["package"]
-            rec = dict(export_wall_s=w["export_wall_s"])
-        else:
-            cfg, model, program, package, wall = export_run(label, d)
-            rec = dict(export_wall_s=wall)
+        cfg = apply_tier(Config(**fields))
+        model = perturb_bn(load_eval_state(cfg), seed=seed)
+        t0 = time.perf_counter()
+        rc = workers[label].wait(timeout=900)
+        BACKGROUND.pop(workers[label].pid, None)
+        waited = time.perf_counter() - t0
+        done = os.path.join(d, "worker.json")
+        with open(os.path.join(d, "worker.log"), "rb") as f:
+            tail = f.read()[-4000:].decode(errors="replace")
+        require(rc == 0 and os.path.exists(done), "%s: the export "
+                "worker exited %d:\n%s" % (label, rc, tail))
+        with open(done) as f:
+            w = json.load(f)
+        program, package = w["program"], w["package"]
+        rec = dict(export_wall_s=w["export_wall_s"], waited_s=waited)
+        if "cxx_s" in w:
+            out.update(cxx_s=w["cxx_s"], build_s=w["build_s"])
+            log("export: op library and runner built by the %s worker in "
+                "%.1f s (g++ seconds: %s)" % (
+                    label, w["build_s"], w["cxx_s"] or
+                    "current builds found"))
         with open(os.path.join(d, "meta.json")) as f:
             meta = json.load(f)
         require(package == os.path.join(d, RUNNER_PACKAGE)
@@ -6104,10 +6545,10 @@ def export_runs(state, out, root, images, image_file, runner, workers):
         out[label] = rec
         serve = state.get("serve", {}).get(label, {})
         log("export %s: export wall %.1f s (trace + save of the b1 program "
-            "%.1f s), AOTInductor compile %.1f s; .pt2 MB %s, package %.1f "
-            "MB; reloaded programs bit-equal to eager at batches %s, "
-            "launches by kernel name %s"
-            % (label, rec["export_wall_s"], rec["export_s"],
+            "%.1f s; waited for %.1f s here), AOTInductor compile %.1f s; "
+            ".pt2 MB %s, package %.1f MB; reloaded programs bit-equal to "
+            "eager at batches %s, launches by kernel name %s"
+            % (label, rec["export_wall_s"], rec["export_s"], rec["waited_s"],
                rec["aoti_compile_s"], {b: round(v, 2) for b, v in
                                        rec["pt2_mb"].items()},
                rec["aoti_mb"], sorted(rec["batches"]),
@@ -6135,14 +6576,14 @@ def phase_export(state):
     export.py:60) at 512^2 with the uint8 wire, for EXPORT_RUNS (seeded
     weights and BN state): the flagship bf16 with --export-serve at
     buckets 1 and 16 (one AOTInductor package, batch 1) and the
-    throughput tier's int8 (one package, exported by a worker process
-    started beside the first export, so that their AOTInductor compiles
-    overlap); each reloaded `.pt2`
+    throughput tier's int8 (one package), each exported by a worker
+    process (started by phase export_compile, else here; their
+    AOTInductor compiles overlap); each reloaded `.pt2`
     (`load_exported`) bit-equal to the eager predict at its batch, its
     launches counted by kernel name in a profiler trace (and by the
     launch counters) equal to `expected_launches`; then the op library
-    and the C++ runner (`_build.build_ops`, built in a thread beside the
-    exports) and, with no Python, the
+    and the C++ runner (`_build.build_ops`, built by the first worker
+    after its export) and, with no Python, the
     runner on each package with a seeded uint8 image file: its
     detections matched both ways against the Python program's on that
     image (class, IoU >= 0.99, |score difference| <= 1e-3), its per-frame
@@ -6151,7 +6592,6 @@ def phase_export(state):
     bucket-1 latency of phase serve beside it); export wall, program
     sizes, compile seconds; the host microseconds of each op's call
     against the route before the ops (`op_host_us`)."""
-    import threading
     import numpy as np
     from real_time_helmet_detection_tpu_torch.ops import _build
     from real_time_helmet_detection_tpu_torch.utils import atomic_write_bytes
@@ -6163,49 +6603,19 @@ def phase_export(state):
     from real_time_helmet_detection_tpu_torch.export import \
         _inductor_configs
     log("export: AOTInductor settings %s" % _inductor_configs())
-    built = {}
+    if "workers" in EXPORT_BG:
+        root, workers = EXPORT_BG.pop("root"), EXPORT_BG.pop("workers")
+    else:
+        root, workers = start_export_workers()
 
-    def build_cxx():
-        t0 = time.perf_counter()
-        try:
-            built["cxx_s"] = _build.build_ops()
-        except Exception as e:  # noqa: BLE001 - raised by `runner()`
-            built["error"] = e
-        built["build_s"] = time.perf_counter() - t0
-
-    # the op library's and the runner's g++ run beside the exports, which
-    # need neither: the runner's first run waits for them
-    cxx_thread = threading.Thread(target=build_cxx, name="export-cxx")
-    cxx_thread.start()
-
-    def runner():
-        cxx_thread.join()
-        if "error" in built:
-            raise built["error"]
-        if "build_s" not in out:
-            out.update(cxx_s=built["cxx_s"], build_s=built["build_s"])
-            log("export: op library and runner built in %.1f s beside the "
-                "exports (g++ seconds: %s)" % (
-                    out["build_s"], out["cxx_s"] or "current builds found"))
+    def runner():  # current builds: the first worker built them
+        _build.build_ops()
         return _build.runner_path()
 
-    os.makedirs(build, exist_ok=True)
-    root = tempfile.mkdtemp(prefix="export-", dir=build)
     images = np.random.default_rng(12).integers(
         0, 256, (16, 512, 512, 3), dtype=np.uint8)
     image_file = os.path.join(root, "image.u8")
     atomic_write_bytes(image_file, images[0].tobytes())
-    # the runs after the first export in worker processes started now:
-    # their compiles overlap the first's
-    workers = {}
-    for label, _, _ in EXPORT_RUNS[1:]:
-        d = os.path.join(root, label.split()[0])
-        os.makedirs(d)
-        with open(os.path.join(d, "worker.log"), "ab") as f:
-            workers[label] = subprocess.Popen(
-                [sys.executable, os.path.join(REPO, "chip_smoke.py"),
-                 "--export-worker", label, d], cwd=REPO, stdout=f,
-                stderr=subprocess.STDOUT)
     try:
         export_runs(state, out, root, images, image_file, runner, workers)
     finally:
@@ -6213,7 +6623,7 @@ def phase_export(state):
             if p.poll() is None:
                 p.kill()
             p.wait()
-        cxx_thread.join()
+            BACKGROUND.pop(p.pid, None)
     out["host_us"] = op_host_us(state)
     log("export: host us of one call (mean of two turns): public wrapper "
         "/ the op alone / the wrapper before the ops (checks, output, "
@@ -6222,10 +6632,6 @@ def phase_export(state):
         log("  %-13s %.1f / %.1f / %.1f" % (name, t["wrapper"], t["op"],
                                              t["old"]))
     shutil.rmtree(root, ignore_errors=True)
-    # AOTInductor's compiles left inductor's pool of compile workers, child
-    # processes kept for later compiles
-    from torch._inductor.async_compile import shutdown_compile_workers
-    shutdown_compile_workers()
 
 
 def scale_tree(tree, factor):
@@ -7832,6 +8238,20 @@ def kernel_rows(state):
                             launches_by_variant={
                                 v: int8["qconv_%s_%s" % (kind, v)]
                                 for v in (t["variant"], t["old_variant"])})
+        # the code outputs (this PR's fused form) and the launches that
+        # write them; the quantizer's at two steps
+        fused = state["qfused"]
+        if kind:
+            rows[-1]["launches_codes"] = int8["qconv_%s_codes" % kind]
+            f = fused["qconv_%s_codes" % kind]
+            rows[-1].update(codes_ms=f["ms"], codes_unfused_ms=f["unfused_ms"],
+                            codes_bound_ms=f["bound_ms"],
+                            codes_shape=list(f["shape"]),
+                            codes_outputs=f["codes"])
+        else:
+            rows[-1]["launches_dual"] = int8["quantize_act_dual"]
+            rows[-1]["launches_flagship_int8"] = launches[
+                "int8 flagship-int8 bf16"]["quantize_act"]
         if name == "qconv_dense":
             for key, tag in (("qconv_dense_3x3", "3x3"),
                              ("qconv_dense_3x3_128", "3x3_128")):
@@ -7843,6 +8263,20 @@ def kernel_rows(state):
                     "library_ms_" + tag: f["library_ms"],
                     "cudnn_bf16_ms_" + tag: f["cudnn_bf16_ms"],
                     "shape_" + tag: list(f["shape"])})
+    # the abs-max of the --fwd-dtype int8 step (XLA's in JAX; added with
+    # #16's redesign): its main path is that step
+    t = qt["abs_max"]
+    extras = state["train_extras"]["int8"]
+    rows.append({
+        "name": "abs_max", "route": "cuda", "source": src % "qconv",
+        "replaces": xla + "ops/quant.py:217 make_ste_conv "
+        "jnp.max(jnp.abs(x)) (XLA; no Pallas kernel)",
+        "launches": extras["launches"]["abs_max"],
+        "max_abs_err": max(v for k, v in qe.items() if k[0] == "abs_max"),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "table_row": 16, "shape": list(t["shape"]),
+        "launches_train_int8_edge": extras["launches_edge"]["abs_max"]})
     return rows
 
 
@@ -7859,7 +8293,8 @@ def become_subreaper() -> bool:
 
 
 def _children():
-    """{pid: (state, "pid (name) command")} of this process's children."""
+    """{pid: (state, "pid (name) command")} of this process's children
+    but the `BACKGROUND` ones."""
     out = {}
     for pid in os.listdir("/proc"):
         if not pid.isdigit():
@@ -7870,7 +8305,7 @@ def _children():
         except (OSError, ValueError):
             continue
         fields = tail.split()
-        if int(fields[1]) != os.getpid():
+        if int(fields[1]) != os.getpid() or int(pid) in BACKGROUND:
             continue
         try:
             with open("/proc/%s/cmdline" % pid, "rb") as f:
@@ -7934,8 +8369,10 @@ def settle(before, grace_s=10.0, seen=None):
 def stop_left(before) -> None:
     """SIGKILL the child processes not in `before` (orphans adopted as
     the subreaper included) with the process groups they lead (a job's),
-    and reap them, so that a failed or stopped run leaves none running."""
+    and reap them, so that a failed or stopped run leaves none running;
+    the `BACKGROUND` ones first."""
     import signal
+    stop_background()
     old = {c.split(" ", 1)[0] for c in before["children"]}
     for _ in range(10):
         pids = [p for p in _children() if str(p) not in old]
@@ -7973,6 +8410,8 @@ def main(argv=None) -> int:
                     help="run one rank of phase ddp's world-2 step")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
+    if args.export_worker:  # beside the run's phases: the lowest priority
+        os.nice(19)
     try:
         import torch
     except ImportError:
@@ -8041,6 +8480,7 @@ def main(argv=None) -> int:
         log("phase %s: %.1f s" % (name, time.time() - t0))
     log("all phases: %.1f s" % (time.time() - t_all))
     drop_round(state)
+    stop_background()
     seen = {}
     left = settle(at_start, seen=seen)
     if seen.get("reaped") or seen.get("waited"):

@@ -141,8 +141,8 @@ _LAUNCH_LEAVES = {
     "bn_add_act_eval", "bn_act_train", "bn_add_act_train", "bn_stats",
     "bn_eval_bwd", "bn_add_eval_bwd", "bn_bwd_sums", "bn_bwd_dx",
     "bn_add_bwd_sums", "bn_add_bwd_dx", "loss_sums", "loss_sums_bwd",
-    "fused_detection_loss", "quantize_act", "conv_dense", "conv_dw",
-    "ste_conv"}
+    "fused_detection_loss", "quantize_act", "abs_max", "conv_dense",
+    "conv_dw", "ste_conv"}
 
 
 def _suppressed(rule: str, lines: Sequence[str], lo: int, hi: int) -> bool:

@@ -66,9 +66,36 @@
 // * qconv_dw_kernel (the first design): a thread takes 8 channels of one
 //   pixel and makes nine 8-byte loads; kept for C % 16 != 0 (TMA needs
 //   16-byte strides) and beside the tiled kernel in the timings.
-// * quantize_kernel: int8(clip(rint(x / s_a), -127, 127)), 8 elements a
-//   thread (16 or 32 bytes in, 8 bytes out); NaN gives 0, the value XLA's
-//   float -> int8 conversion gives.
+// * quantize_kernel: int8(clip(rint(x / s_a), -127, 127)), NaN gives 0,
+//   the value XLA's float -> int8 conversion gives; 16 elements a thread
+//   (32 or 64 bytes in, one 16-byte store out) in a grid-stride loop over
+//   one wave of resident blocks (the SM count times the occupancy), and
+//   at one or two steps a launch: a block's input that its first conv and
+//   its 1x1 projection both quantize is read once for both.
+// * absmax_kernel: max |x| over a whole tensor (the dynamic step of the
+//   int8 train forward), one launch: each block folds its part of a
+//   grid-stride loop to one partial, and the block that takes the last
+//   ticket folds the partials (the counter wraps back to 0 itself, as in
+//   loss.cu). No float atomics, no temporary of x's size; NaN-aware, as
+//   torch.amax of abs is (fmaxf alone drops a NaN).
+//
+// The int8 outputs of the convs (`QCodes`): every conv kernel can also
+// write, beside or instead of its float output, the int8 codes that the
+// next int8 conv reads, quant1 of each value it stores (after its last
+// rounding to the output type), at that conv's step, up to two of them a
+// launch, each at its own channel offset and channel stride (a half of
+// the ghost tail's concatenation). So on the int8 predict a tensor that
+// one int8 conv writes and another one alone reads never lands in HBM as
+// bf16 only to be read back by the quantizer.
+//
+// A code costs what the conv's epilogue can afford only without the
+// division: `quant_fast` takes the product with the step's reciprocal and
+// falls back to the exact quotient only near a tie or the saturation edge
+// (or for NaN), so every code equals quant1's; codes are packed into words
+// by byte permutes, never through an array in local memory. With a
+// division a code, the fused 1x1 of the throughput tier took 0.75 ms where
+// the conv alone takes 0.12 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py
+// qtiming).
 //
 // The convs' epilogue repeats the JAX rescale with one rounding per
 // operation: f32(acc) rounded to the output type, times mult[c] (the f32
@@ -83,11 +110,14 @@
 // at b16 256^2: 67 MB of int8 in, 201 MB of bf16 out) and for the
 // depthwise conv (1 byte in, 2 out a channel); operations for the
 // flagship's 3x3 128 -> 128 convs (K = 1152: 309 GOP at 256^2, 0.156 ms
-// at 1979 TOP/s).
+// at 1979 TOP/s). The quantizer and the abs-max: bytes (3 and 2 a bf16
+// element).
 #include "common.cuh"
 
 #include <cuda.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace helmet {
 
@@ -162,6 +192,145 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
+__device__ __forceinline__ int8_t quant1(float v, float s) {
+  float r = rintf(__fdiv_rn(v, s));  // round half to even
+  if (r != r) return 0;              // NaN
+  r = fminf(fmaxf(r, -127.f), 127.f);
+  return (int8_t)__float2int_rn(r);
+}
+
+// A step's quantizer: the step and its reciprocal (NaN where the
+// reciprocal is not a normal float: every value then takes the quotient)
+struct Step {
+  float s, inv;
+  __device__ explicit Step(float step) : s(step) {
+    const float r = __frcp_rn(step);
+    inv = fabsf(r) >= 1.17549435e-38f && fabsf(r) < 3.0e38f
+              ? r
+              : __int_as_float(0x7fc00000);
+  }
+};
+
+// |x * inv - x / s| <= 2^-22.4 |x / s| (two roundings of the product, one
+// of the quotient): below 127.25 an error under 2^-15; a product at least
+// this far from a tie rounds to the quotient's integer
+constexpr float kTieGuard = 1.0f / 8192;
+
+// quant1(v, st.s), bit for bit, mostly by a product: where |v * inv| <
+// 127.25 and it lies more than kTieGuard from a tie, its nearest integer;
+// where |v * inv| >= 128 (so |v / s| > 127.5), the saturated code; else
+// (near a tie, at the saturation edge, NaN) the quotient
+__device__ __forceinline__ int quant_fast(float v, const Step& st) {
+  const float r = __fmul_rn(v, st.inv);
+  const float a = fabsf(r);
+  if (a < 127.25f) {
+    if (fabsf(__fsub_rn(__fsub_rn(r, floorf(r)), 0.5f)) > kTieGuard)
+      return __float2int_rn(r);
+  } else if (a >= 128.f) {
+    return r > 0.f ? 127 : -127;
+  }
+  return quant1(v, st.s);
+}
+
+// four codes (in [-127, 127]) as the bytes of one word, first lowest
+__device__ __forceinline__ unsigned pack4(int a, int b, int c, int d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
+}
+
+// the codes of V (2, 4, 8 or 16) values at one step, packed
+template <int V>
+__device__ __forceinline__ void codes_of(const float* v, const Step& st,
+                                         unsigned* w) {
+  if constexpr (V == 2) {
+    w[0] = __byte_perm(quant_fast(v[0], st), quant_fast(v[1], st), 0x0040);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i)
+      w[i] = pack4(quant_fast(v[4 * i], st), quant_fast(v[4 * i + 1], st),
+                   quant_fast(v[4 * i + 2], st),
+                   quant_fast(v[4 * i + 3], st));
+  }
+}
+
+// Up to two int8 code outputs of a conv launch: output i (p[i] non-null)
+// gets quant1(v, *step[i]) of the value v stored for channel c of output
+// pixel m at p[i] + m * stride[i] + off[i] + c (checked by the C entries:
+// 16-byte aligned p, off and stride multiples of 8, off + Cout <= stride).
+struct QCodes {
+  int8_t* p[2];
+  const float* step[2];
+  int off[2], stride[2];
+};
+
+// The steps of a launch's code outputs, read once a thread; the rest of
+// QCodes stays in the kernel's parameter space (no registers).
+struct CodeSteps {
+  Step st[2];
+  __device__ CodeSteps() : st{Step(1.f), Step(1.f)} {}  // a plain launch
+  __device__ explicit CodeSteps(const QCodes& c)
+      : st{Step(c.p[0] != nullptr ? *c.step[0] : 1.f),
+           Step(c.p[1] != nullptr ? *c.step[1] : 1.f)} {}
+};
+
+// the codes of the V stored values v of channels ch .. ch + V - 1 of
+// output pixel m, one V-byte store an output
+template <int V>
+__device__ __forceinline__ void put_codes(const QCodes& c,
+                                          const CodeSteps& steps,
+                                          long long m, int ch,
+                                          const float* v) {
+  static_assert(V == 2 || V == 4 || V == 8, "2, 4 or 8 codes a store");
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (c.p[i] == nullptr) continue;
+    unsigned w[V < 4 ? 1 : V / 4];
+    codes_of<V>(v, steps.st[i], w);
+    int8_t* dst = c.p[i] + m * c.stride[i] + c.off[i] + ch;
+    if constexpr (V == 8)
+      *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+    else if constexpr (V == 4)
+      *reinterpret_cast<unsigned*>(dst) = w[0];
+    else
+      *reinterpret_cast<unsigned short*>(dst) = (unsigned short)w[0];
+  }
+}
+
+template <typename T>
+constexpr bool kHasCodes = !std::is_same<T, int>::value;  // float outputs
+
+// V stored values of type T as floats (the values their codes quantize)
+template <typename T, int V>
+__device__ __forceinline__ void floats_of(const T* v, float* f) {
+#pragma unroll
+  for (int e = 0; e < V; ++e) f[e] = to_f32(v[e]);
+}
+
+// the 16 / sizeof(T) values of a 16-byte piece of T as floats, from its
+// words (a bf16 is the high half of its float)
+template <typename T>
+__device__ __forceinline__ void floats_of_piece(const uint4& p, float* f) {
+  const unsigned w[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(T) == 2) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    } else {
+      f[i] = __uint_as_float(w[i]);
+    }
+  }
+}
+
+// 8 values of one pixel's channels in 16-byte stores (32 bytes for 4-byte
+// types)
+template <typename T>
+__device__ __forceinline__ void store8(T* p, const T* v) {
+#pragma unroll
+  for (int i = 0; i < 8 * (int)sizeof(T) / 16; ++i)
+    reinterpret_cast<uint4*>(p)[i] = reinterpret_cast<const uint4*>(v)[i];
+}
+
 // the rescale of one int32 sum, in the plain version's operation order
 template <typename T, int ACT>
 __device__ __forceinline__ T rescale(int acc, float mult, float bias) {
@@ -174,7 +343,8 @@ __device__ __forceinline__ T rescale(int acc, float mult, float bias) {
 
 // The rescale of two neighbouring channels (c, c + 1) of one output
 // pixel: `Cols` holds their mult and bias, rounded to the output type
-// once a tile; `put` stores the pair (8 or 4 bytes).
+// once a tile; `value` gives the pair as stored (rounded to the output
+// type), `put` stores it (8 or 4 bytes).
 struct Cols {
   float m0, m1, b0, b1;
 };
@@ -193,14 +363,17 @@ struct Store2<float, ACT> {
   __device__ static Cols cols(const float* m, const float* c) {
     return Cols{m[0], m[1], c[0], c[1]};
   }
-  __device__ static void put(float* p, int a, int b, const Cols& k) {
+  __device__ static float2 value(int a, int b, const Cols& k) {
     float s0 = __fadd_rn(__fmul_rn(__int2float_rn(a), k.m0), k.b0);
     float s1 = __fadd_rn(__fmul_rn(__int2float_rn(b), k.m1), k.b1);
     if (ACT == kReLU) {
       s0 = s0 < 0.f ? 0.f : s0;
       s1 = s1 < 0.f ? 0.f : s1;
     }
-    *reinterpret_cast<float2*>(p) = make_float2(s0, s1);
+    return make_float2(s0, s1);
+  }
+  __device__ static void put(float* p, int a, int b, const Cols& k) {
+    *reinterpret_cast<float2*>(p) = value(a, b, k);
   }
 };
 template <int ACT>
@@ -210,7 +383,7 @@ struct Store2<__nv_bfloat16, ACT> {
                 round_to<__nv_bfloat16>(c[0]), round_to<__nv_bfloat16>(c[1])};
   }
   // each step rounded to bf16 on its own, two channels a conversion
-  __device__ static void put(__nv_bfloat16* p, int a, int b, const Cols& k) {
+  __device__ static __nv_bfloat162 pair(int a, int b, const Cols& k) {
     const float2 v = __bfloat1622float2(
         __floats2bfloat162_rn(__int2float_rn(a), __int2float_rn(b)));
     const float2 q = __bfloat1622float2(
@@ -220,7 +393,13 @@ struct Store2<__nv_bfloat16, ACT> {
       s0 = s0 < 0.f ? 0.f : s0;
       s1 = s1 < 0.f ? 0.f : s1;
     }
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(s0, s1);
+    return __floats2bfloat162_rn(s0, s1);
+  }
+  __device__ static float2 value(int a, int b, const Cols& k) {
+    return __bfloat1622float2(pair(a, b, k));
+  }
+  __device__ static void put(__nv_bfloat16* p, int a, int b, const Cols& k) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = pair(a, b, k);
   }
 };
 
@@ -236,13 +415,14 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
 // One block a tile: blockIdx.y the pixel block, blockIdx.x the channel
 // block (the channel blocks of one pixel block run side by side, so
 // their shared input rows come from L2).
-template <typename OutT, int ACT>
+template <typename OutT, int ACT, bool CODES>
 __global__ void __launch_bounds__(kQThreads)
     qconv_dense_kernel(const int8_t* __restrict__ x,
                        const int8_t* __restrict__ w,
                        const float* __restrict__ mult,
                        const float* __restrict__ bias, OutT* __restrict__ out,
-                       int N, int H, int W, int Cin, int Cout, int ks) {
+                       int N, int H, int W, int Cin, int Cout, int ks,
+                       const __grid_constant__ QCodes codes) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int stride = dense_stride(Cin);
   const int stage_bytes = (kBM + kBN) * stride;
@@ -361,6 +541,7 @@ __global__ void __launch_bounds__(kQThreads)
     __syncthreads();
   }
 
+  const CodeSteps steps = CODES ? CodeSteps(codes) : CodeSteps();
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     if (j >= nt) continue;
@@ -371,56 +552,54 @@ __global__ void __launch_bounds__(kQThreads)
 #pragma unroll
       for (int hi = 0; hi < 2; ++hi) {  // rows g and g + 8
         const int row = m0 + warp * 32 + mt * 16 + g + hi * 8;
-        if (row < M)
-          Store2<OutT, ACT>::put(out + (long long)row * Cout + c,
-                                 acc[mt][j][2 * hi], acc[mt][j][2 * hi + 1],
-                                 k);
+        if (row >= M) continue;
+        const int a = acc[mt][j][2 * hi], b = acc[mt][j][2 * hi + 1];
+        if (!CODES || out != nullptr)
+          Store2<OutT, ACT>::put(out + (long long)row * Cout + c, a, b, k);
+        if constexpr (CODES) {
+          const float2 v = Store2<OutT, ACT>::value(a, b, k);
+          const float f[2] = {v.x, v.y};
+          put_codes<2>(codes, steps, row, c, f);
+        }
       }
     }
   }
 }
 
-// 8 channels of one output pixel
-template <typename OutT, int ACT>
-struct Store8;
-template <int ACT>
-struct Store8<int, ACT> {
-  __device__ static void put(int* p, const int* a, const float*,
-                             const float*) {
-    reinterpret_cast<int4*>(p)[0] = make_int4(a[0], a[1], a[2], a[3]);
-    reinterpret_cast<int4*>(p)[1] = make_int4(a[4], a[5], a[6], a[7]);
-  }
-};
-template <int ACT>
-struct Store8<float, ACT> {
-  __device__ static void put(float* p, const int* a, const float* m,
-                             const float* c) {
-    float v[8];
+// 8 channels of one output pixel: the rescaled values (the int32 sums as
+// they are), stored where there is a float output, their codes where asked
+template <typename OutT, int ACT, bool CODES>
+__device__ __forceinline__ void store8_rescaled(OutT* p, const int* a,
+                                                const float* m,
+                                                const float* c,
+                                                const QCodes& codes,
+                                                const CodeSteps& steps,
+                                                long long px, int ch) {
+  __align__(16) OutT v[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = rescale<float, ACT>(a[e], m[e], c[e]);
-    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  for (int e = 0; e < 8; ++e) {
+    if constexpr (kHasCodes<OutT>)
+      v[e] = rescale<OutT, ACT>(a[e], m[e], c[e]);
+    else
+      v[e] = a[e];
   }
-};
-template <int ACT>
-struct Store8<__nv_bfloat16, ACT> {
-  __device__ static void put(__nv_bfloat16* p, const int* a, const float* m,
-                             const float* c) {
-    __align__(16) __nv_bfloat16 v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      v[e] = rescale<__nv_bfloat16, ACT>(a[e], m[e], c[e]);
-    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(v);
+  if (!CODES || p != nullptr) store8(p, v);
+  if constexpr (CODES) {
+    float f[8];
+    floats_of<OutT, 8>(v, f);
+    put_codes<8>(codes, steps, px, ch, f);
   }
-};
+}
 
-template <typename OutT, int ACT>
+template <typename OutT, int ACT, bool CODES>
 __global__ void qconv_dw_kernel(const int8_t* __restrict__ x,
                                 const int8_t* __restrict__ w,
                                 const float* __restrict__ mult,
                                 const float* __restrict__ bias,
                                 OutT* __restrict__ out, int N, int H, int W,
-                                int C) {
+                                int C,
+                                const __grid_constant__ QCodes codes) {
+  const CodeSteps steps = CODES ? CodeSteps(codes) : CodeSteps();
   const int groups = C / 8;
   const int total = N * H * W * groups;  // < 2^31, checked by the host
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
@@ -450,64 +629,160 @@ __global__ void qconv_dw_kernel(const int8_t* __restrict__ x,
         for (int e = 0; e < 8; ++e) acc[e] += (int)xb[e] * (int)wb[e];
       }
     }
-    Store8<OutT, ACT>::put(out + (long long)m * C + c, acc, mult + c,
-                           bias + c);
+    store8_rescaled<OutT, ACT, CODES>(
+        out != nullptr ? out + (long long)m * C + c : nullptr, acc,
+        mult + c, bias + c, codes, steps, m, c);
   }
 }
 
-__device__ __forceinline__ int8_t quant1(float v, float s) {
-  float r = rintf(__fdiv_rn(v, s));  // round half to even
-  if (r != r) return 0;              // NaN
-  r = fminf(fmaxf(r, -127.f), 127.f);
-  return (int8_t)__float2int_rn(r);
-}
-
 template <typename T>
-struct Load8;
+struct Load16;
 template <>
-struct Load8<float> {
+struct Load16<float> {
   __device__ static void get(const float* p, float* v) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0];
-    const float4 b = reinterpret_cast<const float4*>(p)[1];
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 a = reinterpret_cast<const float4*>(p)[i];
+      v[4 * i] = a.x;
+      v[4 * i + 1] = a.y;
+      v[4 * i + 2] = a.z;
+      v[4 * i + 3] = a.w;
+    }
   }
 };
 template <>
-struct Load8<__nv_bfloat16> {
+struct Load16<__nv_bfloat16> {
   __device__ static void get(const __nv_bfloat16* p, float* v) {
-    const uint4 a = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&a);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(h[e]);
+    for (int i = 0; i < 2; ++i)
+      floats_of_piece<__nv_bfloat16>(reinterpret_cast<const uint4*>(p)[i],
+                                     v + 8 * i);
   }
 };
 
+constexpr int kQuantThreads = 256;
+
+// out0 = codes of x at *step0 and, where out1 is not null, out1 = codes
+// of x at *step1: x read once for both. A grid-stride loop of 16 elements
+// a step over one wave of resident blocks; the last n % 16 elements one a
+// thread.
 template <typename T>
-__global__ void quantize_kernel(const T* __restrict__ x,
-                                const float* __restrict__ step,
-                                int8_t* __restrict__ out, long long n) {
-  const float s = *step;
-  const long long n8 = n / 8;
+__global__ void __launch_bounds__(kQuantThreads, 6)
+    quantize_kernel(const T* __restrict__ x, const float* __restrict__ step0,
+                    int8_t* __restrict__ out0,
+                    const float* __restrict__ step1,
+                    int8_t* __restrict__ out1, long long n) {
+  const Step s0(*step0);
+  const Step s1(out1 != nullptr ? *step1 : 1.f);
+  const long long n16 = n / 16;
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  for (long long i = first; i < n8; i += stride) {
-    float v[8];
-    Load8<T>::get(x + 8 * i, v);
-    __align__(8) int8_t q[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) q[e] = quant1(v[e], s);
-    *reinterpret_cast<int2*>(out + 8 * i) = *reinterpret_cast<const int2*>(q);
+  for (long long i = first; i < n16; i += stride) {
+    float v[16];
+    Load16<T>::get(x + 16 * i, v);
+    unsigned w[4];
+    codes_of<16>(v, s0, w);
+    *reinterpret_cast<uint4*>(out0 + 16 * i) = make_uint4(w[0], w[1], w[2],
+                                                          w[3]);
+    if (out1 != nullptr) {
+      codes_of<16>(v, s1, w);
+      *reinterpret_cast<uint4*>(out1 + 16 * i) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
   }
-  for (long long i = 8 * n8 + first; i < n; i += stride)
-    out[i] = quant1(to_f32(x[i]), s);
+  for (long long i = 16 * n16 + first; i < n; i += stride) {
+    const float v = to_f32(x[i]);
+    out0[i] = (int8_t)quant_fast(v, s0);
+    if (out1 != nullptr) out1[i] = (int8_t)quant_fast(v, s1);
+  }
 }
 
-template <typename OutT, int ACT>
-cudaError_t launch_dense(const void* x, const void* w, const void* mult,
-                         const void* bias, void* out, int N, int H, int W,
-                         int Cin, int Cout, int ks, cudaStream_t stream) {
-  const void* fn = (const void*)qconv_dense_kernel<OutT, ACT>;
+// ------------------------------------------------------------------------
+// absmax_kernel: max |x| in one launch (see the note at the top)
+
+constexpr int kAbsThreads = 256;
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
+// the NaN-aware max of the block's values, in thread 0; `red` holds a
+// float a warp
+__device__ __forceinline__ float block_max(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = nan_max(v, __shfl_down_sync(0xffffffffu, v, off));
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < kAbsThreads / 32 ? red[lane] : 0.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v = nan_max(v, __shfl_down_sync(0xffffffffu, v, off));
+  }
+  return v;
+}
+
+// *out = max |x| (NaN if any x is NaN); part holds a float a block,
+// *ticket is 0 before and after the launch
+template <typename T>
+__global__ void __launch_bounds__(kAbsThreads)
+    absmax_kernel(const T* __restrict__ x, long long n,
+                  float* __restrict__ part, unsigned* __restrict__ ticket,
+                  float* __restrict__ out) {
+  __shared__ float red[kAbsThreads / 32];
+  __shared__ bool last;
+  float m = 0.f;
+  bool nan = false;
+  const long long n16 = n / 16;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long i = first; i < n16; i += stride) {
+    float v[16];
+    Load16<T>::get(x + 16 * i, v);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const float a = fabsf(v[e]);
+      nan |= a != a;
+      m = fmaxf(m, a);  // drops a NaN: the flag keeps it
+    }
+  }
+  for (long long i = 16 * n16 + first; i < n; i += stride) {
+    const float a = fabsf(to_f32(x[i]));
+    nan |= a != a;
+    m = fmaxf(m, a);
+  }
+  const float r = block_max(nan ? __int_as_float(0x7fc00000) : m, red);
+  if (threadIdx.x == 0) {
+    part[blockIdx.x] = r;
+    __threadfence();  // the partial is visible before the ticket
+    last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float t = 0.f;
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += kAbsThreads)
+    t = nan_max(t, __ldcg(part + i));
+  t = block_max(t, red);
+  if (threadIdx.x == 0) *out = t;
+}
+
+// a launch with code outputs takes the kernels instantiated with CODES =
+// true; one without, the instantiation without them, so a plain launch
+// keeps its registers (the code path cost the plain 1x1 and 3x3 convs
+// 16-22% when every launch carried it)
+inline bool host_codes(const QCodes& c) {
+  return c.p[0] != nullptr || c.p[1] != nullptr;
+}
+
+template <typename OutT, int ACT, bool CODES>
+cudaError_t launch_dense_c(const void* x, const void* w, const void* mult,
+                           const void* bias, void* out, int N, int H, int W,
+                           int Cin, int Cout, int ks, const QCodes& codes,
+                           cudaStream_t stream) {
+  const void* fn = (const void*)qconv_dense_kernel<OutT, ACT, CODES>;
   int per_sm = 0;
   const int smem = dense_smem(Cin);
   cudaError_t e = launch_setup(fn, kQThreads, smem, &per_sm);
@@ -515,23 +790,83 @@ cudaError_t launch_dense(const void* x, const void* w, const void* mult,
   const long long M = (long long)N * H * W;
   const dim3 grid((unsigned)((Cout + kBN - 1) / kBN),
                   (unsigned)((M + kBM - 1) / kBM));
-  qconv_dense_kernel<OutT, ACT><<<grid, kQThreads, smem, stream>>>(
+  qconv_dense_kernel<OutT, ACT, CODES><<<grid, kQThreads, smem, stream>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(mult), static_cast<const float*>(bias),
-      static_cast<OutT*>(out), N, H, W, Cin, Cout, ks);
+      static_cast<OutT*>(out), N, H, W, Cin, Cout, ks, codes);
   return cudaGetLastError();
+}
+
+template <typename OutT, int ACT, bool CODES>
+cudaError_t launch_dw_c(const void* x, const void* w, const void* mult,
+                        const void* bias, void* out, int N, int H, int W,
+                        int C, const QCodes& codes, cudaStream_t stream) {
+  const int threads = 256;
+  const long long total = (long long)N * H * W * (C / 8);
+  qconv_dw_kernel<OutT, ACT, CODES>
+      <<<grid_for(total, threads), threads, 0, stream>>>(
+          static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+          static_cast<const float*>(mult), static_cast<const float*>(bias),
+          static_cast<OutT*>(out), N, H, W, C, codes);
+  return cudaGetLastError();
+}
+
+template <typename OutT, int ACT>
+cudaError_t launch_dense(const void* x, const void* w, const void* mult,
+                         const void* bias, void* out, int N, int H, int W,
+                         int Cin, int Cout, int ks, const QCodes& codes,
+                         cudaStream_t stream) {
+  if constexpr (kHasCodes<OutT>)
+    if (host_codes(codes))
+      return launch_dense_c<OutT, ACT, true>(x, w, mult, bias, out, N, H, W,
+                                             Cin, Cout, ks, codes, stream);
+  return launch_dense_c<OutT, ACT, false>(x, w, mult, bias, out, N, H, W,
+                                          Cin, Cout, ks, codes, stream);
 }
 
 template <typename OutT, int ACT>
 cudaError_t launch_dw(const void* x, const void* w, const void* mult,
                       const void* bias, void* out, int N, int H, int W, int C,
-                      cudaStream_t stream) {
-  const int threads = 256;
-  const long long total = (long long)N * H * W * (C / 8);
-  qconv_dw_kernel<OutT, ACT><<<grid_for(total, threads), threads, 0, stream>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(mult), static_cast<const float*>(bias),
-      static_cast<OutT*>(out), N, H, W, C);
+                      const QCodes& codes, cudaStream_t stream) {
+  if constexpr (kHasCodes<OutT>)
+    if (host_codes(codes))
+      return launch_dw_c<OutT, ACT, true>(x, w, mult, bias, out, N, H, W, C,
+                                          codes, stream);
+  return launch_dw_c<OutT, ACT, false>(x, w, mult, bias, out, N, H, W, C,
+                                       codes, stream);
+}
+
+template <typename T>
+cudaError_t launch_quantize(const void* x, const void* step0, void* out0,
+                            const void* step1, void* out1, long long n,
+                            cudaStream_t stream) {
+  int per_sm = 0;
+  cudaError_t e = launch_setup((const void*)quantize_kernel<T>,
+                               kQuantThreads, 0, &per_sm);
+  if (e != cudaSuccess) return e;
+  const long long needed = (n / 16 + kQuantThreads - 1) / kQuantThreads;
+  quantize_kernel<T><<<wave_grid(per_sm, needed), kQuantThreads, 0,
+                       stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(step0),
+      static_cast<int8_t*>(out0), static_cast<const float*>(step1),
+      static_cast<int8_t*>(out1), n);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_absmax(const void* x, long long n, void* part,
+                          int part_cap, void* ticket, void* out,
+                          cudaStream_t stream) {
+  int per_sm = 0;
+  cudaError_t e = launch_setup((const void*)absmax_kernel<T>, kAbsThreads, 0,
+                               &per_sm);
+  if (e != cudaSuccess) return e;
+  const long long needed = (n / 16 + kAbsThreads - 1) / kAbsThreads;
+  unsigned grid = wave_grid(per_sm, needed);
+  if (grid > (unsigned)part_cap) grid = (unsigned)part_cap;
+  absmax_kernel<T><<<grid, kAbsThreads, 0, stream>>>(
+      static_cast<const T*>(x), n, static_cast<float*>(part),
+      static_cast<unsigned*>(ticket), static_cast<float*>(out));
   return cudaGetLastError();
 }
 
@@ -846,7 +1181,8 @@ struct Wgmma<256> {
 struct WgParams {
   const float* mult;
   const float* bias;
-  void* out;
+  void* out;  // null: codes only
+  QCodes codes;
   int N, H, W, Cin, Cout, ks;
   int bh_log, bn_log, planes, plane_bytes, stages;
   int tiles_x, tiles_y, tiles_n, tiles;
@@ -881,11 +1217,11 @@ __device__ __forceinline__ WgTile wg_tile(const WgParams& p, int t) {
 // (named barriers 2 and 3), then rescale and store their rows through
 // per-warp staging rows in shared memory while the other warpgroup's
 // wgmmas run.
-template <int BN, typename OutT, int ACT>
+template <int BN, typename OutT, int ACT, bool CODES>
 __global__ void __launch_bounds__(kWgThreads, BN <= 96 ? 2 : 1)
     qconv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                        const __grid_constant__ CUtensorMap wmap,
-                       const WgParams p) {
+                       const __grid_constant__ WgParams p) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + kWgAlign - 1) &
@@ -963,6 +1299,7 @@ __global__ void __launch_bounds__(kWgThreads, BN <= 96 ? 2 : 1)
   int acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+  const CodeSteps steps = CODES ? CodeSteps(p.codes) : CodeSteps();
   unsigned char* stg = staging + warp * 16 * kRowB;
   const uint32_t bsm = smem_u32(smem);
   // the block's columns, rounded once: the epilogue reads them from shared
@@ -1051,11 +1388,19 @@ __global__ void __launch_bounds__(kWgThreads, BN <= 96 ? 2 : 1)
         const int y = tile.y0 + ((r >> 3) & ((1 << p.bh_log) - 1));
         const int n = tile.n0 + (r >> (3 + p.bh_log));
         const int c = c0 + cg * kCols + q * (16 / (int)sizeof(OutT));
-        if (x < p.W && y < p.H && n < p.N && c < p.Cout)
-          *reinterpret_cast<uint4*>(
-              static_cast<OutT*>(p.out) +
-              (((long long)n * p.H + y) * p.W + x) * p.Cout + c) =
-              *reinterpret_cast<const uint4*>(stg + row * kRowB + q * 16);
+        if (x >= p.W || y >= p.H || n >= p.N || c >= p.Cout) continue;
+        const long long m = ((long long)n * p.H + y) * p.W + x;
+        const uint4 piece =
+            *reinterpret_cast<const uint4*>(stg + row * kRowB + q * 16);
+        if (!CODES || p.out != nullptr)
+          *reinterpret_cast<uint4*>(static_cast<OutT*>(p.out) +
+                                    m * p.Cout + c) = piece;
+        if constexpr (CODES) {  // the piece's stored values' codes
+          constexpr int V = 16 / (int)sizeof(OutT);
+          float f[V];
+          floats_of_piece<OutT>(piece, f);
+          put_codes<V>(p.codes, steps, m, c, f);
+        }
       }
       __syncwarp();
     }
@@ -1087,8 +1432,9 @@ __device__ __forceinline__ int pack3(int a, int b, int c, int e) {
 }
 
 // 8 channels of one output pixel: each pair's mult and bias rounded to
-// the output type once (Store2's rescale, the plain version's rounding)
-template <typename OutT, int ACT>
+// the output type once (Store2's rescale, the plain version's rounding);
+// stored where there is a float output, their codes where asked
+template <typename OutT, int ACT, bool CODES>
 struct Store8Cols {
   Cols k[4];
   __device__ void load(const float* m, const float* b) {
@@ -1096,20 +1442,24 @@ struct Store8Cols {
     for (int i = 0; i < 4; ++i)
       k[i] = Store2<OutT, ACT>::cols(m + 2 * i, b + 2 * i);
   }
-  __device__ void put(OutT* p, const int* a) const {
+  __device__ void put(OutT* p, const int* a, const QCodes& codes,
+                      const CodeSteps& steps, long long px, int ch) const {
     __align__(16) OutT v[8];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       Store2<OutT, ACT>::put(v + 2 * i, a[2 * i], a[2 * i + 1], k[i]);
-#pragma unroll
-    for (int i = 0; i < 8 * (int)sizeof(OutT) / 16; ++i)
-      reinterpret_cast<uint4*>(p)[i] = reinterpret_cast<const uint4*>(v)[i];
+    if (!CODES || p != nullptr) store8(p, v);
+    if constexpr (CODES) {
+      float f[8];
+      floats_of<OutT, 8>(v, f);
+      put_codes<8>(codes, steps, px, ch, f);
+    }
   }
 };
 
 // A persistent block walks tiles blockIdx.x, + gridDim.x, ...; thread 0
 // loads the next tile's box by TMA while the block computes this one.
-template <typename OutT, int ACT>
+template <typename OutT, int ACT, bool CODES>
 __global__ void __launch_bounds__(kDwThreads, 3)
     qconv_dw_tile_kernel(const __grid_constant__ CUtensorMap xmap,
                          const int8_t* __restrict__ w,
@@ -1117,7 +1467,7 @@ __global__ void __launch_bounds__(kDwThreads, 3)
                          const float* __restrict__ bias,
                          OutT* __restrict__ out, int N, int H, int W, int C,
                          int tw, int th, int ct, int tiles_x, int tiles_y,
-                         int tiles) {
+                         int tiles, const __grid_constant__ QCodes codes) {
   extern __shared__ unsigned char dw_raw[];
   unsigned char* boxes = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(dw_raw) + kDwAlign - 1) &
@@ -1156,6 +1506,7 @@ __global__ void __launch_bounds__(kDwThreads, 3)
 
   const bool odd = threadIdx.x & 1;
   const int rowb = (tw + 2) * ct;
+  const CodeSteps steps = CODES ? CodeSteps(codes) : CodeSteps();
   int i = 0;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
     const int b = i & 1;
@@ -1219,7 +1570,7 @@ __global__ void __launch_bounds__(kDwThreads, 3)
       // rows 1, 3, .., each all 8 channels, 16 bytes of bf16 a store
       const int c8 = tile.c0 + 4 * (cw & ~1);
       const int x = tile.x0 + px;
-      Store8Cols<OutT, ACT> cols;
+      Store8Cols<OutT, ACT, CODES> cols;
       cols.load(mult + c8, bias + c8);
 #pragma unroll
       for (int pr = 0; pr < kDwStrip / 2; ++pr) {
@@ -1233,8 +1584,11 @@ __global__ void __launch_bounds__(kDwThreads, 3)
           v8[e + 4] = odd ? mine : theirs;
         }
         const int y = tile.y0 + strip * kDwStrip + 2 * pr + (odd ? 1 : 0);
-        if (ok && x < W && y < H)
-          cols.put(out + (((long long)tile.n * H + y) * W + x) * C + c8, v8);
+        if (ok && x < W && y < H) {
+          const long long m = ((long long)tile.n * H + y) * W + x;
+          cols.put(out != nullptr ? out + m * C + c8 : nullptr, v8, codes,
+                   steps, m, c8);
+        }
       }
     }
     __syncthreads();
@@ -1305,15 +1659,16 @@ inline int log2_exact(int v) {  // -1 unless v is a power of two
   return (1 << l) == v ? l : -1;
 }
 
-template <int BN, typename OutT, int ACT>
+template <int BN, typename OutT, int ACT, bool CODES>
 cudaError_t launch_wgmma_n(const void* x, const void* w, const void* mult,
                            const void* bias, void* out, int N, int H, int W,
                            int Cin, int Cout, int ks, const WgPlan& pl,
-                           cudaStream_t stream) {
+                           const QCodes& codes, cudaStream_t stream) {
   WgParams p;
   p.mult = static_cast<const float*>(mult);
   p.bias = static_cast<const float*>(bias);
   p.out = out;
+  p.codes = codes;
   p.N = N, p.H = H, p.W = W, p.Cin = Cin, p.Cout = Cout, p.ks = ks;
   p.bh_log = log2_exact(pl.bh), p.bn_log = log2_exact(pl.bn);
   p.planes = wg_planes(Cin);
@@ -1350,27 +1705,28 @@ cudaError_t launch_wgmma_n(const void* x, const void* w, const void* mult,
   const int smem =
       wg_smem(Cin, ks, pl.bh, pl.bn, BN, pl.stages, (int)sizeof(OutT));
   if (smem > kMaxDynamicSmem) return cudaErrorInvalidValue;
-  const void* fn = (const void*)qconv_wgmma_kernel<BN, OutT, ACT>;
+  const void* fn = (const void*)qconv_wgmma_kernel<BN, OutT, ACT, CODES>;
   int per_sm = 0;
   e = launch_setup(fn, kWgThreads, smem, &per_sm);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  qconv_wgmma_kernel<BN, OutT, ACT>
+  qconv_wgmma_kernel<BN, OutT, ACT, CODES>
       <<<wave_grid(per_sm, p.tiles), kWgThreads, smem, stream>>>(xmap, wmap,
                                                                  p);
   return cudaGetLastError();
 }
 
-template <typename OutT, int ACT>
-cudaError_t launch_wgmma(const void* x, const void* w, const void* mult,
-                         const void* bias, void* out, int N, int H, int W,
-                         int Cin, int Cout, int ks, const WgPlan& pl,
-                         cudaStream_t stream) {
+template <typename OutT, int ACT, bool CODES>
+cudaError_t launch_wgmma_c(const void* x, const void* w, const void* mult,
+                           const void* bias, void* out, int N, int H, int W,
+                           int Cin, int Cout, int ks, const WgPlan& pl,
+                           const QCodes& codes, cudaStream_t stream) {
   switch (pl.wn) {
 #define HELMET_WGMMA_CASE(BN)                                              \
   case BN:                                                                 \
-    return launch_wgmma_n<BN, OutT, ACT>(x, w, mult, bias, out, N, H, W,  \
-                                         Cin, Cout, ks, pl, stream);
+    return launch_wgmma_n<BN, OutT, ACT, CODES>(x, w, mult, bias, out, N, \
+                                                H, W, Cin, Cout, ks, pl,   \
+                                                codes, stream);
     HELMET_WGMMA_CASE(32)
     HELMET_WGMMA_CASE(48)
     HELMET_WGMMA_CASE(64)
@@ -1383,12 +1739,26 @@ cudaError_t launch_wgmma(const void* x, const void* w, const void* mult,
   }
 }
 
-// the plan of one tiled depthwise launch (ops/qconv.py `dw_plan`)
 template <typename OutT, int ACT>
-cudaError_t launch_dw_tile(const void* x, const void* w, const void* mult,
-                           const void* bias, void* out, int N, int H, int W,
-                           int C, int tw, int th, int ct,
-                           cudaStream_t stream) {
+cudaError_t launch_wgmma(const void* x, const void* w, const void* mult,
+                         const void* bias, void* out, int N, int H, int W,
+                         int Cin, int Cout, int ks, const WgPlan& pl,
+                         const QCodes& codes, cudaStream_t stream) {
+  if constexpr (kHasCodes<OutT>)
+    if (host_codes(codes))
+      return launch_wgmma_c<OutT, ACT, true>(x, w, mult, bias, out, N, H, W,
+                                             Cin, Cout, ks, pl, codes,
+                                             stream);
+  return launch_wgmma_c<OutT, ACT, false>(x, w, mult, bias, out, N, H, W,
+                                          Cin, Cout, ks, pl, codes, stream);
+}
+
+// the plan of one tiled depthwise launch (ops/qconv.py `dw_plan`)
+template <typename OutT, int ACT, bool CODES>
+cudaError_t launch_dw_tile_c(const void* x, const void* w, const void* mult,
+                             const void* bias, void* out, int N, int H,
+                             int W, int C, int tw, int th, int ct,
+                             const QCodes& codes, cudaStream_t stream) {
   CUtensorMap xmap;
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
                               (cuuint64_t)N};
@@ -1399,7 +1769,7 @@ cudaError_t launch_dw_tile(const void* x, const void* w, const void* mult,
   cudaError_t e = encode_map(&xmap, x, 4, dims, strides, box, 0);
   if (e != cudaSuccess) return e;
   const int smem = dw_tile_smem(tw, th, ct);
-  const void* fn = (const void*)qconv_dw_tile_kernel<OutT, ACT>;
+  const void* fn = (const void*)qconv_dw_tile_kernel<OutT, ACT, CODES>;
   int per_sm = 0;
   e = launch_setup(fn, kDwThreads, smem, &per_sm);
   if (e != cudaSuccess) return e;
@@ -1408,13 +1778,27 @@ cudaError_t launch_dw_tile(const void* x, const void* w, const void* mult,
   const long long tiles =
       (long long)tiles_x * tiles_y * N * ((C + ct - 1) / ct);
   if (tiles >= (1LL << 31)) return cudaErrorInvalidValue;
-  qconv_dw_tile_kernel<OutT, ACT>
+  qconv_dw_tile_kernel<OutT, ACT, CODES>
       <<<wave_grid(per_sm, tiles), kDwThreads, smem, stream>>>(
           xmap, static_cast<const int8_t*>(w),
           static_cast<const float*>(mult), static_cast<const float*>(bias),
           static_cast<OutT*>(out), N, H, W, C, tw, th, ct, tiles_x, tiles_y,
-          (int)tiles);
+          (int)tiles, codes);
   return cudaGetLastError();
+}
+
+template <typename OutT, int ACT>
+cudaError_t launch_dw_tile(const void* x, const void* w, const void* mult,
+                           const void* bias, void* out, int N, int H, int W,
+                           int C, int tw, int th, int ct,
+                           const QCodes& codes, cudaStream_t stream) {
+  if constexpr (kHasCodes<OutT>)
+    if (host_codes(codes))
+      return launch_dw_tile_c<OutT, ACT, true>(x, w, mult, bias, out, N, H,
+                                               W, C, tw, th, ct, codes,
+                                               stream);
+  return launch_dw_tile_c<OutT, ACT, false>(x, w, mult, bias, out, N, H, W,
+                                            C, tw, th, ct, codes, stream);
 }
 
 }  // namespace helmet
@@ -1441,60 +1825,108 @@ cudaError_t launch_dw_tile(const void* x, const void* w, const void* mult,
   } while (0)
 
 // Every entry below refuses an int8 input or weight pointer (the
-// quantizer: its input) that is not 16-byte aligned, with
-// cudaErrorMisalignedAddress: the kernels read them by 16-byte loads and
-// TMA. The check is made here, so the Python op and the C++ op library
-// run the same one.
+// quantizer and the abs-max: their input) that is not 16-byte aligned,
+// and a code output that is not, with cudaErrorMisalignedAddress: the
+// kernels read them by 16-byte loads and TMA. The check is made here, so
+// the Python op and the C++ op library run the same one.
 static inline bool helmet_misaligned(const void* a, const void* b) {
   return (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) %
              16 != 0;
+}
+
+// A conv entry's code outputs: `codes` null (none) or 8 values {p0, step0,
+// off0, stride0, p1, step1, off1, stride1}, p = 0 where there is no such
+// output. A code output takes a float output type, a step, a 16-byte
+// aligned base, an offset and a stride that are multiples of 8, and room
+// for Cout channels; without any, the float output must be there.
+static inline int helmet_codes(const long long* a, int cout, int dtype,
+                               const void* out, helmet::QCodes* c) {
+  *c = helmet::QCodes{};
+  bool any = false;
+  for (int i = 0; a != nullptr && i < 2; ++i) {
+    const long long* d = a + 4 * i;
+    if (d[0] == 0) continue;
+    const long long off = d[2], stride = d[3];
+    if (dtype == helmet::kQI32 || d[1] == 0 || off < 0 || off % 8 ||
+        stride % 8 || off + cout > stride || stride >= (1LL << 31))
+      return (int)cudaErrorInvalidValue;
+    if (d[0] % 16) return (int)cudaErrorMisalignedAddress;
+    c->p[i] = reinterpret_cast<int8_t*>(d[0]);
+    c->step[i] = reinterpret_cast<const float*>(d[1]);
+    c->off[i] = (int)off;
+    c->stride[i] = (int)stride;
+    any = true;
+  }
+  return out == nullptr && !any ? (int)cudaErrorInvalidValue : 0;
 }
 
 extern "C" int helmet_qconv_dense(const void* x, const void* w,
                                   const void* mult, const void* bias,
                                   void* out, int N, int H, int W, int Cin,
                                   int Cout, int ks, int dtype, int act,
-                                  void* stream) {
+                                  const long long* codes, void* stream) {
   if (helmet_misaligned(x, w)) return (int)cudaErrorMisalignedAddress;
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cin % 16 || Cout <= 0 ||
       Cout % 8 || (ks != 1 && ks != 3) || N >= 512 || H >= 2048 ||
       W >= 2048 || (long long)N * H * W >= (1LL << 31) - helmet::kBM)
     return (int)cudaErrorInvalidValue;
+  helmet::QCodes c;
+  const int err = helmet_codes(codes, Cout, dtype, out, &c);
+  if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   HELMET_QDISPATCH(launch_dense, x, w, mult, bias, out, N, H, W, Cin, Cout,
-                   ks, s);
+                   ks, c, s);
 }
 
 extern "C" int helmet_qconv_dw(const void* x, const void* w, const void* mult,
                                const void* bias, void* out, int N, int H,
                                int W, int C, int dtype, int act,
-                               void* stream) {
+                               const long long* codes, void* stream) {
   if (helmet_misaligned(x, w)) return (int)cudaErrorMisalignedAddress;
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 8 ||
       (long long)N * H * W * (C / 8) >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
+  helmet::QCodes c;
+  const int err = helmet_codes(codes, C, dtype, out, &c);
+  if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  HELMET_QDISPATCH(launch_dw, x, w, mult, bias, out, N, H, W, C, s);
+  HELMET_QDISPATCH(launch_dw, x, w, mult, bias, out, N, H, W, C, c, s);
 }
 
-extern "C" int helmet_quantize(const void* x, const void* step, void* out,
-                               long long n, int dtype, void* stream) {
-  if (helmet_misaligned(x, x)) return (int)cudaErrorMisalignedAddress;
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  const unsigned blocks = helmet::grid_for((n + 7) / 8, threads);
-  if (dtype == helmet::kF32)
-    helmet::quantize_kernel<float><<<blocks, threads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(step),
-        static_cast<int8_t*>(out), n);
-  else if (dtype == helmet::kBF16)
-    helmet::quantize_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(step),
-        static_cast<int8_t*>(out), n);
-  else
+// out0 = the codes of x at *step0; out1, where not null, at *step1
+extern "C" int helmet_quantize(const void* x, const void* step0, void* out0,
+                               const void* step1, void* out1, long long n,
+                               int dtype, void* stream) {
+  if (helmet_misaligned(x, out0) ||
+      (out1 != nullptr && helmet_misaligned(out1, out1)))
+    return (int)cudaErrorMisalignedAddress;
+  if (n <= 0 || (out1 != nullptr && step1 == nullptr))
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == helmet::kF32)
+    return (int)helmet::launch_quantize<float>(x, step0, out0, step1, out1,
+                                                n, s);
+  if (dtype == helmet::kBF16)
+    return (int)helmet::launch_quantize<__nv_bfloat16>(x, step0, out0, step1,
+                                                        out1, n, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// *out (a float) = max |x|; part: part_cap floats of scratch, ticket: an
+// unsigned counter that is 0 (and left at 0)
+extern "C" int helmet_abs_max(const void* x, long long n, int dtype,
+                              void* part, int part_cap, void* ticket,
+                              void* out, void* stream) {
+  if (helmet_misaligned(x, x)) return (int)cudaErrorMisalignedAddress;
+  if (n <= 0 || part_cap < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == helmet::kF32)
+    return (int)helmet::launch_absmax<float>(x, n, part, part_cap, ticket,
+                                              out, s);
+  if (dtype == helmet::kBF16)
+    return (int)helmet::launch_absmax<__nv_bfloat16>(x, n, part, part_cap,
+                                                      ticket, out, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int helmet_qconv_wgmma(const void* x, const void* w,
@@ -1502,7 +1934,7 @@ extern "C" int helmet_qconv_wgmma(const void* x, const void* w,
                                   void* out, int N, int H, int W, int Cin,
                                   int Cout, int ks, int bh, int bn, int wn,
                                   int stages, int dtype, int act,
-                                  void* stream) {
+                                  const long long* codes, void* stream) {
   if (helmet_misaligned(x, w)) return (int)cudaErrorMisalignedAddress;
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cin % 16 || Cout <= 0 ||
       Cout % 8 || (ks != 1 && ks != 3) ||
@@ -1511,24 +1943,31 @@ extern "C" int helmet_qconv_wgmma(const void* x, const void* w,
       helmet::kWgBoxW * bh * bn != helmet::kWgRows || stages < 1 ||
       stages > helmet::kWgMaxStages)
     return (int)cudaErrorInvalidValue;
+  helmet::QCodes c;
+  const int err = helmet_codes(codes, Cout, dtype, out, &c);
+  if (err) return err;
   const helmet::WgPlan plan{bh, bn, wn, stages};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   HELMET_QDISPATCH(launch_wgmma, x, w, mult, bias, out, N, H, W, Cin, Cout,
-                   ks, plan, s);
+                   ks, plan, c, s);
 }
 
 extern "C" int helmet_qconv_dw_tile(const void* x, const void* w,
                                     const void* mult, const void* bias,
                                     void* out, int N, int H, int W, int C,
                                     int tw, int th, int ct, int dtype,
-                                    int act, void* stream) {
+                                    int act, const long long* codes,
+                                    void* stream) {
   if (helmet_misaligned(x, w)) return (int)cudaErrorMisalignedAddress;
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 16 || ct <= 0 ||
       ct % 16 || ct > 256 || tw < 1 || tw + 2 > 256 || th < 1 ||
       th % helmet::kDwStrip || th + 2 > 256 ||
       helmet::dw_tile_smem(tw, th, ct) > helmet::kMaxDynamicSmem)
     return (int)cudaErrorInvalidValue;
+  helmet::QCodes c;
+  const int err = helmet_codes(codes, C, dtype, out, &c);
+  if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   HELMET_QDISPATCH(launch_dw_tile, x, w, mult, bias, out, N, H, W, C, tw, th,
-                   ct, s);
+                   ct, c, s);
 }

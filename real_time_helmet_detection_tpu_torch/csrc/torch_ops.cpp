@@ -10,7 +10,11 @@
 // `helmet::quantize_act`, `helmet::qconv_dense` and `helmet::qconv_dw`, and
 // this library gives each its CUDA implementation, which calls the same C
 // entry of csrc/*.cu as the Python op (ops/library.py) does, on the current
-// CUDA stream (the one AOTInductor runs the program on).
+// CUDA stream (the one AOTInductor runs the program on). The int8 convs'
+// code-writing forms (`helmet::qconv_dense_codes`, `qconv_dw_codes`)
+// write their codes into the tensors they are given (`Tensor(a!)`
+// arguments), as the Python ops do; `helmet::quantize_act2` quantizes at
+// two steps in one launch.
 //
 // * The schema strings are the Python ones, character for character
 //   (tests/test_torch_export.py parses them out of this file).
@@ -36,7 +40,10 @@
 #include <torch/library.h>
 
 #include <atomic>
+#include <optional>
 #include <string>
+#include <tuple>
+#include <vector>
 
 #ifndef HELMET_OPS_DIGEST
 #error "build with -DHELMET_OPS_DIGEST (ops/_build.py)"
@@ -56,17 +63,20 @@ int helmet_bn_act_vec(const void*, const void*, const void*, void*,
                       long long, int, int, int, void*);
 int helmet_bn_add_act(const void*, const void*, const void*, const void*,
                       void*, long long, int, int, int, void*);
-int helmet_quantize(const void*, const void*, void*, long long, int, void*);
+int helmet_quantize(const void*, const void*, void*, const void*, void*,
+                    long long, int, void*);
 int helmet_qconv_dense(const void*, const void*, const void*, const void*,
-                       void*, int, int, int, int, int, int, int, int, void*);
+                       void*, int, int, int, int, int, int, int, int,
+                       const long long*, void*);
 int helmet_qconv_wgmma(const void*, const void*, const void*, const void*,
                        void*, int, int, int, int, int, int, int, int, int,
-                       int, int, int, void*);
+                       int, int, int, const long long*, void*);
 int helmet_qconv_dw(const void*, const void*, const void*, const void*,
-                    void*, int, int, int, int, int, int, void*);
+                    void*, int, int, int, int, int, int, const long long*,
+                    void*);
 int helmet_qconv_dw_tile(const void*, const void*, const void*, const void*,
                          void*, int, int, int, int, int, int, int, int, int,
-                         void*);
+                         const long long*, void*);
 }
 
 namespace {
@@ -75,12 +85,14 @@ namespace {
 // chip_smoke.py's COUNTERS)
 enum Counter {
   kPeak, kPeakVec, kPeakScalar, kBnAct, kBnActVec, kBnActScalar, kBnAddAct,
-  kQuant, kDense, kDenseWgmma, kDenseMma, kDw, kDwTiled, kDwGather, kCounters
+  kQuant, kQuantDual, kDense, kDenseWgmma, kDenseMma, kDenseCodes, kDw,
+  kDwTiled, kDwGather, kDwCodes, kCounters
 };
 const char* const kCounterNames =
     "peak_scores,peak_vec,peak_scalar,bn_act,bn_act_vec,bn_act_scalar,"
-    "bn_add_act,quantize_act,qconv_dense,qconv_dense_wgmma,qconv_dense_mma,"
-    "qconv_dw,qconv_dw_tiled,qconv_dw_gather";
+    "bn_add_act,quantize_act,quantize_act_dual,qconv_dense,"
+    "qconv_dense_wgmma,qconv_dense_mma,qconv_dense_codes,qconv_dw,"
+    "qconv_dw_tiled,qconv_dw_gather,qconv_dw_codes";
 std::atomic<long long> counts[kCounters];
 
 void count(Counter a, Counter b = kCounters) {
@@ -193,15 +205,93 @@ at::Tensor bn_add_act(const at::Tensor& y, const at::Tensor& eff_scale,
   return out;
 }
 
-at::Tensor quantize_act(const at::Tensor& x, const at::Tensor& step) {
+std::vector<at::Tensor> quantize(const at::Tensor& x,
+                                 std::vector<at::Tensor> steps) {
   check_cuda(x, "helmet::quantize_act");
   const c10::cuda::CUDAGuard guard(x.device());
-  at::Tensor out = channels_last(x.sizes(), x, at::kChar);
-  if (x.numel() == 0) return out;
-  check(helmet_quantize(x.data_ptr(), step.data_ptr(), out.data_ptr(),
-                        x.numel(), dtype_code(x), stream_of(x)),
+  std::vector<at::Tensor> outs;
+  for (size_t i = 0; i < steps.size(); ++i)
+    outs.push_back(channels_last(x.sizes(), x, at::kChar));
+  if (x.numel() == 0) return outs;
+  const bool dual = steps.size() == 2;
+  check(helmet_quantize(x.data_ptr(), steps[0].data_ptr(),
+                        outs[0].data_ptr(),
+                        dual ? steps[1].data_ptr() : nullptr,
+                        dual ? outs[1].data_ptr() : nullptr, x.numel(),
+                        dtype_code(x), stream_of(x)),
         "helmet::quantize_act");
-  count(kQuant);
+  count(kQuant, dual ? kQuantDual : kCounters);
+  return outs;
+}
+
+at::Tensor quantize_act(const at::Tensor& x, const at::Tensor& step) {
+  return quantize(x, {step})[0];
+}
+
+std::tuple<at::Tensor, at::Tensor> quantize_act2(const at::Tensor& x,
+                                                 const at::Tensor& step,
+                                                 const at::Tensor& step2) {
+  const std::vector<at::Tensor> outs = quantize(x, {step, step2});
+  return {outs[0], outs[1]};
+}
+
+// A conv op's code outputs as its C entry's array (ops/library.py
+// `_code_array`): false where there is none.
+struct Codes {
+  long long v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  bool any = false;
+  Codes() = default;  // none: the plain ops
+  Codes(const at::Tensor& c0, const at::Tensor& s0, int64_t o0,
+        const std::optional<at::Tensor>& c1,
+        const std::optional<at::Tensor>& s1, int64_t o1) {
+    set(0, c0, s0, o0);
+    set(1, c1, s1, o1);
+  }
+  void set(int i, const std::optional<at::Tensor>& c,
+           const std::optional<at::Tensor>& s, int64_t off) {
+    if (!c.has_value()) return;
+    TORCH_CHECK(s.has_value(), "helmet: a code output without its step");
+    v[4 * i] = reinterpret_cast<long long>(c->data_ptr());
+    v[4 * i + 1] = reinterpret_cast<long long>(s->data_ptr());
+    v[4 * i + 2] = off;
+    v[4 * i + 3] = c->size(1);
+    any = true;
+  }
+  const long long* ptr() const { return any ? v : nullptr; }
+};
+
+at::Tensor conv_out(at::IntArrayRef sizes, const at::Tensor& q,
+                    int64_t dtype, bool store) {
+  if (!store) return at::empty({0}, q.options().dtype(out_dtype(dtype)));
+  return channels_last(sizes, q, out_dtype(dtype));
+}
+
+at::Tensor dense(const at::Tensor& q, const at::Tensor& w,
+                 const at::Tensor& mult, const at::Tensor& bias,
+                 int64_t dtype, c10::string_view activation,
+                 c10::string_view variant, int64_t bh, int64_t bn,
+                 int64_t wn, int64_t stages, bool store, const Codes& c) {
+  check_cuda(q, "helmet::qconv_dense");
+  const c10::cuda::CUDAGuard guard(q.device());
+  const int n = q.size(0), cin = q.size(1), h = q.size(2), wd = q.size(3);
+  const int cout = w.size(0), k = w.size(1);
+  at::Tensor out = conv_out({n, cout, h, wd}, q, dtype, store);
+  if ((long long)n * h * wd * cout == 0) return out;
+  void* o = store ? out.data_ptr() : nullptr;
+  const bool wgmma = variant == "wgmma";
+  const int act = act_code(activation);
+  const int err =
+      wgmma ? helmet_qconv_wgmma(q.data_ptr(), w.data_ptr(), mult.data_ptr(),
+                                 bias.data_ptr(), o, n, h, wd, cin, cout, k,
+                                 bh, bn, wn, stages, dtype, act, c.ptr(),
+                                 stream_of(q))
+            : helmet_qconv_dense(q.data_ptr(), w.data_ptr(), mult.data_ptr(),
+                                 bias.data_ptr(), o, n, h, wd, cin, cout, k,
+                                 dtype, act, c.ptr(), stream_of(q));
+  check(err, wgmma ? "helmet::qconv_dense (wgmma kernel)"
+                   : "helmet::qconv_dense (mma kernel)");
+  count(kDense, wgmma ? kDenseWgmma : kDenseMma);
+  if (c.any) count(kDenseCodes);
   return out;
 }
 
@@ -210,25 +300,51 @@ at::Tensor qconv_dense(const at::Tensor& q, const at::Tensor& w,
                        int64_t dtype, c10::string_view activation,
                        c10::string_view variant, int64_t bh, int64_t bn,
                        int64_t wn, int64_t stages) {
-  check_cuda(q, "helmet::qconv_dense");
+  return dense(q, w, mult, bias, dtype, activation, variant, bh, bn, wn,
+               stages, true, Codes());
+}
+
+at::Tensor qconv_dense_codes(const at::Tensor& q, const at::Tensor& w,
+                             const at::Tensor& mult, const at::Tensor& bias,
+                             int64_t dtype, c10::string_view activation,
+                             c10::string_view variant, int64_t bh,
+                             int64_t bn, int64_t wn, int64_t stages,
+                             bool store, const at::Tensor& codes,
+                             const at::Tensor& code_step,
+                             int64_t code_offset,
+                             const std::optional<at::Tensor>& codes2,
+                             const std::optional<at::Tensor>& code_step2,
+                             int64_t code_offset2) {
+  return dense(q, w, mult, bias, dtype, activation, variant, bh, bn, wn,
+               stages, store,
+               Codes(codes, code_step, code_offset, codes2, code_step2,
+                     code_offset2));
+}
+
+at::Tensor dw(const at::Tensor& q, const at::Tensor& w,
+              const at::Tensor& mult, const at::Tensor& bias, int64_t dtype,
+              c10::string_view activation, c10::string_view variant,
+              int64_t tw, int64_t th, int64_t ct, bool store,
+              const Codes& cs) {
+  check_cuda(q, "helmet::qconv_dw");
   const c10::cuda::CUDAGuard guard(q.device());
-  const int n = q.size(0), cin = q.size(1), h = q.size(2), wd = q.size(3);
-  const int cout = w.size(0), k = w.size(1);
-  at::Tensor out = channels_last({n, cout, h, wd}, q, out_dtype(dtype));
-  if (out.numel() == 0) return out;
-  const bool wgmma = variant == "wgmma";
+  const int n = q.size(0), c = q.size(1), h = q.size(2), wd = q.size(3);
+  at::Tensor out = conv_out(q.sizes(), q, dtype, store);
+  if (q.numel() == 0) return out;
+  void* o = store ? out.data_ptr() : nullptr;
+  const bool tiled = variant == "tiled";
   const int act = act_code(activation);
   const int err =
-      wgmma ? helmet_qconv_wgmma(q.data_ptr(), w.data_ptr(), mult.data_ptr(),
-                                 bias.data_ptr(), out.data_ptr(), n, h, wd, cin,
-                                 cout, k, bh, bn, wn, stages, dtype, act,
-                                 stream_of(q))
-            : helmet_qconv_dense(q.data_ptr(), w.data_ptr(), mult.data_ptr(),
-                                 bias.data_ptr(), out.data_ptr(), n, h, wd, cin,
-                                 cout, k, dtype, act, stream_of(q));
-  check(err, wgmma ? "helmet::qconv_dense (wgmma kernel)"
-                   : "helmet::qconv_dense (mma kernel)");
-  count(kDense, wgmma ? kDenseWgmma : kDenseMma);
+      tiled ? helmet_qconv_dw_tile(q.data_ptr(), w.data_ptr(), mult.data_ptr(),
+                                   bias.data_ptr(), o, n, h, wd, c, tw, th, ct,
+                                   dtype, act, cs.ptr(), stream_of(q))
+            : helmet_qconv_dw(q.data_ptr(), w.data_ptr(), mult.data_ptr(),
+                              bias.data_ptr(), o, n, h, wd, c, dtype, act,
+                              cs.ptr(), stream_of(q));
+  check(err, tiled ? "helmet::qconv_dw (tiled kernel)"
+                   : "helmet::qconv_dw (gather kernel)");
+  count(kDw, tiled ? kDwTiled : kDwGather);
+  if (cs.any) count(kDwCodes);
   return out;
 }
 
@@ -237,24 +353,22 @@ at::Tensor qconv_dw(const at::Tensor& q, const at::Tensor& w,
                     int64_t dtype, c10::string_view activation,
                     c10::string_view variant, int64_t tw, int64_t th,
                     int64_t ct) {
-  check_cuda(q, "helmet::qconv_dw");
-  const c10::cuda::CUDAGuard guard(q.device());
-  const int n = q.size(0), c = q.size(1), h = q.size(2), wd = q.size(3);
-  at::Tensor out = channels_last(q.sizes(), q, out_dtype(dtype));
-  if (out.numel() == 0) return out;
-  const bool tiled = variant == "tiled";
-  const int act = act_code(activation);
-  const int err =
-      tiled ? helmet_qconv_dw_tile(q.data_ptr(), w.data_ptr(), mult.data_ptr(),
-                                   bias.data_ptr(), out.data_ptr(), n, h, wd,
-                                   c, tw, th, ct, dtype, act, stream_of(q))
-            : helmet_qconv_dw(q.data_ptr(), w.data_ptr(), mult.data_ptr(),
-                              bias.data_ptr(), out.data_ptr(), n, h, wd, c,
-                              dtype, act, stream_of(q));
-  check(err, tiled ? "helmet::qconv_dw (tiled kernel)"
-                   : "helmet::qconv_dw (gather kernel)");
-  count(kDw, tiled ? kDwTiled : kDwGather);
-  return out;
+  return dw(q, w, mult, bias, dtype, activation, variant, tw, th, ct, true,
+            Codes());
+}
+
+at::Tensor qconv_dw_codes(const at::Tensor& q, const at::Tensor& w,
+                          const at::Tensor& mult, const at::Tensor& bias,
+                          int64_t dtype, c10::string_view activation,
+                          c10::string_view variant, int64_t tw, int64_t th,
+                          int64_t ct, bool store, const at::Tensor& codes,
+                          const at::Tensor& code_step, int64_t code_offset,
+                          const std::optional<at::Tensor>& codes2,
+                          const std::optional<at::Tensor>& code_step2,
+                          int64_t code_offset2) {
+  return dw(q, w, mult, bias, dtype, activation, variant, tw, th, ct, store,
+            Codes(codes, code_step, code_offset, codes2, code_step2,
+                  code_offset2));
 }
 
 }  // namespace
@@ -267,12 +381,24 @@ TORCH_LIBRARY(helmet, m) {
   m.def("bn_add_act(Tensor y, Tensor eff_scale, Tensor eff_bias, "
         "Tensor skip, str activation) -> Tensor");
   m.def("quantize_act(Tensor x, Tensor step) -> Tensor");
+  m.def("quantize_act2(Tensor x, Tensor step, Tensor step2) "
+        "-> (Tensor, Tensor)");
   m.def("qconv_dense(Tensor q, Tensor w, Tensor mult, Tensor bias, "
         "int out_dtype, str activation, str variant, int bh, int bn, "
         "int wn, int stages) -> Tensor");
+  m.def("qconv_dense_codes(Tensor q, Tensor w, Tensor mult, Tensor bias, "
+        "int out_dtype, str activation, str variant, int bh, int bn, "
+        "int wn, int stages, bool store, Tensor(a!) codes, "
+        "Tensor code_step, int code_offset, Tensor(b!)? codes2=None, "
+        "Tensor? code_step2=None, int code_offset2=0) -> Tensor");
   m.def("qconv_dw(Tensor q, Tensor w, Tensor mult, Tensor bias, "
         "int out_dtype, str activation, str variant, int tw, int th, "
         "int ct) -> Tensor");
+  m.def("qconv_dw_codes(Tensor q, Tensor w, Tensor mult, Tensor bias, "
+        "int out_dtype, str activation, str variant, int tw, int th, "
+        "int ct, bool store, Tensor(a!) codes, Tensor code_step, "
+        "int code_offset, Tensor(b!)? codes2=None, "
+        "Tensor? code_step2=None, int code_offset2=0) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(helmet, CUDA, m) {
@@ -280,8 +406,11 @@ TORCH_LIBRARY_IMPL(helmet, CUDA, m) {
   m.impl("bn_act", &bn_act);
   m.impl("bn_add_act", &bn_add_act);
   m.impl("quantize_act", &quantize_act);
+  m.impl("quantize_act2", &quantize_act2);
   m.impl("qconv_dense", &qconv_dense);
+  m.impl("qconv_dense_codes", &qconv_dense_codes);
   m.impl("qconv_dw", &qconv_dw);
+  m.impl("qconv_dw_codes", &qconv_dw_codes);
 }
 
 // The build's identity, which the runner holds against the exported

@@ -66,7 +66,10 @@ option of JAX `build_model` (:967), and its inference-compression twins
   conv kernels of `ops.qconv`, with ReLU/Linear fused into the conv's
   epilogue. The stem stays a float conv (its BN still folds), as do the
   heads, the inter-stack merges and the pool/SPP convs, which carry no
-  BN.
+  BN. In "int8" the residual and ghost blocks quantize their input once
+  and each int8 conv writes the codes of the conv that alone reads its
+  output (`Residual.fuse_codes`): 18 quantizer launches a throughput or
+  flagship predict, not one a conv.
 * Quirks kept from the JAX model: the Neck conv has a bias before its BN
   (hourglass.py:859); the PReLU slope is one scalar initialised at 0.25
   (hourglass.py:119-122), not torch's per-channel default.
@@ -280,7 +283,10 @@ class QuantConv(nn.Module):
     `act_scale` to the abs-max (or the `calib_percentile` of |x|) of the
     input. mode "int8": `qconv.quantize_act` and `qconv.conv_dense` /
     `conv_dw`, the rescale in the input's dtype, `activation` (ReLU or
-    Linear) fused."""
+    Linear) fused. An int8 `x` is the input's codes at this conv's
+    `step` already (then `dtype` names the output's dtype); `store` and
+    `codes` are the conv wrappers' (the float output, the codes that
+    the next convs read)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  groups: int = 1, mode: str = "int8",
@@ -327,8 +333,10 @@ class QuantConv(nn.Module):
         self.step.copy_(step)
         self.mult.copy_(step * w_scale)
 
-    def forward(self, x: torch.Tensor,
-                activation: str = "Linear") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, activation: str = "Linear",
+                store: bool = True, codes=(),
+                dtype: Optional[torch.dtype] = None
+                ) -> Optional[torch.Tensor]:
         dt = x.dtype
         if self.mode == "calibrate":
             from ..ops import quant
@@ -340,14 +348,30 @@ class QuantConv(nn.Module):
                          self.groups)
             y = y + self.bias.to(dt).view(1, -1, 1, 1)
             return epilogue.activate(_channels_last(y), activation)
-        q = qconv.quantize_act(x, self.step)
+        if x.dtype == torch.int8:
+            q, dt = x, dtype
+        else:
+            q = qconv.quantize_act(x, self.step)
         if self.depthwise:
             return qconv.conv_dw(q, self.weight_q, self.mult, self.bias, dt,
-                                 activation)
+                                 activation, store, codes)
         cout, cin = self.weight.shape[:2]
         return qconv.conv_dense(q, self.weight_q.view(cout, self.k, self.k,
                                                       cin),
-                                self.mult, self.bias, dt, activation)
+                                self.mult, self.bias, dt, activation, store,
+                                codes)
+
+
+def _codes_like(x: torch.Tensor, channels: int) -> torch.Tensor:
+    """An int8 channels-last tensor of x's batch and size, `channels`
+    channels: the input codes an int8 conv writes for the next one. A
+    view of a flat buffer: an exported program's mutations then land in
+    a buffer whose layout no size-1 dimension leaves open (AOTInductor
+    copied a 1x1 map's channels-last buffer, and lost the writes)."""
+    n, _, h, w = x.shape
+    flat = torch.empty((n * h * w * channels,), dtype=torch.int8,
+                       device=x.device)
+    return flat.view(n, h, w, channels).permute(0, 3, 1, 2)
 
 
 class Convolution(nn.Module):
@@ -467,6 +491,30 @@ class GhostModule(nn.Module):
         ghost = self.Convolution_1(primary)
         return _channels_last(torch.cat([primary, ghost], dim=1))
 
+    def int8(self, q: torch.Tensor, dtype: torch.dtype,
+             into: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+             ) -> Optional[torch.Tensor]:
+        """The int8 twin's module from its input codes q (at the 1x1's
+        step), each conv writing the codes its consumer reads: the 1x1 the
+        depthwise conv's. With `into` (codes, step), the next module's
+        input codes at its step: the 1x1 writes the first half of them
+        and the depthwise conv the second, and no float output or concat
+        is made (returns None); else the concat of both outputs, in
+        `dtype`."""
+        p, g = self.Convolution_0, self.Convolution_1
+        dw = _codes_like(q, p.Conv_0.weight.shape[0])
+        first = [(dw, g.Conv_0.step, 0)]
+        if into is None:
+            primary = p.Conv_0(q, p.activation, codes=first, dtype=dtype)
+            ghost = g.Conv_0(dw, g.activation, dtype=dtype)
+            return _channels_last(torch.cat([primary, ghost], dim=1))
+        out, step = into
+        p.Conv_0(q, p.activation, store=False,
+                 codes=first + [(out, step, 0)], dtype=dtype)
+        g.Conv_0(dw, g.activation, store=False,
+                 codes=[(out, step, dw.shape[1])], dtype=dtype)
+        return None
+
 
 class Residual(nn.Module):
     """Residual block, `variant`-selectable (ref hourglass.py:603-733):
@@ -483,7 +531,17 @@ class Residual(nn.Module):
     and depthwise variants with an activation in FUSED_ACTIVATIONS, and
     no twin (`twin`: the Convolution keywords `fold_bn`, `quant_mode`,
     `calib_percentile`); otherwise the tail conv is Linear and
-    `Activation_0` follows the add (ref hourglass.py:650-655, :689)."""
+    `Activation_0` follows the add (ref hourglass.py:650-655, :689).
+
+    In the int8 twin (`quant_mode="int8"`) of the residual and ghost
+    variants with an activation the int8 epilogue fuses (`fuse_codes`),
+    the block quantizes its input once (at two steps where the
+    projection takes it too) and each int8 conv writes the input codes
+    of the conv that alone reads its output: the residual variant's
+    `Convolution_0` those of `Convolution_1`, a ghost module's 1x1 those
+    of its depthwise conv, and `GhostModule_0`'s two convs the halves of
+    `GhostModule_1`'s input codes, so that concat is never made. The
+    values are the unfused twin's, bit for bit."""
 
     def __init__(self, in_ch: int, out_ch: int, activation: str = "ReLU",
                  variant: str = "residual", **twin):
@@ -531,8 +589,39 @@ class Residual(nn.Module):
                                             activation="Linear", **bn))
         if not self.fuse_tail:
             self.Activation_0 = Activation(activation)
+        self.variant = variant
+        self.fuse_codes = (twin.get("quant_mode") == "int8"
+                           and variant in ("residual", "ghost")
+                           and activation in qconv.ACTIVATIONS)
+
+    def _int8(self, x: torch.Tensor) -> torch.Tensor:
+        """The int8 twin's block with the convs' code outputs (the class
+        docstring)."""
+        dt = x.dtype
+        if self.variant == "residual":
+            first, second = self.Convolution_0, self.Convolution_1
+        else:
+            first = self.GhostModule_0.Convolution_0
+            second = self.GhostModule_1.Convolution_0
+        if self.skip:
+            proj = getattr(self, self.skip).Conv_0
+            q, qs = qconv.quantize_act(x, first.Conv_0.step, proj.step)
+            skip = proj(qs, "Linear", dtype=dt)
+        else:
+            q, skip = qconv.quantize_act(x, first.Conv_0.step), x
+        mid = _codes_like(x, second.Conv_0.weight.shape[1])
+        if self.variant == "residual":
+            first.Conv_0(q, first.activation, store=False,
+                         codes=[(mid, second.Conv_0.step, 0)], dtype=dt)
+            y = second.Conv_0(mid, second.activation, dtype=dt)
+        else:
+            self.GhostModule_0.int8(q, dt, into=(mid, second.Conv_0.step))
+            y = self.GhostModule_1.int8(mid, dt)
+        return self.Activation_0(y + skip)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fuse_codes:
+            return self._int8(x)
         y = x
         for name in self.body:
             y = getattr(self, name)(y)

@@ -21,7 +21,9 @@ tensor shapes, dtypes) of one predict or one train step, with its
   dtypes) is "convert", a pool "reduce-window", `mm`-like ops "dot";
 * each hand-written kernel (#1-#16, `KERNELS`) is one row named after
   it, whatever runs it: the `helmet::*` ops reach the mode as one
-  operation, the ctypes wrappers through `ops.marks`, and the plain
+  operation (`ops.library.KERNEL_OF` maps the convs' code-writing ops
+  and the quantizer at two steps to their kernels' rows), the ctypes
+  wrappers through `ops.marks`, and the plain
   versions' ATen operations on the CPU or `meta` never appear. A
   kernel's bytes are its own transfers (`kernel_bytes`: the tensors of
   3 or more dimensions it reads and writes, the peak test's heat
@@ -78,6 +80,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..ops import marks
+from ..ops.library import KERNEL_OF
 from ..utils import atomic_write_bytes, save_json
 
 SCHEMA = "roofline-v1"
@@ -166,6 +169,7 @@ KERNELS = {
     "qconv_dense": ("14", "conv", None),
     "qconv_dw": ("15", "conv", None),
     "quantize_act": ("16", "convert", 3),
+    "abs_max": ("16", "elementwise", 1),
 }
 LOSS_OPS = {"loss_fwd": (20, 5), "loss_bwd": (31, 6)}  # (heat, regression)
 # the device kernels of each row, for the join by name where a launch
@@ -175,7 +179,7 @@ KERNEL_NAMES = {
                                                 "bn_act_kernel"),
     "bn_add_act": ("bn_add_act_kernel",), "bn_stats": ("bn_stats_kernel",),
     "loss_fwd": ("loss_fwd_kernel",), "loss_bwd": ("loss_bwd",),
-    "quantize_act": ("quantize_kernel",),
+    "quantize_act": ("quantize_kernel",), "abs_max": ("absmax_kernel",),
     "qconv_dense": ("qconv_wgmma_kernel", "qconv_dense_kernel"),
     "qconv_dw": ("qconv_dw_tile_kernel", "qconv_dw_kernel"),
 }
@@ -229,15 +233,35 @@ def _nbytes(ts: Sequence[torch.Tensor]) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def written_in_place(name: str, args) -> float:
+    """The bytes hand-written kernel `name` writes into tensors it was
+    given (a `helmet::*_codes` op's `Tensor(a!)` arguments): an int8
+    conv's code outputs (#14, #15), each only its Cout channels of the
+    wider tensor it writes into."""
+    if name in ("qconv_dense", "qconv_dw") and args:
+        q = args[0]
+        cout = args[1].shape[0] if name == "qconv_dense" else q.shape[1]
+        codes = [t for t in args[4:] if isinstance(t, torch.Tensor)
+                 and t.dim() == 4]
+        return float(len(codes) * (q.numel() // q.shape[1]) * cout)
+    return 0.0
+
+
 def kernel_bytes(name: str, args, out) -> float:
     """The bytes hand-written kernel `name` moves in one call: each tensor
     of 3 or more dimensions it reads (operands) or writes (results) once;
     (C,) vectors, block partials and per-sample sums are left out as
     negligible (ref epilogue.py:84). The peak test (#1) reads only the
-    logits' heat channels, as many as it writes."""
+    logits' heat channels, as many as it writes. What a kernel writes
+    into tensors it was given counts as `written_in_place` says; an int8
+    conv that stores no float output writes none (its empty result)."""
     if name == "peak_scores":
         return float(out.numel() * ((args[0].element_size() if args else 0)
                                     + out.element_size()))
+    inplace = written_in_place(name, args)
+    if inplace:
+        return float(_nbytes([t for t in _tensors(list(args[:4]))
+                              + _tensors(out) if t.dim() >= 3])) + inplace
     return float(_nbytes([t for t in _tensors(args) + _tensors(out)
                           if t.dim() >= 3]))
 
@@ -247,11 +271,11 @@ def kernel_flops(name: str, args, out) -> float:
     (#14: 2 * output * k*k*Cin; #15: 2 * output * taps), LOSS_OPS per heat
     and regression element for the loss, else KERNELS' operations per
     element of the first operand."""
-    if name == "qconv_dense":
-        w = args[1]
-        return 2.0 * out.numel() * (w.numel() // w.shape[0])
+    if name == "qconv_dense":  # from the input: the output may be codes
+        q, w = args[0], args[1]
+        return 2.0 * (q.numel() // q.shape[1]) * w.numel()
     if name == "qconv_dw":
-        return 2.0 * out.numel() * args[1].shape[0]
+        return 2.0 * args[0].numel() * args[1].shape[0]
     if name in LOSS_OPS:
         per_heat, per_reg = LOSS_OPS[name]
         heat = args[1].numel() * args[0].shape[1]
@@ -343,7 +367,8 @@ class OpCount(TorchDispatchMode):
             [], [], kernel=num)
         row["calls"] += 1
         row["bytes"] += nbytes
-        row["operand_bytes"] += nbytes - kernel_bytes(name, (), out)
+        row["operand_bytes"] += (nbytes - kernel_bytes(name, (), out)
+                                 - written_in_place(name, args))
         row["flops"] += kernel_flops(name, args, out)
         self.kernel_calls.append((name, first.numel(), first.element_size(),
                                   nbytes))
@@ -357,7 +382,7 @@ class OpCount(TorchDispatchMode):
         if ns == "helmet":
             with self._labelled(op):
                 out = func(*args, **kwargs)
-            self._add_kernel(op, args, out)
+            self._add_kernel(KERNEL_OF.get(op, op), args, out)
             return out
         sigs = [s for s in map(_sig, list(args) + list(kwargs.values()))
                 if s is not None]

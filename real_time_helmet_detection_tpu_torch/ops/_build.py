@@ -6,7 +6,8 @@ C++ sources with `nvcc` into one shared library per source, with a plain
 C interface, and binds them with `ctypes`:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/<name>-<hash>.so
+         -Xcompiler -fPIC -Xptxas -v [--split-compile=0]
+         -o build/torch_kernels/<name>-<hash>.so
 
 * Libraries are built at first use into `build/torch_kernels/` at the
   repo root, keyed by a hash of the sources and flags, so a stale library
@@ -64,6 +65,10 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# nvcc's own threads for one source's kernels (`--split-compile`, CUDA
+# 12.1 on): the build's speed, not its code (the same SASS), so not part
+# of a library's digest
+SPLIT_COMPILE_FROM = (12, 1)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -89,13 +94,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "helmet_bn_bwd_dx": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
                              _I, _P),
     },
-    "qconv": {
-        "helmet_qconv_dense": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _P),
-        "helmet_qconv_dw": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-        "helmet_qconv_wgmma": (_P, _P, _P, _P, _P) + (_I,) * 12 + (_P,),
-        "helmet_qconv_dw_tile": (_P, _P, _P, _P, _P) + (_I,) * 9 + (_P,),
-        "helmet_quantize": (_P, _P, _P, _L, _I, _P),
+    "qconv": {  # each conv entry's last but one: its code outputs
+        "helmet_qconv_dense": (_P, _P, _P, _P, _P) + (_I,) * 8 + (_P, _P),
+        "helmet_qconv_dw": (_P, _P, _P, _P, _P) + (_I,) * 6 + (_P, _P),
+        "helmet_qconv_wgmma": (_P, _P, _P, _P, _P) + (_I,) * 12 + (_P, _P),
+        "helmet_qconv_dw_tile": (_P, _P, _P, _P, _P) + (_I,) * 9 + (_P, _P),
+        "helmet_quantize": (_P, _P, _P, _P, _P, _L, _I, _P),
+        "helmet_abs_max": (_P, _L, _I, _P, _I, _P, _P, _P),
     },
     "loss": {
         "helmet_loss_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -124,6 +129,28 @@ def nvcc_path() -> str:
                            "/usr/local/cuda/bin): the CUDA kernels cannot "
                            "be built")
     return path
+
+
+def _toolkit_version(nvcc: str) -> Optional[tuple]:
+    """(major, minor) of `nvcc`'s release, from `nvcc --version`
+    ("Cuda compilation tools, release 12.8, V12.8.93"); None where it
+    does not say."""
+    try:
+        out = subprocess.run([nvcc, "--version"], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, timeout=60).stdout
+        release = out.decode(errors="replace").split("release ", 1)[1]
+        return tuple(int(v) for v in release.split(",", 1)[0].split("."))
+    except (OSError, subprocess.SubprocessError, IndexError, ValueError,
+            AttributeError, TypeError):
+        return None
+
+
+def nvcc_command(nvcc: str) -> List[str]:
+    """`nvcc` and its flags: NVCC_FLAGS, and `--split-compile=0` (as many
+    threads as the host has) where the toolkit has it."""
+    version = _toolkit_version(nvcc)
+    split = version is not None and version >= SPLIT_COMPILE_FROM
+    return [nvcc, *NVCC_FLAGS, *(["--split-compile=0"] if split else [])]
 
 
 def _digest(name: str) -> str:
@@ -158,7 +185,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         fd, tmp = tempfile.mkstemp(prefix=os.path.basename(so) + ".",
                                    suffix=".tmp", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+        cmd = nvcc_command(nvcc) + ["-o", tmp,
+                                    os.path.join(CSRC, name + ".cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT), so, tmp)
     failed = []

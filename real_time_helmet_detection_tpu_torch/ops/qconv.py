@@ -1,26 +1,40 @@
-"""int8 inference convolutions and the activation quantizer.
+"""int8 inference convolutions, the activation quantizer and the abs-max.
 
 The int8 path of the quantized model twin (ref
 real_time_helmet_detection_tpu/models/hourglass.py:228-298 `QuantConv`,
-ops/quant.py:167 `quantize_activations`). The JAX package leaves both to
-XLA (`lax.conv_general_dilated(int8, int8, preferred_element_type=int32)`
+ops/quant.py:167 `quantize_activations`) and the dynamic step of the
+int8 train forward (ref ops/quant.py:184 `make_ste_conv`, `jnp.max(
+jnp.abs(x))`). The JAX package leaves all of them to XLA
+(`lax.conv_general_dilated(int8, int8, preferred_element_type=int32)`
 then `acc.astype(dt) * (s_a * s_w).astype(dt) + bias`); the port runs
 them as hand-written CUDA kernels (`csrc/qconv.cu`):
 
-* `quantize_act(x, step)`: `int8(clip(rint(f32(x) / step), -127, 127))`
-  of a channels-last f32/bf16 activation, NaN -> 0 (what XLA's float ->
-  int8 conversion gives), `step` a 0-d float32 device tensor (the
-  calibrated clip range / 127);
-* `conv_dense(q, w, mult, bias, dtype, activation)`: a dense k x k conv,
-  k = 1 or 3, stride 1, zero padding k // 2, of an int8 channels-last
-  input with int8 weights (Cout, k, k, Cin) (each output channel's K
-  contiguous), int32 sums, then the rescale
+* `quantize_act(x, step, step2=None)`: `int8(clip(rint(f32(x) / step),
+  -127, 127))` of a channels-last f32/bf16 activation, NaN -> 0 (what
+  XLA's float -> int8 conversion gives), `step` a 0-d float32 device
+  tensor (the calibrated clip range / 127); with `step2` the codes at
+  both steps from one read of x (a block's input that its first conv
+  and its projection both take);
+* `conv_dense(q, w, mult, bias, dtype, activation, store, codes)`: a
+  dense k x k conv, k = 1 or 3, stride 1, zero padding k // 2, of an int8
+  channels-last input with int8 weights (Cout, k, k, Cin) (each output
+  channel's K contiguous), int32 sums, then the rescale
   `dtype(dtype(f32(acc)) * dtype(mult[c])) + dtype(bias[c])`, each
   operation rounded to `dtype` (float32 or bfloat16), and ReLU or Linear;
   `dtype=torch.int32` returns the raw sums;
-* `conv_dw(q, w, mult, bias, dtype, activation)`: the same for a 3 x 3
-  depthwise conv (groups = C), weights (9, C) (a tap's channels
-  contiguous).
+* `conv_dw(q, w, mult, bias, dtype, activation, store, codes)`: the same
+  for a 3 x 3 depthwise conv (groups = C), weights (9, C) (a tap's
+  channels contiguous);
+* `abs_max(x)`: max |x| over all of x as a 0-d float32 device tensor,
+  NaN where x holds one (what `x.abs().amax()` gives), one launch.
+
+The convs' code outputs: `codes` holds up to two `(tensor, step,
+offset)`; the conv writes `quantize_act(y, step)` of its output y (the
+values it stores, after their last rounding) into channels [offset,
+offset + Cout) of the int8 channels-last tensor, whose other channels it
+leaves alone, so the next int8 conv reads codes that no quantizer launch
+made. `store=False` leaves the float output out (the wrapper returns
+None): the int8 twin asks for it only where a consumer reads it.
 
 Each conv has two kernels, picked by shape:
 
@@ -37,32 +51,42 @@ Each conv has two kernels, picked by shape:
   "gather" (`qconv_dw_kernel`, nine loads a pixel) for the rest;
   `dw_plan` picks and sizes the tile.
 
+Every variant has the code outputs, so what a path launches depends on
+its architecture only.
+
 Every wrapper checks its arguments, computes its plan, and calls its
-`helmet` op (`ops.library`: `helmet::quantize_act`, `qconv_dense`,
-`qconv_dw`), which launches the kernel for CUDA tensors or raises, and
+`helmet` op (`ops.library`: `helmet::quantize_act` / `quantize_act2`,
+`qconv_dense` / `qconv_dense_codes`, `qconv_dw` / `qconv_dw_codes`),
+which launches the kernel for CUDA tensors or raises, and
 runs the plain version (`*_reference`) for CPU tensors; there is no
-fallback between them. The plain convs take `F.conv2d` in float64 of the
-int8 values, exact for any K here (|sum| < 2^53), then int32. On CUDA
-they also raise where the kernels do not go: a dense Cin that is no
-multiple of 16, a Cout or depthwise C that is no multiple of 8 (the
-wrappers), or an input or weight pointer that is not 16-byte aligned
-(the C entries' check, a ValueError here). `quant_launches`,
-`dense_launches` and `dw_launches` count launches; `dense_wgmma_launches`
-+ `dense_mma_launches` and `dw_tiled_launches` + `dw_gather_launches`
-split the last two by kernel.
+fallback between them. `abs_max` (train only, never exported) calls its
+C entry itself. The plain convs take `F.conv2d` in float64 of the int8
+values, exact for any K here (|sum| < 2^53), then int32. On CUDA they
+also raise where the kernels do not go: a dense Cin that is no multiple
+of 16, a Cout or depthwise C that is no multiple of 8, a code output's
+offset or channel count that is no multiple of 8 (the wrappers), or an
+input, weight or code pointer that is not 16-byte aligned (the C
+entries' check, a ValueError here). `quant_launches`, `dense_launches`,
+`dw_launches` and `absmax_launches` count launches;
+`quant_dual_launches` the quantizer's launches at two steps,
+`dense_wgmma_launches` + `dense_mma_launches` and `dw_tiled_launches` +
+`dw_gather_launches` split the convs' by kernel, and
+`dense_code_launches` / `dw_code_launches` count the conv launches that
+wrote codes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from . import _build
-from .epilogue import _channels_last, activate, check_cuda, plain_device
+from . import _build, marks
+from .epilogue import (_DTYPE_CODE, _channels_last, activate, check_cuda,
+                       plain_device)
 
 ACTIVATIONS = ("ReLU", "Linear")  # what the conv epilogue fuses
 _ACT_CODE = {"ReLU": 0, "Linear": 2}  # common.cuh Act
@@ -70,7 +94,11 @@ _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 _OUT_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int32: 4}
 
 quant_launches = 0
+quant_dual_launches = 0
+absmax_launches = 0
 dense_launches = 0
+dense_code_launches = 0
+dw_code_launches = 0
 dense_wgmma_launches = 0
 dense_mma_launches = 0
 dw_launches = 0
@@ -95,6 +123,16 @@ SMEM_RESERVED = 1024
 DW_STRIP = 8
 DW_ALIGN = 128
 DW_TILE_W, DW_TILE_H, DW_MAX_CT = 32, 16, 64
+# a code output's channel offset and channel count: multiples of this (the
+# kernels store 8 codes, 8 bytes, at a time)
+CODE_ALIGN = 8
+# csrc/qconv.cu's abs-max: the partials' scratch (one float a block, a
+# wave of resident blocks at most) and its one ticket counter a device
+ABSMAX_PARTS = 4096
+_absmax_scratch: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+# cudaErrorMisalignedAddress: an int8 entry's refusal of an operand that
+# is not 16-byte aligned
+MISALIGNED = 716
 
 
 def _check_act_input(name: str, x: torch.Tensor, dtypes) -> None:
@@ -112,28 +150,96 @@ def _check_act_input(name: str, x: torch.Tensor, dtypes) -> None:
 # ---------------------------------------------------------------- quantizer
 
 
-def quantize_act_reference(x: torch.Tensor, step: torch.Tensor
-                           ) -> torch.Tensor:
+def quantize_act_reference(x: torch.Tensor, step: torch.Tensor,
+                           step2: Optional[torch.Tensor] = None):
     """Plain PyTorch version: JAX's order (ref ops/quant.py:167), round
-    half to even, clip, NaN -> 0, int8 in x's layout."""
+    half to even, clip, NaN -> 0, int8 in x's layout; with `step2` the
+    pair of codes at both steps."""
+    if step2 is not None:
+        return (quantize_act_reference(x, step),
+                quantize_act_reference(x, step2))
     q = torch.clamp(torch.round(x.float() / step), -127.0, 127.0)
     q = torch.where(torch.isnan(q), torch.zeros_like(q), q)
     return _channels_last(q.to(torch.int8))
 
 
-def quantize_act(x: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
+def _check_step(name: str, step: torch.Tensor, x: torch.Tensor) -> None:
+    if not isinstance(step, torch.Tensor) or step.dim() != 0 \
+            or step.dtype != torch.float32 or step.device != x.device:
+        raise ValueError("%s must be a 0-d float32 tensor on %s, got %s"
+                         % (name, x.device, step if not isinstance(
+                             step, torch.Tensor) else "%s %s on %s" % (
+                             tuple(step.shape), step.dtype, step.device)))
+
+
+def quantize_act(x: torch.Tensor, step: torch.Tensor,
+                 step2: Optional[torch.Tensor] = None):
     """x (N, C, H, W) channels-last float32/bfloat16, step a 0-d float32
     tensor on x's device -> int8 (N, C, H, W) channels-last, through the
-    `helmet::quantize_act` op (`ops.library`)."""
+    `helmet::quantize_act` op (`ops.library`); with `step2` (the same
+    kind) the pair (codes at step, codes at step2), one launch that reads
+    x once."""
     _check_act_input("x", x, (torch.float32, torch.bfloat16))
-    if step.dim() != 0 or step.dtype != torch.float32 \
-            or step.device != x.device:
-        raise ValueError("step must be a 0-d float32 tensor on %s, got %s "
-                         "%s on %s" % (x.device, tuple(step.shape),
-                                       step.dtype, step.device))
+    _check_step("step", step, x)
+    if step2 is not None:
+        _check_step("step2", step2, x)
     if not plain_device(x):
         check_cuda("quantize_act", x)
-    return torch.ops.helmet.quantize_act.default(x, step)
+    if step2 is None:
+        return torch.ops.helmet.quantize_act.default(x, step)
+    return torch.ops.helmet.quantize_act2.default(x, step, step2)
+
+
+def abs_max_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `abs_max`."""
+    return x.detach().abs().amax().float()
+
+
+def _absmax_buffers(device: torch.device
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The abs-max kernel's partials and its ticket counter on `device`
+    (int32 zero at allocation, left at zero by every launch), kept for the
+    life of the process (a CUDA graph may hold their addresses). One
+    stream at a time: two concurrent launches on one device would share
+    them."""
+    if device not in _absmax_scratch:
+        _absmax_scratch[device] = (
+            torch.empty(ABSMAX_PARTS, dtype=torch.float32, device=device),
+            torch.zeros(1, dtype=torch.int32, device=device))
+    return _absmax_scratch[device]
+
+
+@marks.kernel("abs_max")
+def abs_max(x: torch.Tensor) -> torch.Tensor:
+    """max |x| over all of x, f32/bf16 in any dense layout, as a 0-d
+    float32 tensor on x's device: NaN where x holds a NaN, +inf where it
+    holds +-inf and none, +0.0 for zeros of either sign, as
+    `x.abs().amax()` gives. On CUDA one launch of csrc/qconv.cu's
+    abs-max kernel (x 16-byte aligned)."""
+    global absmax_launches
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("abs_max takes float32 or bfloat16, got %s"
+                        % x.dtype)
+    if x.numel() == 0:
+        raise ValueError("abs_max of an empty tensor")
+    if plain_device(x):
+        return abs_max_reference(x)
+    check_cuda("abs_max", x)
+    if not (x.is_contiguous()
+            or x.is_contiguous(memory_format=torch.channels_last)):
+        raise ValueError("abs_max takes a dense tensor (strides %s)"
+                         % (x.stride(),))
+    part, ticket = _absmax_buffers(x.device)
+    out = torch.empty((), dtype=torch.float32, device=x.device)
+    err = _build.load("qconv").helmet_abs_max(
+        x.data_ptr(), x.numel(), _DTYPE_CODE[x.dtype], part.data_ptr(),
+        part.numel(), ticket.data_ptr(), out.data_ptr(),
+        _build.stream_handle(x.device))
+    if err == MISALIGNED:
+        raise ValueError("abs_max: the input is not 16-byte aligned")
+    _build.check(err, "abs_max")
+    absmax_launches += 1
+    return out
 
 
 # -------------------------------------------------------------------- convs
@@ -152,22 +258,36 @@ def rescale_reference(acc: torch.Tensor, mult: torch.Tensor,
     return _channels_last(activate(y, activation))
 
 
-def conv_dense_reference(q, w, mult, bias, dtype, activation):
+def write_codes(y: torch.Tensor, codes: Sequence) -> None:
+    """The code outputs of conv output y: channels [offset, offset + C)
+    of each (tensor, step, offset) of `codes` get `quantize_act_reference`
+    of y at step, the other channels left as they are."""
+    for t, step, off in codes:
+        t.narrow(1, off, y.shape[1]).copy_(quantize_act_reference(y, step))
+
+
+def conv_dense_reference(q, w, mult, bias, dtype, activation, store=True,
+                         codes=()):
     """Plain PyTorch version of `conv_dense`."""
     k = w.shape[1]
     acc = F.conv2d(q.to(torch.float64),
                    w.permute(0, 3, 1, 2).to(torch.float64),
                    padding=(k - 1) // 2).to(torch.int32)
-    return rescale_reference(acc, mult, bias, dtype, activation)
+    y = rescale_reference(acc, mult, bias, dtype, activation)
+    write_codes(y, codes)
+    return y if store else None
 
 
-def conv_dw_reference(q, w, mult, bias, dtype, activation):
+def conv_dw_reference(q, w, mult, bias, dtype, activation, store=True,
+                      codes=()):
     """Plain PyTorch version of `conv_dw`."""
     c = q.shape[1]
     wd = w.t().reshape(c, 1, 3, 3).to(torch.float64)
     acc = F.conv2d(q.to(torch.float64), wd, padding=1,
                    groups=c).to(torch.int32)
-    return rescale_reference(acc, mult, bias, dtype, activation)
+    y = rescale_reference(acc, mult, bias, dtype, activation)
+    write_codes(y, codes)
+    return y if store else None
 
 
 def _check_conv(what, q, w, mult, bias, dtype, activation, cout):
@@ -191,6 +311,49 @@ def _check_conv(what, q, w, mult, bias, dtype, activation, cout):
         if t.device != q.device:
             raise ValueError("%s: %s on %s, q on %s"
                              % (what, name, t.device, q.device))
+
+
+def _check_codes(what: str, q: torch.Tensor, cout: int, dtype, store,
+                 codes: Sequence) -> Tuple:
+    """The code outputs of a conv of q to cout channels, checked: the
+    `*_codes` op's `store` and code arguments (tensor, step, offset twice,
+    None and 0 where absent), or () without codes (the plain op)."""
+    codes = tuple(codes)
+    if len(codes) > 2:
+        raise ValueError("%s: at most two code outputs, got %d"
+                         % (what, len(codes)))
+    if codes and dtype == torch.int32:
+        raise ValueError("%s: int32 sums have no codes" % what)
+    if not store and not codes:
+        raise ValueError("%s: neither a float output nor codes asked for"
+                         % what)
+    n, _, h, w = q.shape
+    args = []
+    for t, step, off in codes:
+        _check_step("%s: a code step" % what, step, q)
+        if t.dtype != torch.int8 or t.dim() != 4 \
+                or not t.is_contiguous(memory_format=torch.channels_last) \
+                or (t.shape[0], t.shape[2], t.shape[3]) != (n, h, w) \
+                or t.device != q.device:
+            raise ValueError("%s: a code output must be an int8 "
+                             "channels-last (%d, C, %d, %d) tensor on %s, "
+                             "got %s %s" % (what, n, h, w, q.device,
+                                            t.dtype, tuple(t.shape)))
+        if not 0 <= off <= t.shape[1] - cout:
+            raise ValueError("%s: %d channels at offset %d do not fit a "
+                             "code output of %d" % (what, cout, off,
+                                                    t.shape[1]))
+        if not plain_device(q) and (off % CODE_ALIGN
+                                    or t.shape[1] % CODE_ALIGN):
+            raise ValueError("%s: the kernels take a code offset and "
+                             "channel count that are multiples of %d, got "
+                             "%d of %d" % (what, CODE_ALIGN, off,
+                                           t.shape[1]))
+        args += [t, step, int(off)]
+    if not codes:
+        return ()
+    args += [None, None, 0] * (2 - len(codes))
+    return (bool(store),) + tuple(args)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -345,17 +508,21 @@ def dw_plan(n: int, h: int, w: int, c: int,
 
 def conv_dense(q: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
                bias: torch.Tensor, dtype: torch.dtype,
-               activation: str = "Linear") -> torch.Tensor:
+               activation: str = "Linear", store: bool = True,
+               codes: Sequence = ()) -> Optional[torch.Tensor]:
     """q (N, Cin, H, W) int8 channels-last, w (Cout, k, k, Cin) int8 with
     k in (1, 3), mult/bias (Cout,) float32 -> (N, Cout, H, W)
-    channels-last `dtype`."""
-    return conv_dense_variant(q, w, mult, bias, dtype, activation, None)
+    channels-last `dtype` (None without `store`); `codes` as the module
+    docstring says."""
+    return conv_dense_variant(q, w, mult, bias, dtype, activation, None,
+                              store, codes)
 
 
 def conv_dense_variant(q: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
                        bias: torch.Tensor, dtype: torch.dtype,
-                       activation: str, variant: Optional[str]
-                       ) -> torch.Tensor:
+                       activation: str, variant: Optional[str],
+                       store: bool = True, codes: Sequence = ()
+                       ) -> Optional[torch.Tensor]:
     """`conv_dense` on the kernel `variant` names ("wgmma", "mma"; None:
     `dense_plan`'s choice)."""
     if w.dim() != 4 or w.shape[1] != w.shape[2] or w.shape[1] not in (1, 3) \
@@ -364,6 +531,7 @@ def conv_dense_variant(q: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
                          "k 1 or 3, got %s" % (q.shape[1], tuple(w.shape)))
     cout = w.shape[0]
     _check_conv("conv_dense", q, w, mult, bias, dtype, activation, cout)
+    code_args = _check_codes("conv_dense", q, cout, dtype, store, codes)
     n, cin, h, wd = q.shape
     if not plain_device(q):
         check_cuda("conv_dense", q)
@@ -372,23 +540,29 @@ def conv_dense_variant(q: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
                              "Cout % 8 == 0, got %d -> %d" % (cin, cout))
     plan = dense_plan(n, h, wd, cin, cout, w.shape[1], _OUT_BYTES[dtype],
                       variant)
-    return torch.ops.helmet.qconv_dense.default(
-        q, w, mult, bias, _OUT_CODE[dtype], activation, plan.variant,
-        plan.box[1], plan.box[2], plan.n, plan.stages)
+    op = torch.ops.helmet.qconv_dense_codes if code_args \
+        else torch.ops.helmet.qconv_dense
+    out = op.default(q, w, mult, bias, _OUT_CODE[dtype], activation,
+                     plan.variant, plan.box[1], plan.box[2], plan.n,
+                     plan.stages, *code_args)
+    return out if store else None
 
 
 def conv_dw(q: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
             bias: torch.Tensor, dtype: torch.dtype,
-            activation: str = "Linear") -> torch.Tensor:
+            activation: str = "Linear", store: bool = True,
+            codes: Sequence = ()) -> Optional[torch.Tensor]:
     """q (N, C, H, W) int8 channels-last, w (9, C) int8 (3 x 3 taps, row
-    major), mult/bias (C,) float32 -> (N, C, H, W) channels-last
-    `dtype`."""
-    return conv_dw_variant(q, w, mult, bias, dtype, activation, None)
+    major), mult/bias (C,) float32 -> (N, C, H, W) channels-last `dtype`
+    (None without `store`); `codes` as the module docstring says."""
+    return conv_dw_variant(q, w, mult, bias, dtype, activation, None, store,
+                           codes)
 
 
 def conv_dw_variant(q: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
                     bias: torch.Tensor, dtype: torch.dtype, activation: str,
-                    variant: Optional[str]) -> torch.Tensor:
+                    variant: Optional[str], store: bool = True,
+                    codes: Sequence = ()) -> Optional[torch.Tensor]:
     """`conv_dw` on the kernel `variant` names ("tiled", "gather"; None:
     `dw_plan`'s choice)."""
     c = q.shape[1] if q.dim() == 4 else -1
@@ -396,6 +570,7 @@ def conv_dw_variant(q: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
         raise ValueError("conv_dw: weights must be (9, %d) (3 x 3 taps), "
                          "got %s" % (c, tuple(w.shape)))
     _check_conv("conv_dw", q, w, mult, bias, dtype, activation, c)
+    code_args = _check_codes("conv_dw", q, c, dtype, store, codes)
     n, _, h, wd = q.shape
     if not plain_device(q):
         check_cuda("conv_dw", q)
@@ -405,6 +580,8 @@ def conv_dw_variant(q: torch.Tensor, w: torch.Tensor, mult: torch.Tensor,
                              % (tuple(q.shape),))
     plan = dw_plan(n, h, wd, c, variant)
     tw, th = plan.tile or (0, 0)
-    return torch.ops.helmet.qconv_dw.default(
-        q, w, mult, bias, _OUT_CODE[dtype], activation, plan.variant, tw, th,
-        plan.ct or 0)
+    op = torch.ops.helmet.qconv_dw_codes if code_args \
+        else torch.ops.helmet.qconv_dw
+    out = op.default(q, w, mult, bias, _OUT_CODE[dtype], activation,
+                     plan.variant, tw, th, plan.ct or 0, *code_args)
+    return out if store else None

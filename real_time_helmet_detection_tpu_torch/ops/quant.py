@@ -34,8 +34,9 @@ Port of ref real_time_helmet_detection_tpu/ops/quant.py:84
   BN'd model) into a twin in place: fold, load, requantize.
 * `ste_conv` (ref ops/quant.py:184 `make_ste_conv`) is the conv of
   `--fwd-dtype int8` training: its forward quantizes the input against
-  its own abs-max (one MAX all-reduce per call across the ranks of a
-  process group) with the quantizer kernel (#16), the compute-dtype
+  its own abs-max (the one-pass abs-max kernel, then one MAX all-reduce
+  per call across the ranks of a process group) with the quantizer
+  kernel (#16), the compute-dtype
   weight per output channel, and runs the int8 conv kernel, dense (#14)
   or depthwise (#15), rescaled as JAX does, `dt(acc) * dt(s_a * s_w)`;
   its backward is the float conv's (`aten.convolution_backward`, the
@@ -179,12 +180,12 @@ def ste_forward(x: torch.Tensor, weight: torch.Tensor, groups: int
     max(abs-max of x over the global batch, 1e-8) / 127, on the device."""
     from . import qconv
     from ..parallel import distributed
-    absmax = x.detach().abs().amax().float()
+    x = x.contiguous(memory_format=torch.channels_last)
+    absmax = qconv.abs_max(x)
     if distributed.world_size() > 1:
         torch.distributed.all_reduce(absmax, op=torch.distributed.ReduceOp.MAX)
     step = act_step(absmax)
-    q = qconv.quantize_act(x.contiguous(memory_format=torch.channels_last),
-                           step)
+    q = qconv.quantize_act(x, step)
     wq, w_scale = quantize_weights(weight)
     mult = step * w_scale
     zero = torch.zeros_like(mult)

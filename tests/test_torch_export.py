@@ -220,9 +220,15 @@ def test_int8_export_sites_and_scales_hash(tmp_path):
                                                      "quant_scales.json")
     assert meta["quant_scales_sha256"] == scales_hash(jax_load_scales(path))
     dense, dw = chip_smoke.qconv_sites(cfg)
-    assert helmet_calls(program) == Counter(
-        {k: v for k, v in dict(peak_scores=1, quantize_act=dense + dw,
-                               qconv_dense=dense, qconv_dw=dw).items() if v})
+    # the program of the fused twin: the convs that write their
+    # consumers' codes are the `*_codes` ops, the quantizer at two steps
+    # `quantize_act2`
+    quant, dual = chip_smoke.quant_walk(cfg)
+    dense_codes, dw_codes = chip_smoke.code_walk(cfg)
+    assert helmet_calls(program) == Counter({k: v for k, v in dict(
+        peak_scores=1, quantize_act=quant - dual, quantize_act2=dual,
+        qconv_dense=dense - dense_codes, qconv_dense_codes=dense_codes,
+        qconv_dw=dw - dw_codes, qconv_dw_codes=dw_codes).items() if v})
     from real_time_helmet_detection_tpu_torch.ops import quant
     x = images(1, seed=11)
     want = make_predict_fn(load_eval_state(cfg), cfg, device="cpu",
@@ -245,7 +251,7 @@ def _op_cases():
     mult = torch.rand(8, generator=gen) * 1e-3
     plan = qconv.dense_plan(1, 5, 7, 16, 8, 3, 4)
     dw = qconv.dw_plan(1, 5, 7, 16)
-    return {
+    cases = {
         "peak_scores": (torch.randn((2, 1, 5, 8, 6), generator=gen), 2, 3,
                         2, "auto"),
         "bn_act": (x.to(torch.bfloat16), a, b, "ReLU", "auto"),
@@ -265,6 +271,15 @@ def _op_cases():
                      torch.randn(16, generator=gen), 1, "Linear",
                      dw.variant, *dw.tile, dw.ct),
     }
+    # the code-writing forms (two code outputs, no float output / one
+    # with it) and the quantizer at two steps
+    cases["quantize_act2"] = cases["quantize_act"] + (torch.tensor(0.02),)
+    s1, s2 = torch.tensor(0.05), torch.tensor(0.011)
+    cases["qconv_dense_codes"] = cases["qconv_dense"] + (
+        False, q8((1, 24, 5, 7)), s1, 16, q8((1, 8, 5, 7)), s2, 0)
+    cases["qconv_dw_codes"] = cases["qconv_dw"] + (
+        True, q8((1, 32, 5, 7)), s2, 8, None, None, 0)
+    return cases
 
 
 @pytest.mark.parametrize("name", sorted(library.SCHEMAS))

@@ -233,14 +233,14 @@ def test_int8_train_step_matches_jax(int8_pair):
 @pytest.mark.parametrize("name", ["flagship", "edge-arch"])
 def test_int8_train_step_sites(monkeypatch, name):
     """One `--fwd-dtype int8` train step at 64^2, batch 1, calls the
-    quantizer once per STE site and each int8 conv as derived; eval binds
-    the float conv (no int8 call), and the state dict is the bf16
-    model's."""
+    abs-max and the quantizer once per STE site and each int8 conv as
+    derived; eval binds the float conv (no int8 call), and the state
+    dict is the bf16 model's."""
     from test_torch_predict import chip_smoke
     from real_time_helmet_detection_tpu_torch.optim import (
         build_optimizer, make_lr_schedule)
     from real_time_helmet_detection_tpu_torch.train import make_train_step
-    calls = dict(quantize_act=0, conv_dense=0, conv_dw=0)
+    calls = dict(abs_max=0, quantize_act=0, conv_dense=0, conv_dw=0)
     for attr in calls:
         real = getattr(qconv, attr)
 
@@ -257,14 +257,15 @@ def test_int8_train_step_sites(monkeypatch, name):
     losses = step(0, *map(torch.from_numpy, synthetic_target_batch(1, 64)))
     assert np.isfinite(float(losses["total"]))
     dense, dw = chip_smoke.ste_walk(cfg)
-    assert calls == dict(quantize_act=dense + len(dw), conv_dense=dense,
-                         conv_dw=len(dw)), calls
+    sites = dense + len(dw)
+    assert calls == dict(abs_max=sites, quantize_act=sites,
+                         conv_dense=dense, conv_dw=len(dw)), calls
     assert (dense, len(dw)) == {"flagship": (35, 0),
                                 "edge-arch": (34, 34)}[name]
     model.eval()
     with torch.no_grad():
         model(torch.from_numpy(synthetic_target_batch(1, 64)[0]))
-    assert calls == dict(quantize_act=dense + len(dw), conv_dense=dense,
-                         conv_dw=len(dw))
+    assert calls == dict(abs_max=sites, quantize_act=sites,
+                         conv_dense=dense, conv_dw=len(dw))
     plain = build_model(dataclasses.replace(cfg, fwd_dtype="bf16"))
     assert list(plain.state_dict()) == list(model.state_dict())

@@ -689,6 +689,67 @@ def test_quantize_act_matches_plain(cuda, dtype):
     assert flat == [0, 0, 2, 127, -127, 127, -127, 0, 127, -127]
 
 
+@pytest.mark.parametrize("variant", ["wgmma", "mma", "tiled", "gather"])
+def test_int8_conv_codes_match_plain(cuda, variant):
+    """A conv's code outputs on each kernel: the float output (where
+    stored) and the codes of it at a channel offset of a wider tensor
+    (whose other channels stay) and alone, bit-equal to the plain
+    version's."""
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    dw = variant in ("tiled", "gather")
+    c, cout = (48, 48) if dw else (64, 96)
+    shape = (2, c, 13, 21)
+    q, wq, mult, bias = _q_operands(shape, (9, c) if dw else (cout, 3, 3, c),
+                                    cout, cuda)
+    conv = qconv.conv_dw_variant if dw else qconv.conv_dense_variant
+    ref = qconv.conv_dw_reference if dw else qconv.conv_dense_reference
+    steps = (torch.tensor(0.017, device="cuda"),
+             torch.tensor(0.05, device="cuda"))
+    for dtype in (torch.float32, torch.bfloat16):
+        for store in (True, False):
+            outs = [torch.full((2, n, 13, 21), 7, dtype=torch.int8,
+                               device="cuda").contiguous(
+                                   memory_format=torch.channels_last)
+                    for n in (2 * cout, cout)]
+            got = conv(q, wq, mult, bias, dtype, "ReLU", variant, store,
+                       [(outs[0], steps[0], cout), (outs[1], steps[1], 0)])
+            want = ref(q, wq, mult, bias, dtype, "ReLU")
+            torch.cuda.synchronize()
+            assert (got is None) != store
+            if store:
+                assert torch.equal(got, want)
+            assert torch.equal(outs[0][:, cout:],
+                               qconv.quantize_act_reference(want, steps[0]))
+            assert bool((outs[0][:, :cout] == 7).all())
+            assert torch.equal(outs[1],
+                               qconv.quantize_act_reference(want, steps[1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_abs_max_and_two_steps_match_plain(cuda, dtype):
+    """The abs-max (NaN, +-inf, -0.0; many launches on one ticket) and
+    the quantizer at two steps against their plain versions."""
+    from real_time_helmet_detection_tpu_torch.ops import qconv
+    for shape in ((16, 96, 64, 64), (3, 5, 7, 9), (1, 1, 1, 1)):
+        x = (torch.randn(shape, generator=cuda, device="cuda") * 3).to(
+            dtype).contiguous(memory_format=torch.channels_last)
+        for _ in range(3):
+            assert torch.equal(qconv.abs_max(x), qconv.abs_max_reference(x))
+        s1 = torch.tensor(0.02, device="cuda")
+        s2 = torch.tensor(0.07, device="cuda")
+        a, b = qconv.quantize_act(x, s1, s2)
+        assert torch.equal(a, qconv.quantize_act_reference(x, s1))
+        assert torch.equal(b, qconv.quantize_act_reference(x, s2))
+        flat = x.permute(0, 2, 3, 1).view(-1)
+        flat[-1] = float("-inf")
+        assert qconv.abs_max(x).item() == float("inf")
+        flat[0] = float("nan")
+        assert bool(torch.isnan(qconv.abs_max(x)))
+    zeros = torch.full((4, 8, 4, 4), -0.0, dtype=dtype, device="cuda")
+    got = qconv.abs_max(zeros)
+    assert got.item() == 0.0 and not bool(torch.signbit(got))
+
+
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     from real_time_helmet_detection_tpu_torch.ops import qconv
     q, wq, mult, bias = _q_operands((2, 32, 8, 8), (16, 3, 3, 32), 16, cuda)
@@ -808,7 +869,7 @@ def _helmet_cases(gen):
             (x, step),
             lambda: qconv.quantize_act_reference(x, step),
             lambda o: _build.load("qconv").helmet_quantize(
-                p(x), p(step), p(o), x.numel(), 1, stream)),
+                p(x), p(step), p(o), None, None, x.numel(), 1, stream)),
         "qconv_dense": (
             (q, wq, mult, bias, 1, "ReLU", plan.variant, plan.box[1],
              plan.box[2], plan.n, plan.stages),
@@ -816,7 +877,7 @@ def _helmet_cases(gen):
                                                torch.bfloat16, "ReLU"),
             lambda o: _build.load("qconv").helmet_qconv_wgmma(
                 p(q), p(wq), p(mult), p(bias), p(o), 2, 13, 21, 64, 96, 3,
-                plan.box[1], plan.box[2], plan.n, plan.stages, 1, 0,
+                plan.box[1], plan.box[2], plan.n, plan.stages, 1, 0, None,
                 stream)),
         "qconv_dw": (
             (qd, wd, md, bd, 1, "Linear", dw.variant, *dw.tile, dw.ct),
@@ -824,7 +885,7 @@ def _helmet_cases(gen):
                                             "Linear"),
             lambda o: _build.load("qconv").helmet_qconv_dw_tile(
                 p(qd), p(wd), p(md), p(bd), p(o), 2, 13, 21, 48, *dw.tile,
-                dw.ct, 1, 2, stream)),
+                dw.ct, 1, 2, None, stream)),
     }
 
 

@@ -452,10 +452,15 @@ def test_qconv_wrappers_refuse_other_geometry_on_the_cpu():
                           increase_ch=8, stem_width=48))])
 def test_int8_forward_sites_match_the_derivation(name, kw, monkeypatch):
     """Every int8 conv of a forward of the twin (64x64 input; the sites
-    do not depend on the size) calls the quantizer once and one conv
-    wrapper: as many dense and depthwise calls as chip_smoke.py's
-    `qconv_sites` derives, one fewer conv in all than `bn_sites` has BN
-    sites (the stem stays float), and no BN kernel."""
+    do not depend on the size) calls one conv wrapper: as many dense and
+    depthwise calls as chip_smoke.py's `qconv_sites` derives, one fewer
+    conv in all than `bn_sites` has BN sites (the stem stays float), and
+    no BN kernel. The quantizer runs where no int8 conv writes its
+    consumer's codes: once a fusing block (at two steps where a
+    projection takes the block's input) and once per conv of any other
+    block (`quant_walk`); the convs that write codes are `code_walk`'s.
+    Throughput tier and flagship: 18 quantizer calls, one of them at two
+    steps (19 quantized sites), where the unfused twin makes 70 and 36."""
     import os
     import sys
 
@@ -468,11 +473,17 @@ def test_int8_forward_sites_match_the_derivation(name, kw, monkeypatch):
     import chip_smoke
     cfg = apply_tier(Config(device="cpu", imsize=64, **kw))
     twin = quant.make_quant_model(cfg, mode="int8").eval()
-    calls = {"quant": 0, "dense": 0, "dw": 0, "bn": 0}
+    calls = {"quant": 0, "dual": 0, "dense": 0, "dw": 0, "bn": 0,
+             "dense_codes": 0, "dw_codes": 0}
 
     def counting(key, fn):
         def wrapper(*a, **k):
             calls[key] += 1
+            if key == "quant" and (len(a) > 2 or "step2" in k):
+                calls["dual"] += 1
+            if key in ("dense", "dw") and (k.get("codes")
+                                           or (a[7] if len(a) > 7 else ())):
+                calls[key + "_codes"] += 1
             return fn(*a, **k)
         return wrapper
     monkeypatch.setattr(qconv, "quantize_act",
@@ -486,8 +497,16 @@ def test_int8_forward_sites_match_the_derivation(name, kw, monkeypatch):
     dense, dw = chip_smoke.qconv_sites(cfg)
     epi, tail = chip_smoke.bn_sites(cfg)
     assert (calls["dense"], calls["dw"]) == (dense, dw)
-    assert calls["quant"] == dense + dw == len(epi) + len(tail) - 1
+    assert dense + dw == len(epi) + len(tail) - 1
+    assert (calls["quant"], calls["dual"]) == chip_smoke.quant_walk(cfg)
+    assert (calls["dense_codes"], calls["dw_codes"]) == \
+        chip_smoke.code_walk(cfg)
     assert calls["bn"] == 0
+    if name in ("throughput", "flagship-int8"):
+        assert (calls["quant"], calls["dual"]) == (18, 1)
+        assert dense + dw == {"throughput": 70, "flagship-int8": 36}[name]
+    if name == "depthwise-int8":  # no fusion: one quantizer a conv
+        assert calls["quant"] == dense + dw
 
 
 # ------------------------------- the wgmma and tiled depthwise kernels' plans
